@@ -25,8 +25,21 @@ and then:
 4. times each stage of ``engine.step`` (CUDA events at ``engine.STAGES``
    marks) over frames 3-19 of a second run, and the device's busy share
    over three frames (``torch.profiler`` kernel time against the same
-   frames' unprofiled wall time).
-
+   frames' unprofiled wall time);
+5. runs the large scan (``scripts/bench_large_scan.py``'s scan point at
+   the reference scan's 800,000-block pool, 1 cm voxels) four times, with
+   ``streaming.AsyncStreamingManager`` (S) and with streaming off (U), in
+   the order S U U S so that each mode runs once first and once second of
+   a pair: 96 frames out along a 12 m corridor and 48 back (see
+   ``_large_scan_poses``); requires stream-out, stream-in and host blocks,
+   clean maps, both kernels launched on every frame of every run, and the
+   first streamed run's composed whole-scene mesh
+   (``meshing.extract_mesh_streamed``) and checkpoint
+   (``streaming.save_map(manager=)``) equal to the first unstreamed run's;
+   holds kernels A and B against their plain versions, bit for bit, on the
+   state just after the first stream-in; reports each run's frames/s on
+   the outward leg (eviction) and on the return leg (stream-in), and the
+   host syncs of one frame.
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
@@ -34,10 +47,12 @@ last line of standard output is one JSON object with the device.
 """
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -204,55 +219,74 @@ def phase_step(cfg, device, gpu_line):
     return snap, est, depth, color, launches, fps
 
 
-def count_syncs(cfg, snap, depth, color):
-    """Host syncs of one steady-state frame (frame 11 replayed on a clone
-    of the state after frame 10), and the port's line that made each."""
+@contextlib.contextmanager
+def _sync_sites():
+    """Count the host syncs made on the main thread inside the block, by
+    the port's line that made each (a Counter of "file:line")."""
     import torch
     import voxelhashing_tpu_torch
-    from voxelhashing_tpu_torch import engine
     pkg = os.path.dirname(voxelhashing_tpu_torch.__file__) + os.sep
     sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
         # one warning per synchronizing call; the mode's own notice that it
-        # is a prototype is not a sync
-        if "called a synchronizing CUDA operation" not in str(message):
+        # is a prototype is not a sync, nor is a wait of the streaming
+        # worker thread
+        if ("called a synchronizing CUDA operation" not in str(message)
+                or threading.current_thread() is not threading.main_thread()):
             return
         ours = [f for f in traceback.extract_stack()
                 if f.filename.startswith(pkg)]
         sites[f"{os.path.basename(ours[-1].filename)}:{ours[-1].lineno}"
               if ours else "?"] += 1
 
-    s = _clone_engine(snap)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            engine.step(s, depth[11], color[11], cfg)
+            yield sites
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def _sites_line(sites):
+    return ", ".join(f"{k} x{v}" for k, v in sites.most_common())
+
+
+def count_syncs(cfg, snap, depth, color):
+    """Host syncs of one steady-state frame (frame 11 replayed on a clone
+    of the state after frame 10), and the port's line that made each."""
+    from voxelhashing_tpu_torch import engine
+
+    s = _clone_engine(snap)
+    with _sync_sites() as sites:
+        engine.step(s, depth[11], color[11], cfg)
     syncs = sum(sites.values())
-    print(f"host syncs in one frame: {syncs}; by site: "
-          + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
+    print(f"host syncs in one frame: {syncs}; by site: {_sites_line(sites)}")
     return syncs
 
 
-def phase_kernel_a(cfg, snap, est, depth, color):
-    """Phase 2: kernel A against its plain version, bit for bit."""
+def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
+                   bitmask=None):
+    """Kernel A against its plain version, bit for bit, on clones of
+    ``base_map`` after this frame's allocation (candidates masked by the
+    streaming ``bitmask`` as the engine masks them). Returns (max abs
+    error, kernel ms, plain ms, active rows int32[n])."""
     import torch
     from voxelhashing_tpu_torch import blockmap, geometry as geom
-    from voxelhashing_tpu_torch import integrate as integ
+    from voxelhashing_tpu_torch import integrate as integ, streaming
     from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops.image import preprocess
 
     cam, mp = cfg.camera, cfg.map
-    frame = preprocess(depth[11], color[11], cam, cfg.filter)
-    pose = est[11]
-    base = _clone(snap.map)
+    frame = preprocess(depth, color, cam, cfg.filter)
+    base = _clone(base_map)
     keys = integ.alloc_candidates(frame.depth, pose, cam, mp,
-                                  tile=mp.alloc_tile, phase=11)
+                                  tile=mp.alloc_tile, phase=frame_idx)
+    if bitmask is not None:
+        keys = streaming.mask_keys(keys, bitmask, mp, cfg.streaming)
     base, _ = blockmap.allocate(base, keys, mp, rounds=1)
     aidx, n_act, _ = blockmap.compactify(base, geom.invert_rigid(pose), cam,
                                          mp)
@@ -274,47 +308,49 @@ def phase_kernel_a(cfg, snap, est, depth, color):
     equal = {k: _bits_equal(*v) for k, v in pairs.items()}
     err = max(_max_abs(*v) for k, v in pairs.items() if k != "surf")
     changed = int((sk.weight != base.weight).any(dim=1).sum())
-    print(f"kernel A: active rows {n}, rows changed {changed}, "
+    print(f"{label}: active rows {n}, rows changed {changed}, "
           f"bit-equal {equal}, max_abs_err {err}")
     if not all(equal.values()) or changed == 0:
-        raise RuntimeError(f"kernel A disagrees with its plain version: "
+        raise RuntimeError(f"{label} disagrees with its plain version: "
                            f"{equal} (max abs err {err}, {changed} rows)")
     ms = _median_ms(lambda: fused_integrate(
         sk, frame.depth, frame.color, pose, cam, mp, aidx, n_act))
     plain_ms = _median_ms(lambda: plain(sp))
-    print(f"kernel A: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    print(f"{label}: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"({REPEATS} runs, {n} active blocks)")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, aidx[:n]
 
 
-def phase_kernel_b(cfg, snap):
-    """Phase 3: kernel B against its plain version, bit for bit."""
+def check_kernel_b(cfg, map_state, pose, label):
+    """Kernel B against its plain version, bit for bit, over the surface
+    rows that ``pose`` sees. Returns (max abs error, kernel ms, plain
+    ms)."""
     import torch
     from voxelhashing_tpu_torch import blockmap, geometry as geom
     from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_zbuf,
                                                        splat_zbuf_plain)
 
     cam, mp = cfg.camera, cfg.map
-    view = geom.invert_rigid(snap.pose)
-    aidx, n_act, _ = blockmap.compactify(snap.map, view, cam, mp)
+    view = geom.invert_rigid(pose)
+    aidx, n_act, _ = blockmap.compactify(map_state, view, cam, mp)
     mask = torch.arange(aidx.shape[0], device=aidx.device) < n_act
-    has_surf = snap.map.surf[aidx.long()] & mask
-    zk = splat_zbuf(snap.map, aidx, has_surf, view, cam, mp)
-    zp, _ = splat_zbuf_plain(snap.map, aidx, has_surf, view, cam, mp)
+    has_surf = map_state.surf[aidx.long()] & mask
+    zk = splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
+    zp, _ = splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp)
     torch.cuda.synchronize()
     equal = _bits_equal(zk, zp)
     err = _max_abs(zk, zp)
     covered = int(torch.isfinite(zk).sum())
-    print(f"kernel B: surface rows {int(has_surf.sum())}, covered pixels "
+    print(f"{label}: surface rows {int(has_surf.sum())}, covered pixels "
           f"{covered}/{zk.numel()}, bit-identical {equal}, "
           f"max_abs_err {err}")
     if not equal or covered == 0:
-        raise RuntimeError("kernel B disagrees with its plain version")
-    ms = _median_ms(lambda: splat_zbuf(snap.map, aidx, has_surf, view, cam,
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    ms = _median_ms(lambda: splat_zbuf(map_state, aidx, has_surf, view, cam,
                                        mp))
-    plain_ms = _median_ms(lambda: splat_zbuf_plain(snap.map, aidx, has_surf,
+    plain_ms = _median_ms(lambda: splat_zbuf_plain(map_state, aidx, has_surf,
                                                    view, cam, mp))
-    print(f"kernel B: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    print(f"{label}: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"({REPEATS} runs)")
     return err, ms, plain_ms
 
@@ -380,6 +416,305 @@ def phase_stages(cfg, depth, color, device, gpu_line):
           f"(frames {frames[0]}-{frames[-1]}, replayed) on {gpu_line}")
 
 
+# phase 5: the large scan, streamed
+LS_OUT = 96             # frames out along the corridor, 12 cm/frame
+LS_BACK = 48            # frames back, 24 cm/frame, facing up and back
+LS_SYNC_FRAME = 48      # the frame whose host syncs are counted
+
+
+def _large_scan_config():
+    """``scripts/bench_large_scan.py``'s scan point (320x240, 1 cm voxels,
+    truncation 3 cm + 1 cm/m, online allocation, GT-trajectory replay,
+    streaming with 1 m chunks, radius 3.4 m, 8 out parts, a 257^3 grid) at
+    the reference scan's 800,000-block pool with a 2^21-slot table."""
+    from voxelhashing_tpu_torch.config import (CameraConfig, EngineConfig,
+                                               MapConfig, MeshConfig,
+                                               StreamingConfig)
+    mp = MapConfig(voxel_size=0.01, truncation=0.03, truncation_scale=0.01,
+                   num_blocks=800_000, table_size=1 << 21,
+                   max_active_blocks=1 << 14)
+    return EngineConfig(camera=CameraConfig(), map=mp,
+                        streaming=StreamingConfig(enabled=True, radius=3.4,
+                                                  chunk_size=1.0,
+                                                  out_parts=8),
+                        # room for the whole scan's mesh (~3M triangles at
+                        # 1 cm), so that neither mesh is cut
+                        mesh=MeshConfig(max_triangles=1 << 24),
+                        offline=False, use_trajectory=True)
+
+
+def _corridor():
+    """The 12 m corridor: the wall at z = 2.2 and 20 spheres 0.6 m apart."""
+    from voxelhashing_tpu_torch.io.synthetic import Scene, Sphere
+    return Scene(wall_z=2.2, spheres=tuple(
+        Sphere(center=(0.6 * k, 0.15 * ((k % 3) - 1), 1.5 + 0.2 * (k % 2)),
+               radius=0.22, color=(0.2 + 0.05 * (k % 7), 0.5, 0.8))
+        for k in range(20)))
+
+
+def _large_scan_poses():
+    """Frames 0-95 face the wall and move 12 cm/frame along +x (0 to
+    11.4 m). Frames 96-143 walk back at 24 cm/frame (11.16 m to -0.12 m)
+    with the camera turned 135 degrees about x, facing up and back: it sees
+    only empty space, so nothing is fused (the streamed map must equal the
+    unstreamed one, and a fused frame would need chunks that are still on
+    the host), while the sphere chunks near the path come back to the
+    device (the whole-chunk test of ``pop_in_sphere``)."""
+    import numpy as np
+    a = 0.75 * np.pi
+    back = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                     [0, np.sin(a), np.cos(a)]], np.float32)
+    poses = []
+    for i in range(LS_OUT + LS_BACK):
+        p = np.eye(4, dtype=np.float32)
+        if i < LS_OUT:
+            p[0, 3] = 0.12 * i
+        else:
+            p[:3, :3] = back
+            p[0, 3] = 0.12 * (LS_OUT - 1) - 0.24 * (i - LS_OUT + 1)
+        poses.append(p)
+    return poses
+
+
+def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label):
+    """One pass of the scan through ``engine.step`` (and ``mgr.step`` when
+    streaming). Returns a dict: the final state, the kernel launches of the
+    run, frames/s over outward frames 2-95 but the sync-counted one (fused
+    frames, stream-out) and over the return frames 96-143 (nothing fused,
+    stream-in), the host syncs of that frame, the host store's size after
+    the outward leg, and (streamed) a snapshot taken just after the first
+    stream-in."""
+    import torch
+    from voxelhashing_tpu_torch import engine
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
+    from voxelhashing_tpu_torch.ops.splat_zbuf import splat_zbuf
+
+    n = len(poses)
+    state = engine.create(cfg, initial_pose=poses[0], device=device)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    mids = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    sites, host_after_out, snap = None, None, None
+    host_ms = [0.0] * n
+    torch.cuda.synchronize()
+    fused_integrate.launches = 0
+    splat_zbuf.launches = 0
+    t0 = time.perf_counter()
+    for i, pose in enumerate(poses):
+        ctx = (_sync_sites() if i == LS_SYNC_FRAME
+               else contextlib.nullcontext())
+        with ctx as counted:
+            starts[i].record()
+            state, _ = engine.step(
+                state, depth[i], color[i], cfg, pose_hint=pose,
+                stream_bitmask=None if mgr is None else mgr.bitmask)
+            mids[i].record()
+            keys_before = blocks_in = None
+            if mgr is not None:
+                if i >= LS_OUT and snap is None:
+                    keys_before = state.map.block_key.clone()
+                    blocks_in = mgr.blocks_in
+                h0 = time.perf_counter()
+                state = state._replace(map=mgr.step(state.map, pose[:3, 3]))
+                host_ms[i] = 1000 * (time.perf_counter() - h0)
+            ends[i].record()
+        if counted is not None:
+            sites = counted
+        if i == LS_OUT - 1 and mgr is not None:
+            mgr.flush()
+            host_after_out = mgr.host_block_count()
+        if blocks_in is not None and mgr.blocks_in > blocks_in:
+            new_rows = torch.nonzero((state.map.block_key != INVALID_KEY)
+                                     & (keys_before == INVALID_KEY))
+            snap = (i, _clone(state.map), mgr.bitmask.clone(),
+                    new_rows.reshape(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_integrate": fused_integrate.launches,
+                "splat_zbuf": splat_zbuf.launches}
+    syncs = sum(sites.values())
+    fps = {}
+    for leg, timed in (("out", [i for i in range(2, LS_OUT)
+                                if i != LS_SYNC_FRAME]),
+                       ("back", list(range(LS_OUT, n)))):
+        k = len(timed)
+        fps[leg] = k / (sum(starts[i].elapsed_time(ends[i])
+                            for i in timed) / 1000.0)
+        step_ms = sum(starts[i].elapsed_time(mids[i]) for i in timed) / k
+        stream_ms = sum(mids[i].elapsed_time(ends[i]) for i in timed) / k
+        but = f" but {LS_SYNC_FRAME}" if leg == "out" else ""
+        print(f"large scan {label}, {leg} (frames {timed[0]}-{timed[-1]}"
+              f"{but}, CUDA events): {fps[leg]:.3f} frames/s on {gpu_line}: "
+              f"engine.step {step_ms:.3f} ms/frame, streaming step "
+              f"{stream_ms:.3f} ms/frame "
+              f"({sum(host_ms[i] for i in timed) / k:.3f} ms/frame on the "
+              f"host clock)")
+    print(f"large scan {label}: {n} frames in {wall:.3f} s host clock; "
+          f"launches {launches}; host syncs of frame {LS_SYNC_FRAME} on the "
+          f"main thread: {syncs} ({_sites_line(sites)})")
+    return {"state": state, "launches": launches, "fps": fps,
+            "syncs": syncs, "host_after_out": host_after_out, "snap": snap}
+
+
+def _sorted_rows(keys, *rows):
+    import numpy as np
+    o = np.argsort(keys, kind="stable")
+    return [keys[o]] + [r[o] for r in rows]
+
+
+def _sorted_tris(tris):
+    import numpy as np
+    flat = tris.reshape(len(tris), -1)
+    return flat[np.lexsort(flat.T[::-1])]
+
+
+def phase_large_scan(device, gpu_line):
+    """Phase 5: the scan with ``AsyncStreamingManager`` (S) and with
+    streaming off (U), run S U U S; both kernels launched every frame of
+    every run, stream-out, stream-in and host blocks > 0, clean maps, the
+    first S run's composed mesh and checkpoint equal to the first U run's,
+    and kernels A and B held against their plain versions on the state
+    just after a stream-in."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch import blockmap, geometry as geom
+    from voxelhashing_tpu_torch import meshing, streaming
+    from voxelhashing_tpu_torch.io.synthetic import render_depth
+
+    cfg = _large_scan_config()
+    mp = cfg.map
+    scene = _corridor()
+    poses = _large_scan_poses()
+    frames = [render_depth(p, cfg.camera, scene, noise_sigma=0.002, seed=i,
+                           device=device) for i, p in enumerate(poses)]
+    depth = torch.stack([torch.nan_to_num(d, nan=0.0) for d, _ in frames])
+    color = torch.stack([c for _, c in frames])
+    del frames
+    n_frames = len(poses)
+    print(f"large scan: {n_frames} frames ({LS_OUT} out, {LS_BACK} back), "
+          f"{mp.num_blocks} blocks, {mp.voxel_size * 1000:.0f} mm voxels")
+
+    # S U U S: each mode once first and once second of a pair; the checks
+    # below use the first pair
+    runs, mgrs = [], []
+    try:
+        for k, streamed in enumerate((True, False, False, True)):
+            mgr = None
+            if streamed:
+                mgr = streaming.AsyncStreamingManager(mp, cfg.streaming,
+                                                      device=device)
+                mgrs.append(mgr)
+            label = (f"{'streamed' if streamed else 'unstreamed'} "
+                     f"(run {k + 1} of 4)")
+            r = _scan_run(cfg, poses, depth, color, device, mgr, gpu_line,
+                          label)
+            if mgr is not None:
+                mgr.flush()
+            if any(v != n_frames for v in r["launches"].values()):
+                raise RuntimeError(f"large scan {label}: launches "
+                                   f"{r['launches']}, expected {n_frames} "
+                                   f"of each kernel")
+            if k >= 2:      # the second pair is timed only
+                del r["state"], r["snap"]
+            runs.append(r)
+        mgr = mgrs[0]
+        st_s, st_u = runs[0]["state"], runs[1]["state"]
+        host_out, snap = runs[0]["host_after_out"], runs[0]["snap"]
+        print(f"large scan streaming: blocks out {mgr.blocks_out}, blocks "
+              f"in {mgr.blocks_in}, host blocks after the outward leg "
+              f"{host_out}, at the end {mgr.host_block_count()}")
+        if not (mgr.blocks_out > 0 and mgr.blocks_in > 0 and host_out > 0):
+            raise RuntimeError("large scan: no stream-out, stream-in or "
+                               "host blocks")
+        for name, st in (("streamed", st_s), ("unstreamed", st_u)):
+            viol = blockmap.check_invariants(st.map, mp)
+            print(f"large scan {name}: invariants {viol}")
+            if any(v != 0 for v in viol.values()):
+                raise RuntimeError(f"large scan {name}: invariants {viol}")
+
+        t0 = time.perf_counter()
+        tris_u, _ = meshing.extract_mesh(st_u.map, mp, cfg.mesh)
+        t1 = time.perf_counter()
+        tris_s, cols_s = meshing.extract_mesh_streamed(st_s.map, mp,
+                                                       cfg.mesh, mgr)
+        t2 = time.perf_counter()
+        same_mesh = (tris_u.shape == tris_s.shape and np.array_equal(
+            _sorted_tris(tris_u), _sorted_tris(tris_s)))
+        print(f"large scan mesh: unstreamed {len(tris_u)} triangles "
+              f"({t1 - t0:.2f} s), streamed composed {len(tris_s)} "
+              f"({t2 - t1:.2f} s), equal as sorted triangles {same_mesh}")
+        if not same_mesh or len(tris_u) == 0 \
+                or len(tris_u) >= cfg.mesh.max_triangles:
+            raise RuntimeError("large scan: the streamed mesh differs from "
+                               "the unstreamed one (or is empty or cut)")
+        with tempfile.TemporaryDirectory() as tmp:
+            nf = meshing.save_ply(os.path.join(tmp, "scan.ply"), tris_s,
+                                  cols_s)
+            pu = os.path.join(tmp, "unstreamed.npz")
+            ps = os.path.join(tmp, "streamed.npz")
+            nu = streaming.save_map(pu, st_u.map, mp)
+            ns = streaming.save_map(ps, st_s.map, mp, manager=mgr)
+            zu, zs = np.load(pu), np.load(ps)
+            fields = ("keys", "sdf", "weight", "color")
+            ru = _sorted_rows(*(zu[f] for f in fields))
+            rs = _sorted_rows(*(zs[f] for f in fields))
+        same_ckpt = nu == ns and all(np.array_equal(a, b)
+                                     for a, b in zip(ru, rs))
+        print(f"large scan checkpoint: unstreamed {nu} blocks, streamed "
+              f"composed {ns}, sorted rows equal {same_ckpt}; PLY "
+              f"{nf} welded faces")
+        if not same_ckpt or nu == 0:
+            raise RuntimeError("large scan: the streamed checkpoint differs "
+                               "from the unstreamed one")
+        del st_s, st_u, tris_u, tris_s, cols_s, ru, rs
+        for r in runs[:2]:
+            del r["state"], r["snap"]
+    finally:
+        for m in mgrs:
+            m.close()
+
+    if snap is None:
+        raise RuntimeError("large scan: no stream-in on the return leg")
+    i_in, snap_map, bitmask, new_rows = snap
+    # a forward-looking camera in front of the blocks that came back
+    blocks = geom.unpack_block_key(snap_map.block_key[
+        new_rows.long()], mp.world_blocks)
+    x = float((blocks[:, 0].double().mean() + 0.5) * mp.block_size_world)
+    pose = np.eye(4, dtype=np.float32)
+    pose[0, 3] = x
+    d, c = render_depth(pose, cfg.camera, scene, noise_sigma=0.002,
+                        seed=n_frames, device=device)
+    print(f"large scan: state after the stream-in of frame {i_in} "
+          f"({len(new_rows)} rows back on the device), checked from "
+          f"x = {x:.3f} m")
+    err_a, ms_a, plain_a, aidx = check_kernel_a(
+        cfg, snap_map, torch.nan_to_num(d, nan=0.0), c,
+        torch.from_numpy(pose).to(device), n_frames, "kernel A (large scan)",
+        bitmask=bitmask)
+    back = int(torch.isin(aidx, new_rows).sum())
+    print(f"kernel A (large scan): {back} of the active rows came back by "
+          f"stream-in")
+    if back == 0:
+        raise RuntimeError("large scan: no streamed-in row in kernel A's "
+                           "active set")
+    err_b, ms_b, plain_b = check_kernel_b(
+        cfg, snap_map, torch.from_numpy(pose).to(device),
+        "kernel B (large scan)")
+    for leg in ("out", "back"):
+        f = [r["fps"][leg] for r in runs]
+        print(f"large scan summary, {leg}: frames/s S {f[0]:.3f} U "
+              f"{f[1]:.3f} (S first, ratio {f[0] / f[1]:.3f}), U {f[2]:.3f} "
+              f"S {f[3]:.3f} (U first, ratio {f[3] / f[2]:.3f}); host syncs "
+              f"of one frame S {runs[0]['syncs']} U {runs[1]['syncs']}; on "
+              f"{gpu_line}")
+    return {"launches": {"streamed": runs[0]["launches"],
+                         "unstreamed": runs[1]["launches"]},
+            "fps": (runs[0]["fps"]["out"], runs[1]["fps"]["out"]),
+            "a": (err_a, ms_a, plain_a), "b": (err_b, ms_b, plain_b)}
+
+
 def main() -> int:
     import torch
     gpu_line = _smi()
@@ -395,13 +730,22 @@ def main() -> int:
         print(f"chip_smoke: runs on one card, {count} are visible (set "
               "CUDA_VISIBLE_DEVICES)", file=sys.stderr)
         return 1
+    import concurrent.futures
+    from voxelhashing_tpu_torch import native
     from voxelhashing_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    path = _build.build()
+    # nvcc for the kernels and g++ for the host chunk store, side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = pool.submit(_build.build)
+        host_lib = pool.submit(native.build)
+        path = built.result()
+        host_path = host_lib.result()
     _build.library()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
+    native.library()
+    print(f"kernels and host runtime built in {time.perf_counter() - t0:.1f}"
+          f" s: {path}, {host_path}")
     log = path.with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
@@ -410,24 +754,42 @@ def main() -> int:
     snap, est, depth, color, launches, fps = phase_step(cfg, device,
                                                         gpu_line)
     syncs = count_syncs(cfg, snap, depth, color)
-    err_a, ms_a, plain_a = phase_kernel_a(cfg, snap, est, depth, color)
-    err_b, ms_b, plain_b = phase_kernel_b(cfg, snap)
+    # phases 2 and 3: the state after frame 10, frame 11's inputs
+    err_a, ms_a, plain_a, _ = check_kernel_a(cfg, snap.map, depth[11],
+                                             color[11], est[11], 11,
+                                             "kernel A")
+    err_b, ms_b, plain_b = check_kernel_b(cfg, snap.map, snap.pose,
+                                          "kernel B")
     phase_stages(cfg, depth, color, device, gpu_line)
+    del snap, est, depth, color
+    scan = phase_large_scan(device, gpu_line)
+
+    def scan_entry(key, name):
+        err, ms, plain_ms = scan[key]
+        return {"launches": {k: v[name] for k, v in
+                             scan["launches"].items()},
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     kernels = [
         {"name": "fused_integrate", "route": "cuda",
          "source": "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
          "replaces": "voxelhashing_tpu/ops/pallas_integrate.py:321",
-         "launches": launches["fused_integrate"], "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_a},
+         "launches": launches["fused_integrate"],
+         "max_abs_err": max(err_a, scan["a"][0]),
+         "ms": ms_a, "plain_ms": plain_a,
+         "large_scan": scan_entry("a", "fused_integrate")},
         {"name": "splat_zbuf", "route": "cuda",
          "source": "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
          "replaces": "voxelhashing_tpu/ops/pallas_splat.py:188",
-         "launches": launches["splat_zbuf"], "max_abs_err": err_b,
-         "ms": ms_b, "plain_ms": plain_b},
+         "launches": launches["splat_zbuf"],
+         "max_abs_err": max(err_b, scan["b"][0]),
+         "ms": ms_b, "plain_ms": plain_b,
+         "large_scan": scan_entry("b", "splat_zbuf")},
     ]
+    fps_s, fps_u = scan["fps"]
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
-          f"on {gpu_line}")
+          f"large_scan_fps_streamed={fps_s:.3f} "
+          f"large_scan_fps_unstreamed={fps_u:.3f} on {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

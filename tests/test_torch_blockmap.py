@@ -132,6 +132,38 @@ def test_delete_reinsert_rehash_compact():
     assert int(ts.dense_upto) == CFG.num_blocks - int(ts.n_free)
 
 
+@pytest.mark.parametrize("kept", ["none", "with_row0", "without_row0"])
+def test_delete_padded_short_list(kept):
+    """Delete through a short list padded with row 0, as GC and stream-out
+    pass it: the dropped entries leave every row as it was, identical to
+    JAX, whether no entry, row 0 or only other rows are kept."""
+    rng = np.random.default_rng(3)
+    js = jbm.create(CFG)
+    ts = convert.map_state_from_numpy(js)
+    ts, js = _alloc(ts, js, _keys(rng, 600))
+    w = rng.integers(1, 3, (CFG.num_blocks, 512)).astype(np.float32)
+    w[np.asarray(js.block_key) == jgeom.INVALID_KEY] = 0.0
+    js = js._replace(weight=jnp.asarray(w, jnp.bfloat16),
+                     sdf=jnp.asarray(w * 0.001, jnp.bfloat16),
+                     color=jnp.asarray(w.astype(np.uint32) * 0x010101),
+                     surf=jnp.asarray((w > 0).any(axis=1)))
+    ts = convert.map_state_from_numpy(js)
+    assert int(ts.block_key[0]) != jgeom.INVALID_KEY
+    idx = np.zeros(64, np.int32)                # padding: row 0
+    mask = np.zeros(64, bool)
+    if kept != "none":
+        live = np.flatnonzero(np.asarray(js.block_key) != jgeom.INVALID_KEY)
+        rows = rng.choice(live[live > 0], 10, replace=False)
+        if kept == "with_row0":
+            rows[3] = 0
+        idx[:10], mask[:10] = rows, True
+    js = jbm.delete_blocks(js, jnp.asarray(idx), jnp.asarray(mask), CFG)
+    ts = tbm.delete_blocks(ts, torch.from_numpy(idx), torch.from_numpy(mask),
+                           TCFG)
+    _same(ts, js)
+    _clean(ts)
+
+
 def test_compactify_and_invariants_agree():
     rng = np.random.default_rng(3)
     js = jbm.create(CFG)

@@ -23,7 +23,7 @@ from voxelhashing_tpu_torch import config as tcfg, convert, evaluation as tev
 from voxelhashing_tpu_torch.io import synthetic as tsyn
 
 CLASSES = ("CameraConfig", "MapConfig", "TrackerConfig", "RaycastConfig",
-           "FilterConfig", "EngineConfig")
+           "FilterConfig", "StreamingConfig", "MeshConfig", "EngineConfig")
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -47,16 +47,22 @@ def test_config_from_converts_and_refuses_unported():
     cfg = jcfg.EngineConfig(
         camera=jcfg.CameraConfig(width=160, height=120),
         map=jcfg.MapConfig(num_blocks=4096, alloc_insert_small=64),
+        streaming=jcfg.StreamingConfig(enabled=True, chunk_size=2.0,
+                                       radius=3.4, out_parts=8),
+        mesh=jcfg.MeshConfig(max_triangles=10, thresh_factor=4.0),
         offline=False)
     out = convert.config_from(cfg)
     assert isinstance(out, tcfg.EngineConfig)
     assert isinstance(out.map, tcfg.MapConfig)
+    assert isinstance(out.streaming, tcfg.StreamingConfig)
+    assert isinstance(out.mesh, tcfg.MeshConfig)
     assert out.camera.width == 160 and out.map.num_blocks == 4096
     assert out.offline is False
     assert out.map.block_size_world == cfg.map.block_size_world
-    for bad in (dataclasses.replace(cfg, mesh=jcfg.MeshConfig(
-                    max_triangles=10)),
-                dataclasses.replace(cfg, raycast=jcfg.RaycastConfig(
+    assert dataclasses.asdict(out.streaming) == dataclasses.asdict(
+        cfg.streaming)
+    assert dataclasses.asdict(out.mesh) == dataclasses.asdict(cfg.mesh)
+    for bad in (dataclasses.replace(cfg, raycast=jcfg.RaycastConfig(
                     num_samples=8)),
                 jcfg.TrackerConfig(weight_color=0.5)):
         with pytest.raises(ValueError, match="not ported"):

@@ -12,10 +12,12 @@ hash is the same 32-bit mix. The one change is packed color, held as
 **int32** (0x00RRGGBB, sign bit never set) because torch on the CPU lacks
 ``>>`` and ``+`` on uint32.
 
-Scatters with JAX's ``mode="drop"`` go through two helpers and never clamp
-an index: :func:`put` scatters into a buffer one element longer and slices
-the drop slot off (no host sync), and :func:`zero_rows_` zeroes pool rows in
-place through a mask-filtered index list (one host sync on CUDA). The big
+Scatters with JAX's ``mode="drop"`` go through helpers that never clamp an
+index: :func:`put` scatters into a buffer one element longer and slices
+the drop slot off; :func:`set_rows_` and :func:`clear_rows_` write pool
+rows in place, pointing the dropped entries at a row that gets the same
+value (no host sync); :func:`zero_rows_` zeroes the rows of a pool-wide
+mask through a mask-filtered index list (one host sync on CUDA). The big
 pool arrays (``sdf``, ``weight``, ``color``) are updated IN PLACE wherever
 the JAX code does ``.at[].set`` on them: a state passed in must not be read
 afterwards as if unchanged (clone it first).
@@ -30,7 +32,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .config import MapConfig, VOXELS_PER_BLOCK
+from .config import MapConfig, SDF_BLOCK_SIZE, VOXELS_PER_BLOCK
 from . import geometry as geom
 from .geometry import INVALID_KEY
 
@@ -70,8 +72,10 @@ def put(dst, idx, src, keep):
     """
     n = dst.shape[0]
     buf = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
-    if isinstance(src, torch.Tensor):
-        src = src.to(dst.dtype)
+    # a Python scalar is made on the device: assigned as it is, it would be
+    # copied up from the host, which waits for the stream
+    src = (src.to(dst.dtype) if isinstance(src, torch.Tensor)
+           else torch.full((), src, dtype=dst.dtype, device=dst.device))
     buf[torch.where(keep, idx, n).long()] = src
     return buf[:n]
 
@@ -86,11 +90,46 @@ def scatter_min(size: int, fill: int, idx, src, keep):
 
 
 def zero_rows_(state: MapState, idx, keep) -> None:
-    """Zero the pool rows ``idx[keep]`` of sdf/weight/color IN PLACE."""
+    """Zero the pool rows ``idx[keep]`` of sdf/weight/color IN PLACE
+    (one host sync; for pool-wide masks, where :func:`clear_rows_` would
+    write one row per entry)."""
     rows = idx[keep].long()
     state.sdf[rows] = 0
     state.weight[rows] = 0
     state.color[rows] = 0
+
+
+def set_rows_(dst, idx, rows, keep) -> None:
+    """``dst[idx[k]] = rows[k]`` IN PLACE for every ``k`` where ``keep``,
+    with no host sync. The dropped entries are pointed at a kept entry's
+    row with that entry's value (or, when none is kept, at row 0 with its
+    own value), so every write to a row carries one value. Kept indices
+    must be unique."""
+    # a kept entry, or 0; a 1-element index (a 0-d one would be read on
+    # the host)
+    j = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    any_keep = keep[j]
+    donor_idx = torch.where(any_keep, idx[j], 0)
+    donor_row = torch.where(
+        any_keep.reshape((1,) + (1,) * (rows.ndim - 1)), rows[j], dst[:1])
+    idx = torch.where(keep, idx, donor_idx)
+    rows = torch.where(keep.reshape((-1,) + (1,) * (rows.ndim - 1)),
+                       rows, donor_row)
+    dst[idx.long()] = rows
+
+
+def clear_rows_(state: MapState, idx, keep) -> None:
+    """Zero the pool rows ``idx[keep]`` of sdf/weight/color IN PLACE, with
+    no host sync and no per-entry row temporary: every entry writes one
+    broadcast row, zero when any entry is kept (the dropped ones then hit a
+    kept row), else row 0's own values back onto row 0. Kept indices must
+    be unique."""
+    j = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    any_keep = keep[j]
+    tgt = torch.where(keep, idx, torch.where(any_keep, idx[j], 0)).long()
+    for pool in (state.sdf, state.weight, state.color):
+        pool[tgt] = torch.where(any_keep[:, None], pool.new_zeros(()),
+                                pool[:1])
 
 
 def _isum(mask):
@@ -199,6 +238,33 @@ def lookup(state: MapState, keys, cfg: MapConfig):
         found |= hit
         dead |= hit | (tk == INVALID_KEY)
     return idx.reshape(shape), found.reshape(shape)
+
+
+def gather_voxels_soa(state: MapState, vx, vy, vz, cfg: MapConfig,
+                      with_color: bool = True):
+    """Integer voxel coordinate components (equal shapes) -> (sdf f32,
+    weight f32, packed color int32 | None) of the same shape; voxels of
+    unallocated blocks read 0."""
+    bs = SDF_BLOCK_SIZE
+    half = cfg.world_blocks // 2
+    wb = cfg.world_blocks
+    gx = torch.div(vx, bs, rounding_mode="floor") + half
+    gy = torch.div(vy, bs, rounding_mode="floor") + half
+    gz = torch.div(vz, bs, rounding_mode="floor") + half
+    in_range = ((gx >= 0) & (gx < wb) & (gy >= 0) & (gy < wb)
+                & (gz >= 0) & (gz < wb))
+    key = torch.where(in_range, (gz * wb + gy) * wb + gx, INVALID_KEY)
+    pool_idx, found = lookup(state, key, cfg)
+    local = (torch.remainder(vz, bs) * bs + torch.remainder(vy, bs)) * bs \
+        + torch.remainder(vx, bs)
+    lin = (pool_idx.to(torch.int64) * VOXELS_PER_BLOCK + local)
+    sdf = torch.where(found, state.sdf.reshape(-1)[lin].to(torch.float32),
+                      0.0)
+    w = torch.where(found, state.weight.reshape(-1)[lin].to(torch.float32),
+                    0.0)
+    if not with_color:
+        return sdf, w, None
+    return sdf, w, torch.where(found, state.color.reshape(-1)[lin], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +494,7 @@ def delete_blocks(state: MapState, pool_indices, delete_mask,
     free_stack = put(state.free_stack, state.n_free + _rank(delete_mask),
                      pool_indices, delete_mask)
     block_key = put(state.block_key, pool_indices, INVALID_KEY, delete_mask)
-    zero_rows_(state, pool_indices, delete_mask)
+    clear_rows_(state, pool_indices, delete_mask)
     surf = put(state.surf, pool_indices, False, delete_mask)
     return state._replace(table_key=table_key, block_key=block_key,
                           surf=surf, free_stack=free_stack,

@@ -2,8 +2,8 @@
 
 The same frozen dataclasses, field names and defaults as the JAX package,
 cut to the fields the port reads. Fields left out belong to parts not
-ported yet (streaming, meshing, the march renderer, RGB-D tracking) or to
-TPU-only dispatch tiers (``alloc_insert_small``). ``convert.config_from``
+ported yet (the march renderer, RGB-D tracking) or to TPU-only dispatch
+tiers (``alloc_insert_small``). ``convert.config_from``
 builds these from a JAX config and refuses one that sets a left-out field
 away from its default.
 """
@@ -110,6 +110,28 @@ class FilterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamingConfig:
+    """Device <-> host block tiering: an active sphere around the camera,
+    a coarse chunk grid on the host, and an eviction bitmask over that
+    grid that keeps streamed-out space from being re-allocated."""
+
+    enabled: bool = False
+    chunk_size: float = 1.0       # chunk edge (m)
+    grid_dim: int = 257           # chunks per bitmask grid edge
+    radius: float = 4.0           # active sphere radius (m)
+    out_parts: int = 80           # the pool is swept 1/out_parts per frame
+    in_chunks_per_frame: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh extraction."""
+
+    max_triangles: int = 2_500_000
+    thresh_factor: float = 10.0   # max corner sdf span, in voxels
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Top-level configuration."""
 
@@ -118,6 +140,9 @@ class EngineConfig:
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     raycast: RaycastConfig = dataclasses.field(default_factory=RaycastConfig)
     filter: FilterConfig = dataclasses.field(default_factory=FilterConfig)
+    streaming: StreamingConfig = dataclasses.field(
+        default_factory=StreamingConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     offline: bool = True
     use_trajectory: bool = False
     use_trajectory_only_init: bool = False

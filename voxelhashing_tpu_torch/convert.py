@@ -3,7 +3,7 @@ and from the JAX package's configs to the port's.
 
 The JAX side is handed over as numpy (``np.asarray`` of every leaf); bf16
 arrays arrive as ``ml_dtypes.bfloat16`` and travel through an int16 view,
-uint32 colors through an int32 view. Both packages start every parity test
+uint32 colors and eviction-bitmask words through an int32 view. Both packages start every parity test
 from one state and one configuration this way. Nothing here imports the
 JAX package: it reads the objects it is given.
 """
@@ -98,6 +98,17 @@ def map_state_to_numpy(ms: MapState) -> dict:
         "n_tombstones": _array(ms.n_tombstones),
         "dense_upto": _array(ms.dense_upto),
     }
+
+
+def bitmask_from_numpy(words, device=None):
+    """JAX eviction bitmask (uint32 words) -> the port's int32 words, the
+    same bits."""
+    return _tensor(np.asarray(words, np.uint32), device, np.int32)
+
+
+def bitmask_to_numpy(words) -> np.ndarray:
+    """The port's int32 eviction bitmask -> uint32 words as JAX holds them."""
+    return _array(words, np.uint32)
 
 
 def engine_state_from_numpy(es, device=None) -> EngineState:

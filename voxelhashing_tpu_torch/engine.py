@@ -24,6 +24,7 @@ import torch
 
 from .config import EngineConfig
 from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
+from . import streaming
 from .blockmap import MapState
 from .ops.fused_integrate import fused_integrate
 from .ops.image import FrameInputs, preprocess
@@ -84,9 +85,12 @@ def create(cfg: EngineConfig, initial_pose=None, device=None) -> EngineState:
 
 
 def _integrate_frame(state: MapState, frame: FrameInputs, pose,
-                     cfg: EngineConfig, frame_idx: int, reuse_active=None,
-                     model_depth=None, mark=_no_mark):
+                     cfg: EngineConfig, frame_idx: int, stream_bitmask=None,
+                     reuse_active=None, model_depth=None, mark=_no_mark):
     """alloc -> compactify (or reuse) -> fused integrate -> gc -> maintain.
+
+    ``stream_bitmask``: the streaming eviction bitmask; candidates in
+    evicted chunks are dropped (a gather and a mask, no host sync).
 
     ``reuse_active``: ``(active_idx, n_active, overflow)`` from the
     raycast-pose compactify (online); this frame's new pool slots (the free
@@ -103,6 +107,8 @@ def _integrate_frame(state: MapState, frame: FrameInputs, pose,
         phase=None if cfg.offline else frame_idx,
         model_depth=(model_depth
                      if (not cfg.offline and mp.alloc_novelty) else None))
+    if stream_bitmask is not None:
+        keys = streaming.mask_keys(keys, stream_bitmask, mp, cfg.streaming)
     rounds = mp.alloc_rounds_offline if cfg.offline else 1
     n_free_before = state.n_free
     state, _ = blockmap.allocate(state, keys, mp, rounds=rounds)
@@ -149,13 +155,15 @@ def _integrate_frame(state: MapState, frame: FrameInputs, pose,
 
 
 def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
-         pose_hint=None, mark=_no_mark
+         pose_hint=None, mark=_no_mark, stream_bitmask=None
          ) -> Tuple[EngineState, FrameDiagnostics]:
     """Process one RGB-D frame (tensors on the state's device).
 
     ``pose_hint``: optional external pose. With ``cfg.use_trajectory`` the
     hint is the pose; with ``use_trajectory_only_init`` it seeds ICP and
-    the model render. ``mark``: called with each stage's name when its
+    the model render. ``stream_bitmask``: the streaming manager's
+    eviction bitmask (``streaming.StreamingManager.bitmask``), which keeps
+    allocation out of evicted chunks. ``mark``: called with each stage's name when its
     work has been issued (see :data:`STAGES`).
     """
     cam = cfg.camera
@@ -211,7 +219,8 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
     if integrate_now:
         new_map, _, _, n_act, overflow, alloc_missed = _integrate_frame(
             state.map, frame, tr.pose, cfg, state.frame_host,
-            reuse_active=reuse, model_depth=model.depth, mark=mark)
+            stream_bitmask=stream_bitmask, reuse_active=reuse,
+            model_depth=model.depth, mark=mark)
     else:
         new_map = state.map
         n_act = overflow = alloc_missed = torch.zeros(
