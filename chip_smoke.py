@@ -19,9 +19,17 @@ and then:
 2. holds kernel A (fused integrate) against its plain PyTorch version on
    clones of the state after frame 10 and frame 11's inputs: rows, surface
    flags and GC stats must be bit-equal (the kernels are built with
-   -fmad=false);
-3. holds kernel B (splat z-buffer) against its plain version on the same
-   state: the z-buffers must be bit-identical;
+   -fmad=false); times it bare (``_bare_ms``: the wrapper's ``launch``
+   replayed from a CUDA graph, with torch.profiler's device time beside
+   it), through its wrapper and as the plain version, and prints the bytes
+   it must move and the f32 operations it must do
+   (``fused_integrate.bytes_moved`` and ``operations``, with the voxels
+   whose bits it changed as the updated ones) and the bound they give at
+   3.35 TB/s and 67 TFLOP/s;
+3. does the same for kernel B (splat z-buffer) on the same state: the
+   z-buffers must be bit-identical; then holds both kernels, bit for bit,
+   on the edge cases (``phase_edge_cases``: n_active 0, 1 and M, a frame
+   of edge values, a depth-only frame);
 4. times each stage of ``engine.step`` (CUDA events at ``engine.STAGES``
    marks) over frames 3-19 of a second run, and the device's busy share
    over three frames (``torch.profiler`` kernel time against the same
@@ -37,13 +45,17 @@ and then:
    (``meshing.extract_mesh_streamed``) and checkpoint
    (``streaming.save_map(manager=)``) equal to the first unstreamed run's;
    holds kernels A and B against their plain versions, bit for bit, on the
-   state just after the first stream-in; reports each run's frames/s on
-   the outward leg (eviction) and on the return leg (stream-in), and the
-   host syncs of one frame.
+   state just after the first stream-in, and times them there as in 2-3;
+   reports each run's frames/s on the outward leg (eviction) and on the
+   return leg (stream-in), and the host syncs of one frame.
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
+line before the last holds the kernels' numbers as one JSON object; the
 last line of standard output is one JSON object with the device.
+``kernel_times_here`` times the kernels of whichever checkout's port
+imports from the working directory (``voxelhashing_tpu_torch.ab_step``
+runs it in two checkouts).
 """
 
 import collections
@@ -60,6 +72,11 @@ import warnings
 N_FRAMES = 20
 REPEATS = 10
 ATE_LIMIT_M = 0.010
+BARE_LAUNCHES = 100          # launches in one graph per bare kernel time
+# H100 SXM (NVIDIA's data sheet, at 700 W): memory rate and f32 rate outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def _smi() -> str:
@@ -129,6 +146,55 @@ def _median_ms(fn, repeats=REPEATS):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def _bare_ms(fn, n=BARE_LAUNCHES):
+    """Mean device time of one call of ``fn``, which issues its work on the
+    current stream: a warm-up call, then ``n`` calls captured into one CUDA
+    graph, and one CUDA event pair around a replay of it, over ``n``. The
+    replay issues the launches with no host work between them, so the
+    events time the device even where a kernel takes less time than the
+    host needs to launch it."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _profiled_ms(fn, kernel, n=20):
+    """torch.profiler's device time per launch of the kernels whose name
+    holds ``kernel``, over ``n`` calls of ``fn`` (None when it records
+    none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / len(us) / 1000.0 if us and sum(us) > 0 else None
+
+
+def _fmt(x):
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def _bits_equal(a, b):
@@ -268,16 +334,13 @@ def count_syncs(cfg, snap, depth, color):
     return syncs
 
 
-def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
-                   bitmask=None):
-    """Kernel A against its plain version, bit for bit, on clones of
-    ``base_map`` after this frame's allocation (candidates masked by the
-    streaming ``bitmask`` as the engine masks them). Returns (max abs
-    error, kernel ms, plain ms, active rows int32[n])."""
-    import torch
+def _a_inputs(cfg, base_map, depth, color, pose, frame_idx, bitmask=None):
+    """Kernel A's inputs at a state: a clone of ``base_map`` after this
+    frame's allocation (candidates masked by the streaming ``bitmask`` as
+    the engine masks them), the preprocessed frame, and the active list at
+    ``pose``. Returns (state, depth, color, active_idx, n_active)."""
     from voxelhashing_tpu_torch import blockmap, geometry as geom
     from voxelhashing_tpu_torch import integrate as integ, streaming
-    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops.image import preprocess
 
     cam, mp = cfg.camera, cfg.map
@@ -290,17 +353,30 @@ def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
     base, _ = blockmap.allocate(base, keys, mp, rounds=1)
     aidx, n_act, _ = blockmap.compactify(base, geom.invert_rigid(pose), cam,
                                          mp)
-    n = int(n_act)
+    return base, frame.depth, frame.color, aidx, n_act
+
+
+def _plain_a(cfg, state, depth, color, pose, aidx, n_act):
+    import torch
+    from voxelhashing_tpu_torch import integrate as integ
     mask = torch.arange(aidx.shape[0], device=aidx.device) < n_act
+    return integ.integrate(state, depth, color, pose, cfg.camera, cfg.map,
+                           active_idx=aidx, active_mask=mask)
 
-    def plain(state):
-        return integ.integrate(state, frame.depth, frame.color, pose, cam,
-                               mp, active_idx=aidx, active_mask=mask)
 
+def hold_a(cfg, base, depth, color, pose, aidx, n_act, label,
+           require_change=True):
+    """Kernel A against its plain version, bit for bit, on clones of
+    ``base``: rows, surface flags and both GC stats. Returns (max abs
+    error, the kernel's state)."""
+    import torch
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
+
+    cam, mp = cfg.camera, cfg.map
     sk, sp = _clone(base), _clone(base)
-    sk, (mn_k, mx_k) = fused_integrate(sk, frame.depth, frame.color, pose,
-                                       cam, mp, aidx, n_act)
-    sp, (mn_p, mx_p) = plain(sp)
+    sk, (mn_k, mx_k) = fused_integrate(sk, depth, color, pose, cam, mp,
+                                       aidx, n_act)
+    sp, (mn_p, mx_p) = _plain_a(cfg, sp, depth, color, pose, aidx, n_act)
     torch.cuda.synchronize()
     pairs = {"sdf": (sk.sdf, sp.sdf), "weight": (sk.weight, sp.weight),
              "color": (sk.color, sp.color), "surf": (sk.surf, sp.surf),
@@ -308,56 +384,266 @@ def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
     equal = {k: _bits_equal(*v) for k, v in pairs.items()}
     err = max(_max_abs(*v) for k, v in pairs.items() if k != "surf")
     changed = int((sk.weight != base.weight).any(dim=1).sum())
-    print(f"{label}: active rows {n}, rows changed {changed}, "
-          f"bit-equal {equal}, max_abs_err {err}")
-    if not all(equal.values()) or changed == 0:
+    print(f"{label}: active rows {int(n_act)} of {aidx.shape[0]}, rows "
+          f"changed {changed}, bit-equal {equal}, max_abs_err {err}")
+    if not all(equal.values()) or (require_change and changed == 0):
         raise RuntimeError(f"{label} disagrees with its plain version: "
                            f"{equal} (max abs err {err}, {changed} rows)")
-    ms = _median_ms(lambda: fused_integrate(
-        sk, frame.depth, frame.color, pose, cam, mp, aidx, n_act))
-    plain_ms = _median_ms(lambda: plain(sp))
-    print(f"{label}: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({REPEATS} runs, {n} active blocks)")
-    return err, ms, plain_ms, aidx[:n]
+    del sp
+    return err, sk
 
 
-def check_kernel_b(cfg, map_state, pose, label):
-    """Kernel B against its plain version, bit for bit, over the surface
-    rows that ``pose`` sees. Returns (max abs error, kernel ms, plain
-    ms)."""
+def _changed_voxels(before, after, rows):
+    """Voxels of ``rows`` whose stored sdf, weight or color bits differ."""
     import torch
-    from voxelhashing_tpu_torch import blockmap, geometry as geom
-    from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_zbuf,
-                                                       splat_zbuf_plain)
+    idx = rows.long()
+    diff = torch.zeros(idx.shape[0], 512, dtype=torch.bool,
+                       device=idx.device)
+    for f in ("sdf", "weight", "color"):
+        a, b = getattr(before, f)[idx], getattr(after, f)[idx]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        diff |= a != b
+    return int(diff.sum())
+
+
+def _bound(nbytes, nops):
+    """The least time (ms) for a kernel that moves ``nbytes`` and does
+    ``nops`` f32 operations, and which of the two bounds it."""
+    by_bytes = 1000.0 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1000.0 * nops / F32_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _work_a(cfg, n_rows, n_updated, max_rows, with_color):
+    """The bytes kernel A must move and the f32 operations it must do
+    (``fused_integrate.bytes_moved`` and ``operations`` of this tree)."""
+    from voxelhashing_tpu_torch.ops import fused_integrate as fa
+    return (fa.bytes_moved(n_rows, n_updated, max_rows, cfg.camera,
+                           with_color), fa.operations(n_rows, n_updated))
+
+
+def _band_voxels(cfg, map_state, aidx, has_surf):
+    """The voxels of the rows ``aidx[has_surf]`` in the surface band
+    (w > 0, |sdf| < voxel), the only ones kernel B projects."""
+    sel = aidx.long()[has_surf]
+    return int(((map_state.weight[sel].float() > 0.0)
+                & (map_state.sdf[sel].float().abs() < cfg.map.voxel_size))
+               .sum())
+
+
+def _work_b(cfg, n_surface_rows, n_band, max_rows):
+    """The bytes kernel B must move and the f32 operations it must do
+    (``splat_zbuf.bytes_moved`` and ``operations`` of this tree)."""
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+    return (sb.bytes_moved(n_surface_rows, max_rows, cfg.camera),
+            sb.operations(n_surface_rows, n_band))
+
+
+def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
+    """Kernel A's times at this state: the bare kernel (``launch`` on
+    prepared arguments, ``_bare_ms``), with torch.profiler's device time as
+    a cross-check, the wrapper and the plain version (``_median_ms``); the
+    bytes it must move and the f32 operations it must do (``_work_a``, with
+    the voxels whose stored bits one launch changed as the updated ones)
+    and the bound they give. Repeated launches update the same rows in place:
+    the weights grow, but which voxels update and what is read and written
+    stay the same."""
+    from voxelhashing_tpu_torch import geometry as geom
+    from voxelhashing_tpu_torch.ops import fused_integrate as fa
 
     cam, mp = cfg.camera, cfg.map
+    n = int(n_act)
+    st = _clone(base)
+    args, _ = fa.prepare(st, depth, color, geom.invert_rigid(pose), cam, mp,
+                         aidx, n_act)
+    fa.launch(args)
+    n_upd = _changed_voxels(base, st, aidx[:n])
+    nbytes, nops = _work_a(cfg, n, n_upd, aidx.shape[0], color is not None)
+    ms = _bare_ms(lambda: fa.launch(args))
+    prof_ms = _profiled_ms(lambda: fa.launch(args), "fused_integrate")
+    wrapper_ms = _median_ms(lambda: fa.fused_integrate(
+        st, depth, color, pose, cam, mp, aidx, n_act))
+    del st
+    sp = _clone(base)
+    plain_ms = _median_ms(lambda: _plain_a(cfg, sp, depth, color, pose, aidx,
+                                           n_act))
+    del sp
+    bound, by = _bound(nbytes, nops)
+    print(f"{label}: bare {ms:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
+          f"graph; torch.profiler {_fmt(prof_ms)} ms), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; {n} rows, {n_upd} "
+          f"updated voxels; {nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{nops} f32 operations at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s: "
+          f"bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% of it; on "
+          f"{gpu_line}")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "profiler_ms": prof_ms, "rows": n, "updated_voxels": n_upd,
+            "bytes": nbytes, "operations": nops}
+
+
+def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
+                   gpu_line, bitmask=None):
+    """Kernel A held against its plain version and timed at this state.
+    Returns (result dict, active rows int32[n])."""
+    base, d, c, aidx, n_act = _a_inputs(cfg, base_map, depth, color, pose,
+                                        frame_idx, bitmask)
+    err, sk = hold_a(cfg, base, d, c, pose, aidx, n_act, label)
+    del sk
+    res = time_a(cfg, base, d, c, pose, aidx, n_act, label, gpu_line)
+    res["max_abs_err"] = err
+    return res, aidx[:int(n_act)]
+
+
+def _b_inputs(cfg, map_state, pose):
+    """Kernel B's inputs at ``pose``: (view, active_idx, surface row
+    mask)."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap, geometry as geom
     view = geom.invert_rigid(pose)
-    aidx, n_act, _ = blockmap.compactify(map_state, view, cam, mp)
+    aidx, n_act, _ = blockmap.compactify(map_state, view, cfg.camera,
+                                         cfg.map)
     mask = torch.arange(aidx.shape[0], device=aidx.device) < n_act
-    has_surf = map_state.surf[aidx.long()] & mask
+    return view, aidx, map_state.surf[aidx.long()] & mask
+
+
+def hold_b(cfg, map_state, view, aidx, has_surf, label, require_cover=True):
+    """Kernel B against its plain version: the z-buffers must be
+    bit-identical. Returns the max abs error."""
+    import torch
+    from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_zbuf,
+                                                       splat_zbuf_plain)
+    cam, mp = cfg.camera, cfg.map
     zk = splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
     zp, _ = splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp)
     torch.cuda.synchronize()
     equal = _bits_equal(zk, zp)
     err = _max_abs(zk, zp)
     covered = int(torch.isfinite(zk).sum())
-    print(f"{label}: surface rows {int(has_surf.sum())}, covered pixels "
-          f"{covered}/{zk.numel()}, bit-identical {equal}, "
+    print(f"{label}: surface rows {int(has_surf.sum())} of {aidx.shape[0]}, "
+          f"covered pixels {covered}/{zk.numel()}, bit-identical {equal}, "
           f"max_abs_err {err}")
-    if not equal or covered == 0:
+    if not equal or (require_cover and covered == 0):
         raise RuntimeError(f"{label} disagrees with its plain version")
-    ms = _median_ms(lambda: splat_zbuf(map_state, aidx, has_surf, view, cam,
-                                       mp))
-    plain_ms = _median_ms(lambda: splat_zbuf_plain(map_state, aidx, has_surf,
-                                                   view, cam, mp))
-    print(f"{label}: median {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({REPEATS} runs)")
-    return err, ms, plain_ms
+    return err
+
+
+def time_b(cfg, map_state, view, aidx, has_surf, label, gpu_line):
+    """Kernel B's times at this state, as ``time_a``; the voxels that pass
+    every test, each of which issues one atomic; and, as a partial
+    yardstick only, PyTorch's
+    ``scatter_reduce_(amin)`` over the plain version's targets (it does B's
+    final scatter, not the projection and band test before it)."""
+    import torch
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+
+    cam, mp = cfg.camera, cfg.map
+    args, _ = sb.prepare(map_state, aidx, has_surf, view, cam, mp)
+    ms = _bare_ms(lambda: sb.launch(args))
+    prof_ms = _profiled_ms(lambda: sb.launch(args), "splat_zbuf")
+    wrapper_ms = _median_ms(lambda: sb.splat_zbuf(map_state, aidx, has_surf,
+                                                  view, cam, mp))
+    plain_ms = _median_ms(lambda: sb.splat_zbuf_plain(map_state, aidx,
+                                                      has_surf, view, cam,
+                                                      mp))
+    _, pix, z_surf, ok = sb.splat_targets(map_state, aidx, has_surf, view,
+                                          cam, mp)
+    survivors = int(ok.sum())
+    buf = torch.full((cam.height * cam.width + 1,), torch.inf,
+                     device=aidx.device)
+    pix, z_surf = pix.reshape(-1), z_surf.reshape(-1)
+    scatter_ms = _bare_ms(lambda: buf.scatter_reduce_(0, pix, z_surf, "amin",
+                                                      include_self=True))
+    n_surf = int(has_surf.sum())
+    band = _band_voxels(cfg, map_state, aidx, has_surf)
+    nbytes, nops = _work_b(cfg, n_surf, band, aidx.shape[0])
+    bound, by = _bound(nbytes, nops)
+    print(f"{label}: bare {ms:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
+          f"graph; torch.profiler {_fmt(prof_ms)} ms), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; {n_surf} surface "
+          f"rows, {band} voxels in the band, {survivors} pass every test "
+          f"and issue {survivors} atomics; {nbytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s, {nops} f32 operations at "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s: bound {bound:.4f} ms by "
+          f"{by}, {100 * bound / ms:.1f}% of it; partial yardstick "
+          f"scatter_reduce_(amin) alone {scatter_ms:.4f} ms; on {gpu_line}")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "profiler_ms": prof_ms, "rows": n_surf, "band_voxels": band,
+            "survivors": survivors, "bytes": nbytes,
+            "operations": nops, "scatter_reduce_ms": scatter_ms}
+
+
+def check_kernel_b(cfg, map_state, pose, label, gpu_line):
+    """Kernel B held against its plain version and timed over the surface
+    rows that ``pose`` sees. Returns the result dict."""
+    view, aidx, has_surf = _b_inputs(cfg, map_state, pose)
+    err = hold_b(cfg, map_state, view, aidx, has_surf, label)
+    res = time_b(cfg, map_state, view, aidx, has_surf, label, gpu_line)
+    res["max_abs_err"] = err
+    return res
+
+
+def _edge_frame(depth, color, cfg):
+    """A frame with the values the in-kernel color word and depth tests
+    can get wrong, in stripes over ``depth``/``color``: one channel NaN,
+    +inf, -inf, -0.25, -0.0, 1.5, exactly 1.0 or 254.5/255, or all three
+    exactly 1.0; depth NaN, 0, exactly ``max_integration_distance`` and
+    beyond it on every 16th row of four."""
+    import math
+    d, c = depth.clone(), color.clone()
+    vals = (math.nan, math.inf, -math.inf, -0.25, -0.0, 1.5, 1.0,
+            254.5 / 255.0)
+    groups = len(vals) + 1
+    for g, v in enumerate(vals):
+        c[:, 4 * g::4 * groups, g % 3] = v
+    c[:, 4 * len(vals)::4 * groups, :] = 1.0
+    far = cfg.map.max_integration_distance
+    for k, v in enumerate((math.nan, 0.0, far, far + 0.25)):
+        d[k::16, :] = v
+    return d, c
+
+
+def phase_edge_cases(cfg, base_map, depth, color, pose, frame_idx):
+    """Both kernels held bit for bit on the cases the persistent row walk
+    and the in-kernel color word can get wrong: n_active 0, 1 and M (a full
+    active list: every allocated row of the map), the edge-value frame, and
+    a depth-only frame (no color)."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap, geometry as geom
+
+    mp = cfg.map
+    base, d, c, aidx, n_act = _a_inputs(cfg, base_map, depth, color, pose,
+                                        frame_idx)
+    dev = aidx.device
+    view = geom.invert_rigid(pose)
+    all_idx, n_all = blockmap.compactify_all(base, mp)
+    full = all_idx[:int(n_all)].contiguous()
+    ed, ec = _edge_frame(d, c, cfg)
+    cases = (
+        ("n_active=0", d, c, aidx, torch.zeros((), dtype=torch.int32,
+                                               device=dev)),
+        ("n_active=1", d, c, aidx, torch.ones((), dtype=torch.int32,
+                                              device=dev)),
+        (f"n_active=M={full.shape[0]}", d, c, full, n_all.to(torch.int32)),
+        ("edge-value frame", ed, ec, aidx, n_act),
+        ("depth-only frame", d, None, aidx, n_act),
+    )
+    for name, dd, cc, ai, na in cases:
+        _, sk = hold_a(cfg, base, dd, cc, pose, ai, na, f"edge A, {name}",
+                       require_change=int(na) > 1)
+        mask = torch.arange(ai.shape[0], device=dev) < na
+        hold_b(cfg, sk, view, ai, sk.surf[ai.long()] & mask,
+               f"edge B, {name}", require_cover=False)
+        del sk
 
 
 def phase_stages(cfg, depth, color, device, gpu_line):
     """Phase 4: per-stage time of ``engine.step`` and the device's busy
-    share."""
+    share. Returns {stage: ms/frame}, with the device's kernel ms and ops
+    per frame under "device_ms" and "device_ops"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -414,6 +700,8 @@ def phase_stages(cfg, depth, color, device, gpu_line):
           f"device ops per frame (torch.profiler), {wall_ms / n:.3f} ms "
           f"wall per frame unprofiled: busy {100 * dev_ms / wall_ms:.1f}% "
           f"(frames {frames[0]}-{frames[-1]}, replayed) on {gpu_line}")
+    return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
+            "device_ms": dev_ms / n, "device_ops": len(ops) / n}
 
 
 # phase 5: the large scan, streamed
@@ -579,8 +867,7 @@ def phase_large_scan(device, gpu_line):
     import tempfile
     import numpy as np
     import torch
-    from voxelhashing_tpu_torch import blockmap, geometry as geom
-    from voxelhashing_tpu_torch import meshing, streaming
+    from voxelhashing_tpu_torch import blockmap, meshing, streaming
     from voxelhashing_tpu_torch.io.synthetic import render_depth
 
     cfg = _large_scan_config()
@@ -677,31 +964,19 @@ def phase_large_scan(device, gpu_line):
 
     if snap is None:
         raise RuntimeError("large scan: no stream-in on the return leg")
-    i_in, snap_map, bitmask, new_rows = snap
-    # a forward-looking camera in front of the blocks that came back
-    blocks = geom.unpack_block_key(snap_map.block_key[
-        new_rows.long()], mp.world_blocks)
-    x = float((blocks[:, 0].double().mean() + 0.5) * mp.block_size_world)
-    pose = np.eye(4, dtype=np.float32)
-    pose[0, 3] = x
-    d, c = render_depth(pose, cfg.camera, scene, noise_sigma=0.002,
-                        seed=n_frames, device=device)
-    print(f"large scan: state after the stream-in of frame {i_in} "
-          f"({len(new_rows)} rows back on the device), checked from "
-          f"x = {x:.3f} m")
-    err_a, ms_a, plain_a, aidx = check_kernel_a(
-        cfg, snap_map, torch.nan_to_num(d, nan=0.0), c,
-        torch.from_numpy(pose).to(device), n_frames, "kernel A (large scan)",
-        bitmask=bitmask)
+    snap_map, bitmask, new_rows, pose, d, c = _stream_in_inputs(
+        cfg, scene, snap, device)
+    res_a, aidx = check_kernel_a(cfg, snap_map, d, c, pose, n_frames,
+                                 "kernel A (large scan)", gpu_line,
+                                 bitmask=bitmask)
     back = int(torch.isin(aidx, new_rows).sum())
     print(f"kernel A (large scan): {back} of the active rows came back by "
           f"stream-in")
     if back == 0:
         raise RuntimeError("large scan: no streamed-in row in kernel A's "
                            "active set")
-    err_b, ms_b, plain_b = check_kernel_b(
-        cfg, snap_map, torch.from_numpy(pose).to(device),
-        "kernel B (large scan)")
+    res_b = check_kernel_b(cfg, snap_map, pose, "kernel B (large scan)",
+                           gpu_line)
     for leg in ("out", "back"):
         f = [r["fps"][leg] for r in runs]
         print(f"large scan summary, {leg}: frames/s S {f[0]:.3f} U "
@@ -712,7 +987,131 @@ def phase_large_scan(device, gpu_line):
     return {"launches": {"streamed": runs[0]["launches"],
                          "unstreamed": runs[1]["launches"]},
             "fps": (runs[0]["fps"]["out"], runs[1]["fps"]["out"]),
-            "a": (err_a, ms_a, plain_a), "b": (err_b, ms_b, plain_b)}
+            "a": res_a, "b": res_b}
+
+
+def _stream_in_inputs(cfg, scene, snap, device):
+    """The kernels' inputs on the state just after the first stream-in
+    (``snap`` from a streamed ``_scan_run``): a forward-looking camera in
+    front of the blocks that came back and its rendered frame. Returns
+    (map, bitmask, rows back int32[k], pose f32[4,4], depth, color)."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch import geometry as geom
+    from voxelhashing_tpu_torch.io.synthetic import render_depth
+
+    mp = cfg.map
+    i_in, snap_map, bitmask, new_rows = snap
+    blocks = geom.unpack_block_key(snap_map.block_key[
+        new_rows.long()], mp.world_blocks)
+    x = float((blocks[:, 0].double().mean() + 0.5) * mp.block_size_world)
+    pose = np.eye(4, dtype=np.float32)
+    pose[0, 3] = x
+    d, c = render_depth(pose, cfg.camera, scene, noise_sigma=0.002,
+                        seed=LS_OUT + LS_BACK, device=device)
+    print(f"large scan: state after the stream-in of frame {i_in} "
+          f"({len(new_rows)} rows back on the device), checked from "
+          f"x = {x:.3f} m")
+    return (snap_map, bitmask, new_rows, torch.from_numpy(pose).to(device),
+            torch.nan_to_num(d, nan=0.0), c)
+
+
+def _kernel_entry(res, launches):
+    """One kernel's numbers in the kernels JSON line."""
+    return {"launches": launches, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "wrapper_ms": res["wrapper_ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "bound_share": res["bound_share"],
+            "library_ms": None, "profiler_ms": res["profiler_ms"],
+            "rows": res["rows"], "bytes": res["bytes"],
+            "operations": res["operations"]}
+
+
+def _device_time_a(cfg, base, depth, color, pose, aidx, n_act):
+    """Kernel A's device time per launch through its public wrapper
+    (torch.profiler, so that any checkout's kernel is timed alike, whatever
+    its launch interface), the wrapper's own time, and the counts its bound
+    needs (``_work_a``)."""
+    from voxelhashing_tpu_torch.ops import fused_integrate as fa
+
+    cam, mp = cfg.camera, cfg.map
+    n = int(n_act)
+    st = _clone(base)
+    call = lambda: fa.fused_integrate(                         # noqa: E731
+        st, depth, color, pose, cam, mp, aidx, n_act)
+    call()
+    n_upd = _changed_voxels(base, st, aidx[:n])
+    return {"device_ms": _profiled_ms(call, "fused_integrate"),
+            "wrapper_ms": _median_ms(call), "rows": n,
+            "updated_voxels": n_upd, "max_rows": aidx.shape[0],
+            "with_color": color is not None}
+
+
+def _device_time_b(cfg, map_state, view, aidx, has_surf):
+    """Kernel B's times and counts, as ``_device_time_a``."""
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+
+    cam, mp = cfg.camera, cfg.map
+    call = lambda: sb.splat_zbuf(map_state, aidx, has_surf,    # noqa: E731
+                                 view, cam, mp)
+    return {"device_ms": _profiled_ms(call, "splat_zbuf"),
+            "wrapper_ms": _median_ms(call), "rows": int(has_surf.sum()),
+            "band_voxels": _band_voxels(cfg, map_state, aidx, has_surf),
+            "max_rows": aidx.shape[0]}
+
+
+def kernel_times_here():
+    """Kernels A's and B's device and wrapper times (``_device_time_a``,
+    ``_device_time_b``) at the phase-2/3 state and at the state just after
+    the large scan's first stream-in, and phase 4's per-stage times, with
+    the kernels of the ``voxelhashing_tpu_torch`` that imports from the
+    working directory (``python -m voxelhashing_tpu_torch.ab_step`` runs
+    this in each checkout). Returns plain numbers."""
+    import torch
+    from voxelhashing_tpu_torch import streaming
+    from voxelhashing_tpu_torch.io.synthetic import render_depth
+
+    device = torch.device("cuda", 0)
+    gpu_line = _smi()
+    cfg = _config()
+    snap, est, depth, color, _, _ = phase_step(cfg, device, gpu_line)
+    out = {"card": gpu_line}
+    base, d, c, aidx, n_act = _a_inputs(cfg, snap.map, depth[11], color[11],
+                                        est[11], 11)
+    out["a"] = _device_time_a(cfg, base, d, c, est[11], aidx, n_act)
+    del base
+    out["b"] = _device_time_b(cfg, snap.map, *_b_inputs(cfg, snap.map,
+                                                        snap.pose))
+    del snap, est
+    out["stages"] = phase_stages(cfg, depth, color, device, gpu_line)
+    del depth, color
+
+    lcfg = _large_scan_config()
+    scene = _corridor()
+    poses = _large_scan_poses()
+    frames = [render_depth(p, lcfg.camera, scene, noise_sigma=0.002, seed=i,
+                           device=device) for i, p in enumerate(poses)]
+    depth = torch.stack([torch.nan_to_num(f[0], nan=0.0) for f in frames])
+    color = torch.stack([f[1] for f in frames])
+    del frames
+    mgr = streaming.AsyncStreamingManager(lcfg.map, lcfg.streaming,
+                                          device=device)
+    try:
+        run = _scan_run(lcfg, poses, depth, color, device, mgr, gpu_line,
+                        "streamed")
+    finally:
+        mgr.close()
+    del depth, color
+    snap_map, bitmask, _, pose, d, c = _stream_in_inputs(
+        lcfg, scene, run["snap"], device)
+    del run
+    base, d, c, aidx, n_act = _a_inputs(lcfg, snap_map, d, c, pose,
+                                        len(poses), bitmask)
+    out["a5"] = _device_time_a(lcfg, base, d, c, pose, aidx, n_act)
+    del base
+    out["b5"] = _device_time_b(lcfg, snap_map, *_b_inputs(lcfg, snap_map,
+                                                         pose))
+    return out
 
 
 def main() -> int:
@@ -736,60 +1135,67 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    # nvcc for the kernels and g++ for the host chunk store, side by side
+    # one nvcc per kernel source and g++ for the host chunk store, side by
+    # side
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         built = pool.submit(_build.build)
         host_lib = pool.submit(native.build)
-        path = built.result()
+        paths = built.result()
         host_path = host_lib.result()
-    _build.library()
+    for name in paths:
+        _build.library(name)
     native.library()
     print(f"kernels and host runtime built in {time.perf_counter() - t0:.1f}"
-          f" s: {path}, {host_path}")
-    log = path.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+          f" s: {', '.join(str(p) for p in paths.values())}, {host_path}")
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        if log.exists():
+            print(f"ptxas, {name}:\n{log.read_text().strip()}")
+    print(f"persistent grids: fused_integrate "
+          f"{_build.library('fused_integrate').vh_fused_integrate_grid()} "
+          f"CTAs, splat_zbuf "
+          f"{_build.library('splat_zbuf').vh_splat_zbuf_grid()} CTAs, of "
+          f"128 threads, on {torch.cuda.get_device_name(0)} "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs)")
 
     cfg = _config()
     snap, est, depth, color, launches, fps = phase_step(cfg, device,
                                                         gpu_line)
     syncs = count_syncs(cfg, snap, depth, color)
     # phases 2 and 3: the state after frame 10, frame 11's inputs
-    err_a, ms_a, plain_a, _ = check_kernel_a(cfg, snap.map, depth[11],
-                                             color[11], est[11], 11,
-                                             "kernel A")
-    err_b, ms_b, plain_b = check_kernel_b(cfg, snap.map, snap.pose,
-                                          "kernel B")
+    res_a, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
+                              11, "kernel A", gpu_line)
+    res_b = check_kernel_b(cfg, snap.map, snap.pose, "kernel B", gpu_line)
+    phase_edge_cases(cfg, snap.map, depth[11], color[11], est[11], 11)
     phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
     scan = phase_large_scan(device, gpu_line)
 
-    def scan_entry(key, name):
-        err, ms, plain_ms = scan[key]
-        return {"launches": {k: v[name] for k, v in
-                             scan["launches"].items()},
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-
-    kernels = [
-        {"name": "fused_integrate", "route": "cuda",
-         "source": "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
-         "replaces": "voxelhashing_tpu/ops/pallas_integrate.py:321",
-         "launches": launches["fused_integrate"],
-         "max_abs_err": max(err_a, scan["a"][0]),
-         "ms": ms_a, "plain_ms": plain_a,
-         "large_scan": scan_entry("a", "fused_integrate")},
-        {"name": "splat_zbuf", "route": "cuda",
-         "source": "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
-         "replaces": "voxelhashing_tpu/ops/pallas_splat.py:188",
-         "launches": launches["splat_zbuf"],
-         "max_abs_err": max(err_b, scan["b"][0]),
-         "ms": ms_b, "plain_ms": plain_b,
-         "large_scan": scan_entry("b", "splat_zbuf")},
-    ]
+    kernels = []
+    for name, key, res, source, replaces in (
+            ("fused_integrate", "a", res_a,
+             "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
+             "voxelhashing_tpu/ops/pallas_integrate.py:321"),
+            ("splat_zbuf", "b", res_b,
+             "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
+             "voxelhashing_tpu/ops/pallas_splat.py:188")):
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 **_kernel_entry(res, launches[name])}
+        entry["max_abs_err"] = max(res["max_abs_err"],
+                                   scan[key]["max_abs_err"])
+        entry["large_scan"] = _kernel_entry(
+            scan[key], {k: v[name] for k, v in scan["launches"].items()})
+        kernels.append(entry)
     fps_s, fps_u = scan["fps"]
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
-          f"large_scan_fps_unstreamed={fps_u:.3f} on {gpu_line}")
+          f"large_scan_fps_unstreamed={fps_u:.3f}; kernel A bare "
+          f"{res_a['ms']:.4f} ms ({100 * res_a['bound_share']:.1f}% of its "
+          f"bound), kernel B bare {res_b['ms']:.4f} ms "
+          f"({100 * res_b['bound_share']:.1f}%)")
+    print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

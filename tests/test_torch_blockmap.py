@@ -72,7 +72,7 @@ def _alloc(ts, js, keys, rounds=2):
 def test_allocate_matches(dup_heavy):
     rng = np.random.default_rng(1)
     js = jbm.create(CFG)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     first = _keys(rng, 1600, dup_heavy)
     ts, js = _alloc(ts, js, first)
     _same(ts, js)
@@ -94,7 +94,7 @@ def test_delete_reinsert_rehash_compact():
     compact_pool; every step identical to JAX and invariant-clean."""
     rng = np.random.default_rng(2)
     js = jbm.create(CFG)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     keys = _keys(rng, 1500)
     ts, js = _alloc(ts, js, keys)
     # give the rows data so zeroing on delete is visible
@@ -103,7 +103,7 @@ def test_delete_reinsert_rehash_compact():
     js = js._replace(weight=jnp.asarray(w, jnp.bfloat16),
                      sdf=jnp.asarray(w * 0.001, jnp.bfloat16),
                      surf=jnp.asarray((w > 0).any(axis=1)))
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
 
     allocated = np.flatnonzero(np.asarray(js.block_key) != jgeom.INVALID_KEY)
     victims = rng.choice(allocated, 300, replace=False).astype(np.int32)
@@ -139,7 +139,7 @@ def test_delete_padded_short_list(kept):
     JAX, whether no entry, row 0 or only other rows are kept."""
     rng = np.random.default_rng(3)
     js = jbm.create(CFG)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     ts, js = _alloc(ts, js, _keys(rng, 600))
     w = rng.integers(1, 3, (CFG.num_blocks, 512)).astype(np.float32)
     w[np.asarray(js.block_key) == jgeom.INVALID_KEY] = 0.0
@@ -147,7 +147,7 @@ def test_delete_padded_short_list(kept):
                      sdf=jnp.asarray(w * 0.001, jnp.bfloat16),
                      color=jnp.asarray(w.astype(np.uint32) * 0x010101),
                      surf=jnp.asarray((w > 0).any(axis=1)))
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     assert int(ts.block_key[0]) != jgeom.INVALID_KEY
     idx = np.zeros(64, np.int32)                # padding: row 0
     mask = np.zeros(64, bool)
@@ -167,7 +167,7 @@ def test_delete_padded_short_list(kept):
 def test_compactify_and_invariants_agree():
     rng = np.random.default_rng(3)
     js = jbm.create(CFG)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     ts, js = _alloc(ts, js, _keys(rng, 1000))
     from voxelhashing_tpu.config import CameraConfig
     cam = CameraConfig(width=64, height=48, fx=52.0, fy=52.0, cx=31.5,

@@ -97,7 +97,7 @@ def test_render_depth_matches_numpy(frame, noise):
     dj, cj = jsyn.render_depth(pose, cam, jscene, noise_sigma=noise,
                                seed=frame)
     dt, ct = tsyn.render_depth(pose, convert.config_from(cam), tscene,
-                               noise_sigma=noise, seed=frame)
+                               noise_sigma=noise, seed=frame, device="cpu")
     dt, ct = dt.numpy(), ct.numpy()
     assert dt.dtype == np.float32 and dt.shape == dj.shape
     cover_t, cover_j = np.isfinite(dt), np.isfinite(dj)
@@ -121,3 +121,74 @@ def test_chip_smoke_imports_only_the_port():
     roots = {n.split(".")[0] for n in names}
     assert "voxelhashing_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "voxelhashing_tpu"}, roots
+
+
+def _entry_points(tmp_path):
+    """Each public function of the port that builds tensors from nothing,
+    as a call that takes ``**device_kwargs``."""
+    from voxelhashing_tpu import blockmap as jbm, engine as jeng
+    from voxelhashing_tpu_torch import blockmap as tbm, engine as teng
+    from voxelhashing_tpu_torch import streaming as tstr
+
+    jmap = jcfg.MapConfig(num_blocks=64, table_size=256,
+                          max_active_blocks=64)
+    mp = convert.config_from(jmap)
+    ecfg = tcfg.EngineConfig(map=mp)
+    scfg = tcfg.StreamingConfig(enabled=True)
+    cam = tcfg.CameraConfig(width=32, height=24, fx=26.0, fy=26.0, cx=15.5,
+                            cy=11.5)
+    ckpt = str(tmp_path / "map.npz")
+    tstr.save_map(ckpt, tbm.create(mp, device="cpu"), mp)
+
+    def managers(cls):
+        def make(**kw):
+            m = cls(mp, scfg, out_cap=16, **kw)
+            if hasattr(m, "close"):
+                m.close()
+            return m
+        return make
+
+    return {
+        "engine.create": lambda **kw: teng.create(ecfg, **kw),
+        "blockmap.create": lambda **kw: tbm.create(mp, **kw),
+        "StreamingManager": managers(tstr.StreamingManager),
+        "AsyncStreamingManager": managers(tstr.AsyncStreamingManager),
+        "load_map": lambda **kw: tstr.load_map(ckpt, mp, **kw),
+        "bitmask_from_ids": lambda **kw: tstr.bitmask_from_ids(
+            np.array([3, 70]), 4, **kw),
+        "map_state_from_numpy": lambda **kw: convert.map_state_from_numpy(
+            jbm.create(jmap), **kw),
+        "bitmask_from_numpy": lambda **kw: convert.bitmask_from_numpy(
+            np.array([1, 2 ** 31], np.uint32), **kw),
+        "engine_state_from_numpy": lambda **kw:
+            convert.engine_state_from_numpy(
+                jeng.create(jcfg.EngineConfig(map=jmap)), **kw),
+        "render_depth": lambda **kw: tsyn.render_depth(
+            np.eye(4, dtype=np.float32), cam, tsyn.Scene(), **kw),
+    }
+
+
+ENTRY_POINTS = ("engine.create", "blockmap.create", "StreamingManager",
+                "AsyncStreamingManager", "load_map", "bitmask_from_ids",
+                "map_state_from_numpy", "bitmask_from_numpy",
+                "engine_state_from_numpy", "render_depth")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """Without a device an entry point builds on the card; without a card
+    it raises and names ``device="cpu"``, and never carries on on the CPU.
+    With ``device="cpu"`` it works."""
+    call = _entry_points(tmp_path)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call(device=None)
+    out = call(device="cpu")
+    tensors = [t for t in (out if isinstance(out, tuple) else (out,))
+               if isinstance(t, torch.Tensor)]
+    for t in tensors + [getattr(out, "bitmask", None)]:
+        if t is not None:
+            assert t.device.type == "cpu"
+    assert tcfg.resolve_device("cpu") == torch.device("cpu")

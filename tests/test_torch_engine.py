@@ -67,7 +67,7 @@ def _run_both(cfg):
     tcfg = convert.config_from(cfg)
     jstep = jeng.make_step(cfg, donate=False)
     js = jeng.create(cfg, initial_pose=poses[0])
-    ts = teng.create(tcfg, initial_pose=poses[0])
+    ts = teng.create(tcfg, initial_pose=poses[0], device="cpu")
     out = {"jpose": [], "tpose": [], "jdiag": [], "tdiag": []}
     for i, pose in enumerate(poses):
         depth, color = render_depth(pose, CAM, Scene(), noise_sigma=0.002,
@@ -114,7 +114,7 @@ def test_trajectory_replay_and_render_view_match_jax():
     poses = make_trajectory(4)
     jstep = jeng.make_step(cfg, with_hint=True, donate=False)
     js = jeng.create(cfg, initial_pose=poses[0])
-    ts = teng.create(tcfg, initial_pose=poses[0])
+    ts = teng.create(tcfg, initial_pose=poses[0], device="cpu")
     for i, pose in enumerate(poses):
         depth, color = render_depth(pose, CAM, Scene(), noise_sigma=0.002,
                                     seed=i)
@@ -166,12 +166,12 @@ def test_step_with_stream_bitmask_matches_jax(use_trajectory):
     tcfg = convert.config_from(cfg)
     words, ids = _masked_chunks_bitmask(scfg)
     jmask = jnp.asarray(words)
-    tmask = convert.bitmask_from_numpy(words)
+    tmask = convert.bitmask_from_numpy(words, device="cpu")
     poses = make_trajectory(N_FRAMES)
     jstep = jeng.make_step(cfg, with_hint=use_trajectory, donate=False,
                            with_stream_mask=True)
     js = jeng.create(cfg, initial_pose=poses[0])
-    ts = teng.create(tcfg, initial_pose=poses[0])
+    ts = teng.create(tcfg, initial_pose=poses[0], device="cpu")
     for i, pose in enumerate(poses):
         depth, color = render_depth(pose, CAM, Scene(), noise_sigma=0.002,
                                     seed=i)
@@ -179,7 +179,8 @@ def test_step_with_stream_bitmask_matches_jax(use_trajectory):
         js, jd = jstep(js, jnp.asarray(depth), jnp.asarray(color), *hint,
                        jmask)
         if i == 0:
-            unmasked, _ = teng.step(teng.create(tcfg, initial_pose=pose),
+            unmasked, _ = teng.step(teng.create(tcfg, initial_pose=pose,
+                                                device="cpu"),
                                     torch.from_numpy(depth),
                                     torch.from_numpy(color), tcfg,
                                     pose_hint=pose if use_trajectory
@@ -227,7 +228,7 @@ def test_converters_roundtrip_bit_exact():
     for i in range(2):
         depth, color = render_depth(poses[i], CAM, Scene(), seed=i)
         js, _ = jstep(js, jnp.asarray(depth), jnp.asarray(color))
-    ts = convert.engine_state_from_numpy(js)
+    ts = convert.engine_state_from_numpy(js, device="cpu")
     back = convert.engine_state_to_numpy(ts)
     for f in ("pose", "frame", "tracking_lost", "n_integrated"):
         a, b = back[f], np.asarray(getattr(js, f))

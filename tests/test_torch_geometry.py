@@ -92,7 +92,7 @@ def test_frustum_and_camera(rng):
     inside_j = jgeom.block_in_frustum(jnp.asarray(blocks), view_j, CAM, 0.02)
     _eq(inside_t, inside_j)
     assert inside_t.any() and not inside_t.all()
-    u, v = tgeom.pixel_grid(TCAM.width, TCAM.height)
+    u, v = tgeom.pixel_grid(TCAM.width, TCAM.height, device="cpu")
     uj, vj = jgeom.pixel_grid(CAM.width, CAM.height)
     _eq(u, uj)
     _eq(v, vj)

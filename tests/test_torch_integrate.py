@@ -118,7 +118,7 @@ def test_integrate_matches_xla(with_color):
                          jnp.asarray(color) if with_color else None,
                          jnp.asarray(pose), CAM, CFG, active_idx=aidx,
                          active_mask=mask)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     ts, (min_sdf, max_w) = fused_integrate(
         ts, _t(depth), _t(color) if with_color else None, _t(pose), TCAM,
         TCFG, _t(aidx), _t(n_act))
@@ -151,7 +151,7 @@ def test_garbage_collect_culls_same_set():
     js = jint.integrate(js, jnp.asarray(depth), jnp.asarray(color),
                         jnp.asarray(pose), CAM, CFG, active_idx=aidx,
                         active_mask=mask)
-    ts = convert.map_state_from_numpy(js)
+    ts = convert.map_state_from_numpy(js, device="cpu")
     ta, tm = _t(aidx), _t(mask)
     # cached stats from a second identical fusion on both sides
     js2 = jint.integrate(js, jnp.asarray(depth), jnp.asarray(color),
@@ -167,7 +167,7 @@ def test_garbage_collect_culls_same_set():
 
     js3 = jint.starve(js, aidx, mask)
     js3 = jint.garbage_collect(js3, aidx, mask, CFG)
-    ts3 = convert.map_state_from_numpy(js)
+    ts3 = convert.map_state_from_numpy(js, device="cpu")
     ts3 = tint.starve(ts3, ta, tm)
     ts3 = tint.garbage_collect(ts3, ta, tm, TCFG)
     for f in ("block_key", "table_key", "free_stack", "n_free", "surf"):
@@ -177,3 +177,38 @@ def test_garbage_collect_culls_same_set():
                                   np.asarray(js3.weight).view(np.int16))
     viol = tbm.check_invariants(ts3, TCFG)
     assert all(v == 0 for v in viol.values()), viol
+
+
+def _edge_color_frame(seed):
+    """A seeded [h,w,3] f32 frame in [0,1] with stripes of the values the
+    color word must get right: NaN, +inf, -inf, negative, -0.0, > 1,
+    exactly 1.0 and 254.5/255 in one channel, and all three exactly 1.0."""
+    rng = np.random.default_rng(seed)
+    c = rng.random((CAM.height, CAM.width, 3), dtype=np.float32)
+    vals = (np.nan, np.inf, -np.inf, -0.25, -0.0, 1.5, 1.0, 254.5 / 255.0)
+    period = len(vals) + 1
+    for g, v in enumerate(vals):
+        c[:, g::period, (g + seed) % 3] = v
+    c[:, len(vals)::period, :] = 1.0
+    c[rng.random(c.shape[:2]) < 0.01] = np.nan
+    return c
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_frame_color_word_matches_jax(seed):
+    """The port's per-pixel color word (``packed | valid << 24``, the
+    contract kernel A's in-kernel color word meets) equals the JAX
+    package's packing (``_pack_frame_color`` and the validity bit that
+    ``integrate`` folds in), bit for bit as uint32 words; depth-only gives
+    the debug green, valid."""
+    c = _edge_color_frame(seed)
+    packed, ok = jint._pack_frame_color(jnp.asarray(c))
+    ref = np.asarray(jnp.where(ok, packed | jnp.uint32(0x01000000),
+                               packed)).reshape(-1)
+    got = tint.frame_color_word(torch.from_numpy(c), TCAM, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
+    assert 0 < (ref >> 24).sum() < ref.size        # both valid and not
+    green = tint.frame_color_word(None, TCAM, device="cpu")
+    assert (green.numpy() == 0x0100FF00).all()
+    assert green.shape == (CAM.height * CAM.width,)

@@ -19,6 +19,7 @@ from voxelhashing_tpu_torch.config import CameraConfig, MapConfig
 from voxelhashing_tpu_torch.io.synthetic import (Scene, make_trajectory,
                                                  render_depth)
 from voxelhashing_tpu_torch.ops import _build
+from voxelhashing_tpu_torch.ops import fused_integrate as fa, splat_zbuf as sb
 from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
 from voxelhashing_tpu_torch.ops.splat_zbuf import splat_zbuf, splat_zbuf_plain
 
@@ -87,7 +88,10 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
-    assert _build.library_path().name.startswith("libvhtorch_")
+    assert _build.library_path("splat_zbuf").name.startswith(
+        "libvhtorch_splat_zbuf_")
+    assert {s.stem for s in _build.sources()} == {"fused_integrate",
+                                                  "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -127,3 +131,175 @@ def test_splat_zbuf_kernel_bit_identical(cuda):
     assert int(torch.isfinite(zk).sum()) > 1000
     np.testing.assert_array_equal(torch.isinf(zk).cpu().numpy(),
                                   torch.isinf(zp).cpu().numpy())
+
+
+def test_bytes_moved_hand_count():
+    """The bound's byte counts at the phase-2/3 shapes (320x240, a
+    32,768-row active list) against a hand count: 26,186 active rows read
+    53,628,928 B of sdf and weight, 8,072 surface rows 16,531,456 B."""
+    cam = CameraConfig()
+    assert 26186 * 2048 == 53628928 and 8072 * 2048 == 16531456
+    frame = 320 * 240 * (4 + 12)
+    a = fa.bytes_moved(26186, 0, 32768, cam)
+    assert a == 53628928 + frame + 26186 * 9 + 32768 * 8 + 68
+    assert fa.bytes_moved(26186, 1000, 32768, cam) == a + 12000
+    assert fa.bytes_moved(26186, 0, 32768, cam, with_color=False) \
+        == a - 320 * 240 * 12
+    b = sb.bytes_moved(8072, 32768, cam)
+    assert b == 16531456 + 8072 * 8 + 32768 + 320 * 240 * 4 + 64
+
+
+def test_operations_hand_count():
+    """The bound's f32 operation counts: 46 per voxel of an active row and
+    28 more per updated voxel for A; 3 per voxel of a surface row and 36
+    more per voxel in the surface band for B. At the phase-2/3 state both
+    stay below the time their bytes take at the card's rates."""
+    assert fa.operations(1, 0) == 46 * 512
+    assert fa.operations(26186, 1000) == 46 * 512 * 26186 + 28 * 1000
+    assert sb.operations(1, 0) == 3 * 512
+    assert sb.operations(8072, 500) == 3 * 512 * 8072 + 36 * 500
+    cam = CameraConfig()
+    every = 26186 * 512
+    assert fa.operations(26186, every) / 67e12 \
+        < fa.bytes_moved(26186, every, 32768, cam) / 3.35e12
+    assert sb.operations(8072, 8072 * 512) / 67e12 \
+        < sb.bytes_moved(8072, 32768, cam) / 3.35e12
+
+
+def _misaligned(state):
+    """``state`` with its pool rows moved 2 bytes off a 16-byte boundary
+    (contiguous views of a one-element-longer buffer)."""
+    out = {}
+    for f in ("sdf", "weight", "color"):
+        t = getattr(state, f)
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out[f] = buf[1:].view(t.shape)
+        out[f].copy_(t)
+    return state._replace(**out)
+
+
+def test_wrappers_refuse_misaligned_pools():
+    """The kernels copy rows with 16-byte bulk copies: a pool that is not
+    16-byte aligned, or an ``n_active`` that is not int32, is refused by
+    the wrappers' checks (run here on CPU tensors)."""
+    state = blockmap.create(CFG, "cpu")
+    bad = _misaligned(state)
+    assert bad.sdf.is_contiguous() and bad.sdf.data_ptr() % 16 != 0
+    aidx = torch.zeros(8, dtype=torch.int32)
+    n = torch.zeros((), dtype=torch.int32)
+    depth = torch.zeros(CAM.height, CAM.width)
+    view = torch.eye(4)
+    fa._check_inputs(state, depth, None, view, aidx, n, CAM)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_inputs(bad, depth, None, view, aidx, n, CAM)
+    with pytest.raises(ValueError, match="int32"):
+        fa._check_inputs(state, depth, None, view, aidx, n.long(), CAM)
+    mask = torch.zeros(8, dtype=torch.bool)
+    sb._check_inputs(state, aidx, mask, view)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sb._check_inputs(bad, aidx, mask, view)
+
+
+def _full_list(state):
+    idx, n = blockmap.compactify_all(state, CFG)
+    return idx[:int(n)].contiguous(), n.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_active", ["0", "1", "M"])
+def test_kernels_bit_equal_at_list_edges(cuda, n_active):
+    """Both kernels on an empty list, a one-row list and a full list
+    (n_active == M, every allocated row): bit-equal to the plain versions,
+    and rows past n_active get empty stats."""
+    state, d, c, pose, aidx, n = _scene_state(cuda)
+    if n_active == "M":
+        aidx, n = _full_list(state)
+        assert aidx.shape[0] == int(n) > 0
+    else:
+        n = torch.full((), int(n_active), dtype=torch.int32, device=cuda)
+    sk, (mn_k, mx_k) = fused_integrate(_clone(state), d, c, pose, CAM, CFG,
+                                       aidx, n)
+    sp, (mn_p, mx_p) = _plain_integrate(_clone(state), d, c, pose, aidx, n)
+    torch.cuda.synchronize()
+    for f in ("sdf", "weight", "color", "surf"):
+        assert torch.equal(_bits(getattr(sk, f)), _bits(getattr(sp, f))), f
+    assert torch.equal(mn_k, mn_p) and torch.equal(mx_k, mx_p)
+    assert torch.isinf(mn_k[int(n):]).all() and not mx_k[int(n):].any()
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    has_surf = sk.surf[aidx.long()] & mask
+    view = geom.invert_rigid(pose)
+    zk = splat_zbuf(sk, aidx, has_surf, view, CAM, CFG)
+    zp, _ = splat_zbuf_plain(sk, aidx, has_surf, view, CAM, CFG)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fused_integrate_edge_value_frame(cuda, with_color):
+    """Kernel A's in-kernel color word and depth tests on a frame with NaN,
+    +-inf, negative, -0.0, > 1, exactly 1.0 and 254.5/255 colors, and NaN,
+    0, exactly max_integration_distance and farther depth: bit-equal to
+    the plain version (and the depth-only debug green without color)."""
+    state, d, c, pose, aidx, n = _scene_state(cuda)
+    d, c = d.clone(), c.clone()
+    vals = (float("nan"), float("inf"), float("-inf"), -0.25, -0.0, 1.5,
+            1.0, 254.5 / 255.0)
+    for g, v in enumerate(vals):
+        c[:, g::len(vals) + 1, g % 3] = v
+    c[:, len(vals)::len(vals) + 1, :] = 1.0
+    far = CFG.max_integration_distance
+    for k, v in enumerate((float("nan"), 0.0, far, far + 0.25)):
+        d[k::16, :] = v
+    c = c if with_color else None
+    sk, (mn_k, mx_k) = fused_integrate(_clone(state), d, c, pose, CAM, CFG,
+                                       aidx, n)
+    sp, (mn_p, mx_p) = _plain_integrate(_clone(state), d, c, pose, aidx, n)
+    torch.cuda.synchronize()
+    for f in ("sdf", "weight", "color", "surf"):
+        assert torch.equal(_bits(getattr(sk, f)), _bits(getattr(sp, f))), f
+    assert torch.equal(mn_k, mn_p) and torch.equal(mx_k, mx_p)
+    assert bool((sk.weight != state.weight).any())
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream(cuda):
+    """``launch`` issues each kernel on the stream that is current when it
+    is called, so a CUDA graph captures it: a replay of the captured
+    launches gives the plain versions' bits."""
+    state, d, c, pose, aidx, n = _scene_state(cuda)
+    view = geom.invert_rigid(pose)
+    sk = _clone(state)
+    args_a, stats = fa.prepare(sk, d, c, view, CAM, CFG, aidx, n)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    has_surf = state.surf[aidx.long()] & mask
+    args_b, zbuf = sb.prepare(state, aidx, has_surf, view, CAM, CFG)
+    # a launch of each first, so that no module is loaded during capture
+    fused_integrate(_clone(state), d, c, pose, CAM, CFG, aidx, n)
+    splat_zbuf(state, aidx, has_surf, view, CAM, CFG)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fa.launch(args_a)
+        sb.launch(args_b)
+    graph.replay()
+    sp, (mn_p, mx_p) = _plain_integrate(_clone(state), d, c, pose, aidx, n)
+    zp, _ = splat_zbuf_plain(state, aidx, has_surf, view, CAM, CFG)
+    torch.cuda.synchronize()
+    for f in ("sdf", "weight", "color", "surf"):
+        assert torch.equal(_bits(getattr(sk, f)), _bits(getattr(sp, f))), f
+    assert torch.equal(stats[:, 0], mn_p) and torch.equal(stats[:, 1], mx_p)
+    assert torch.equal(zbuf, zp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_misaligned_pools_on_the_card(cuda):
+    state, d, c, pose, aidx, n = _scene_state(cuda)
+    bad = _misaligned(state)
+    before = (fused_integrate.launches, splat_zbuf.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_integrate(bad, d, c, pose, CAM, CFG, aidx, n)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        splat_zbuf(bad, aidx, mask, geom.invert_rigid(pose), CAM, CFG)
+    assert (fused_integrate.launches, splat_zbuf.launches) == before

@@ -76,7 +76,8 @@ def test_extract_mesh_matches_jax(scene, sphere_map):
     """Same count; triangles and colors in the JAX order within 1e-6."""
     js = sphere_map if scene == "sphere" else fused(SCENES[scene])
     jt, jc = jmesh.extract_mesh(js, CFG, MESH)
-    tt, tc = tmesh.extract_mesh(convert.map_state_from_numpy(js), TCFG,
+    tt, tc = tmesh.extract_mesh(
+        convert.map_state_from_numpy(js, device="cpu"), TCFG,
                                 TMESH)
     assert len(jt) > 100 and tt.shape == jt.shape and tt.dtype == np.float32
     np.testing.assert_allclose(tt, jt, atol=1e-6, rtol=0)
@@ -88,7 +89,7 @@ def test_extract_mesh_matches_jax(scene, sphere_map):
 def test_extract_block_range_window_matches_jax(sphere_map):
     """A window of every other allocated block (under the JAX caps) gives
     the JAX triangles and colors, in the JAX order, within 1e-6."""
-    ts = convert.map_state_from_numpy(sphere_map)
+    ts = convert.map_state_from_numpy(sphere_map, device="cpu")
     idx = torch.arange(CFG.num_blocks, dtype=torch.int32)
     mask = (ts.block_key != jbm.INVALID_KEY) & (idx % 2 == 0)
     got = tmesh.extract_block_range(ts, idx, mask, TCFG, TMESH)
@@ -160,7 +161,7 @@ def run_trajectory(mgr):
     frames = ([(np.nan_to_num(d, nan=0.0), c, np.eye(4, dtype=np.float32))]
               * 3 + [(np.zeros_like(d), np.zeros_like(c), far)]
               * (SCFG_T.out_parts + 2))
-    state = teng.create(ECFG_T, initial_pose=np.eye(4))
+    state = teng.create(ECFG_T, initial_pose=np.eye(4), device="cpu")
     for d, c, hint in frames:
         state, _ = teng.step(state, torch.from_numpy(d), torch.from_numpy(c),
                              ECFG_T, pose_hint=hint,
@@ -184,7 +185,7 @@ def test_streamed_mesh_and_checkpoint_match_unstreamed(unstreamed, async_mgr,
     checkpoint (``save_map(manager=)``) equal the unstreamed run's
     ``extract_mesh`` and ``save_map``."""
     cls = tstr.AsyncStreamingManager if async_mgr else tstr.StreamingManager
-    mgr = cls(ECFG_T.map, ECFG_T.streaming, out_cap=8192)
+    mgr = cls(ECFG_T.map, ECFG_T.streaming, out_cap=8192, device="cpu")
     state = run_trajectory(mgr)
     try:
         if async_mgr:

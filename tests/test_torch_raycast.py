@@ -72,7 +72,8 @@ def test_render_splat_matches(jstate, with_color):
     rc = RaycastConfig(mode="splat")
     out_j = jray.render_splat(jstate, jnp.asarray(pose), CAM, CFG, rc,
                               with_color=with_color)
-    out_t = tray.render_splat(convert.map_state_from_numpy(jstate),
+    out_t = tray.render_splat(
+        convert.map_state_from_numpy(jstate, device="cpu"),
                               _t(pose), TCAM, TCFG, convert.config_from(rc),
                               with_color=with_color)
     agree = _compare_depth(out_t.depth, out_j.depth)
@@ -100,7 +101,7 @@ def test_kernel_wrapper_plain_on_cpu(jstate):
     has_surf = jstate.surf[aidx] & mask
     zj, _ = jray._splat_zbuf(jstate, jstate.sdf[aidx], jstate.weight[aidx],
                              aidx, has_surf, view_j, CAM, CFG, False)
-    ts = convert.map_state_from_numpy(jstate)
+    ts = convert.map_state_from_numpy(jstate, device="cpu")
     before = splat_zbuf.launches
     zt = splat_zbuf(ts, _t(aidx), _t(has_surf), _t(np.asarray(view_j)),
                     TCAM, TCFG)

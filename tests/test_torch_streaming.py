@@ -131,10 +131,11 @@ def test_bitmask_words_match_jax():
     words = np.zeros((n_words,), np.uint32)
     np.bitwise_or.at(words, ids // 32,
                      np.uint32(1) << (ids % 32).astype(np.uint32))
-    rebuilt = tstr.bitmask_from_ids(ids, n_words)
+    rebuilt = tstr.bitmask_from_ids(ids, n_words, device="cpu")
     assert rebuilt.dtype == torch.int32 and int(rebuilt[0]) < 0
     np.testing.assert_array_equal(convert.bitmask_to_numpy(rebuilt), words)
-    assert torch.equal(convert.bitmask_from_numpy(words), rebuilt)
+    assert torch.equal(convert.bitmask_from_numpy(words, device="cpu"),
+                       rebuilt)
 
     lin = torch.from_numpy(np.concatenate([ids, ids[::-1]]).astype(np.int32))
     s = torch.sort(lin).values
@@ -160,7 +161,8 @@ def test_bitmask_words_match_jax():
                      np.uint32(1) << (pick % 32).astype(np.uint32))
     jm.bitmask = jnp.asarray(w2)
     got = tstr.mask_keys(torch.from_numpy(keys),
-                         convert.bitmask_from_numpy(w2), TCFG, TSCFG)
+                         convert.bitmask_from_numpy(w2, device="cpu"), TCFG,
+                         TSCFG)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jm.alloc_mask_keys(
                                       jnp.asarray(keys))))
@@ -171,7 +173,7 @@ def test_bitmask_words_match_jax():
                                       ((0.3, -0.2, 2.0), 1),
                                       ((0.0, 0.0, 2.0), 3)])
 def test_select_stream_out_matches_jax(fused, cam, part):
-    ts = convert.map_state_from_numpy(fused)
+    ts = convert.map_state_from_numpy(fused, device="cpu")
     for cap in (8192, 37):
         ti, tk, tc = tstr.select_stream_out(
             ts, torch.tensor(cam, dtype=torch.float32), part, TCFG, TSCFG,
@@ -204,7 +206,8 @@ def test_insert_blocks_matches_jax(fused):
                                      jnp.asarray(sdf), jnp.asarray(w),
                                      jnp.asarray(col), CFG)
     ts, tn, tpl = tstr.insert_blocks(
-        convert.map_state_from_numpy(fused), torch.from_numpy(keys),
+        convert.map_state_from_numpy(fused, device="cpu"),
+        torch.from_numpy(keys),
         torch.from_numpy(sdf), torch.from_numpy(w),
         torch.from_numpy(col.view(np.int32)), TCFG)
     assert int(tn) == int(jn) > 0
@@ -220,8 +223,8 @@ def test_stream_out_then_in_matches_jax(fused):
     phase the device map, the host store's rows and the bitmask are equal
     to JAX's."""
     jm = jstr.StreamingManager(CFG, SCFG, out_cap=8192)
-    tm = tstr.StreamingManager(TCFG, TSCFG, out_cap=8192)
-    js, ts = fused, convert.map_state_from_numpy(fused)
+    tm = tstr.StreamingManager(TCFG, TSCFG, out_cap=8192, device="cpu")
+    js, ts = fused, convert.map_state_from_numpy(fused, device="cpu")
     origin = np.zeros(3, np.float32)
     for _ in range(SCFG.out_parts):
         js, jn = jm.stream_out(js, origin)
@@ -260,11 +263,13 @@ def test_stream_in_refiles_unplaced_blocks():
     v = np.random.default_rng(0).normal(size=(32, 512)).astype(np.float32)
     col = np.zeros((32, 512), np.uint32)
     jm = jstr.StreamingManager(tiny, SCFG, out_cap=256)
-    tm = tstr.StreamingManager(convert.config_from(tiny), TSCFG, out_cap=256)
+    tm = tstr.StreamingManager(convert.config_from(tiny), TSCFG, out_cap=256,
+                               device="cpu")
     for m in (jm, tm):
         m.store.file_blocks(keys, v, np.abs(v) + 1.0, col)
     cam = np.array([0.32, 0.32, 8.0], np.float32)
-    js, ts = jbm.create(tiny), tbm.create(convert.config_from(tiny))
+    js = jbm.create(tiny)
+    ts = tbm.create(convert.config_from(tiny), device="cpu")
     moved = 0
     for _ in range(4):
         js, _ = jm.stream_in(js, cam)
@@ -317,7 +322,7 @@ def run_jax(mgr):
 
 def run_port(mgr, with_streaming=True):
     tcfg = convert.config_from(ECFG_T)
-    state = teng.create(tcfg, initial_pose=np.eye(4))
+    state = teng.create(tcfg, initial_pose=np.eye(4), device="cpu")
     for d, c, hint in trajectory_frames():
         state, _ = teng.step(state, torch.from_numpy(d), torch.from_numpy(c),
                              tcfg, pose_hint=hint,
@@ -339,13 +344,14 @@ def test_trajectory_whole_map_matches_jax(kind):
     if kind == "sync":
         jm = jstr.StreamingManager(CFG, SCFG_T, out_cap=8192)
         tm = tstr.StreamingManager(TCFG, convert.config_from(SCFG_T),
-                                   out_cap=8192)
+                                   out_cap=8192, device="cpu")
     else:
         defer = kind == "deferred"
         jm = jstr.AsyncStreamingManager(CFG, SCFG_T, out_cap=8192,
                                         defer_host=defer)
         tm = tstr.AsyncStreamingManager(TCFG, convert.config_from(SCFG_T),
-                                        out_cap=8192, defer_host=defer)
+                                        out_cap=8192, defer_host=defer,
+                                        device="cpu")
     js = run_jax(jm)
     ts = run_port(tm)
     for m in (jm, tm):
@@ -357,7 +363,7 @@ def test_trajectory_whole_map_matches_jax(kind):
     words = convert.bitmask_to_numpy(tm.bitmask)
     np.testing.assert_array_equal(words, np.asarray(jm.bitmask))
     rebuilt = tstr.bitmask_from_ids(tm.store.chunk_ids(SCFG_T.grid_dim),
-                                    len(words))
+                                    len(words), device="cpu")
     np.testing.assert_array_equal(words, convert.bitmask_to_numpy(rebuilt))
     if kind != "sync":
         tm.close()
@@ -368,8 +374,8 @@ def test_async_bitmask_over_trajectory_matches_rebuild(fused):
     async words) and back (stream-in: the words equal a rebuild from the
     store); residents plus hosted blocks stay the original set."""
     jm = jstr.AsyncStreamingManager(CFG, SCFG, out_cap=8192)
-    tm = tstr.AsyncStreamingManager(TCFG, TSCFG, out_cap=8192)
-    js, ts = fused, convert.map_state_from_numpy(fused)
+    tm = tstr.AsyncStreamingManager(TCFG, TSCFG, out_cap=8192, device="cpu")
+    js, ts = fused, convert.map_state_from_numpy(fused, device="cpu")
     n0 = int(np.sum(np.asarray(fused.block_key) != INVALID_KEY))
     for z in np.linspace(1.0, 40.0, 6):
         pos = np.array([0.0, 0.0, -z], np.float32)
@@ -391,7 +397,7 @@ def test_async_bitmask_over_trajectory_matches_rebuild(fused):
     n_dev = int(torch.sum(ts.block_key != INVALID_KEY))
     assert n_dev + tm.host_block_count() == n0
     rebuilt = tstr.bitmask_from_ids(tm.store.chunk_ids(SCFG.grid_dim),
-                                    tstr.bitmask_words(TSCFG))
+                                    tstr.bitmask_words(TSCFG), device="cpu")
     assert torch.equal(tm.bitmask, rebuilt)
     viol = tbm.check_invariants(ts, TCFG)
     assert all(v == 0 for v in viol.values()), viol
@@ -405,7 +411,8 @@ def test_checkpoints_load_across_packages(fused, tmp_path):
     pt = os.path.join(tmp_path, "torch.npz")
     poses = np.stack([np.eye(4, dtype=np.float32)] * 2)
     nj = jstr.save_map(pj, fused, CFG, poses=poses)
-    nt = tstr.save_map(pt, convert.map_state_from_numpy(fused), TCFG,
+    nt = tstr.save_map(pt, convert.map_state_from_numpy(fused, device="cpu"),
+                       TCFG,
                        poses=poses)
     assert nj == nt > 0
     za, zb = np.load(pj), np.load(pt)
@@ -415,18 +422,19 @@ def test_checkpoints_load_across_packages(fused, tmp_path):
         np.testing.assert_array_equal(za[f], zb[f])
 
     for path in (pj, pt):
-        ts, tposes = tstr.load_map(path, TCFG)
+        ts, tposes = tstr.load_map(path, TCFG, device="cpu")
         js, _ = jstr.load_map(path, CFG)
         assert_map_equal(ts, js)
         np.testing.assert_array_equal(tposes, poses)
-        tm = tstr.StreamingManager(TCFG, TSCFG)
+        tm = tstr.StreamingManager(TCFG, TSCFG, device="cpu")
         empty, _ = tstr.load_map(path, TCFG, manager=tm)
         assert int(empty.n_free) == CFG.num_blocks
         assert tm.host_block_count() == nj
         assert_rows_equal(store_rows(tm.store),
                           jstr.resident_rows(fused, CFG))
     with pytest.raises(ValueError, match="geometry"):
-        tstr.load_map(pj, dataclasses.replace(TCFG, voxel_size=0.01))
+        tstr.load_map(pj, dataclasses.replace(TCFG, voxel_size=0.01),
+                      device="cpu")
 
 
 def test_native_store_matches_py_store():
@@ -485,6 +493,6 @@ def test_native_store_raises_when_unbuildable(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
             tstr.make_chunk_store(4, 1024)
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-            tstr.StreamingManager(TCFG, TSCFG)
+            tstr.StreamingManager(TCFG, TSCFG, device="cpu")
     finally:
         native.library.cache_clear()

@@ -110,7 +110,7 @@ def test_bare_wall_lost_in_splat_mode():
         tracker=TRK, filter=FilterConfig(depth_filter=True),
         raycast=RaycastConfig(mode="splat"), use_trajectory_only_init=True)
     tcfg = config_from(cfg)
-    state = teng.create(tcfg, initial_pose=poses[0])
+    state = teng.create(tcfg, initial_pose=poses[0], device="cpu")
     diags = []
     for p in poses:
         d, c = render_depth(p, CAM, scene)

@@ -32,7 +32,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .config import MapConfig, SDF_BLOCK_SIZE, VOXELS_PER_BLOCK
+from .config import (MapConfig, SDF_BLOCK_SIZE, VOXELS_PER_BLOCK,
+                     resolve_device)
 from . import geometry as geom
 from .geometry import INVALID_KEY
 
@@ -163,8 +164,10 @@ def unpack_rgb(packed):
                         (packed & 0xFF).to(torch.float32)], dim=-1)
 
 
-def create(cfg: MapConfig, device=None) -> MapState:
-    """Fresh empty map on ``device``."""
+def create(cfg: MapConfig, device="cuda") -> MapState:
+    """Fresh empty map on ``device`` (the card unless the caller asks for
+    the CPU)."""
+    device = resolve_device(device)
     h, n = cfg.table_size, cfg.num_blocks
 
     def scalar(v):

@@ -17,6 +17,21 @@ SDF_BLOCK_SIZE = 8
 VOXELS_PER_BLOCK = SDF_BLOCK_SIZE ** 3
 
 
+def resolve_device(device="cuda"):
+    """The ``torch.device`` an entry point builds on: the card unless the
+    caller names another device (``None`` also means the card). Raises a
+    ``RuntimeError`` when the card is asked for and there is none; the CPU
+    is used only when asked for with ``device="cpu"``."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(dev)!r} but no CUDA device is available; pass "
+            f"device=\"cpu\" to run on the CPU")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class CameraConfig:
     """Pinhole intrinsics at the working resolution."""

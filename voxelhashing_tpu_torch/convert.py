@@ -51,6 +51,7 @@ def config_from(cfg):
 
 
 def _tensor(a, device, view=None):
+    device = config.resolve_device(device)
     a = np.asarray(a)
     if view is not None:
         a = a.view(view)
@@ -62,9 +63,10 @@ def _array(t, view=None):
     return a if view is None else a.view(view)
 
 
-def map_state_from_numpy(ms, device=None) -> MapState:
+def map_state_from_numpy(ms, device="cuda") -> MapState:
     """JAX ``MapState`` (leaves as numpy or anything ``np.asarray`` takes)
-    -> port ``MapState`` on ``device``."""
+    -> port ``MapState`` on ``device`` (the card unless the caller asks for
+    the CPU)."""
     return MapState(
         table_key=_tensor(ms.table_key, device),
         table_val=_tensor(ms.table_val, device),
@@ -100,7 +102,7 @@ def map_state_to_numpy(ms: MapState) -> dict:
     }
 
 
-def bitmask_from_numpy(words, device=None):
+def bitmask_from_numpy(words, device="cuda"):
     """JAX eviction bitmask (uint32 words) -> the port's int32 words, the
     same bits."""
     return _tensor(np.asarray(words, np.uint32), device, np.int32)
@@ -111,7 +113,7 @@ def bitmask_to_numpy(words) -> np.ndarray:
     return _array(words, np.uint32)
 
 
-def engine_state_from_numpy(es, device=None) -> EngineState:
+def engine_state_from_numpy(es, device="cuda") -> EngineState:
     """JAX ``EngineState`` -> port ``EngineState`` (the host frame counter
     is read from ``es.frame``)."""
     frame = _tensor(es.frame, device)

@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .config import EngineConfig
+from .config import EngineConfig, resolve_device
 from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
 from . import streaming
 from .blockmap import MapState
@@ -69,8 +69,11 @@ class FrameDiagnostics(NamedTuple):
     icp_planarity: torch.Tensor        # f32[]
 
 
-def create(cfg: EngineConfig, initial_pose=None, device=None) -> EngineState:
-    """Fresh engine state on ``device``."""
+def create(cfg: EngineConfig, initial_pose=None, device="cuda"
+           ) -> EngineState:
+    """Fresh engine state on ``device`` (the card unless the caller asks
+    for the CPU; see ``config.resolve_device``)."""
+    device = resolve_device(device)
     pose = torch.eye(4, dtype=torch.float32, device=device) \
         if initial_pose is None else torch.as_tensor(
             initial_pose, dtype=torch.float32, device=device)

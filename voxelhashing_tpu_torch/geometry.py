@@ -157,7 +157,7 @@ def block_in_frustum(block, view_matrix, cam: CameraConfig, voxel_size):
     return in_frustum_approx(centre, view_matrix, cam)
 
 
-def pixel_grid(width: int, height: int, device=None):
+def pixel_grid(width: int, height: int, device):
     """Integer pixel coordinate grids (u[h,w], v[h,w]) as float32."""
     v, u = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),

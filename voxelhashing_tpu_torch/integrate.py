@@ -222,7 +222,7 @@ def _pack_frame_color(color):
     return blockmap.pack_rgb(c), valid
 
 
-def frame_color_word(color, cam: CameraConfig, device=None):
+def frame_color_word(color, cam: CameraConfig, device):
     """Per-pixel int32 word ``packed | valid << 24`` [h*w]: one read gives
     a pixel's color and its validity. ``color=None`` (depth-only) gives
     the reference's debug green, always valid."""

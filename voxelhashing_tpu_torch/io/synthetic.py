@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import CameraConfig
+from ..config import CameraConfig, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,13 +45,15 @@ class Scene:
 
 
 def render_depth(pose, cam: CameraConfig, scene: Scene,
-                 noise_sigma: float = 0.0, seed: int = 0, device=None
+                 noise_sigma: float = 0.0, seed: int = 0, device="cuda"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depth and color of ``scene`` seen from ``pose`` on ``device``.
+    """Depth and color of ``scene`` seen from ``pose`` on ``device`` (the
+    card unless the caller asks for the CPU).
 
     Returns (depth f32[h,w] metres, NaN where invalid; color f32[h,w,3] in
     [0,1]).
     """
+    device = resolve_device(device)
     h, w = cam.height, cam.width
     f32 = torch.float32
     v, u = torch.meshgrid(torch.arange(h, dtype=f32, device=device),

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles every source into one shared library with a
-plain C interface for Hopper (``sm_90a``), in
-``build/voxelhashing_tpu_torch/`` at the repository root, named by a hash of
-the sources and flags; the library is loaded with ctypes. Nothing is
-fetched and no binary is committed. A missing ``nvcc`` or a failed build
-raises.
+At first use ``nvcc`` compiles each source into a shared library of its
+own with a plain C interface for Hopper (``sm_90a``), one ``nvcc`` per
+source, all started together, in ``build/voxelhashing_tpu_torch/`` at the
+repository root, named by the source and a hash of the sources and flags;
+each library is loaded with ctypes. Nothing is fetched and no binary is
+committed. A missing ``nvcc`` or a failed build raises.
 
 ``-fmad=false`` keeps nvcc from contracting multiply-adds, so the kernels
-round exactly like their plain PyTorch versions.
+round exactly like their plain PyTorch versions. ``-Xptxas -v`` reports
+each kernel's registers, shared memory and spills into ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 import torch
 
@@ -31,9 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# exported functions of each library: argument types (all return int)
 _SIGNATURES = {
-    "vh_fused_integrate": [_P] * 11 + [_I] * 3 + [_F] * 12 + [_I, _P],
-    "vh_splat_zbuf": [_P] * 7 + [_I] * 3 + [_F] * 7 + [_I, _P],
+    "fused_integrate": {
+        "vh_fused_integrate": [_P] * 11 + [_I] * 3 + [_F] * 12 + [_I, _P],
+        "vh_fused_integrate_grid": [],
+    },
+    "splat_zbuf": {
+        "vh_splat_zbuf": [_P] * 7 + [_I] * 3 + [_F] * 7 + [_I, _P],
+        "vh_splat_zbuf_grid": [],
+    },
 }
 
 
@@ -49,39 +58,52 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the current sources and
+    flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libvhtorch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libvhtorch_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it exists; returns its path. The
-    compiler's resource report (-Xptxas -v) is kept beside it as ``.log``."""
-    out = library_path()
-    if out.exists():
+def build() -> Dict[str, Path]:
+    """Compile every library that does not exist yet, one ``nvcc`` per
+    source, side by side; returns {name: path}. Each compiler's resource
+    report (-Xptxas -v) is kept beside its library as ``.log``."""
+    out = {src.stem: library_path(src.stem) for src in sources()}
+    todo = [(src, out[src.stem]) for src in sources()
+            if not out[src.stem].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, lib, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, lib, tmp, proc in procs:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{report}")
+            continue
+        lib.with_suffix(".log").write_text(report)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use)."""
+    lib = ctypes.CDLL(str(build()[name]))
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.vh_error_string.argtypes = [ctypes.c_int]
@@ -92,12 +114,16 @@ def library() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
-        msg = library().vh_error_string(rc).decode()
+        msg = library(what).vh_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_null(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

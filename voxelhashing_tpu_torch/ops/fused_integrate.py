@@ -10,9 +10,13 @@ the plain PyTorch version, ``integrate.integrate`` over the first
 ``n_active`` rows, for CPU tensors; any other device raises. There is no
 fallback from the kernel to the plain version.
 
-On the card the kernel is bound by the bytes it moves (8 B of pool row per
-active voxel, read and written); see the source for what its design does
-about that.
+On a CUDA tensor the wrapper inverts the pose (``geometry.invert_rigid``,
+the same bits as the plain version) and checks what the kernel assumes
+(:func:`prepare`); :func:`launch` then issues the kernel alone, which forms
+each pixel's color word from the f32 RGB frame itself. Its least time on
+the card is the larger of :func:`bytes_moved` over the memory rate and
+:func:`operations` over the f32 rate; see the source for what its design
+does about the bytes.
 """
 
 from __future__ import annotations
@@ -25,8 +29,45 @@ from .. import integrate as integ
 from ..blockmap import MapState, POOL_DTYPE
 from . import _build
 
+_POOL_ALIGN = 16      # bulk copies (TMA) need 16-byte aligned rows
 
-def _check_inputs(state: MapState, depth, word, view, active_idx, n_active,
+
+def bytes_moved(n_rows: int, n_updated: int, max_rows: int,
+                cam: CameraConfig, with_color: bool = True) -> int:
+    """The least bytes kernel A must move, each input read once and each
+    output written once: bf16 sdf and weight of every voxel of the
+    ``n_rows`` active rows (4 B); for each of the ``n_updated`` voxels its
+    color read and its sdf, weight and color written (12 B); the frame
+    (f32 depth, and f32 RGB when given); per active row its ``active_idx``
+    entry and block key read and its surface flag written; the stats of
+    all ``max_rows`` rows written (8 B each); the view matrix and
+    ``n_active`` read."""
+    pixels = cam.height * cam.width
+    row_reads = 2 * 2 * VOXELS_PER_BLOCK * n_rows
+    updated = (4 + 2 + 2 + 4) * n_updated
+    frame = pixels * 4 * (4 if with_color else 1)
+    per_row = (4 + 4 + 1) * n_rows
+    return row_reads + updated + frame + per_row + 8 * max_rows + 64 + 4
+
+
+# f32 operations per voxel, counted on the plain version (integrate.integrate)
+# with adds, multiplies, divisions, min/max, floor, abs and compares one each:
+# every voxel of an active row is placed (3) and moved into the camera (18),
+# projected (12), tested against its depth sample (8) and enters the row's
+# stats (5); an updated voxel also forms its color word (15) and its update
+# (13: the clamp, the sample weight and the weighted mean)
+_OPS_PER_VOXEL = 3 + 18 + 12 + 8 + 5
+_OPS_PER_UPDATE = 15 + 13
+
+
+def operations(n_rows: int, n_updated: int) -> int:
+    """The f32 operations kernel A must do for ``n_rows`` active rows of
+    which ``n_updated`` voxels update (the counts above)."""
+    return (_OPS_PER_VOXEL * VOXELS_PER_BLOCK * n_rows
+            + _OPS_PER_UPDATE * n_updated)
+
+
+def _check_inputs(state: MapState, depth, color, view, active_idx, n_active,
                   cam: CameraConfig):
     dev = depth.device
     n = state.block_key.shape[0]
@@ -43,17 +84,57 @@ def _check_inputs(state: MapState, depth, word, view, active_idx, n_active,
          "active_idx must be int32[M]"),
         (tuple(depth.shape) == (cam.height, cam.width)
          and depth.dtype == torch.float32, "depth must be f32[h,w]"),
-        (tuple(word.shape) == (cam.height * cam.width,),
-         "color must be [h,w,3]"),
-        (n_active.numel() == 1, "n_active must be a scalar tensor"),
+        (color is None or (tuple(color.shape) == (cam.height, cam.width, 3)
+                           and color.dtype == torch.float32),
+         "color must be f32[h,w,3] or None"),
+        (view.dtype == torch.float32 and tuple(view.shape) == (4, 4),
+         "view must be f32[4,4]"),
+        (n_active.numel() == 1 and n_active.dtype == torch.int32,
+         "n_active must be an int32 scalar tensor"),
+        (all(t.data_ptr() % _POOL_ALIGN == 0
+             for t in (state.sdf, state.weight, state.color)),
+         "pool sdf/weight/color must be 16-byte aligned"),
     ]
-    for t in (state.sdf, state.weight, state.color, state.block_key,
-              state.surf, active_idx, n_active, word, view):
+    tensors = [state.sdf, state.weight, state.color, state.block_key,
+               state.surf, active_idx, n_active, depth, view]
+    if color is not None:
+        tensors.append(color)
+    for t in tensors:
         checks.append((t.device == dev, "all tensors on one device"))
         checks.append((t.is_contiguous(), "tensors must be contiguous"))
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"fused_integrate: {msg}")
+
+
+def prepare(state: MapState, depth, color, view, cam: CameraConfig,
+            cfg: MapConfig, active_idx, n_active):
+    """Check the inputs and allocate the stats; returns (launch arguments,
+    stats f32[M,2]). Everything :func:`launch` needs is in the arguments
+    (pointers, sizes, the camera and map constants, and the device whose
+    current stream it launches on)."""
+    _check_inputs(state, depth, color, view, active_idx, n_active, cam)
+    m = active_idx.shape[0]
+    stats = torch.empty((m, 2), dtype=torch.float32, device=depth.device)
+    p = _build.ptr
+    args = (p(view), p(depth), _build.ptr_or_null(color),
+            p(state.block_key), p(active_idx), p(n_active), p(state.sdf),
+            p(state.weight), p(state.color), p(state.surf), p(stats), m,
+            cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+            cam.depth_min, cam.depth_max - cam.depth_min, cfg.voxel_size,
+            cfg.truncation, cfg.truncation_scale,
+            cfg.max_integration_distance, cfg.integration_weight_sample * 1.5,
+            cfg.integration_weight_max, cfg.world_blocks, depth.device)
+    return args, stats
+
+
+def launch(args) -> None:
+    """Launch the kernel on prepared arguments, on the current stream (the
+    only place that does; counts the launch)."""
+    *kernel_args, device = args
+    _build.check(_build.library("fused_integrate").vh_fused_integrate(
+        *kernel_args, _build.stream_ptr(device)), "fused_integrate")
+    fused_integrate.launches += 1
 
 
 def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
@@ -72,27 +153,11 @@ def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
         raise ValueError(f"fused_integrate: no kernel for {depth.device}")
     if cfg.bilinear_color:
         raise NotImplementedError(integ._BILINEAR_TODO)
-    dev = depth.device
-    view = geom.invert_rigid(pose.to(torch.float32)).contiguous()
-    word = integ.frame_color_word(color, cam, dev).contiguous()
-    depth_c = depth.contiguous()
-    _check_inputs(state, depth_c, word, view, active_idx, n_active, cam)
-    lib = _build.library()
-    m = active_idx.shape[0]
-    n_act = n_active.to(torch.int32).reshape(1)
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
-    rc = lib.vh_fused_integrate(
-        _build.ptr(view), _build.ptr(depth_c), _build.ptr(word),
-        _build.ptr(state.block_key), _build.ptr(active_idx),
-        _build.ptr(n_act), _build.ptr(state.sdf), _build.ptr(state.weight),
-        _build.ptr(state.color), _build.ptr(state.surf), _build.ptr(stats),
-        m, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
-        cam.depth_min, cam.depth_max - cam.depth_min, cfg.voxel_size,
-        cfg.truncation, cfg.truncation_scale, cfg.max_integration_distance,
-        cfg.integration_weight_sample * 1.5, cfg.integration_weight_max,
-        cfg.world_blocks, _build.stream_ptr(dev))
-    _build.check(rc, "fused_integrate")
-    fused_integrate.launches += 1
+    view = geom.invert_rigid(pose.to(torch.float32))
+    args, stats = prepare(state, depth.contiguous(),
+                          None if color is None else color.contiguous(),
+                          view, cam, cfg, active_idx, n_active)
+    launch(args)
     return state, (stats[:, 0], stats[:, 1])
 
 

@@ -8,8 +8,11 @@ plain PyTorch version (:func:`splat_zbuf_plain`, the XLA
 ``raycast._splat_zbuf`` of the JAX package) for CPU tensors; any other
 device raises. There is no fallback from the kernel to the plain version.
 
-On the card the kernel is bound by its row reads and by atomics on a
-300 KB z-buffer that stays in L2; see the source.
+On a CUDA tensor the wrapper fills the z-buffer with +inf and checks what
+the kernel assumes (:func:`prepare`); :func:`launch` issues the kernel
+alone. Its least time on the card is the larger of :func:`bytes_moved`
+over the memory rate and :func:`operations` over the f32 rate; see the
+source.
 """
 
 from __future__ import annotations
@@ -22,6 +25,36 @@ from ..blockmap import MapState, POOL_DTYPE
 from . import _build
 
 _INF_BITS = 0x7F800000
+_POOL_ALIGN = 16      # bulk copies (TMA) need 16-byte aligned rows
+
+
+def bytes_moved(n_surface_rows: int, max_rows: int,
+                cam: CameraConfig) -> int:
+    """The least bytes kernel B must move, each input read once and each
+    output written once: bf16 sdf and weight of every voxel of the
+    ``n_surface_rows`` rows (4 B); per surface row its ``active_idx``
+    entry and block key; the row mask of all ``max_rows`` rows (1 B each);
+    the z-buffer written (f32 per pixel); the view matrix."""
+    row_reads = 2 * 2 * VOXELS_PER_BLOCK * n_surface_rows
+    return (row_reads + (4 + 4) * n_surface_rows + max_rows
+            + 4 * cam.height * cam.width + 64)
+
+
+# f32 operations, counted on the plain version (splat_targets) with adds,
+# multiplies, divisions, floor, abs and compares one each: every voxel of a
+# surface row takes the band test (3); a voxel in the band is placed (3),
+# moved into the camera (18), projected (12: z_surf and two pixel
+# coordinates) and tested against the screen and the depth range (3)
+_OPS_PER_VOXEL = 3
+_OPS_PER_BAND_VOXEL = 3 + 18 + 12 + 3
+
+
+def operations(n_surface_rows: int, n_band: int) -> int:
+    """The f32 operations kernel B must do for ``n_surface_rows`` rows
+    holding ``n_band`` voxels in the surface band (w > 0, |sdf| < voxel);
+    the kernel projects only those."""
+    return (_OPS_PER_VOXEL * VOXELS_PER_BLOCK * n_surface_rows
+            + _OPS_PER_BAND_VOXEL * n_band)
 
 
 def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
@@ -35,9 +68,28 @@ def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
     Returns (zbuf f32[h*w] (+inf = empty), colbuf int32[h*w]) (colbuf all
     zero unless ``with_color``).
     """
+    p = cam.height * cam.width
+    dev = active_idx.device
+    sel, pix, z_surf, ok = splat_targets(state, active_idx, row_mask, view,
+                                         cam, cfg)
+    zbuf = torch.full((p + 1,), torch.inf, dtype=torch.float32, device=dev)
+    zbuf.scatter_reduce_(0, pix.reshape(-1), z_surf.reshape(-1), "amin",
+                         include_self=True)
+    zbuf = zbuf[:p]
+    colbuf = torch.zeros((p,), dtype=torch.int32, device=dev)
+    if with_color:
+        zhit = ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)
+        colbuf = blockmap.put(colbuf, pix, state.color[sel], zhit)
+    return zbuf, colbuf
+
+
+def splat_targets(state: MapState, active_idx, row_mask, view,
+                  cam: CameraConfig, cfg: MapConfig):
+    """Where each voxel of the rows ``active_idx[row_mask]`` lands: (pool
+    rows int64[R], pixel int64[R,512] (h*w where the voxel is dropped),
+    z_surf f32[R,512], kept bool[R,512])."""
     h, w = cam.height, cam.width
     p = h * w
-    dev = active_idx.device
     vs = cfg.voxel_size
     sel = active_idx.long()[row_mask]
     sdf = state.sdf[sel].to(torch.float32)
@@ -54,16 +106,7 @@ def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
           & (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
           & (z_surf > cam.depth_min) & (z_surf < cam.depth_max))
     pix = torch.where(ok, vi * w + ui, p).long()        # p = dropped
-
-    zbuf = torch.full((p + 1,), torch.inf, dtype=torch.float32, device=dev)
-    zbuf.scatter_reduce_(0, pix.reshape(-1), z_surf.reshape(-1), "amin",
-                         include_self=True)
-    zbuf = zbuf[:p]
-    colbuf = torch.zeros((p,), dtype=torch.int32, device=dev)
-    if with_color:
-        zhit = ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)
-        colbuf = blockmap.put(colbuf, pix, state.color[sel], zhit)
-    return zbuf, colbuf
+    return sel, pix, z_surf, ok
 
 
 def _check_inputs(state: MapState, active_idx, row_mask, view):
@@ -82,6 +125,9 @@ def _check_inputs(state: MapState, active_idx, row_mask, view):
          "row_mask must be bool[M]"),
         (view.dtype == torch.float32 and tuple(view.shape) == (4, 4),
          "view must be f32[4,4]"),
+        (all(t.data_ptr() % _POOL_ALIGN == 0
+             for t in (state.sdf, state.weight)),
+         "pool sdf/weight must be 16-byte aligned"),
     ]
     for t in (state.sdf, state.weight, state.block_key, active_idx, row_mask,
               view):
@@ -90,6 +136,32 @@ def _check_inputs(state: MapState, active_idx, row_mask, view):
     for ok, msg in checks:
         if not ok:
             raise ValueError(f"splat_zbuf: {msg}")
+
+
+def prepare(state: MapState, active_idx, row_mask, view, cam: CameraConfig,
+            cfg: MapConfig):
+    """Check the inputs and fill the z-buffer with +inf; returns (launch
+    arguments, zbuf int32[h*w] holding float bits). The arguments end with
+    the device whose current stream :func:`launch` launches on."""
+    _check_inputs(state, active_idx, row_mask, view)
+    zbuf = torch.full((cam.height * cam.width,), _INF_BITS,
+                      dtype=torch.int32, device=active_idx.device)
+    p = _build.ptr
+    args = (p(view), p(state.block_key), p(active_idx), p(row_mask),
+            p(state.sdf), p(state.weight), p(zbuf), active_idx.shape[0],
+            cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+            cam.depth_min, cam.depth_max, cfg.voxel_size, cfg.world_blocks,
+            active_idx.device)
+    return args, zbuf
+
+
+def launch(args) -> None:
+    """Launch the kernel on prepared arguments, on the current stream (the
+    only place that does; counts the launch)."""
+    *kernel_args, device = args
+    _build.check(_build.library("splat_zbuf").vh_splat_zbuf(
+        *kernel_args, _build.stream_ptr(device)), "splat_zbuf")
+    splat_zbuf.launches += 1
 
 
 def splat_zbuf(state: MapState, active_idx, row_mask, view,
@@ -102,20 +174,8 @@ def splat_zbuf(state: MapState, active_idx, row_mask, view,
                                 cfg)[0]
     if active_idx.device.type != "cuda":
         raise ValueError(f"splat_zbuf: no kernel for {active_idx.device}")
-    _check_inputs(state, active_idx, row_mask, view)
-    lib = _build.library()
-    dev = active_idx.device
-    zbuf = torch.full((cam.height * cam.width,), _INF_BITS,
-                      dtype=torch.int32, device=dev)
-    rc = lib.vh_splat_zbuf(
-        _build.ptr(view), _build.ptr(state.block_key),
-        _build.ptr(active_idx), _build.ptr(row_mask), _build.ptr(state.sdf),
-        _build.ptr(state.weight), _build.ptr(zbuf), active_idx.shape[0],
-        cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
-        cam.depth_min, cam.depth_max, cfg.voxel_size, cfg.world_blocks,
-        _build.stream_ptr(dev))
-    _build.check(rc, "splat_zbuf")
-    splat_zbuf.launches += 1
+    args, zbuf = prepare(state, active_idx, row_mask, view, cam, cfg)
+    launch(args)
     return zbuf.view(torch.float32)
 
 

@@ -30,7 +30,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import MapConfig, StreamingConfig, VOXELS_PER_BLOCK
+from .config import (MapConfig, StreamingConfig, VOXELS_PER_BLOCK,
+                     resolve_device)
 from . import blockmap, geometry as geom
 from .blockmap import MapState, POOL_DTYPE
 from .geometry import INVALID_KEY
@@ -131,8 +132,10 @@ def bitmask_delta(lin, ok, n_words: int):
     return out.scatter_add_(0, word.long(), bits)[:n_words]
 
 
-def bitmask_from_ids(ids: np.ndarray, n_words: int, device=None):
-    """Host rebuild: the bitmask with exactly the grid indices ``ids``."""
+def bitmask_from_ids(ids: np.ndarray, n_words: int, device="cuda"):
+    """Host rebuild: the bitmask with exactly the grid indices ``ids``, on
+    ``device``."""
+    device = resolve_device(device)
     words = np.zeros((n_words,), np.uint32)
     ids = np.asarray(ids, np.int64)
     if len(ids):
@@ -405,14 +408,15 @@ class StreamingManager:
     """Streaming with the host halves in line: each call returns when its
     blocks are filed or inserted.
 
-    ``device`` is where the map lives; the host store is the native one."""
+    ``device`` is where the map lives (the card unless the caller asks for
+    the CPU); the host store is the native one."""
 
     def __init__(self, cfg: MapConfig, scfg: StreamingConfig,
-                 out_cap: int = 4096, device=None):
+                 out_cap: int = 4096, device="cuda"):
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
         self.out_cap = out_cap
-        self.device = torch.device(device if device is not None else "cpu")
         self._bpc = blocks_per_chunk(cfg, scfg)
         self.store = make_chunk_store(self._bpc, cfg.world_blocks)
         self._part = 0
@@ -555,7 +559,7 @@ class AsyncStreamingManager(StreamingManager):
     _SETQ_PAD = 256          # ids per uploaded set/clear list
 
     def __init__(self, cfg: MapConfig, scfg: StreamingConfig,
-                 out_cap: int = 4096, device=None,
+                 out_cap: int = 4096, device="cuda",
                  defer_host: bool = False):
         super().__init__(cfg, scfg, out_cap, device)
         self._defer_host = defer_host
@@ -787,10 +791,11 @@ def save_map(path: str, state: MapState, cfg: MapConfig,
     return len(keys)
 
 
-def load_map(path: str, cfg: MapConfig, manager=None, device=None
+def load_map(path: str, cfg: MapConfig, manager=None, device="cuda"
              ) -> Tuple[MapState, np.ndarray]:
-    """Rebuild a map on ``device`` from a checkpoint (version and geometry
-    checked). Returns (state, poses).
+    """Rebuild a map on ``device`` (the card unless the caller asks for the
+    CPU; the manager's device when one is given) from a checkpoint (version
+    and geometry checked). Returns (state, poses).
 
     With ``manager`` the blocks go into its host store (the map on the
     device starts empty, the bitmask covers every loaded chunk, and the
@@ -802,8 +807,7 @@ def load_map(path: str, cfg: MapConfig, manager=None, device=None
     if (abs(float(z["voxel_size"]) - cfg.voxel_size) > 1e-9
             or int(z["world_blocks"]) != cfg.world_blocks):
         raise ValueError("checkpoint geometry parameters mismatch")
-    if manager is not None:
-        device = manager.device
+    device = manager.device if manager is not None else resolve_device(device)
     state = blockmap.create(cfg, device)
     keys = z["keys"]
     n = len(keys)

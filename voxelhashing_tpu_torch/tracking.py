@@ -46,7 +46,7 @@ def stats_shapes(cfg: TrackerConfig):
     return (cfg.levels, 4), (cfg.levels, max_iters)
 
 
-def empty_stats(cfg: TrackerConfig, device=None):
+def empty_stats(cfg: TrackerConfig, device):
     """Zero/NaN-filled diagnostic arrays (frame 0 / GT-trajectory mode)."""
     s_shape, c_shape = stats_shapes(cfg)
     return (torch.zeros(s_shape, dtype=torch.float32, device=device),
