@@ -27,9 +27,13 @@ and then:
    whose bits it changed as the updated ones) and the bound they give at
    3.35 TB/s and 67 TFLOP/s;
 3. does the same for kernel B (splat z-buffer) on the same state: the
-   z-buffers must be bit-identical; then holds both kernels, bit for bit,
-   on the edge cases (``phase_edge_cases``: n_active 0, 1 and M, a frame
-   of edge values, a depth-only frame);
+   z-buffers must be bit-identical; and for kernel B's color pass
+   (``check_color``), whose colors must be bit-identical to its plain
+   version's there and on a forced tie (``_with_tie``: a surface row
+   copied into a free slot with another color, listed after it, must win
+   every pixel the row hits); then holds kernels A and B, bit for bit, on
+   the edge cases (``phase_edge_cases``: n_active 0, 1 and M, a frame of
+   edge values, a depth-only frame);
 4. times each stage of ``engine.step`` (CUDA events at ``engine.STAGES``
    marks) over frames 3-19 of a second run, and the device's busy share
    over three frames (``torch.profiler`` kernel time against the same
@@ -47,7 +51,16 @@ and then:
    holds kernels A and B against their plain versions, bit for bit, on the
    state just after the first stream-in, and times them there as in 2-3;
    reports each run's frames/s on the outward leg (eviction) and on the
-   return leg (stream-in), and the host syncs of one frame.
+   return leg (stream-in), and the host syncs of one frame;
+6. runs 20 frames of phase 1's scene and configuration with RGB-D
+   tracking (weights 1.0 / 0.1, sigma 0.1, free tracking) twice
+   (``phase_rgbd``): with the march renderer (the JAX defaults: 48 samples
+   per ray, 16-pixel tiles) and with the splat renderer; each run requires
+   ATE < 10 mm, every frame valid, a clean map, kernel A on every frame,
+   kernel B and its color pass on every frame with splat and never with
+   the march, and no plain kernel version called on a CUDA tensor, and
+   reports fused frames/s over frames 2-19 (CUDA events), the per-stage
+   table of those frames and the host syncs of one frame.
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
@@ -222,14 +235,11 @@ def phase_step(cfg, device, gpu_line):
     """Phase 1: 20 frames of engine.step through both kernels."""
     import torch
     from voxelhashing_tpu_torch import blockmap, engine, evaluation
-    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
-    from voxelhashing_tpu_torch.ops.splat_zbuf import splat_zbuf
 
     poses, depth, color = _frames(cfg.camera, device)
     state = engine.create(cfg, device=device)
     torch.cuda.synchronize()
-    fused_integrate.launches = 0
-    splat_zbuf.launches = 0
+    _zero_counts()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(N_FRAMES)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(N_FRAMES)]
     diags, est, snap = [], [], None
@@ -244,8 +254,7 @@ def phase_step(cfg, device, gpu_line):
             snap = _clone_engine(state)      # outside the timed events
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_integrate": fused_integrate.launches,
-                "splat_zbuf": splat_zbuf.launches}
+    launches = _counts()
 
     valid = []
     for i, d in enumerate(diags):
@@ -282,6 +291,9 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
+    if launches["splat_color"] != 0 or launches["plain splat_zbuf on CUDA"]:
+        raise RuntimeError(f"depth-only step ran a color pass or a plain "
+                           f"version on the card: {launches}")
     return snap, est, depth, color, launches, fps
 
 
@@ -1016,6 +1028,244 @@ def _stream_in_inputs(cfg, scene, snap, device):
             torch.nan_to_num(d, nan=0.0), c)
 
 
+TIE_COLOR = 0x123456     # the forced tie's copy's packed color
+
+
+def _with_tie(cfg, map_state, aidx, has_surf):
+    """A forced color tie: a clone of ``map_state`` in which the surface
+    row with the most voxels in the band is copied into a free pool slot
+    with another color, and an active list with that slot after the last
+    surface row. Every pixel the row hits then has two voxels of bit-equal
+    z_surf, and the copy (the larger flat index) must give the color."""
+    import torch
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    st = _clone(map_state)
+    sel = aidx.long()[has_surf]
+    band = ((st.weight[sel].float() > 0.0)
+            & (st.sdf[sel].float().abs() < cfg.map.voxel_size)).sum(dim=1)
+    src = int(sel[torch.argmax(band)])
+    free = int(torch.nonzero(st.block_key == INVALID_KEY)[0])
+    for f in ("block_key", "sdf", "weight", "surf"):
+        getattr(st, f)[free] = getattr(st, f)[src]
+    st.color[free] = TIE_COLOR
+    at = int(torch.nonzero(has_surf)[-1]) + 1
+    aidx = aidx.clone()
+    aidx[at] = free
+    mask = has_surf.clone()
+    mask[at] = True
+    return st, aidx, mask
+
+
+
+def hold_color(cfg, map_state, view, aidx, has_surf, label, tie=False):
+    """The color pass (after kernel B) against its plain version
+    (``splat_zbuf_plain(with_color=True)``): z-buffers and colors
+    bit-identical; with a forced tie the copy's color must show. Returns
+    the max abs error of the color channels."""
+    import torch
+    from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color,
+                                                       splat_zbuf,
+                                                       splat_zbuf_plain)
+    cam, mp = cfg.camera, cfg.map
+    zk = splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
+    ck = splat_color(map_state, aidx, has_surf, view, cam, mp, zk)
+    zp, cp = splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp,
+                              with_color=True)
+    torch.cuda.synchronize()
+    equal = _bits_equal(zk, zp) and bool(torch.equal(ck, cp))
+    err = _max_abs(ck.contiguous(), cp)
+    colored = int((ck != 0).sum())
+    tied = int((ck == TIE_COLOR).sum())
+    print(f"{label}: surface rows {int(has_surf.sum())}, colored pixels "
+          f"{colored}/{ck.numel()}, pixels won by the tie's copy {tied}, "
+          f"bit-identical {equal}, max_abs_err {err}")
+    if not equal or colored == 0 or (tie and tied == 0):
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    return err
+
+
+def time_color(cfg, map_state, view, aidx, has_surf, label, gpu_line):
+    """The color pass's times at this state, as ``time_b``: bare launches
+    on kernel B's finished z-buffer, the wrapper and the plain version
+    (each given that z-buffer); the voxels that hit it (each reads its
+    color and issues one 64-bit atomicMax); the bytes, operations and
+    bound (``splat_zbuf.color_bytes_moved`` and ``color_operations``)."""
+    import torch
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+
+    cam, mp = cfg.camera, cfg.map
+    zbuf = sb.splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
+    args, _ = sb.prepare_color(map_state, aidx, has_surf, view, cam, mp,
+                               zbuf)
+    ms = _bare_ms(lambda: sb.launch_color(args))
+    prof_ms = _profiled_ms(lambda: sb.launch_color(args),
+                           "splat_zbuf_kernel<true>")
+    wrapper_ms = _median_ms(lambda: sb.splat_color(map_state, aidx, has_surf,
+                                                   view, cam, mp, zbuf))
+    plain_ms = _median_ms(lambda: sb.splat_color_plain(
+        map_state, aidx, has_surf, view, cam, mp, zbuf))
+    _, pix, z_surf, ok = sb.splat_targets(map_state, aidx, has_surf, view,
+                                          cam, mp)
+    p = cam.height * cam.width
+    hits = int((ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)).sum())
+    n_surf = int(has_surf.sum())
+    band = _band_voxels(cfg, map_state, aidx, has_surf)
+    nbytes = sb.color_bytes_moved(n_surf, hits, aidx.shape[0], cam)
+    nops = sb.color_operations(n_surf, band)
+    bound, by = _bound(nbytes, nops)
+    print(f"{label}: bare {ms:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
+          f"graph; torch.profiler {_fmt(prof_ms)} ms), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; {n_surf} surface "
+          f"rows, {band} voxels in the band, {hits} hit the z-buffer and "
+          f"issue {hits} atomics; {nbytes} B at {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s, {nops} f32 operations at {F32_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s: bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% "
+          f"of it; library: none (no single PyTorch call); on {gpu_line}")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+            "profiler_ms": prof_ms, "rows": n_surf, "band_voxels": band,
+            "hits": hits, "bytes": nbytes, "operations": nops}
+
+
+def check_color(cfg, map_state, pose, label, gpu_line):
+    """The color pass held bit for bit against its plain version at this
+    state and with a forced tie, then timed. Returns the result dict."""
+    view, aidx, has_surf = _b_inputs(cfg, map_state, pose)
+    err = hold_color(cfg, map_state, view, aidx, has_surf, label)
+    tie_map, tie_aidx, tie_mask = _with_tie(cfg, map_state, aidx, has_surf)
+    err = max(err, hold_color(cfg, tie_map, view, tie_aidx, tie_mask,
+                              f"{label}, forced tie", tie=True))
+    del tie_map
+    res = time_color(cfg, map_state, view, aidx, has_surf, label, gpu_line)
+    res["max_abs_err"] = err
+    return res
+
+
+# phase 6: the march renderer and RGB-D tracking
+def _rgbd_config(mode):
+    """The bench point of ``_config`` with RGB-D tracking (weights 1.0 /
+    0.1, sigma 0.1) and the ``mode`` renderer, every other raycast and
+    tracker field at the JAX package's default (march: 48 samples, 16-pixel
+    tiles, ray factors 0.8 / 50.5 / 50.0, no gradient normals)."""
+    import dataclasses
+    from voxelhashing_tpu_torch.config import RaycastConfig, TrackerConfig
+    return dataclasses.replace(_config(), raycast=RaycastConfig(mode=mode),
+                               tracker=TrackerConfig(use_rgbd=True))
+
+
+def _counts():
+    """The kernels' launch counts and the plain versions' calls on CUDA
+    tensors, by name."""
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+    return {"fused_integrate": fused_integrate.launches,
+            "splat_zbuf": sb.splat_zbuf.launches,
+            "splat_color": sb.splat_color.launches,
+            "plain splat_zbuf on CUDA": sb.splat_zbuf_plain.cuda_calls,
+            "plain splat_color on CUDA": sb.splat_color_plain.cuda_calls}
+
+
+def _zero_counts():
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+    fused_integrate.launches = 0
+    sb.splat_zbuf.launches = sb.splat_color.launches = 0
+    sb.splat_zbuf_plain.cuda_calls = sb.splat_color_plain.cuda_calls = 0
+
+
+def phase_rgbd(mode, device, gpu_line):
+    """Phase 6, one configuration: 20 frames of ``engine.step`` with RGB-D
+    tracking and the ``mode`` renderer on the bench scene (free tracking).
+    Requires ATE < 10 mm, every frame valid, a clean map, kernel A on
+    every frame, kernel B and its color pass on every frame in splat mode
+    and never in march mode, and no plain version called on a CUDA tensor.
+    Reports fused frames/s over frames 2-19 (CUDA events), the per-stage
+    table of the same frames (CUDA events at the ``engine.STAGES`` marks)
+    and the host syncs of one frame. Returns a dict of the numbers."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap, engine, evaluation
+
+    cfg = _rgbd_config(mode)
+    label = f"{mode} + RGB-D"
+    poses, depth, color = _frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    events, diags, est, snap = [], [], [], None
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for i in range(N_FRAMES):
+        marks = []
+
+        def mark(stage, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        mark("start")
+        state, diag = engine.step(state, depth[i], color[i], cfg, mark=mark)
+        mark("end")
+        events.append(marks)
+        diags.append(diag)
+        est.append(state.pose.clone())
+        if i == 10:
+            snap = _clone_engine(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+
+    valid = [bool(d.tracking_valid) for d in diags]
+    for i, d in enumerate(diags):
+        print(f"{label} frame {i:2d}: valid={valid[i]} "
+              f"alloc={int(d.n_allocated_blocks)} "
+              f"active={int(d.n_active_blocks)} "
+              f"icp_res={float(d.icp_residual):.3e} "
+              f"corr={int(d.icp_corr_count)} "
+              f"cond={float(d.icp_condition):.1f} "
+              f"planarity={float(d.icp_planarity):.1f} "
+              f"ms={events[i][0][1].elapsed_time(events[i][-1][1]):.3f}")
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses)
+    viol = blockmap.check_invariants(state.map, cfg.map)
+    timed = range(2, N_FRAMES)
+    dev_ms = sum(events[i][0][1].elapsed_time(events[i][-1][1])
+                 for i in timed)
+    fps = len(timed) / (dev_ms / 1000.0)
+    stages = collections.defaultdict(float)
+    for i in timed:
+        for (_, a), (stage, b) in zip(events[i], events[i][1:-1]):
+            stages[stage] += a.elapsed_time(b) / len(timed)
+    syncs = count_syncs(cfg, snap, depth, color)
+    print(f"{label}: ATE RMSE {ate * 1000:.3f} mm (limit "
+          f"{ATE_LIMIT_M * 1000} mm), valid frames {sum(valid)}, "
+          f"invariants {viol}, counts {counts}")
+    print(f"{label}: fused frames/s (frames 2-{N_FRAMES - 1}, CUDA events) "
+          f"{fps:.3f} on {gpu_line}; whole {N_FRAMES}-frame loop "
+          f"{wall:.3f} s host clock; host syncs of one frame {syncs}")
+    total = sum(stages.values())
+    print(f"{label}: stages, ms/frame over frames 2-{N_FRAMES - 1} (CUDA "
+          f"events between engine.step marks; the render stage is the "
+          f"{mode}) on {gpu_line}:")
+    for stage in engine.STAGES:
+        print(f"  {stage:10s} {stages[stage]:9.3f} ms "
+              f"{100 * stages[stage] / total:6.1f}%")
+    print(f"  {'total':10s} {total:9.3f} ms")
+
+    splat = mode == "splat"
+    want = {"fused_integrate": N_FRAMES,
+            "splat_zbuf": N_FRAMES if splat else 0,
+            "splat_color": N_FRAMES if splat else 0,
+            "plain splat_zbuf on CUDA": 0, "plain splat_color on CUDA": 0}
+    if ate >= ATE_LIMIT_M:
+        raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
+    if not all(valid):
+        raise RuntimeError(f"{label}: frames lost: {valid}")
+    if any(v != 0 for v in viol.values()):
+        raise RuntimeError(f"{label}: map invariants violated: {viol}")
+    if counts != want:
+        raise RuntimeError(f"{label}: counts {counts}, expected {want}")
+    return {"fps": fps, "ate_mm": ate * 1000, "syncs": syncs,
+            "stages": dict(stages), "counts": counts}
+
+
 def _kernel_entry(res, launches):
     """One kernel's numbers in the kernels JSON line."""
     return {"launches": launches, "max_abs_err": res["max_abs_err"],
@@ -1154,7 +1404,9 @@ def main() -> int:
     print(f"persistent grids: fused_integrate "
           f"{_build.library('fused_integrate').vh_fused_integrate_grid()} "
           f"CTAs, splat_zbuf "
-          f"{_build.library('splat_zbuf').vh_splat_zbuf_grid()} CTAs, of "
+          f"{_build.library('splat_zbuf').vh_splat_zbuf_grid()} CTAs, "
+          f"splat_color "
+          f"{_build.library('splat_zbuf').vh_splat_color_grid()} CTAs, of "
           f"128 threads, on {torch.cuda.get_device_name(0)} "
           f"({torch.cuda.get_device_properties(0).multi_processor_count} "
           f"SMs)")
@@ -1167,34 +1419,52 @@ def main() -> int:
     res_a, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
                               11, "kernel A", gpu_line)
     res_b = check_kernel_b(cfg, snap.map, snap.pose, "kernel B", gpu_line)
+    res_c = check_color(cfg, snap.map, snap.pose, "color pass", gpu_line)
     phase_edge_cases(cfg, snap.map, depth[11], color[11], est[11], 11)
     phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
     scan = phase_large_scan(device, gpu_line)
+    rgbd = {mode: phase_rgbd(mode, device, gpu_line)
+            for mode in ("march", "splat")}
 
+    by_path = {name: {"step": launches.get(name, 0),
+                      **{f"{mode}_rgbd": r["counts"][name]
+                         for mode, r in rgbd.items()}}
+               for name in ("fused_integrate", "splat_zbuf", "splat_color")}
     kernels = []
-    for name, key, res, source, replaces in (
+    for name, key, res, source, replaces, path in (
             ("fused_integrate", "a", res_a,
              "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
-             "voxelhashing_tpu/ops/pallas_integrate.py:321"),
+             "voxelhashing_tpu/ops/pallas_integrate.py:321", "step"),
             ("splat_zbuf", "b", res_b,
              "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
-             "voxelhashing_tpu/ops/pallas_splat.py:188")):
+             "voxelhashing_tpu/ops/pallas_splat.py:188", "step"),
+            # no TPU kernel: the XLA color pass of raycast._splat_zbuf
+            ("splat_color", None, res_c,
+             "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
+             "voxelhashing_tpu/raycast.py:437", "splat_rgbd")):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 **_kernel_entry(res, launches[name])}
-        entry["max_abs_err"] = max(res["max_abs_err"],
-                                   scan[key]["max_abs_err"])
-        entry["large_scan"] = _kernel_entry(
-            scan[key], {k: v[name] for k, v in scan["launches"].items()})
+                 **_kernel_entry(res, by_path[name][path]),
+                 "launches_by_path": by_path[name]}
+        if key is not None:
+            entry["max_abs_err"] = max(res["max_abs_err"],
+                                       scan[key]["max_abs_err"])
+            entry["large_scan"] = _kernel_entry(
+                scan[key], {k: v[name] for k, v in scan["launches"].items()})
         kernels.append(entry)
     fps_s, fps_u = scan["fps"]
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
-          f"large_scan_fps_unstreamed={fps_u:.3f}; kernel A bare "
+          f"large_scan_fps_unstreamed={fps_u:.3f} "
+          f"march_rgbd_fps={rgbd['march']['fps']:.3f} "
+          f"march_rgbd_render_ms={rgbd['march']['stages']['render']:.3f} "
+          f"splat_rgbd_fps={rgbd['splat']['fps']:.3f}; kernel A bare "
           f"{res_a['ms']:.4f} ms ({100 * res_a['bound_share']:.1f}% of its "
           f"bound), kernel B bare {res_b['ms']:.4f} ms "
-          f"({100 * res_b['bound_share']:.1f}%)")
+          f"({100 * res_b['bound_share']:.1f}%), color pass bare "
+          f"{res_c['ms']:.4f} ms ({100 * res_c['bound_share']:.1f}%); on "
+          f"{gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

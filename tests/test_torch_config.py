@@ -62,11 +62,22 @@ def test_config_from_converts_and_refuses_unported():
     assert dataclasses.asdict(out.streaming) == dataclasses.asdict(
         cfg.streaming)
     assert dataclasses.asdict(out.mesh) == dataclasses.asdict(cfg.mesh)
-    for bad in (dataclasses.replace(cfg, raycast=jcfg.RaycastConfig(
-                    num_samples=8)),
-                jcfg.TrackerConfig(weight_color=0.5)):
-        with pytest.raises(ValueError, match="not ported"):
-            convert.config_from(bad)
+    # the march renderer's and RGB-D tracking's fields convert
+    rc = jcfg.RaycastConfig(mode="march", num_samples=8, use_gradients=True,
+                            refine_trilinear=True, splat_tile=4)
+    tk = jcfg.TrackerConfig(use_rgbd=True, weight_color=0.5,
+                            color_sigma=0.2)
+    out = convert.config_from(dataclasses.replace(cfg, raycast=rc,
+                                                  tracker=tk))
+    assert dataclasses.asdict(out.raycast) == dataclasses.asdict(rc)
+    assert dataclasses.asdict(out.tracker) == dataclasses.asdict(tk)
+    assert out.raycast.derived(out.map) == rc.derived(cfg.map)
+    # a field the port does not have is refused unless at its default
+    future = dataclasses.make_dataclass(
+        "MeshConfig", [("max_triangles", int, 10), ("future_knob", int, 0)])
+    assert convert.config_from(future()) == tcfg.MeshConfig(max_triangles=10)
+    with pytest.raises(ValueError, match="not ported"):
+        convert.config_from(future(future_knob=1))
 
 
 def test_trajectory_and_ate_match():

@@ -4,7 +4,8 @@ engine, on ``tests/test_engine.py``'s 160x120 configuration.
 Tolerances: 6 frames through both steps give the same valid flags and
 poses within 1e-4; the port's ATE stays below 10 mm; its allocated-block
 count is within 0.5% of JAX's (allocation order follows the poses, which
-agree only to float tolerance); the map invariants are all zero. Offline
+agree only to float tolerance); the map invariants are all zero. The
+same bounds hold for the march renderer and RGB-D tracking at 80x60. Offline
 with a streaming eviction bitmask, 6 frames give poses within 1e-5 and
 equal maps: the hash table, pool keys, free stack, weights and colors bit
 for bit, sdf within 1 mm on under 0.05% of the voxels. The
@@ -50,6 +51,8 @@ CFG = EngineConfig(
 )
 TCFG = convert.config_from(CFG)
 N_FRAMES = 6
+CAM_SMALL = CameraConfig(width=80, height=60, fx=65.0, fy=65.0, cx=39.5,
+                         cy=29.5)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,8 +73,8 @@ def _run_both(cfg):
     ts = teng.create(tcfg, initial_pose=poses[0], device="cpu")
     out = {"jpose": [], "tpose": [], "jdiag": [], "tdiag": []}
     for i, pose in enumerate(poses):
-        depth, color = render_depth(pose, CAM, Scene(), noise_sigma=0.002,
-                                    seed=i)
+        depth, color = render_depth(pose, cfg.camera, Scene(),
+                                    noise_sigma=0.002, seed=i)
         js, jd = jstep(js, jnp.asarray(depth), jnp.asarray(color))
         ts, td = teng.step(ts, torch.from_numpy(depth),
                            torch.from_numpy(color), tcfg)
@@ -102,6 +105,34 @@ def test_step_matches_jax(offline):
     assert all(v == 0 for v in viol.values()), viol
     if offline:
         assert all(int(td.alloc_missed) == 0 for td in out["tdiag"])
+
+
+@pytest.mark.parametrize("mode,rgbd", [("march", False), ("splat", True),
+                                       ("march", True)])
+def test_step_render_and_tracking_modes_match_jax(mode, rgbd):
+    """The march renderer and RGB-D tracking (JAX defaults: 48 samples,
+    16-pixel tiles, weights 1.0 / 0.1, sigma 0.1) through 6 online frames
+    at 80x60 (the march samples every ray 48 times): the same bounds as
+    :func:`test_step_matches_jax`, and the planarity probe is 0 on every
+    RGB-D frame."""
+    cfg = dataclasses.replace(
+        CFG, camera=CAM_SMALL, raycast=RaycastConfig(mode=mode),
+        tracker=dataclasses.replace(CFG.tracker, use_rgbd=rgbd))
+    poses, js, ts, out = _run_both(cfg)
+    for jd, td in zip(out["jdiag"], out["tdiag"]):
+        assert bool(td.tracking_valid) == bool(jd.tracking_valid)
+        assert (float(td.icp_planarity) == 0.0) == rgbd
+    assert all(bool(td.tracking_valid) for td in out["tdiag"])
+    for jp, tp in zip(out["jpose"], out["tpose"]):
+        np.testing.assert_allclose(tp, jp, atol=1e-4, rtol=0)
+    assert tev.ate_rmse(out["tpose"], poses) < 0.01
+    n_j = int(out["jdiag"][-1].n_allocated_blocks)
+    n_t = int(out["tdiag"][-1].n_allocated_blocks)
+    assert abs(n_t - n_j) <= 0.005 * n_j, (n_t, n_j)
+    assert int(out["tdiag"][-1].splat_overflow) == int(
+        out["jdiag"][-1].splat_overflow)
+    viol = tbm.check_invariants(ts.map, convert.config_from(cfg.map))
+    assert all(v == 0 for v in viol.values()), viol
 
 
 def test_trajectory_replay_and_render_view_match_jax():
@@ -254,7 +285,8 @@ def test_import_leaves_jax_out():
             "voxelhashing_tpu_torch.convert, voxelhashing_tpu_torch.ops."
             "fused_integrate, voxelhashing_tpu_torch.ops.splat_zbuf, "
             "voxelhashing_tpu_torch.ops._build, voxelhashing_tpu_torch."
-            "evaluation, voxelhashing_tpu_torch.io.synthetic; "
+            "evaluation, voxelhashing_tpu_torch.io.synthetic, "
+            "voxelhashing_tpu_torch.render, voxelhashing_tpu_torch.run_slam; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'voxelhashing_tpu'}))")
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -21,7 +21,10 @@ from voxelhashing_tpu_torch.io.synthetic import (Scene, make_trajectory,
 from voxelhashing_tpu_torch.ops import _build
 from voxelhashing_tpu_torch.ops import fused_integrate as fa, splat_zbuf as sb
 from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
-from voxelhashing_tpu_torch.ops.splat_zbuf import splat_zbuf, splat_zbuf_plain
+from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color,
+                                                   splat_color_plain,
+                                                   splat_zbuf,
+                                                   splat_zbuf_plain)
 
 CAM = CameraConfig(width=128, height=96, fx=104.0, fy=104.0, cx=63.5,
                    cy=47.5)
@@ -77,10 +80,12 @@ def test_wrappers_refuse_other_devices():
         fused_integrate(state, depth, None, torch.eye(4, device=meta), CAM,
                         CFG, aidx, torch.zeros((), dtype=torch.int32,
                                                device=meta))
+    mask = torch.zeros(8, dtype=torch.bool, device=meta)
     with pytest.raises(ValueError, match="no kernel"):
-        splat_zbuf(state, aidx, torch.zeros(8, dtype=torch.bool,
-                                            device=meta),
-                   torch.eye(4, device=meta), CAM, CFG)
+        splat_zbuf(state, aidx, mask, torch.eye(4, device=meta), CAM, CFG)
+    with pytest.raises(ValueError, match="no kernel"):
+        splat_color(state, aidx, mask, torch.eye(4, device=meta), CAM, CFG,
+                    depth.reshape(-1))
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -133,6 +138,56 @@ def test_splat_zbuf_kernel_bit_identical(cuda):
                                   torch.isinf(zp).cpu().numpy())
 
 
+def _with_tie(state, aidx, n, has_surf):
+    """A copy of ``state`` in which the surface row with the most voxels in
+    the band is copied into a free pool slot with another color, and an
+    active list with that slot after the last active row: every pixel the
+    row hits gets a tie of bit-equal z_surf, which the copy (the larger
+    flat index) must win."""
+    state = _clone(state)
+    sel = aidx.long()[has_surf]
+    band = ((state.weight[sel].float() > 0)
+            & (state.sdf[sel].float().abs() < CFG.voxel_size)).sum(dim=1)
+    src = int(sel[torch.argmax(band)])
+    free = int(torch.nonzero(state.block_key == geom.INVALID_KEY)[0])
+    for f in ("block_key", "sdf", "weight", "surf"):
+        getattr(state, f)[free] = getattr(state, f)[src]
+    state.color[free] = 0x123456
+    aidx = aidx.clone()
+    aidx[int(n)] = free
+    mask = torch.arange(aidx.shape[0], device=aidx.device) <= int(n)
+    return state, aidx, state.surf[aidx.long()] & mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", [False, True])
+def test_splat_color_kernel_bit_equal(cuda, tie):
+    """The color pass after kernel B, bit-equal to its plain version, also
+    where a forced tie decides the color; the plain versions are never
+    called on the card by the wrappers."""
+    state, _, _, pose, aidx, n = _scene_state(cuda)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    has_surf = state.surf[aidx.long()] & mask
+    if tie:
+        state, aidx, has_surf = _with_tie(state, aidx, n, has_surf)
+    view = geom.invert_rigid(pose)
+    before = (splat_color.launches, splat_zbuf_plain.cuda_calls,
+              splat_color_plain.cuda_calls)
+    zk = splat_zbuf(state, aidx, has_surf, view, CAM, CFG)
+    ck = splat_color(state, aidx, has_surf, view, CAM, CFG, zk)
+    torch.cuda.synchronize()
+    assert (splat_color.launches, splat_zbuf_plain.cuda_calls,
+            splat_color_plain.cuda_calls) == (before[0] + 1, *before[1:])
+    zp, cp = splat_zbuf_plain(state, aidx, has_surf, view, CAM, CFG,
+                              with_color=True)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(ck, cp)
+    assert torch.equal(ck, splat_color_plain(state, aidx, has_surf, view,
+                                             CAM, CFG, zk))
+    assert int((ck != 0).sum()) > 1000
+    assert bool((ck == 0x123456).any()) == tie
+
+
 def test_bytes_moved_hand_count():
     """The bound's byte counts at the phase-2/3 shapes (320x240, a
     32,768-row active list) against a hand count: 26,186 active rows read
@@ -147,6 +202,8 @@ def test_bytes_moved_hand_count():
         == a - 320 * 240 * 12
     b = sb.bytes_moved(8072, 32768, cam)
     assert b == 16531456 + 8072 * 8 + 32768 + 320 * 240 * 4 + 64
+    assert sb.color_bytes_moved(8072, 90000, 32768, cam) \
+        == b + 4 * 90000 + 320 * 240 * 4
 
 
 def test_operations_hand_count():
@@ -158,6 +215,7 @@ def test_operations_hand_count():
     assert fa.operations(26186, 1000) == 46 * 512 * 26186 + 28 * 1000
     assert sb.operations(1, 0) == 3 * 512
     assert sb.operations(8072, 500) == 3 * 512 * 8072 + 36 * 500
+    assert sb.color_operations(8072, 500) == 3 * 512 * 8072 + 37 * 500
     cam = CameraConfig()
     every = 26186 * 512
     assert fa.operations(26186, every) / 67e12 \

@@ -5,7 +5,9 @@ Tolerance: coverage identical apart from at most 1e-4 of the pixels (a
 projection exactly on a pixel boundary may round the other way); depth
 and points within 1e-5 m elsewhere; normals, central differences of the
 points, within 1e-3 on 99.9% of the pixels where both are valid (a pixel
-whose depth differs changes its neighbours' differences).
+whose depth differs changes its neighbours' differences). Color ties are
+decided by one rule, checked exactly: the largest flat index (active-list
+position * 512 + voxel) gives the pixel its color.
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ from voxelhashing_tpu import blockmap as jbm, geometry as jgeom
 from voxelhashing_tpu import integrate as jint, raycast as jray
 from voxelhashing_tpu.config import CameraConfig, MapConfig, RaycastConfig
 from voxelhashing_tpu.io.synthetic import Scene, make_trajectory, render_depth
-from voxelhashing_tpu_torch import convert, raycast as tray
+from voxelhashing_tpu_torch import blockmap as tbm, convert, raycast as tray
+from voxelhashing_tpu_torch import geometry as tgeom
+from voxelhashing_tpu_torch.ops import splat_zbuf as sb
 from voxelhashing_tpu_torch.ops.splat_zbuf import splat_zbuf
 
 CAM = CameraConfig(width=128, height=96, fx=104.0, fy=104.0, cx=63.5,
@@ -111,3 +115,45 @@ def test_kernel_wrapper_plain_on_cpu(jstate):
     assert (np.isfinite(zt) != np.isfinite(zj)).mean() <= 1e-4
     both = np.isfinite(zt) & np.isfinite(zj)
     assert (np.abs(zt[both] - zj[both]) > 1e-5).mean() <= 1e-4
+
+
+def test_color_tie_goes_to_largest_flat_index(jstate):
+    """A surface row copied into a free pool slot with another color gives
+    bit-equal z_surf ties at every pixel the row hits. Listed after the
+    original, the copy's color wins every such pixel and no other; listed
+    before it, nothing changes. The wrapper (CPU: the plain color pass)
+    and ``splat_zbuf_plain(with_color=True)`` agree."""
+    ts = convert.map_state_from_numpy(jstate, device="cpu")
+    view = tgeom.invert_rigid(_t(POSES[3]))
+    aidx, n, _ = tbm.compactify(ts, view, TCAM, TCFG)
+    n = int(n)
+    surf = ts.surf[aidx.long()] & (torch.arange(aidx.shape[0]) < n)
+    zbuf, col0 = sb.splat_zbuf_plain(ts, aidx, surf, view, TCAM, TCFG,
+                                     with_color=True)
+    # the surface row with the most hits
+    pos, pix, z_surf, ok = sb.splat_targets(ts, aidx, surf, view, TCAM,
+                                            TCFG)
+    hits = ok & (zbuf[torch.clamp(pix, 0, zbuf.shape[0] - 1)] == z_surf)
+    r = int(pos[torch.argmax(hits.sum(dim=1))])
+    hit_pix = torch.unique(pix[pos == r][hits[pos == r]])
+    assert hit_pix.numel() > 5
+    src = int(aidx[r])
+    free = int(torch.nonzero(ts.block_key == tgeom.INVALID_KEY)[0])
+    for f in ("block_key", "sdf", "weight", "surf"):
+        getattr(ts, f)[free] = getattr(ts, f)[src]
+    ts.color[free] = 0x123456
+    for at, changed in ((n, True), (int(torch.nonzero(~surf[:r])[0]), False)):
+        a2 = aidx.clone()
+        a2[at] = free
+        s2 = ts.surf[a2.long()] & (torch.arange(a2.shape[0]) < max(n, at + 1))
+        z2, col = sb.splat_zbuf_plain(ts, a2, s2, view, TCAM, TCFG,
+                                      with_color=True)
+        assert torch.equal(z2.view(torch.int32), zbuf.view(torch.int32))
+        assert torch.equal(sb.splat_color(ts, a2, s2, view, TCAM, TCFG, z2),
+                           col)
+        diff = torch.nonzero(col != col0).reshape(-1)
+        if changed:
+            assert torch.equal(diff, hit_pix)
+            assert (col[hit_pix] == 0x123456).all()
+        else:
+            assert diff.numel() == 0

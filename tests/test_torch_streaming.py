@@ -83,6 +83,20 @@ def store_rows(store):
     return store.peek_chunks(store.chunk_coords())
 
 
+def pin_stores(kind, jm, tm):
+    """Give both managers one kind of host store, so that their pop orders
+    agree: "python" pins both to the Python stores; "native" keeps the
+    native ones, unless the JAX manager fell back to its Python store (its
+    host library did not load), and then the port gets its Python store
+    too."""
+    if kind == "python" or isinstance(jm.store, jstr.PyChunkStore):
+        jm.store = jstr.PyChunkStore(jm._bpc, jm.cfg.world_blocks)
+        tm.store = tstr.make_chunk_store(tm._bpc, tm.cfg.world_blocks,
+                                         native=False)
+    assert isinstance(jm.store, jstr.PyChunkStore) == isinstance(
+        tm.store, tstr.PyChunkStore)
+
+
 def random_keys(rng, n):
     blocks = rng.integers(-200, 200, size=(n, 3)).astype(np.int32)
     keys = np.array(jgeom.pack_block_key(jnp.asarray(blocks), 1024))
@@ -217,13 +231,15 @@ def test_insert_blocks_matches_jax(fused):
     assert all(v == 0 for v in viol.values()), viol
 
 
-def test_stream_out_then_in_matches_jax(fused):
-    """Sync managers on both sides: evict the wall (four sweep parts),
-    then sweep the camera across it until everything is back. After each
-    phase the device map, the host store's rows and the bitmask are equal
-    to JAX's."""
+@pytest.mark.parametrize("kind", ["native", "python"])
+def test_stream_out_then_in_matches_jax(fused, kind):
+    """Sync managers on both sides, on one kind of host store
+    (:func:`pin_stores`): evict the wall (four sweep parts), then sweep the
+    camera across it until everything is back. After each phase the device
+    map, the host store's rows and the bitmask are equal to JAX's."""
     jm = jstr.StreamingManager(CFG, SCFG, out_cap=8192)
     tm = tstr.StreamingManager(TCFG, TSCFG, out_cap=8192, device="cpu")
+    pin_stores(kind, jm, tm)
     js, ts = fused, convert.map_state_from_numpy(fused, device="cpu")
     origin = np.zeros(3, np.float32)
     for _ in range(SCFG.out_parts):
@@ -253,9 +269,11 @@ def test_stream_out_then_in_matches_jax(fused):
     assert all(v == 0 for v in viol.values()), viol
 
 
-def test_stream_in_refiles_unplaced_blocks():
+@pytest.mark.parametrize("kind", ["native", "python"])
+def test_stream_in_refiles_unplaced_blocks(kind):
     """A 32-block chunk into a 16-block pool: 16 land, 16 go back to the
-    host store; nothing is lost, and the map equals JAX's."""
+    host store; nothing is lost, and the map equals JAX's (both on one kind
+    of host store, :func:`pin_stores`)."""
     tiny = dataclasses.replace(CFG, num_blocks=16, table_size=64)
     blocks = jnp.asarray([[i % 4, (i // 4) % 4, 48 + i // 16]
                           for i in range(32)], jnp.int32)
@@ -265,6 +283,7 @@ def test_stream_in_refiles_unplaced_blocks():
     jm = jstr.StreamingManager(tiny, SCFG, out_cap=256)
     tm = tstr.StreamingManager(convert.config_from(tiny), TSCFG, out_cap=256,
                                device="cpu")
+    pin_stores(kind, jm, tm)
     for m in (jm, tm):
         m.store.file_blocks(keys, v, np.abs(v) + 1.0, col)
     cam = np.array([0.32, 0.32, 8.0], np.float32)

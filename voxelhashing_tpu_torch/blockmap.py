@@ -218,12 +218,20 @@ def _mix(x):
     return x
 
 
+def _hashes(key):
+    """The two hashes (int64) of double hashing."""
+    k = key.to(torch.int64) & _M32
+    return _mix(k), _mix(k ^ 0x9E3779B9) | 1
+
+
+def _slot(hashes, r: int, table_size: int):
+    h1, h2 = hashes
+    return (h1 + _mul32(h2, r)) & (table_size - 1)
+
+
 def _probe_slot(key, r: int, table_size: int):
     """Slot (int64) for probe round r: double hashing, power-of-two table."""
-    k = key.to(torch.int64) & _M32
-    h1 = _mix(k)
-    h2 = _mix(k ^ 0x9E3779B9) | 1
-    return (h1 + _mul32(h2, r)) & (table_size - 1)
+    return _slot(_hashes(key), r, table_size)
 
 
 def lookup(state: MapState, keys, cfg: MapConfig):
@@ -233,8 +241,9 @@ def lookup(state: MapState, keys, cfg: MapConfig):
     found = torch.zeros(k.shape, dtype=torch.bool, device=k.device)
     dead = k == INVALID_KEY
     idx = torch.zeros(k.shape, dtype=torch.int32, device=k.device)
+    hashes = _hashes(k)      # once for every round
     for r in range(cfg.max_probes):
-        slots = _probe_slot(k, r, cfg.table_size)
+        slots = _slot(hashes, r, cfg.table_size)
         tk = state.table_key[slots]
         hit = (tk == k) & ~dead
         idx = torch.where(hit, state.table_val[slots], idx)

@@ -1,11 +1,9 @@
 """Configuration of the PyTorch port (mirrors ``voxelhashing_tpu.config``).
 
 The same frozen dataclasses, field names and defaults as the JAX package,
-cut to the fields the port reads. Fields left out belong to parts not
-ported yet (the march renderer, RGB-D tracking) or to TPU-only dispatch
-tiers (``alloc_insert_small``). ``convert.config_from``
-builds these from a JAX config and refuses one that sets a left-out field
-away from its default.
+without its TPU-only dispatch tier (``alloc_insert_small``).
+``convert.config_from`` builds these from a JAX config and refuses one
+that sets a left-out field away from its default.
 """
 
 from __future__ import annotations
@@ -88,7 +86,9 @@ class MapConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
-    """Multi-resolution projective-ICP parameters (depth only)."""
+    """Multi-resolution projective-ICP parameters; ``use_rgbd`` adds the
+    photometric rows (weighted ``weight_depth`` / ``weight_color``,
+    intensity residuals cut off at ``color_sigma``)."""
 
     levels: int = 3
     max_outer_iter: Tuple[int, ...] = (8, 6, 4)
@@ -100,16 +100,36 @@ class TrackerConfig:
     residual_early_out: Tuple[float, ...] = (0.01, 0.01, 0.01)
     cond_thres: float = 2.0e4
     normal_aniso_thres: float = 4.0e-3
-    use_rgbd: bool = False             # not ported: raises
+    use_rgbd: bool = False
+    weight_depth: float = 1.0
+    weight_color: float = 0.1
+    color_sigma: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
 class RaycastConfig:
-    """Surface prediction parameters (splat renderer)."""
+    """Surface prediction parameters: ``mode`` "splat" (voxel splatting,
+    kernel B) or "march" (trilinear ray march, ``num_samples`` samples per
+    ray inside per-tile depth bounds of ``splat_tile`` pixels)."""
 
-    mode: str = "splat"                # "march" is not ported: raises
+    ray_increment_factor: float = 0.8
+    thres_sample_dist_factor: float = 50.5
+    thres_dist_factor: float = 50.0
+    use_gradients: bool = False
+    mode: str = "splat"
     hole_fill_rounds: int = 2
-    refine_trilinear: bool = False     # not ported: raises
+    refine_trilinear: bool = False
+    num_samples: int = 48
+    splat_enabled: bool = True
+    splat_tile: int = 16
+
+    def derived(self, map_cfg: MapConfig):
+        ray_increment = self.ray_increment_factor * map_cfg.truncation
+        return {
+            "ray_increment": ray_increment,
+            "thres_sample_dist": self.thres_sample_dist_factor * ray_increment,
+            "thres_dist": self.thres_dist_factor * ray_increment,
+        }
 
 
 @dataclasses.dataclass(frozen=True)

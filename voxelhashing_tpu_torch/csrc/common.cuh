@@ -62,6 +62,38 @@ __device__ __forceinline__ void camera_x4(const float (&view)[12], int3 c,
   }
 }
 
+// Where the four voxels of thread `tid` land in the z-buffer: each voxel's
+// camera position (camera_x4), its predicted surface depth z_surf = pz + sdf
+// (as int bits, positive when kept) and its pixel, -1 where the voxel is
+// dropped (not in the surface band `band`, behind the camera, off screen
+// or outside [depth_min, depth_max]). The operation order of
+// splat_zbuf.splat_targets; kernel B and its color pass both call this,
+// so the color pass finds exactly the z_surf that kernel B kept.
+struct SplatCamera {
+  int width, height;
+  float fx, fy, cx, cy, depth_min, depth_max;
+};
+
+__device__ __forceinline__ void splat_targets_x4(
+    const float (&view)[12], int3 corner, int tid, float voxel_size,
+    const SplatCamera& cam, const float (&sd)[4], const bool (&band)[4],
+    int (&pix)[4], unsigned (&z_bits)[4]) {
+  float px[4], py[4], pz[4];
+  camera_x4(view, corner, tid, voxel_size, px, py, pz);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float z_surf = pz[j] + sd[j];
+    const float safe_z = (pz[j] == 0.0f) ? 1e-12f : pz[j];
+    const int ui = (int)floorf(px[j] * cam.fx / safe_z + cam.cx + 0.5f);
+    const int vi = (int)floorf(py[j] * cam.fy / safe_z + cam.cy + 0.5f);
+    const bool ok = band[j] && pz[j] > 0.0f && ui >= 0 && ui < cam.width &&
+                    vi >= 0 && vi < cam.height && z_surf > cam.depth_min &&
+                    z_surf < cam.depth_max;
+    pix[j] = ok ? vi * cam.width + ui : -1;
+    z_bits[j] = (unsigned)__float_as_int(z_surf);
+  }
+}
+
 // bf16 bits <-> float. Widening is exact; narrowing rounds to nearest even,
 // as PyTorch's .to(torch.bfloat16) does.
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {

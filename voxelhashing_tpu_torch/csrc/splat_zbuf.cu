@@ -1,6 +1,7 @@
-// Kernel B: splat z-buffer, hand-written for Hopper (sm_90a).
+// Kernel B: splat z-buffer, and its color pass, hand-written for Hopper
+// (sm_90a).
 //
-// Replaces the TPU Pallas kernel voxelhashing_tpu/ops/pallas_splat.py
+// Kernel B replaces the TPU Pallas kernel voxelhashing_tpu/ops/pallas_splat.py
 // (_make_kernel/_body, launched by _run_splat at :188). It computes what the
 // plain function splat_zbuf.splat_zbuf_plain computes (a scatter-min of each
 // surface-band voxel's predicted surface depth), bit for bit, not the Pallas
@@ -11,9 +12,22 @@
 // IEEE floats order like their int bits, and a min does not depend on the
 // order of the atomics, so the result is exactly the scatter-min.
 //
-// What bounds it: the bytes of the surface rows (bf16 sdf and weight, 2 KB
+// The color pass (vh_splat_color) runs after kernel B, on the same rows
+// through the same kernel body (the template flag kColor). The JAX package
+// has no TPU kernel for it: on the TPU the color render stays XLA
+// (voxelhashing_tpu/raycast.py:437-441, a zbuf-equality gather and a color
+// scatter). Each voxel whose z_surf bits equal the finished z-buffer at its
+// pixel is a hit; of the hits at one pixel the one with the largest flat
+// index (active-list position * 512 + voxel) wins, so the result does not
+// depend on the order of the atomics: one 64-bit atomicMax of
+// (flat index << 32 | packed color) per hit. The caller reads the low words.
+// Its plain version is splat_zbuf.splat_color_plain (scatter_reduce_ amax
+// of the same keys).
+//
+// What bounds both: the bytes of the surface rows (bf16 sdf and weight, 2 KB
 // of 512 voxels each, read straight from the pool through active_idx) and
-// the 300 KB z-buffer, which stays in L2.
+// the 300 KB z-buffer, which stays in L2; the color pass adds one 4-byte
+// color read per hit.
 //
 // Design:
 // - A persistent grid that finds its own rows: CTA b takes the rows b,
@@ -28,7 +42,8 @@
 //   one thread issues 1-D bulk copies (TMA) of the next surface row's sdf
 //   and weight that complete on the stage's mbarrier.
 // - A thread projects its four voxels side by side, with no branch, so the
-//   four dependent chains (two IEEE divisions each) overlap.
+//   four dependent chains (two IEEE divisions each) overlap
+//   (vh::splat_targets_x4, shared by both passes).
 // - One atomicMin per surviving voxel. Aggregating first (across the warp
 //   with __match_any_sync, or over a thread's run of voxels on one pixel)
 //   issued fewer atomics and was not faster (PERF.md §6).
@@ -61,6 +76,9 @@ __device__ __forceinline__ void issue_row(SurfStage* stage, uint64_t* bar,
   vh::bulk_g2s(stage->weight, weight + off, kPoolWordBytes, bar);
 }
 
+// kColor false: kernel B, atomicMin of z_surf bits into zbuf. kColor true:
+// the color pass, zbuf is read and each hit atomicMax-es its key into win.
+template <bool kColor>
 __global__ void __launch_bounds__(kRowThreads)
 splat_zbuf_kernel(const float* __restrict__ view_g,
                   const int* __restrict__ block_key,
@@ -68,14 +86,14 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
                   const uint8_t* __restrict__ row_mask,
                   const uint16_t* __restrict__ sdf,
                   const uint16_t* __restrict__ weight,
-                  int* __restrict__ zbuf, int n_rows,
-                  int width, int height, float fx, float fy, float cx,
-                  float cy, float depth_min, float depth_max,
-                  float voxel_size, int world_blocks) {
+                  int* __restrict__ zbuf, const int* __restrict__ color,
+                  unsigned long long* __restrict__ win, int n_rows,
+                  vh::SplatCamera cam, float voxel_size, int world_blocks) {
   __shared__ __align__(128) SurfStage ring[kStages];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int s_pools[kBatchRows];
   __shared__ int3 s_corners[kBatchRows];
+  __shared__ int s_rows[kColor ? kBatchRows : 1];
   __shared__ int s_count;
 
   const int tid = threadIdx.x;
@@ -112,6 +130,7 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
         const int pool = active_idx[row];
         s_pools[pos] = pool;
         s_corners[pos] = vh::block_corner(block_key[pool], world_blocks);
+        if constexpr (kColor) s_rows[pos] = row;
       }
       if (lane == 0) s_count = __popc(bits);
     }
@@ -148,39 +167,72 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
       if (!__any_sync(0xffffffffu, any_band)) continue;
       // the four voxels side by side (independent chains, no branch), then
       // one atomic for each that survives
-      float px[4], py[4], pz[4];
-      vh::camera_x4(view, corner, tid, voxel_size, px, py, pz);
       int pix[4];
       unsigned z_bits[4];
+      vh::splat_targets_x4(view, corner, tid, voxel_size, cam, sd, band, pix,
+                           z_bits);
+      if constexpr (kColor) {
+        const size_t base = (size_t)s_pools[k] * kVoxelsPerBlock;
+        const unsigned long long flat0 =
+            (unsigned long long)s_rows[k] * kVoxelsPerBlock + 4 * tid;
 #pragma unroll
-      for (int j = 0; j < kVoxelsPerThread; ++j) {
-        const float z_surf = pz[j] + sd[j];
-        const float safe_z = (pz[j] == 0.0f) ? 1e-12f : pz[j];
-        const int ui = (int)floorf(px[j] * fx / safe_z + cx + 0.5f);
-        const int vi = (int)floorf(py[j] * fy / safe_z + cy + 0.5f);
-        const bool ok = band[j] && pz[j] > 0.0f && ui >= 0 && ui < width &&
-                        vi >= 0 && vi < height && z_surf > depth_min &&
-                        z_surf < depth_max;
-        pix[j] = ok ? vi * width + ui : -1;
-        z_bits[j] = (unsigned)__float_as_int(z_surf);
+        for (int j = 0; j < kVoxelsPerThread; ++j) {
+          if (pix[j] >= 0 && zbuf[pix[j]] == (int)z_bits[j]) {
+            const unsigned c = (unsigned)color[base + 4 * tid + j];
+            atomicMax(&win[pix[j]], ((flat0 + j) << 32) | c);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVoxelsPerThread; ++j)
+          if (pix[j] >= 0) atomicMin(&zbuf[pix[j]], (int)z_bits[j]);
       }
-#pragma unroll
-      for (int j = 0; j < kVoxelsPerThread; ++j)
-        if (pix[j] >= 0) atomicMin(&zbuf[pix[j]], (int)z_bits[j]);
     }
     __syncthreads();  // the batch's lists are read (before the next one)
   }
 }
 
-int grid_cache = 0;
+int grid_cache[2] = {0, 0};
+
+template <bool kColor>
+int grid() {
+  return vh::persistent_grid(splat_zbuf_kernel<kColor>, kRowThreads, 0,
+                             &grid_cache[kColor ? 1 : 0]);
+}
+
+template <bool kColor>
+int launch(const void* view, const void* block_key, const void* active_idx,
+           const void* row_mask, const void* sdf, const void* weight,
+           void* zbuf, const void* color, void* win, int n_rows, int width,
+           int height, float fx, float fy, float cx, float cy,
+           float depth_min, float depth_max, float voxel_size,
+           int world_blocks, void* stream) {
+  const int g = grid<kColor>();
+  if (g <= 0) {
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
+  }
+  if (n_rows > 0) {
+    const vh::SplatCamera cam{width, height, fx, fy, cx, cy, depth_min,
+                              depth_max};
+    splat_zbuf_kernel<kColor><<<g, kRowThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)view, (const int*)block_key, (const int*)active_idx,
+        (const uint8_t*)row_mask, (const uint16_t*)sdf,
+        (const uint16_t*)weight, (int*)zbuf, (const int*)color,
+        (unsigned long long*)win, n_rows, cam, voxel_size, world_blocks);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-// The persistent grid the kernel launches with (0 if it cannot be found).
-extern "C" int vh_splat_zbuf_grid() {
-  return vh::persistent_grid(splat_zbuf_kernel, kRowThreads, 0, &grid_cache);
-}
+// The persistent grids the two passes launch with (0 if not found).
+extern "C" int vh_splat_zbuf_grid() { return grid<false>(); }
+extern "C" int vh_splat_color_grid() { return grid<true>(); }
 
+// Kernel B: zbuf (int32 bits, filled with +inf by the caller) takes the
+// min z_surf bits of the surface-band voxels of the rows active_idx[k]
+// where row_mask[k], k < n_rows.
 extern "C" int vh_splat_zbuf(const void* view, const void* block_key,
                              const void* active_idx, const void* row_mask,
                              const void* sdf, const void* weight, void* zbuf,
@@ -189,17 +241,26 @@ extern "C" int vh_splat_zbuf(const void* view, const void* block_key,
                              float depth_min, float depth_max,
                              float voxel_size, int world_blocks,
                              void* stream) {
-  const int grid = vh_splat_zbuf_grid();
-  if (grid <= 0) {
-    const int err = (int)cudaGetLastError();
-    return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
-  }
-  if (n_rows > 0) {
-    splat_zbuf_kernel<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)view, (const int*)block_key, (const int*)active_idx,
-        (const uint8_t*)row_mask, (const uint16_t*)sdf,
-        (const uint16_t*)weight, (int*)zbuf, n_rows, width, height, fx, fy, cx, cy, depth_min, depth_max,
-        voxel_size, world_blocks);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(view, block_key, active_idx, row_mask, sdf, weight,
+                       zbuf, nullptr, nullptr, n_rows, width, height, fx, fy,
+                       cx, cy, depth_min, depth_max, voxel_size,
+                       world_blocks, stream);
+}
+
+// The color pass over the same rows, after kernel B has finished zbuf:
+// win (uint64 per pixel, zeroed by the caller) takes the max of
+// (flat index << 32 | color) over the hits at each pixel.
+extern "C" int vh_splat_color(const void* view, const void* block_key,
+                              const void* active_idx, const void* row_mask,
+                              const void* sdf, const void* weight,
+                              const void* color, const void* zbuf, void* win,
+                              int n_rows, int width, int height,
+                              float fx, float fy, float cx, float cy,
+                              float depth_min, float depth_max,
+                              float voxel_size, int world_blocks,
+                              void* stream) {
+  return launch<true>(view, block_key, active_idx, row_mask, sdf, weight,
+                      const_cast<void*>(zbuf), color, win, n_rows, width,
+                      height, fx, fy, cx, cy, depth_min, depth_max,
+                      voxel_size, world_blocks, stream);
 }

@@ -1,8 +1,9 @@
 """The per-frame reconstruction engine (PyTorch port of
 ``voxelhashing_tpu.engine``).
 
-    preprocess -> compactify -> splat render -> ICP track -> (lost? skip)
-    -> DDA alloc -> fused integrate -> garbage collect -> maintain
+    preprocess -> compactify -> render (splat or march) -> ICP track
+    (depth only, or RGB-D) -> (lost? skip) -> DDA alloc -> fused integrate
+    -> garbage collect -> maintain
 
 Runs eagerly on the device of the state. Branches that JAX takes with
 ``lax.cond`` on device values are decided here from the host frame counter
@@ -27,7 +28,7 @@ from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
 from . import streaming
 from .blockmap import MapState
 from .ops.fused_integrate import fused_integrate
-from .ops.image import FrameInputs, preprocess
+from .ops.image import FrameInputs, color_to_intensity, preprocess
 from .raycast import RaycastResult
 from .tracking import TrackingResult
 
@@ -174,8 +175,6 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
     frame = preprocess(depth_raw, color_raw, cam, cfg.filter)
     mark("preprocess")
     is_first = state.frame_host == 0
-    if cfg.tracker.use_rgbd and not cfg.use_trajectory:
-        raise NotImplementedError(tracking._RGBD_TODO)
     hint = None if pose_hint is None else torch.as_tensor(
         pose_hint, dtype=torch.float32, device=dev)
 
@@ -187,10 +186,13 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
                                                           cam, cfg.map)
     active_mask = torch.arange(active_idx.shape[0], device=dev) < n_active
     mark("compactify")
+    # RGB-D tracking reads the model's intensity: render with color
+    use_rgbd = cfg.tracker.use_rgbd and not cfg.use_trajectory
     model = raycast.render(state.map, raycast_pose, cam, cfg.map,
                            cfg.raycast, active_idx=active_idx,
-                           active_mask=active_mask, with_color=False)
+                           active_mask=active_mask, with_color=use_rgbd)
     mark("render")
+    rgbd_now = use_rgbd and frame.intensity is not None
 
     zstats, zcurve = tracking.empty_stats(cfg.tracker, dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
@@ -205,7 +207,7 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
                                                    device=dev),
                             condition=zero_f, level_stats=zstats,
                             iter_residuals=zcurve,
-                            planarity=zero_f if replay else
+                            planarity=zero_f if replay or rgbd_now else
                             tracking.planarity_probe(frame.points,
                                                      frame.normals,
                                                      cfg.tracker))
@@ -213,8 +215,18 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
         last_pose = state.pose
         if cfg.use_trajectory_only_init and hint is not None:
             last_pose = hint
+        rgbd = {}
+        if rgbd_now:
+            rgbd = dict(input_intensity=frame.intensity,
+                        model_intensity=torch.where(
+                            torch.isfinite(model.depth),
+                            color_to_intensity(model.color), torch.nan),
+                        weight_depth=cfg.tracker.weight_depth,
+                        weight_color=cfg.tracker.weight_color,
+                        color_sigma=cfg.tracker.color_sigma)
         tr = tracking.track(frame.points, frame.normals, model.points,
-                            model.normals, last_pose, cam, cfg.tracker)
+                            model.normals, last_pose, cam, cfg.tracker,
+                            **rgbd)
 
     reuse = None if cfg.offline else (active_idx, n_active, overflow0)
     integrate_now = is_first or bool(tr.valid)
@@ -256,8 +268,8 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
 
 def render_view(state: EngineState, cfg: EngineConfig, pose=None
                 ) -> RaycastResult:
-    """Standalone render of the current map from ``pose`` (default: the
-    current pose)."""
+    """Standalone render (with color) of the current map from ``pose``
+    (default: the current pose), in ``cfg.raycast.mode``."""
     pose = state.pose if pose is None else torch.as_tensor(
         pose, dtype=torch.float32, device=state.pose.device)
     view = geom.invert_rigid(pose)

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "splat_zbuf": {
         "vh_splat_zbuf": [_P] * 7 + [_I] * 3 + [_F] * 7 + [_I, _P],
         "vh_splat_zbuf_grid": [],
+        "vh_splat_color": [_P] * 9 + [_I] * 3 + [_F] * 7 + [_I, _P],
+        "vh_splat_color_grid": [],
     },
 }
 

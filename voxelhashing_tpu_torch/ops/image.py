@@ -81,6 +81,27 @@ def resample_half(img):
     return img[::2, ::2]
 
 
+def depth_to_hsv(depth, d_min: float, d_max: float):
+    """Depth [h,w] in [d_min, d_max] -> RGB [h,w,3] along the HSV hue ramp
+    (near red, far blue); invalid depth is black."""
+    t = torch.clamp(geom.div_const(depth - d_min, d_max - d_min), 0.0, 1.0)
+    h = geom.div_const((1.0 - t) * 240.0, 60.0)
+    i = torch.floor(h)
+    f = h - i
+    one, p, q = torch.ones_like(f), torch.zeros_like(f), 1.0 - f
+    vals = torch.stack([
+        torch.stack([one, f, p], -1),
+        torch.stack([q, one, p], -1),
+        torch.stack([p, one, f], -1),
+        torch.stack([p, q, one], -1),
+        torch.stack([f, p, one], -1),
+    ])
+    idx = torch.clamp(i.to(torch.int64), 0, 4)
+    rgb = torch.gather(vals, 0, idx[None, ..., None].expand(
+        (1,) + tuple(idx.shape) + (3,)))[0]
+    return torch.where(torch.isfinite(depth)[..., None], rgb, 0.0)
+
+
 class FrameInputs:
     """Preprocessed per-frame inputs: filtered depth, camera-space points,
     normals, color and intensity."""

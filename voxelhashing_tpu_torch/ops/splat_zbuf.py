@@ -1,17 +1,30 @@
-"""Kernel B: the splat z-buffer (``csrc/splat_zbuf.cu``).
+"""Kernel B: the splat z-buffer, and its color pass (``csrc/splat_zbuf.cu``).
 
-Replaces the TPU Pallas kernel ``voxelhashing_tpu/ops/pallas_splat.py``
-(``pl.pallas_call`` at :188, reached through ``splat_zbuf_pallas``).
+Kernel B replaces the TPU Pallas kernel
+``voxelhashing_tpu/ops/pallas_splat.py`` (``pl.pallas_call`` at :188,
+reached through ``splat_zbuf_pallas``). The color pass has no TPU kernel
+(the JAX package renders color with XLA, ``raycast._splat_zbuf``); it runs
+on the card after kernel B so that the color render adds no host sync.
 
-:func:`splat_zbuf` launches the CUDA kernel for CUDA tensors and runs the
-plain PyTorch version (:func:`splat_zbuf_plain`, the XLA
-``raycast._splat_zbuf`` of the JAX package) for CPU tensors; any other
-device raises. There is no fallback from the kernel to the plain version.
+:func:`splat_zbuf` and :func:`splat_color` launch the CUDA kernels for
+CUDA tensors and run the plain PyTorch versions (:func:`splat_zbuf_plain`,
+the XLA ``raycast._splat_zbuf`` of the JAX package, and
+:func:`splat_color_plain`) for CPU tensors; any other device raises. There
+is no fallback from a kernel to its plain version. Each plain version
+counts its calls on CUDA tensors (``cuda_calls``), so a run can show that
+its main path never took one.
 
-On a CUDA tensor the wrapper fills the z-buffer with +inf and checks what
-the kernel assumes (:func:`prepare`); :func:`launch` issues the kernel
-alone. Its least time on the card is the larger of :func:`bytes_moved`
-over the memory rate and :func:`operations` over the f32 rate; see the
+Color ties: of the voxels whose z_surf equals the z-buffer at one pixel,
+the one with the largest flat index (active-list position * 512 + voxel)
+gives the color, in both versions, so the kernel and the plain version
+agree bit for bit.
+
+On a CUDA tensor each wrapper checks what its kernel assumes and makes
+the outputs (:func:`prepare`, :func:`prepare_color`); :func:`launch` and
+:func:`launch_color` issue a kernel alone. The least time of each on the
+card is the larger of its bytes (:func:`bytes_moved`,
+:func:`color_bytes_moved`) over the memory rate and its f32 operations
+(:func:`operations`, :func:`color_operations`) over the f32 rate; see the
 source.
 """
 
@@ -20,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..config import CameraConfig, MapConfig, VOXELS_PER_BLOCK
-from .. import blockmap, geometry as geom
+from .. import geometry as geom
 from ..blockmap import MapState, POOL_DTYPE
 from . import _build
 
@@ -57,41 +70,94 @@ def operations(n_surface_rows: int, n_band: int) -> int:
             + _OPS_PER_BAND_VOXEL * n_band)
 
 
+def color_bytes_moved(n_surface_rows: int, n_hits: int, max_rows: int,
+                      cam: CameraConfig) -> int:
+    """The least bytes the color pass must move: kernel B's reads
+    (:func:`bytes_moved` without its z-buffer write), the z-buffer read
+    (f32 per pixel), the packed color of each of the ``n_hits`` voxels
+    whose z_surf equals the z-buffer at its pixel (4 B), and the packed
+    color per pixel written (4 B)."""
+    return (bytes_moved(n_surface_rows, max_rows, cam)
+            + 4 * n_hits + 4 * cam.height * cam.width)
+
+
+def color_operations(n_surface_rows: int, n_band: int) -> int:
+    """Kernel B's f32 operations (:func:`operations`) and one compare with
+    the z-buffer per band voxel."""
+    return operations(n_surface_rows, n_band) + n_band
+
+
 def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
                      cam: CameraConfig, cfg: MapConfig,
                      with_color: bool = False):
     """Project the surface-band voxels of the rows ``active_idx[row_mask]``
     and scatter-min their predicted surface depths into a flat z-buffer:
-    the plain PyTorch version of the kernel, and the color renderer (the
-    mask is resolved on the host, one sync on CUDA).
+    the plain PyTorch version of kernel B, and with ``with_color`` of the
+    color pass too (:func:`splat_color_plain`). The mask is resolved on the
+    host, one sync on CUDA.
 
     Returns (zbuf f32[h*w] (+inf = empty), colbuf int32[h*w]) (colbuf all
     zero unless ``with_color``).
     """
+    if active_idx.device.type == "cuda":
+        splat_zbuf_plain.cuda_calls += 1
     p = cam.height * cam.width
     dev = active_idx.device
-    sel, pix, z_surf, ok = splat_targets(state, active_idx, row_mask, view,
-                                         cam, cfg)
+    targets = splat_targets(state, active_idx, row_mask, view, cam, cfg)
+    _, pix, z_surf, _ = targets
     zbuf = torch.full((p + 1,), torch.inf, dtype=torch.float32, device=dev)
     zbuf.scatter_reduce_(0, pix.reshape(-1), z_surf.reshape(-1), "amin",
                          include_self=True)
     zbuf = zbuf[:p]
-    colbuf = torch.zeros((p,), dtype=torch.int32, device=dev)
-    if with_color:
-        zhit = ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)
-        colbuf = blockmap.put(colbuf, pix, state.color[sel], zhit)
-    return zbuf, colbuf
+    if not with_color:
+        return zbuf, torch.zeros((p,), dtype=torch.int32, device=dev)
+    return zbuf, _winner_colors(state, active_idx, targets, zbuf)
+
+
+splat_zbuf_plain.cuda_calls = 0
+
+
+def splat_color_plain(state: MapState, active_idx, row_mask, view,
+                      cam: CameraConfig, cfg: MapConfig, zbuf):
+    """The plain PyTorch version of the color pass: for each pixel, the
+    packed color (int32[h*w], 0 where none) of the surface-band voxel of
+    the rows ``active_idx[row_mask]`` whose z_surf equals ``zbuf`` there;
+    of several, the one with the largest flat index."""
+    if active_idx.device.type == "cuda":
+        splat_color_plain.cuda_calls += 1
+    targets = splat_targets(state, active_idx, row_mask, view, cam, cfg)
+    return _winner_colors(state, active_idx, targets, zbuf)
+
+
+splat_color_plain.cuda_calls = 0
+
+
+def _winner_colors(state: MapState, active_idx, targets, zbuf):
+    """The color of each pixel's winning hit: the max of (flat index << 32
+    | packed color) over the hits (a scatter_reduce_ amax), low word."""
+    pos, pix, z_surf, ok = targets
+    p = zbuf.shape[0]
+    zhit = ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)
+    flat = pos[:, None] * VOXELS_PER_BLOCK + torch.arange(
+        VOXELS_PER_BLOCK, device=pos.device)[None, :]
+    color = state.color[active_idx.long()[pos]].to(torch.int64) & 0xFFFFFFFF
+    win = torch.zeros((p + 1,), dtype=torch.int64, device=pos.device)
+    win.scatter_reduce_(0, torch.where(zhit, pix, p).reshape(-1),
+                        ((flat << 32) | color).reshape(-1), "amax",
+                        include_self=True)
+    return (win[:p] & 0xFFFFFFFF).to(torch.int32)
 
 
 def splat_targets(state: MapState, active_idx, row_mask, view,
                   cam: CameraConfig, cfg: MapConfig):
-    """Where each voxel of the rows ``active_idx[row_mask]`` lands: (pool
-    rows int64[R], pixel int64[R,512] (h*w where the voxel is dropped),
-    z_surf f32[R,512], kept bool[R,512])."""
+    """Where each voxel of the rows ``active_idx[row_mask]`` lands:
+    (active-list positions int64[R], pixel int64[R,512] (h*w where the
+    voxel is dropped), z_surf f32[R,512], kept bool[R,512])."""
     h, w = cam.height, cam.width
     p = h * w
     vs = cfg.voxel_size
-    sel = active_idx.long()[row_mask]
+    pos = torch.nonzero(row_mask).reshape(-1)
+    sel = active_idx.long()[pos]
     sdf = state.sdf[sel].to(torch.float32)
     wgt = state.weight[sel].to(torch.float32)
     px, py, pz = geom.voxel_camera_positions(
@@ -106,7 +172,7 @@ def splat_targets(state: MapState, active_idx, row_mask, view,
           & (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
           & (z_surf > cam.depth_min) & (z_surf < cam.depth_max))
     pix = torch.where(ok, vi * w + ui, p).long()        # p = dropped
-    return sel, pix, z_surf, ok
+    return pos, pix, z_surf, ok
 
 
 def _check_inputs(state: MapState, active_idx, row_mask, view):
@@ -180,3 +246,64 @@ def splat_zbuf(state: MapState, active_idx, row_mask, view,
 
 
 splat_zbuf.launches = 0
+
+
+def prepare_color(state: MapState, active_idx, row_mask, view,
+                  cam: CameraConfig, cfg: MapConfig, zbuf):
+    """Check the inputs of the color pass and zero its output; returns
+    (launch arguments, win int64[h*w], whose low words are the colors).
+    ``zbuf`` is kernel B's finished z-buffer for the same rows."""
+    _check_inputs(state, active_idx, row_mask, view)
+    p = cam.height * cam.width
+    checks = [
+        (state.color.dtype == torch.int32
+         and tuple(state.color.shape) == tuple(state.sdf.shape),
+         "pool color must be int32 [N,512]"),
+        (zbuf.dtype == torch.float32 and tuple(zbuf.shape) == (p,),
+         "zbuf must be f32[h*w]"),
+    ]
+    for t in (state.color, zbuf):
+        checks.append((t.device == active_idx.device,
+                       "all tensors on one device"))
+        checks.append((t.is_contiguous(), "tensors must be contiguous"))
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"splat_color: {msg}")
+    win = torch.zeros((p,), dtype=torch.int64, device=active_idx.device)
+    ptr = _build.ptr
+    args = (ptr(view), ptr(state.block_key), ptr(active_idx),
+            ptr(row_mask), ptr(state.sdf), ptr(state.weight),
+            ptr(state.color), ptr(zbuf), ptr(win), active_idx.shape[0],
+            cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+            cam.depth_min, cam.depth_max, cfg.voxel_size, cfg.world_blocks,
+            active_idx.device)
+    return args, win
+
+
+def launch_color(args) -> None:
+    """Launch the color pass on prepared arguments, on the current stream
+    (the only place that does; counts the launch)."""
+    *kernel_args, device = args
+    _build.check(_build.library("splat_zbuf").vh_splat_color(
+        *kernel_args, _build.stream_ptr(device)), "splat_zbuf")
+    splat_color.launches += 1
+
+
+def splat_color(state: MapState, active_idx, row_mask, view,
+                cam: CameraConfig, cfg: MapConfig, zbuf):
+    """Packed color int32[h*w] (0 where none) of the surface-band voxel of
+    the rows ``active_idx[row_mask]`` that gave ``zbuf`` (kernel B's
+    z-buffer of the same rows, seen from ``view``) its depth at each
+    pixel; ties go to the largest flat index."""
+    if active_idx.device.type == "cpu":
+        return splat_color_plain(state, active_idx, row_mask, view, cam,
+                                 cfg, zbuf)
+    if active_idx.device.type != "cuda":
+        raise ValueError(f"splat_color: no kernel for {active_idx.device}")
+    args, win = prepare_color(state, active_idx, row_mask, view, cam, cfg,
+                              zbuf)
+    launch_color(args)
+    return win.view(torch.int32)[0::2]
+
+
+splat_color.launches = 0

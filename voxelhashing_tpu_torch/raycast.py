@@ -1,16 +1,24 @@
-"""Surface prediction by projective voxel splatting (PyTorch port of the
-splat path of ``voxelhashing_tpu.raycast``).
+"""Surface prediction (PyTorch port of ``voxelhashing_tpu.raycast``).
 
-Every surface-band voxel of the active blocks predicts the surface depth
-along its own pixel ray (``z_voxel + sdf``, the projective TSDF) and the
-z-buffer keeps the minimum per pixel. The tracking render (no color) runs
-the CUDA kernel of ``ops/splat_zbuf.py``; the color render runs its plain
-PyTorch version there with colors. Then close-range hole fill and the
-derived point / normal maps.
+Two renderers, chosen by ``RaycastConfig.mode``:
 
-The kernel takes the whole active list with the persistent surface mask
-(``MapState.surf``), which gives the same z-buffer as the JAX culled-list
-tiers; ``splat_overflow`` is still computed as in JAX.
+* ``"splat"``: every surface-band voxel of the active blocks predicts the
+  surface depth along its own pixel ray (``z_voxel + sdf``, the projective
+  TSDF) and the z-buffer keeps the minimum per pixel (kernel B of
+  ``ops/splat_zbuf.py``); the color render adds kernel B's color pass.
+  Then close-range hole fill, optional trilinear refinement, and the
+  derived point / normal maps. The kernel takes the whole active list with
+  the persistent surface mask (``MapState.surf``), which gives the same
+  z-buffer as the JAX culled-list tiers; ``splat_overflow`` is still
+  computed as in JAX.
+* ``"march"``: the reference's ray march, batched: per-tile depth bounds
+  from the active blocks (:func:`ray_interval_splat`), ``num_samples``
+  trilinear TSDF samples per ray in one pass, the first + to - crossing,
+  three secant steps. The JAX package runs it as XLA, so it is plain torch
+  here (no kernel).
+
+Where the JAX code divides by a constant the port uses
+``geometry.div_const``, so that the CPU and the card round alike.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from .config import CameraConfig, MapConfig, RaycastConfig
 from . import blockmap
 from . import geometry as geom
 from .blockmap import MapState
-from .ops.splat_zbuf import splat_zbuf, splat_zbuf_plain
+from .ops.splat_zbuf import splat_color, splat_zbuf
 
 
 class RaycastResult(NamedTuple):
@@ -37,28 +45,199 @@ class RaycastResult(NamedTuple):
     splat_overflow: torch.Tensor  # int32[] surface blocks past the cull cap
 
 
+# ---------------------------------------------------------------------------
+# Trilinear TSDF sampling
+# ---------------------------------------------------------------------------
+
+_CORNER_LIST = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+                (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1)]
+
+
+def trilinear_sample(state: MapState, p_world, cfg: MapConfig,
+                     with_color: bool = False):
+    """Trilinearly interpolated (sdf, valid[, color]) at world points
+    [...,3]; invalid where any of the 8 corner voxels has zero weight."""
+    shape = p_world.shape[:-1]
+    pw = p_world.reshape(-1, 3)
+    out = trilinear_sample_soa(state, pw[:, 0], pw[:, 1], pw[:, 2], cfg,
+                               with_color=with_color)
+    if with_color:
+        s, valid, col = out
+        return (s.reshape(shape), valid.reshape(shape),
+                col.reshape(shape + (3,)))
+    s, valid = out
+    return s.reshape(shape), valid.reshape(shape)
+
+
+def trilinear_sample_soa(state: MapState, px, py, pz, cfg: MapConfig,
+                         with_color: bool = False):
+    """SoA core of :func:`trilinear_sample`: coordinate tensors of one
+    shape; the 8 corners are fetched at once on a leading axis ([8,...])
+    and weighted in the JAX order."""
+    vs = cfg.voxel_size
+    qx, qy, qz = (geom.div_const(px, vs), geom.div_const(py, vs),
+                  geom.div_const(pz, vs))
+    bx = torch.floor(qx).to(torch.int32)
+    by = torch.floor(qy).to(torch.int32)
+    bz = torch.floor(qz).to(torch.int32)
+    fx, fy, fz = qx - bx, qy - by, qz - bz
+
+    cx = torch.stack([bx + o[0] for o in _CORNER_LIST], dim=0)
+    cy = torch.stack([by + o[1] for o in _CORNER_LIST], dim=0)
+    cz = torch.stack([bz + o[2] for o in _CORNER_LIST], dim=0)
+    sdf, w, c = blockmap.gather_voxels_soa(state, cx, cy, cz, cfg,
+                                           with_color=with_color)
+    valid = torch.all(w > 0.0, dim=0)
+
+    s = torch.zeros(fx.shape, dtype=torch.float32, device=fx.device)
+    col = (torch.zeros(fx.shape + (3,), dtype=torch.float32,
+                       device=fx.device) if with_color else None)
+    for i, (ox, oy, oz) in enumerate(_CORNER_LIST):
+        tw = ((fx if ox else 1.0 - fx) * (fy if oy else 1.0 - fy)
+              * (fz if oz else 1.0 - fz))
+        s = s + tw * sdf[i]
+        if with_color:
+            col = col + tw[..., None] * blockmap.unpack_rgb(c[i])
+    if with_color:
+        return s, valid, geom.div_const(col, 255.0)
+    return s, valid
+
+
+def sdf_gradient(state: MapState, p_world, cfg: MapConfig):
+    """Central-difference SDF gradient at world points [...,3]: (unit
+    gradient, NaN where invalid; valid)."""
+    offs = cfg.voxel_size
+    grads = []
+    ok = None
+    for ax in range(3):
+        e = torch.zeros((3,), dtype=torch.float32, device=p_world.device)
+        e[ax] = offs
+        sp, vp = trilinear_sample(state, p_world + e, cfg)
+        sm, vm = trilinear_sample(state, p_world - e, cfg)
+        grads.append((sp - sm) * 0.5)
+        v = vp & vm
+        ok = v if ok is None else (ok & v)
+    g = torch.stack(grads, dim=-1)
+    n = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+    good = ok & (n[..., 0] > 0.0)
+    g = torch.where(good[..., None], g / torch.where(n > 0, n, 1.0),
+                    torch.nan)
+    return g, good
+
+
+# ---------------------------------------------------------------------------
+# Ray-interval tile bounds
+# ---------------------------------------------------------------------------
+
+_SPAN = 4    # tiles a block may span per axis before it counts everywhere
+
+
+def ray_interval_splat(state: MapState, active_idx, active_mask,
+                       view_matrix, cam: CameraConfig, cfg: MapConfig,
+                       rc: RaycastConfig):
+    """Per-screen-tile [min,max] z-depth bounds of the active blocks:
+    each block's 8 corners projected, its screen box and depth range
+    scatter-min/maxed into a (tiles_y, tiles_x) grid over a span of at
+    most 4x4 tiles; blocks that span more (or cross the near plane) widen
+    every tile. Tiles no block touches get t_min=+inf > t_max=-inf."""
+    tile = rc.splat_tile
+    ty = -(-cam.height // tile)
+    tx = -(-cam.width // tile)
+    dev = active_idx.device
+
+    blocks = geom.unpack_block_key(state.block_key[active_idx.long()],
+                                   cfg.world_blocks)                 # [M,3]
+    corner0 = geom.block_to_world(blocks, cfg.voxel_size)
+    # the 8 corner offsets in _CORNER_LIST order, made on the device (a
+    # host list copied up would wait for the stream)
+    k = torch.arange(8, device=dev)
+    offs = torch.stack([k & 1, (k >> 1) & 1, (k >> 2) & 1], dim=-1)
+    corners = corner0[:, None, :] + cfg.block_size_world * offs.to(
+        torch.float32)
+    p_cam = geom.transform_points(view_matrix, corners)              # [M,8,3]
+
+    z = p_cam[..., 2]
+    z_min = torch.amin(z, dim=-1)
+    z_max = torch.amax(z, dim=-1)
+    near_ok = z_min > 1e-3
+
+    uv = geom.camera_to_screen(p_cam, cam)                           # [M,8,2]
+    u_min = torch.floor(torch.amin(uv[..., 0], dim=-1)).to(torch.int32)
+    u_max = torch.floor(torch.amax(uv[..., 0], dim=-1)).to(torch.int32)
+    v_min = torch.floor(torch.amin(uv[..., 1], dim=-1)).to(torch.int32)
+    v_max = torch.floor(torch.amax(uv[..., 1], dim=-1)).to(torch.int32)
+
+    def tile_of(x, n):
+        return torch.clamp(torch.div(x, tile, rounding_mode="floor"), 0,
+                           n - 1)
+
+    t0x, t1x = tile_of(u_min, tx), tile_of(u_max, tx)
+    t0y, t1y = tile_of(v_min, ty), tile_of(v_max, ty)
+    on_screen = ((u_max >= 0) & (u_min < cam.width)
+                 & (v_max >= 0) & (v_min < cam.height))
+
+    fits = (t1x - t0x < _SPAN) & (t1y - t0y < _SPAN)
+    scatter_ok = active_mask & near_ok & on_screen & fits
+    overflow = active_mask & on_screen & ~(near_ok & fits)
+    any_overflow = torch.any(overflow)
+    g_min = torch.amin(torch.where(
+        overflow, torch.clamp(z_min, min=cam.depth_min), torch.inf))
+    g_max = torch.amax(torch.where(overflow, z_max, -torch.inf))
+
+    n = ty * tx
+    t_min = torch.full((n + 1,), torch.inf, dtype=torch.float32, device=dev)
+    t_max = torch.full((n + 1,), -torch.inf, dtype=torch.float32, device=dev)
+    for dy in range(_SPAN):
+        for dx in range(_SPAN):
+            iy = t0y + dy
+            ix = t0x + dx
+            ok = scatter_ok & (iy <= t1y) & (ix <= t1x)
+            lin = torch.where(ok, iy * tx + ix, n).long()   # n = dropped
+            t_min.scatter_reduce_(0, lin, z_min, "amin", include_self=True)
+            t_max.scatter_reduce_(0, lin, z_max, "amax", include_self=True)
+    t_min = t_min[:n].reshape(ty, tx)
+    t_max = t_max[:n].reshape(ty, tx)
+    t_min = torch.where(any_overflow, torch.minimum(t_min, g_min), t_min)
+    t_max = torch.where(any_overflow, torch.maximum(t_max, g_max), t_max)
+    return t_min, t_max
+
+
+# ---------------------------------------------------------------------------
+# Renderers
+# ---------------------------------------------------------------------------
+
+
 def render(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
            rc: RaycastConfig, active_idx=None, active_mask=None,
            with_color: bool = True) -> RaycastResult:
-    """Surface prediction from ``pose``; only ``rc.mode == "splat"`` is
-    ported."""
-    if rc.mode != "splat":
-        raise NotImplementedError(
-            f"raycast mode {rc.mode!r} is not ported yet "
-            "(ROADMAP.md queue 1: march raycast)")
-    return render_splat(state, pose, cam, cfg, rc, active_idx=active_idx,
-                        active_mask=active_mask, with_color=with_color)
+    """Surface prediction from ``pose``: :func:`render_splat` when
+    ``rc.mode == "splat"``, else :func:`render_march` (which always
+    renders color)."""
+    if rc.mode == "splat":
+        return render_splat(state, pose, cam, cfg, rc,
+                            active_idx=active_idx, active_mask=active_mask,
+                            with_color=with_color)
+    return render_march(state, pose, cam, cfg, rc, active_idx=active_idx,
+                        active_mask=active_mask)
+
+
+def _ray_directions(pose, cam: CameraConfig):
+    """Per-pixel world ray directions (z-depth 1), flat [P] each."""
+    u, v = geom.pixel_grid(cam.width, cam.height, pose.device)
+    xn = geom.div_const(u - cam.cx, cam.fx).reshape(-1)
+    yn = geom.div_const(v - cam.cy, cam.fy).reshape(-1)
+    rot = pose[:3, :3]
+    return (rot[0, 0] * xn + rot[0, 1] * yn + rot[0, 2],
+            rot[1, 0] * xn + rot[1, 1] * yn + rot[1, 2],
+            rot[2, 0] * xn + rot[2, 1] * yn + rot[2, 2])
 
 
 def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
                  rc: RaycastConfig, active_idx=None, active_mask=None,
                  with_color: bool = True) -> RaycastResult:
     """Projective voxel splatting of the active blocks that hold surface
-    voxels, hole fill, and the derived point/normal/color maps."""
-    if rc.refine_trilinear:
-        raise NotImplementedError(
-            "trilinear refinement is not ported yet "
-            "(ROADMAP.md queue 1: march raycast)")
+    voxels, hole fill, optional trilinear refinement, and the derived
+    point/normal/color maps."""
     h, w = cam.height, cam.width
     view = geom.invert_rigid(pose)
     if active_idx is None:
@@ -73,12 +252,13 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     n_surf_total = blockmap._isum(has_surf)
     overflow = n_surf_total - torch.clamp(n_surf_total,
                                           max=active_idx.shape[0] // 2)
+    zbuf = splat_zbuf(state, active_idx, has_surf, view, cam, cfg)
     if with_color:
-        zbuf, colbuf = splat_zbuf_plain(state, active_idx, has_surf, view,
-                                        cam, cfg, with_color=True)
-        color = (blockmap.unpack_rgb(colbuf) / 255.0).reshape(h, w, 3)
+        colbuf = splat_color(state, active_idx, has_surf, view, cam, cfg,
+                             zbuf)
+        color = geom.div_const(blockmap.unpack_rgb(colbuf),
+                               255.0).reshape(h, w, 3)
     else:
-        zbuf = splat_zbuf(state, active_idx, has_surf, view, cam, cfg)
         color = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
     depth = torch.where(torch.isfinite(zbuf), zbuf, torch.nan).reshape(h, w)
 
@@ -102,6 +282,18 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
                 nc, 0, pick[None, :, :, None].expand(1, h, w, 3))[0]
             color = torch.where(need[..., None], picked, color)
 
+    # --- Optional trilinear refinement (one gather pass per pixel). ------
+    if rc.refine_trilinear:
+        dwx, dwy, dwz = _ray_directions(pose, cam)
+        dflat = depth.reshape(-1)
+        t0 = torch.nan_to_num(dflat, nan=0.0)
+        hx = pose[0, 3] + dwx * t0
+        hy = pose[1, 3] + dwy * t0
+        hz = pose[2, 3] + dwz * t0
+        s_res, s_ok = trilinear_sample_soa(state, hx, hy, hz, cfg)
+        corr = torch.where(s_ok & torch.isfinite(dflat), s_res, 0.0)
+        depth = (dflat + corr).reshape(h, w)
+
     # --- Derived maps. ---------------------------------------------------
     u, v = geom.pixel_grid(w, h, dev)
     finite = torch.isfinite(depth)
@@ -112,3 +304,126 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     return RaycastResult(depth=depth, points=pts, normals=normals,
                          color=color, splat_overflow=overflow)
 
+
+def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
+                 rc: RaycastConfig, active_idx=None, active_mask=None
+                 ) -> RaycastResult:
+    """Reference-style raycast: the batched trilinear march of
+    :func:`march_core`, each ray bounded by its tile's depth range
+    (:func:`ray_interval_splat`, widened by the truncation) when
+    ``rc.splat_enabled`` and an active list is given, else by the camera's
+    depth range."""
+    h, w = cam.height, cam.width
+    p = h * w
+    d = rc.derived(cfg)
+    view = geom.invert_rigid(pose)
+    dev = pose.device
+
+    if rc.splat_enabled and active_idx is not None:
+        tmin_t, tmax_t = ray_interval_splat(state, active_idx, active_mask,
+                                            view, cam, cfg, rc)
+        tile = rc.splat_tile
+        iy = torch.div(torch.arange(h, device=dev), tile,
+                       rounding_mode="floor")
+        ix = torch.div(torch.arange(w, device=dev), tile,
+                       rounding_mode="floor")
+        t_min = torch.clamp(tmin_t[iy[:, None], ix[None, :]]
+                            - cfg.truncation, min=cam.depth_min).reshape(-1)
+        t_max = torch.clamp(tmax_t[iy[:, None], ix[None, :]]
+                            + cfg.truncation, max=cam.depth_max).reshape(-1)
+    else:
+        t_min = torch.full((p,), cam.depth_min, dtype=torch.float32,
+                           device=dev)
+        t_max = torch.full((p,), cam.depth_max, dtype=torch.float32,
+                           device=dev)
+
+    def sample_soa(px, py, pz, with_color=False):
+        return trilinear_sample_soa(state, px, py, pz, cfg,
+                                    with_color=with_color)
+
+    gradient_fn = None
+    if rc.use_gradients:
+        def gradient_fn(p_world):
+            return sdf_gradient(state, p_world, cfg)
+
+    return march_core(sample_soa, pose, cam, t_min, t_max,
+                      num_samples=rc.num_samples,
+                      ray_inc=d["ray_increment"],
+                      thres_sample_dist=d["thres_sample_dist"],
+                      thres_dist=d["thres_dist"], gradient_fn=gradient_fn)
+
+
+def march_core(sample_soa, pose, cam: CameraConfig, t_min, t_max,
+               num_samples: int, ray_inc, thres_sample_dist, thres_dist,
+               gradient_fn=None) -> RaycastResult:
+    """Batched ray march: every ray evaluates ``num_samples`` samples at
+    once ([S,P], P minor) between ``t_min`` and ``t_max`` (z-depth, [P]),
+    takes its first + to - crossing, refines it with three secant steps
+    and keeps it where the interpolated |sdf| is below ``thres_dist``.
+    ``sample_soa(px, py, pz, with_color=False)`` evaluates the TSDF;
+    ``gradient_fn`` (optional) gives analytic-gradient normals."""
+    h, w = cam.height, cam.width
+    view = geom.invert_rigid(pose)
+    dwx, dwy, dwz = _ray_directions(pose, cam)
+    ox_, oy_, oz_ = pose[0, 3], pose[1, 3], pose[2, 3]
+
+    s_n = num_samples
+    band = torch.clamp(t_max - t_min, min=0.0)
+    dt = torch.clamp(geom.div_const(band, s_n - 1), min=ray_inc)   # [P]
+    si = torch.arange(s_n, dtype=torch.float32, device=pose.device)[:, None]
+    ts = t_min[None, :] + si * dt[None, :]                         # [S,P]
+    in_band = ts <= (t_max[None, :] + dt[None, :])                 # one past
+
+    sdf_s, ok_s = sample_soa(ox_ + dwx[None, :] * ts,
+                             oy_ + dwy[None, :] * ts,
+                             oz_ + dwz[None, :] * ts)              # [S,P]
+    ok_s = ok_s & in_band
+
+    cross = (ok_s[:-1] & ok_s[1:]
+             & (sdf_s[:-1] > 0.0) & (sdf_s[1:] < 0.0)
+             & (sdf_s[:-1] - sdf_s[1:] < thres_sample_dist))       # [S-1,P]
+    found = torch.any(cross, dim=0)
+    # argmax over int8 returns the first maximum: the first crossing
+    first = torch.argmax(cross.to(torch.int8), dim=0)[None, :]
+    b_t0 = torch.gather(ts, 0, first)[0]
+    b_t1 = b_t0 + dt
+    b_s0 = torch.gather(sdf_s, 0, first)[0]
+    b_s1 = torch.gather(sdf_s, 0, first + 1)[0]
+
+    # secant/bisection refinement, three steps
+    for _ in range(3):
+        denom = b_s0 - b_s1
+        alpha = torch.where(torch.abs(denom) > 1e-12, b_s0 / denom, 0.5)
+        tm = b_t0 + alpha * (b_t1 - b_t0)
+        sm, ok = sample_soa(ox_ + dwx * tm, oy_ + dwy * tm, oz_ + dwz * tm)
+        neg = ok & (sm < 0.0)
+        pos = ok & (sm >= 0.0)
+        b_t1 = torch.where(neg, tm, b_t1)
+        b_s1 = torch.where(neg, sm, b_s1)
+        b_t0 = torch.where(pos, tm, b_t0)
+        b_s0 = torch.where(pos, sm, b_s0)
+    denom = b_s0 - b_s1
+    alpha = torch.where(torch.abs(denom) > 1e-12, b_s0 / denom, 0.5)
+    t_hit = b_t0 + alpha * (b_t1 - b_t0)
+
+    hx, hy, hz = ox_ + dwx * t_hit, oy_ + dwy * t_hit, oz_ + dwz * t_hit
+    s_hit, ok_hit, col = sample_soa(hx, hy, hz, with_color=True)
+    p_hit = torch.stack([hx, hy, hz], dim=-1)
+    found = found & ok_hit & (torch.abs(s_hit) < thres_dist)
+
+    depth = torch.where(found, t_hit, torch.nan).reshape(h, w)
+    finite = torch.isfinite(depth)
+    p_cam = geom.transform_points(view, p_hit).reshape(h, w, 3)
+    p_cam = torch.where(finite[..., None], p_cam, torch.nan)
+    color = torch.where(found[:, None], col, 0.0).reshape(h, w, 3)
+
+    if gradient_fn is not None:
+        g, gok = gradient_fn(p_hit)
+        n_world = torch.where((found & gok)[:, None], g, torch.nan)
+        normals = (n_world @ view[:3, :3].T).reshape(h, w, 3)
+    else:
+        normals = geom.normals_from_points(p_cam)
+    return RaycastResult(depth=depth, points=p_cam, normals=normals,
+                         color=color,
+                         splat_overflow=torch.zeros((), dtype=torch.int32,
+                                                    device=pose.device))

@@ -1,9 +1,12 @@
 """Offline SLAM driver of the PyTorch port: synthetic frames through
-``engine.step``, with optional streaming, whole-scene mesh and checkpoints.
+``engine.step``, with optional RGB-D tracking, streaming, per-frame
+renders, whole-scene mesh, point cloud and checkpoints.
 
     python -m voxelhashing_tpu_torch.run_slam --frames 20 --preset tiny
     python -m voxelhashing_tpu_torch.run_slam --frames 30 --streaming \\
         --mesh out.ply --save-map map.npz
+    python -m voxelhashing_tpu_torch.run_slam --rgbd --render-dir renders \\
+        --cloud cloud.ply
 
 The counterpart of ``scripts/run_slam.py`` for the flags whose modules are
 ported. Frames are rendered on the device from the synthetic scene and
@@ -76,8 +79,14 @@ def parse_args(argv=None):
                     help="in-line streaming manager instead of the worker "
                          "thread")
     ap.add_argument("--mesh", default=None, help="write a PLY mesh at end")
+    ap.add_argument("--cloud", default=None,
+                    help="write the final render as a PLY point cloud")
     ap.add_argument("--save-map", default=None)
     ap.add_argument("--load-map", default=None)
+    ap.add_argument("--render-dir", default=None,
+                    help="write phong and depth renders of every frame")
+    ap.add_argument("--rgbd", action="store_true",
+                    help="joint photometric and geometric tracking")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
     return ap.parse_args(argv)
@@ -90,10 +99,13 @@ def main(argv=None) -> int:
         print("run_slam: no CUDA device (pass --device cpu to run on the "
               "CPU)", file=sys.stderr)
         return 2
-    from . import blockmap, engine, evaluation, meshing, streaming
+    from . import blockmap, engine, evaluation, meshing, render, streaming
     from .io.synthetic import Scene, make_trajectory, render_depth
 
     cfg = build_config(args.preset, args.streaming)
+    if args.rgbd:
+        cfg = dataclasses.replace(
+            cfg, tracker=dataclasses.replace(cfg.tracker, use_rgbd=True))
     if args.gt:
         cfg = dataclasses.replace(cfg, use_trajectory=True)
     elif args.gt_init:
@@ -104,6 +116,7 @@ def main(argv=None) -> int:
         cls = (streaming.StreamingManager if args.sync_streaming
                else streaming.AsyncStreamingManager)
         mgr = cls(cfg.map, cfg.streaming, device=device)
+    rtf = render.RenderToFile(args.render_dir) if args.render_dir else None
 
     scene = Scene()
     gts = make_trajectory(args.frames)
@@ -127,6 +140,8 @@ def main(argv=None) -> int:
         if mgr is not None:
             state = state._replace(map=mgr.step(state.map, pose[:3, 3]))
         est.append(pose)
+        if rtf is not None:
+            rtf(engine.render_view(state, cfg), cam=cfg.camera)
         print(f"frame {i:4d}: blocks={int(diag.n_allocated_blocks):6d} "
               f"active={int(diag.n_active_blocks):6d} "
               f"res={float(diag.icp_residual):.2e} "
@@ -162,6 +177,12 @@ def main(argv=None) -> int:
             tris, cols = meshing.extract_mesh(state.map, cfg.map, cfg.mesh)
         nf = meshing.save_ply(args.mesh, tris, cols)
         print(f"mesh: {len(tris)} tris -> {nf} welded faces -> {args.mesh}")
+    if args.cloud:
+        model = engine.render_view(state, cfg)
+        n = render.save_point_cloud(args.cloud, model.points,
+                                    colors=model.color,
+                                    normals=model.normals)
+        print(f"point cloud: {n} points -> {args.cloud}")
     if mgr is not None and hasattr(mgr, "close"):
         mgr.close()
 

@@ -1,10 +1,12 @@
 """Frame-to-model camera tracking: multi-resolution projective ICP
-(PyTorch port of the depth-only path of ``voxelhashing_tpu.tracking``).
+(PyTorch port of ``voxelhashing_tpu.tracking``).
 
 Projective association, whitened point-to-plane normal equations as one
 [8,P] x [P,8] f32 product (TF32 is off in this package), a truncated-SVD
 6x6 solve with the condition gate, per-step plausibility and planarity
-gates, coarse-to-fine levels with residual early-out.
+gates, coarse-to-fine levels with residual early-out. With intensities
+(RGB-D tracking) photometric rows join each system, built in the same
+whitened parametrization, and the planarity gate and probe are off.
 
 The JAX tracker skips a converged level's outer iterations with
 ``lax.cond``; here every iteration runs and a level that was already done
@@ -23,9 +25,6 @@ import torch
 from .config import CameraConfig, TrackerConfig
 from . import geometry as geom
 from .ops.image import resample_half
-
-_RGBD_TODO = ("RGB-D (photometric) tracking is not ported yet "
-              "(ROADMAP.md queue 1: RGBD tracking)")
 
 
 class TrackingResult(NamedTuple):
@@ -222,6 +221,85 @@ def _check_step(x, angle_thres: float, dist_thres: float):
                                    <= dist_thres)
 
 
+def _build_system_color(delta, in_pts, in_int, tgt_int, tgt_gx, tgt_gy,
+                        cam: CameraConfig, dist_sigma: float,
+                        mean=None, inv_std=None):
+    """Photometric rows of the joint RGB-D system: residual
+    e = I_model(pi(delta p)) - I_input(p), the model intensity sampled
+    bilinearly at the continuous projection and its gradients at the
+    nearest pixel; jacobian a = J_pi^T grad(I), row [(p - mean) x a
+    reversed | a / inv_std] (the depth block's whitened parametrization).
+    Returns (A[6,6], b[6], sum_res, sum_w, count)."""
+    dev = in_pts.device
+    if mean is None:
+        mean = torch.zeros((3,), dtype=torch.float32, device=dev)
+    if inv_std is None:
+        inv_std = torch.ones((), dtype=torch.float32, device=dev)
+    r = delta[:3, :3]
+    p = in_pts @ r.T + delta[:3, 3]
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+
+    safe_pz = torch.where(pz == 0.0, 1e-12, pz)
+    uf = px * cam.fx / safe_pz + cam.cx
+    vf = py * cam.fy / safe_pz + cam.cy
+    on = ((uf >= 0.0) & (uf <= cam.width - 1.0)
+          & (vf >= 0.0) & (vf <= cam.height - 1.0) & (pz > 0.0))
+    uf_c = torch.clamp(uf, 0.0, cam.width - 1.0)
+    vf_c = torch.clamp(vf, 0.0, cam.height - 1.0)
+    u0 = torch.clamp(torch.floor(uf_c).to(torch.int32), 0, cam.width - 2)
+    v0 = torch.clamp(torch.floor(vf_c).to(torch.int32), 0, cam.height - 2)
+    fu = uf_c - u0.to(torch.float32)
+    fv = vf_c - v0.to(torch.float32)
+    u0, v0 = u0.long(), v0.long()
+    i00 = tgt_int[v0, u0]
+    i01 = tgt_int[v0, u0 + 1]
+    i10 = tgt_int[v0 + 1, u0]
+    i11 = tgt_int[v0 + 1, u0 + 1]
+    i_t = ((1 - fv) * ((1 - fu) * i00 + fu * i01)
+           + fv * ((1 - fu) * i10 + fu * i11))
+    ui = torch.clamp(torch.floor(uf_c + 0.5).to(torch.int32), 0,
+                     cam.width - 1).long()
+    vi = torch.clamp(torch.floor(vf_c + 0.5).to(torch.int32), 0,
+                     cam.height - 1).long()
+    gx = tgt_gx[vi, ui]
+    gy = tgt_gy[vi, ui]
+    e = i_t - in_int
+    fin_t = (torch.isfinite(i00) & torch.isfinite(i01)
+             & torch.isfinite(i10) & torch.isfinite(i11))
+
+    z = safe_pz
+    ax = gx * cam.fx / z
+    ay = gy * cam.fy / z
+    az = -(gx * cam.fx * px + gy * cam.fy * py) / (z * z)
+    a = torch.stack([ax, ay, az], dim=-1)
+
+    ok = (on & torch.all(torch.isfinite(p), dim=-1) & torch.isfinite(in_int)
+          & fin_t & torch.isfinite(gx) & torch.isfinite(gy)
+          & (torch.abs(e) < dist_sigma))
+    wgt = torch.where(ok, 1.0 - geom.div_const(torch.abs(e), dist_sigma),
+                      0.0)
+
+    cr = torch.linalg.cross(p - mean, a, dim=-1)
+    j = torch.cat([cr.flip(-1), a / inv_std], dim=-1)
+    j = torch.where(ok[..., None], j, 0.0).reshape(-1, 6)
+    e = torch.where(ok, e, 0.0).reshape(-1)
+    jw = j * wgt.reshape(-1, 1)
+    a_mat = jw.T @ j
+    b = -torch.sum(jw * e[:, None], dim=0)
+    return (a_mat, b, torch.sum(wgt.reshape(-1) * e * e), torch.sum(wgt),
+            torch.sum(ok, dtype=torch.int32))
+
+
+def intensity_gradients(intensity):
+    """Central-difference image gradients (gx, gy); zero on the border
+    columns (gx) and rows (gy)."""
+    gx = torch.zeros_like(intensity)
+    gy = torch.zeros_like(intensity)
+    gx[:, 1:-1] = 0.5 * (intensity[:, 2:] - intensity[:, :-2])
+    gy[1:-1, :] = 0.5 * (intensity[2:, :] - intensity[:-2, :])
+    return gx, gy
+
+
 def planarity_probe(input_points, input_normals, cfg: TrackerConfig):
     """Report-only planarity I2 over the valid finest-level input normals
     (0.0 when the gate is disabled)."""
@@ -237,21 +315,33 @@ def planarity_probe(input_points, input_normals, cfg: TrackerConfig):
 
 def track(input_points, input_normals, model_points, model_normals,
           last_pose, cam: CameraConfig, cfg: TrackerConfig,
-          input_intensity=None, model_intensity=None) -> TrackingResult:
-    """Align the current frame to the raycast model (depth-only ICP);
-    new_pose = last_pose @ delta. Intensities (RGB-D tracking) are not
-    ported and raise."""
-    if input_intensity is not None or model_intensity is not None:
-        raise NotImplementedError(_RGBD_TODO)
+          input_intensity=None, model_intensity=None,
+          weight_depth: float = 1.0, weight_color: float = 0.1,
+          color_sigma: float = 0.1) -> TrackingResult:
+    """Align the current frame to the raycast model; new_pose =
+    last_pose @ delta. With both intensities ([h,w], NaN where invalid)
+    the photometric rows join each system: A = weight_depth * A_depth +
+    weight_color * A_color, and the same for b, the residual sum and the
+    weight sum (RGB-D tracking; the planarity gate and probe are off)."""
     dev = input_points.device
     levels = cfg.levels
     in_pyr = build_pyramid(input_points, input_normals, levels)
     md_pyr = build_pyramid(model_points, model_normals, levels)
-
-    plan_i2 = planarity_probe(input_points, input_normals, cfg)
+    use_rgbd = input_intensity is not None and model_intensity is not None
+    if use_rgbd:
+        ii_pyr, mi_pyr = [input_intensity], [model_intensity]
+        for _ in range(1, levels):
+            ii_pyr.append(resample_half(ii_pyr[-1]))
+            mi_pyr.append(resample_half(mi_pyr[-1]))
+    # the photometric rows restore the rank a textured wall loses
+    # geometrically, so the planarity gate is for depth-only tracking
+    planarity_on = cfg.normal_aniso_thres > 0.0 and not use_rgbd
 
     def scalar(v, dtype=torch.float32):
         return torch.full((), v, dtype=dtype, device=dev)
+
+    plan_i2 = (planarity_probe(input_points, input_normals, cfg)
+               if planarity_on else scalar(0.0))
 
     delta = torch.eye(4, dtype=torch.float32, device=dev)
     lost = scalar(False, torch.bool)
@@ -265,6 +355,8 @@ def track(input_points, input_normals, model_points, model_normals,
         cam_l = _level_camera(cam, level)
         in_soa = _soa(in_pyr[level][0]) + _soa(in_pyr[level][1])
         md8 = _interleave_target(*md_pyr[level])
+        if use_rgbd:
+            gx, gy = intensity_gradients(mi_pyr[level])
         n_inner = cfg.max_inner_iter[level]
         carry = (delta, lost, residual, corr, condition, scalar(0.0),
                  scalar(0.0), scalar(0, torch.int32), scalar(0.0),
@@ -278,7 +370,7 @@ def track(input_points, input_normals, model_points, model_normals,
                 delta, in_soa, md8, cam_l, cfg.dist_thres[level],
                 cfg.normal_thres[level], cam.depth_min, cam.depth_max)
             mean, inv_std = _whitening(q, ok)
-            if cfg.normal_aniso_thres > 0.0:
+            if planarity_on:
                 planar, _ = _planarity(in_soa, wgt, cfg.normal_aniso_thres)
             else:
                 planar = scalar(False, torch.bool)
@@ -286,6 +378,15 @@ def track(input_points, input_normals, model_points, model_normals,
             for _inner in range(n_inner):
                 a, b, sum_res, sum_w, count = _linearize(
                     delta, in_soa, q, nq, wgt, ok, mean, inv_std)
+                if use_rgbd:
+                    a_c, b_c, res_c, w_c, _ = _build_system_color(
+                        delta, in_pyr[level][0], ii_pyr[level],
+                        mi_pyr[level], gx, gy, cam_l, color_sigma,
+                        mean=mean, inv_std=inv_std)
+                    a = weight_depth * a + weight_color * a_c
+                    b = weight_depth * b + weight_color * b_c
+                    sum_res = weight_depth * sum_res + weight_color * res_c
+                    sum_w = weight_depth * sum_w + weight_color * w_c
                 mean_res = sum_res / torch.clamp(sum_w, min=1e-12)
                 done = done | (torch.abs(last_res - mean_res)
                                < cfg.residual_early_out[level])
