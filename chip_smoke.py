@@ -60,7 +60,27 @@ and then:
    kernel B and its color pass on every frame with splat and never with
    the march, and no plain kernel version called on a CUDA tensor, and
    reports fused frames/s over frames 2-19 (CUDA events), the per-stage
-   table of those frames and the host syncs of one frame.
+   table of those frames and the host syncs of one frame;
+7. runs the SLAM layer at phase 1's width (``phase_slam``): an out-and-back
+   trajectory (``_loop_poses``: 30 frames out along ``make_trajectory``'s
+   motion and 30 back over the same poses) on the bench scene with 2 mm
+   noise is written with ``io.sensfile.write_sens`` (zlib depth, shift
+   1000, raw color) into a temporary directory, with one OCCI file (shift
+   256) whose native and numpy decodes must be equal; then replayed through
+   ``run_slam.frame_source`` and ``run_slam.SlamRun`` with ``--posegraph
+   --reintegrate --histogram --timings``: at least one loop edge, ATE below
+   10 mm before and after the correction (after no worse than before by
+   more than 1 mm), clean invariants and a consistent ``hash_histogram`` on
+   the live and the re-integrated map, kernels A and B on every live frame
+   and once per re-integrated frame, no plain version on a CUDA tensor;
+   kernel A bit-equal to its plain version on the re-integrated map;
+   ``PoseGraph.relocalize`` from a stale pose within 1 cm and 0.01 rad;
+   and 20 frames of phase 1 with ``MapConfig(bilinear_color=True)``
+   (ATE below 10 mm, kernel A's bilinear variant on every frame, held bit
+   for bit and timed on the state after frame 10 as in phase 2). Reports
+   keyframes, edges and loops, ms per ``register`` and ``optimize``, the
+   re-integration's fused frames/s, the ``TimingLog`` report and the host
+   syncs of two live frames.
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
@@ -113,18 +133,27 @@ def _config():
     return EngineConfig(camera=CameraConfig(), map=mp, offline=False)
 
 
-def _frames(cam, device):
-    import torch
-    from voxelhashing_tpu_torch.io.synthetic import (
-        Scene, Sphere, make_trajectory, render_depth)
-    scene = Scene(spheres=(
+def _bench_scene():
+    """The bench scene: the wall, the floor and five spheres."""
+    from voxelhashing_tpu_torch.io.synthetic import Scene, Sphere
+    return Scene(spheres=(
         Sphere(center=(0.0, 0.2, 1.8), radius=0.3),
         Sphere(center=(-0.5, -0.2, 2.0), radius=0.25, color=(0.2, 0.5, 0.8)),
         Sphere(center=(0.6, 0.1, 1.5), radius=0.2, color=(0.3, 0.7, 0.3)),
         Sphere(center=(0.3, -0.4, 2.2), radius=0.28, color=(0.7, 0.7, 0.2)),
         Sphere(center=(-0.3, 0.45, 1.4), radius=0.18, color=(0.6, 0.3, 0.7)),
     ))
-    poses = make_trajectory(N_FRAMES)
+
+
+def _frames(cam, device, poses=None):
+    """The bench scene from ``poses`` (default ``make_trajectory(20)``)
+    with 2 mm depth noise, seed = frame index: (poses, depth with NaN as 0,
+    color)."""
+    import torch
+    from voxelhashing_tpu_torch.io.synthetic import (make_trajectory,
+                                                     render_depth)
+    scene = _bench_scene()
+    poses = make_trajectory(N_FRAMES) if poses is None else poses
     depths, colors = [], []
     for i, pose in enumerate(poses):
         d, c = render_depth(pose, cam, scene, noise_sigma=0.002, seed=i,
@@ -270,7 +299,7 @@ def phase_step(cfg, device, gpu_line):
               f"planarity={float(d.icp_planarity):.3e} "
               f"ms={starts[i].elapsed_time(ends[i]):.3f}")
     est_np = [p.cpu().numpy() for p in est]
-    ate = evaluation.ate_rmse(est_np, poses)
+    ate = evaluation.ate_rmse(est_np, poses, align=False)
     viol = blockmap.check_invariants(state.map, cfg.map)
     dev_ms = sum(starts[i].elapsed_time(ends[i]) for i in range(2, N_FRAMES))
     fps = (N_FRAMES - 2) / (dev_ms / 1000.0)
@@ -291,9 +320,11 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
-    if launches["splat_color"] != 0 or launches["plain splat_zbuf on CUDA"]:
-        raise RuntimeError(f"depth-only step ran a color pass or a plain "
-                           f"version on the card: {launches}")
+    if (launches["splat_color"] != 0 or launches["fused_integrate_bilinear"]
+            or any(v for k, v in launches.items() if k.startswith("plain"))):
+        raise RuntimeError(f"depth-only step ran a color pass, the bilinear "
+                           f"variant or a plain version on the card: "
+                           f"{launches}")
     return snap, est, depth, color, launches, fps
 
 
@@ -429,11 +460,14 @@ def _bound(nbytes, nops):
 
 
 def _work_a(cfg, n_rows, n_updated, max_rows, with_color):
-    """The bytes kernel A must move and the f32 operations it must do
-    (``fused_integrate.bytes_moved`` and ``operations`` of this tree)."""
+    """The bytes kernel A (its bilinear variant with
+    ``cfg.map.bilinear_color``) must move and the f32 operations it must
+    do (``fused_integrate.bytes_moved`` and ``operations`` of this
+    tree)."""
     from voxelhashing_tpu_torch.ops import fused_integrate as fa
     return (fa.bytes_moved(n_rows, n_updated, max_rows, cfg.camera,
-                           with_color), fa.operations(n_rows, n_updated))
+                           with_color),
+            fa.operations(n_rows, n_updated, cfg.map.bilinear_color))
 
 
 def _band_voxels(cfg, map_state, aidx, has_surf):
@@ -1155,21 +1189,30 @@ def _rgbd_config(mode):
 
 def _counts():
     """The kernels' launch counts and the plain versions' calls on CUDA
-    tensors, by name."""
+    tensors, by name. (``ab_step`` also drives older checkouts with this,
+    whose kernel A may have no bilinear variant and whose plain integrate
+    may keep no count: those read 0.)"""
+    from voxelhashing_tpu_torch import integrate as integ
     from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops import splat_zbuf as sb
     return {"fused_integrate": fused_integrate.launches,
+            "fused_integrate_bilinear": getattr(fused_integrate,
+                                                "bilinear_launches", 0),
             "splat_zbuf": sb.splat_zbuf.launches,
             "splat_color": sb.splat_color.launches,
+            "plain integrate on CUDA": getattr(integ.integrate, "cuda_calls",
+                                               0),
             "plain splat_zbuf on CUDA": sb.splat_zbuf_plain.cuda_calls,
             "plain splat_color on CUDA": sb.splat_color_plain.cuda_calls}
 
 
 def _zero_counts():
+    from voxelhashing_tpu_torch import integrate as integ
     from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops import splat_zbuf as sb
-    fused_integrate.launches = 0
+    fused_integrate.launches = fused_integrate.bilinear_launches = 0
     sb.splat_zbuf.launches = sb.splat_color.launches = 0
+    integ.integrate.cuda_calls = 0
     sb.splat_zbuf_plain.cuda_calls = sb.splat_color_plain.cuda_calls = 0
 
 
@@ -1223,7 +1266,8 @@ def phase_rgbd(mode, device, gpu_line):
               f"cond={float(d.icp_condition):.1f} "
               f"planarity={float(d.icp_planarity):.1f} "
               f"ms={events[i][0][1].elapsed_time(events[i][-1][1]):.3f}")
-    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses)
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
+                              align=False)
     viol = blockmap.check_invariants(state.map, cfg.map)
     timed = range(2, N_FRAMES)
     dev_ms = sum(events[i][0][1].elapsed_time(events[i][-1][1])
@@ -1250,9 +1294,10 @@ def phase_rgbd(mode, device, gpu_line):
     print(f"  {'total':10s} {total:9.3f} ms")
 
     splat = mode == "splat"
-    want = {"fused_integrate": N_FRAMES,
+    want = {"fused_integrate": N_FRAMES, "fused_integrate_bilinear": 0,
             "splat_zbuf": N_FRAMES if splat else 0,
             "splat_color": N_FRAMES if splat else 0,
+            "plain integrate on CUDA": 0,
             "plain splat_zbuf on CUDA": 0, "plain splat_color on CUDA": 0}
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
@@ -1264,6 +1309,297 @@ def phase_rgbd(mode, device, gpu_line):
         raise RuntimeError(f"{label}: counts {counts}, expected {want}")
     return {"fps": fps, "ate_mm": ate * 1000, "syncs": syncs,
             "stages": dict(stages), "counts": counts}
+
+
+# phase 7: the SLAM layer
+PG_OUT = 30             # frames out along make_trajectory's motion
+PG_BACK = 30            # frames back over the same poses
+PG_SYNC_FRAMES = (39, 40)   # host syncs counted: a plain frame, a keyframe
+RELOC_LIMITS = (0.01, 0.01)  # relocalization error: metres, radians
+
+
+def _loop_poses():
+    """Frames 0-30 along ``make_trajectory(31)`` (24 cm, 0.12 rad), then
+    30 frames back over the same poses to the start, so that the late
+    keyframes fall inside the loop gates (0.6 m, 0.8 rad) of the early
+    ones."""
+    from voxelhashing_tpu_torch.io.synthetic import make_trajectory
+    out = make_trajectory(PG_OUT + 1)
+    return out + out[-2::-1][:PG_BACK]
+
+
+def _rotation_error(d):
+    import numpy as np
+    return float(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1, 1)))
+
+
+def _write_recordings(tmp, cfg, poses, depth, color):
+    """The .sens recording of the loop (zlib depth, shift 1000, raw color)
+    and a two-frame OCCI file (shift 256) read back with the native and
+    the numpy decoder, which must agree. Returns the recording's path."""
+    import numpy as np
+    from voxelhashing_tpu_torch.io import sensfile
+    cam = cfg.camera
+    intr = np.eye(4, dtype=np.float32)
+    intr[0, 0], intr[1, 1], intr[0, 2], intr[1, 2] = (cam.fx, cam.fy,
+                                                      cam.cx, cam.cy)
+    d_np = depth.cpu().numpy()          # 0 where invalid, stored as 0
+    c_np = color.cpu().numpy()
+    path = os.path.join(tmp, "loop.sens")
+    t0 = time.perf_counter()
+    sensfile.write_sens(path, d_np, c_np, poses, intr)
+    t1 = time.perf_counter()
+    occi = os.path.join(tmp, "occi.sens")
+    sensfile.write_sens(occi, d_np[:2], c_np[:2], poses[:2], intr,
+                        depth_shift=256.0, depth_codec=sensfile.DEPTH_OCCI)
+    native, plain = (sensfile.SensReader(occi, native=True),
+                     sensfile.SensReader(occi, native=False))
+    try:
+        same = all(np.array_equal(native.read_frame(i)[0],
+                                  plain.read_frame(i)[0], equal_nan=True)
+                   for i in range(2))
+        valid = int(np.isfinite(native.read_frame(1)[0]).sum())
+    finally:
+        native.close()
+        plain.close()
+    print(f"slam: wrote {len(poses)} frames ({os.path.getsize(path)} B, zlib "
+          f"depth, raw color) in {t1 - t0:.2f} s host clock; OCCI file "
+          f"({os.path.getsize(occi)} B, shift 256): native and numpy "
+          f"decodes equal {same}, {valid} valid pixels")
+    if not same or valid == 0:
+        raise RuntimeError("OCCI: the native decoder disagrees with numpy")
+    return path
+
+
+def _check_map(label, map_state, cfg):
+    """Invariants 0 and a consistent hash histogram whose allocated count
+    is the map's. Returns the histogram."""
+    from voxelhashing_tpu_torch import blockmap, diagnostics
+    viol = blockmap.check_invariants(map_state, cfg.map)
+    hist = diagnostics.hash_histogram(map_state, cfg.map)
+    allocated = cfg.map.num_blocks - int(map_state.n_free)
+    print(f"slam, {label}: invariants {viol}; hash histogram "
+          f"{hist['probe_histogram'].tolist()}, table used "
+          f"{hist['table_used']}, allocated {hist['allocated_blocks']} "
+          f"(map: {allocated}), consistent {hist['consistent']}")
+    if any(v != 0 for v in viol.values()):
+        raise RuntimeError(f"slam, {label}: invariants {viol}")
+    if not hist["consistent"] or hist["allocated_blocks"] != allocated:
+        raise RuntimeError(f"slam, {label}: hash histogram {hist}")
+    return hist
+
+
+def _timed_register(pg, times):
+    """Time every ``pg.register`` call (host clock; a registration reads
+    its result, so its device work is inside)."""
+    register = pg.register
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = register(*a, **kw)
+        times.append(1000 * (time.perf_counter() - t0))
+        return out
+
+    pg.register = timed
+
+
+def phase_slam(device, gpu_line):
+    """Phase 7: the SLAM layer at phase 1's width (see the module
+    docstring). Returns its numbers and launch counts by path."""
+    import copy
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch import evaluation, run_slam
+
+    cfg = _config()
+    poses, depth, color = _frames(cfg.camera, device, _loop_poses())
+    n = len(poses)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_recordings(tmp, cfg, poses, depth, color)
+        args = run_slam.parse_args([
+            "--input", f"sens:{path}", "--frames", str(n), "--posegraph",
+            "--reintegrate", "--histogram", "--timings"])
+        run = run_slam.SlamRun(args, cfg, device)
+        reg_ms, sites, log = [], {}, io.StringIO()
+        _timed_register(run.pg, reg_ms)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            for i, (d, c, gt) in enumerate(run_slam.frame_source(args, cfg,
+                                                                 device)):
+                ctx = (_sync_sites() if i in PG_SYNC_FRAMES
+                       else contextlib.nullcontext())
+                with ctx as counted:
+                    run.frame(i, d, c, gt)
+                if counted is not None:
+                    sites[i] = counted
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        live = _counts()
+    events = [ln for ln in log.getvalue().splitlines()
+              if "loop closure" in ln or "relocalized" in ln or "LOST" in ln]
+    for ln in events:
+        print(f"slam, live: {ln.strip()}")
+    pg = run.pg
+    n_loops = sum(e.is_loop for e in pg.edges)
+    ate_before = evaluation.ate_rmse(run.est, run.gts, align=False)
+    print(f"slam, live: {n} frames in {live_s:.3f} s host clock "
+          f"({n / live_s:.3f} frames/s with the sync per frame of "
+          f"--timings); keyframes {[k.index for k in pg.keyframes]}, "
+          f"edges {len(pg.edges)}, loops {n_loops} "
+          f"{[(e.i, e.j) for e in pg.edges if e.is_loop]}; register "
+          f"{len(reg_ms)} calls, {np.mean(reg_ms):.3f} ms mean "
+          f"({min(reg_ms):.3f}-{max(reg_ms):.3f}); counts {live}; on "
+          f"{gpu_line}")
+    for i, st in sites.items():
+        print(f"slam, live: host syncs of frame {i} with --posegraph"
+              f"{' (a keyframe)' if i in [k.index for k in pg.keyframes] else ''}"
+              f": {sum(st.values())} ({_sites_line(st)})")
+    _check_map("live map", run.state.map, cfg)
+
+    warm = copy.deepcopy(pg)            # a second, warm optimize below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run.optimize()
+    opt_first = 1000 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    warm.optimize()
+    opt_warm = 1000 * (time.perf_counter() - t0)
+    ate_after = evaluation.ate_rmse(run.est, run.gts, align=False)
+    print(f"slam: optimize {len(pg.keyframes)} poses, {len(pg.edges)} edges, "
+          f"{pg.cfg.gn_iters} Gauss-Newton steps: {opt_first:.3f} ms first "
+          f"call (torch.func set-up included), {opt_warm:.3f} ms warm; ATE "
+          f"RMSE before {ate_before * 1000:.3f} mm, after "
+          f"{ate_after * 1000:.3f} mm (limit {ATE_LIMIT_M * 1000} mm); on "
+          f"{gpu_line}")
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run.reintegrate()
+    b.record()
+    torch.cuda.synchronize()
+    ri_s = time.perf_counter() - t0
+    ri = _counts()
+    ri_fps = n / (a.elapsed_time(b) / 1000.0)
+    print(f"slam, re-integration: {n} frames, {ri_fps:.3f} fused frames/s "
+          f"(CUDA events; {ri_s:.3f} s host clock); counts {ri}; on "
+          f"{gpu_line}")
+    _check_map("re-integrated map", run.state.map, cfg)
+    print(f"slam: TimingLog of the live run on {gpu_line}:\n"
+          f"{run.timing.report()}")
+
+    # kernel A on the re-integrated map: the last frame at its pose
+    pose_last = torch.as_tensor(np.asarray(run.est[-1], np.float32),
+                                device=device)
+    base, d, c, aidx, n_act = _a_inputs(cfg, run.state.map, depth[-1],
+                                        color[-1], pose_last, n)
+    hold_a(cfg, base, d, c, pose_last, aidx, n_act,
+           "kernel A (re-integrated map)")
+    del base, run
+
+    want_live = {"fused_integrate": n, "splat_zbuf": n}
+    bad = [k for k, v in live.items() if k.startswith("plain") and v] + \
+        [k for k, v in ri.items() if k.startswith("plain") and v]
+    if n_loops < 1:
+        raise RuntimeError("slam: no loop edge")
+    if not (ate_before < ATE_LIMIT_M and ate_after < ATE_LIMIT_M
+            and ate_after <= ate_before + 0.001):
+        raise RuntimeError(f"slam: ATE before {ate_before} m, after "
+                           f"{ate_after} m")
+    if any(live[k] != v for k, v in want_live.items()) \
+            or any(ri[k] != v for k, v in want_live.items()) or bad:
+        raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
+                           f"expected {want_live} in both")
+    reloc = phase_relocalize(cfg, poses, depth, device, gpu_line)
+    return {"live": live, "reintegrate": ri, "loops": n_loops,
+            "ate_mm": (ate_before * 1000, ate_after * 1000),
+            "register_ms": float(np.mean(reg_ms)), "optimize_ms": opt_warm,
+            "reintegrate_fps": ri_fps, "reloc": reloc}
+
+
+def phase_relocalize(cfg, poses, depth, device, gpu_line):
+    """``PoseGraph.relocalize`` at full width: keyframes at frames 0, 10,
+    20 and 30 of the loop, the frame of pose 25 (between two of them) and
+    the stale last pose of frame 0. Returns (metres, radians) of error."""
+    import numpy as np
+    from voxelhashing_tpu_torch import posegraph
+    from voxelhashing_tpu_torch.ops.image import preprocess
+
+    cam = cfg.camera
+    pg = posegraph.PoseGraph(cam, posegraph.PoseGraphConfig(
+        loop_min_separation=100, loop_residual_max=1e-3), device=device)
+
+    def maps(i):
+        fr = preprocess(depth[i], None, cam, cfg.filter)
+        return fr.points, fr.normals
+
+    for i in (0, 10, 20, 30):
+        pg.add_keyframe(i, np.asarray(poses[i], np.float64), *maps(i))
+    true = np.asarray(poses[25], np.float64)
+    t0 = time.perf_counter()
+    rp, ok = pg.relocalize(*maps(25), last_pose=np.asarray(poses[0]))
+    ms = 1000 * (time.perf_counter() - t0)
+    d = np.linalg.inv(rp) @ true
+    err = (float(np.linalg.norm(d[:3, 3])), _rotation_error(d))
+    print(f"slam, relocalize: from the stale pose of frame 0 to the frame of "
+          f"pose 25 against keyframes 0/10/20/30: ok {ok}, error "
+          f"{err[0] * 1000:.3f} mm, {err[1]:.5f} rad (limits "
+          f"{RELOC_LIMITS[0] * 1000} mm, {RELOC_LIMITS[1]} rad), "
+          f"{ms:.3f} ms host clock; on {gpu_line}")
+    if not ok or err[0] >= RELOC_LIMITS[0] or err[1] >= RELOC_LIMITS[1]:
+        raise RuntimeError(f"slam: relocalization failed: ok {ok}, {err}")
+    return err
+
+
+def phase_bilinear(device, gpu_line):
+    """Phase 7, bilinear color: 20 frames of phase 1 with
+    ``MapConfig(bilinear_color=True)`` through ``engine.step``; kernel A's
+    bilinear variant on every frame (the nearest-color kernel never), ATE
+    below 10 mm, then the variant held bit for bit against its plain
+    version and timed on the state after frame 10. Returns (result dict,
+    counts)."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import engine, evaluation
+
+    base = _config()
+    cfg = dataclasses.replace(base, map=dataclasses.replace(
+        base.map, bilinear_color=True))
+    poses, depth, color = _frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    est, snap = [], None
+    torch.cuda.synchronize()
+    _zero_counts()
+    for i in range(N_FRAMES):
+        state, _ = engine.step(state, depth[i], color[i], cfg)
+        est.append(state.pose.clone())
+        if i == 10:
+            snap = _clone_engine(state)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
+                              align=False)
+    print(f"bilinear color: {N_FRAMES} frames, ATE RMSE {ate * 1000:.3f} mm "
+          f"(limit {ATE_LIMIT_M * 1000} mm), counts {counts}")
+    want = {"fused_integrate": 0, "fused_integrate_bilinear": N_FRAMES,
+            "splat_zbuf": N_FRAMES}
+    if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
+            or any(v for k, v in counts.items() if k.startswith("plain")):
+        raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
+                           f"expected {want}")
+    del state
+    res, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
+                            11, "kernel A, bilinear variant", gpu_line)
+    return res, counts
 
 
 def _kernel_entry(res, launches):
@@ -1401,9 +1737,10 @@ def main() -> int:
         log = path.with_suffix(".log")
         if log.exists():
             print(f"ptxas, {name}:\n{log.read_text().strip()}")
+    lib_a = _build.library("fused_integrate")
     print(f"persistent grids: fused_integrate "
-          f"{_build.library('fused_integrate').vh_fused_integrate_grid()} "
-          f"CTAs, splat_zbuf "
+          f"{lib_a.vh_fused_integrate_grid()} CTAs, its bilinear variant "
+          f"{lib_a.vh_fused_integrate_bilinear_grid()} CTAs, splat_zbuf "
           f"{_build.library('splat_zbuf').vh_splat_zbuf_grid()} CTAs, "
           f"splat_color "
           f"{_build.library('splat_zbuf').vh_splat_color_grid()} CTAs, of "
@@ -1426,11 +1763,18 @@ def main() -> int:
     scan = phase_large_scan(device, gpu_line)
     rgbd = {mode: phase_rgbd(mode, device, gpu_line)
             for mode in ("march", "splat")}
+    slam = phase_slam(device, gpu_line)
+    res_bl, bl_counts = phase_bilinear(device, gpu_line)
 
+    names = ("fused_integrate", "splat_zbuf", "splat_color",
+             "fused_integrate_bilinear")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
-                         for mode, r in rgbd.items()}}
-               for name in ("fused_integrate", "splat_zbuf", "splat_color")}
+                         for mode, r in rgbd.items()},
+                      "slam_live": slam["live"][name],
+                      "slam_reintegrate": slam["reintegrate"][name],
+                      "bilinear": bl_counts[name]}
+               for name in names}
     kernels = []
     for name, key, res, source, replaces, path in (
             ("fused_integrate", "a", res_a,
@@ -1442,7 +1786,13 @@ def main() -> int:
             # no TPU kernel: the XLA color pass of raycast._splat_zbuf
             ("splat_color", None, res_c,
              "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
-             "voxelhashing_tpu/raycast.py:437", "splat_rgbd")):
+             "voxelhashing_tpu/raycast.py:437", "splat_rgbd"),
+            # kernel A's bilinear variant: on the TPU this configuration
+            # runs the XLA integrate with integrate._bilinear_color, not
+            # the Pallas kernel
+            ("fused_integrate_bilinear", None, res_bl,
+             "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
+             "voxelhashing_tpu/integrate.py:450", "bilinear")):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  **_kernel_entry(res, by_path[name][path]),
@@ -1463,8 +1813,14 @@ def main() -> int:
           f"{res_a['ms']:.4f} ms ({100 * res_a['bound_share']:.1f}% of its "
           f"bound), kernel B bare {res_b['ms']:.4f} ms "
           f"({100 * res_b['bound_share']:.1f}%), color pass bare "
-          f"{res_c['ms']:.4f} ms ({100 * res_c['bound_share']:.1f}%); on "
-          f"{gpu_line}")
+          f"{res_c['ms']:.4f} ms ({100 * res_c['bound_share']:.1f}%), "
+          f"bilinear A bare {res_bl['ms']:.4f} ms "
+          f"({100 * res_bl['bound_share']:.1f}%); slam loops={slam['loops']} "
+          f"ate_mm={slam['ate_mm'][0]:.3f}->{slam['ate_mm'][1]:.3f} "
+          f"register_ms={slam['register_ms']:.3f} "
+          f"optimize_ms={slam['optimize_ms']:.3f} "
+          f"reintegrate_fps={slam['reintegrate_fps']:.3f} "
+          f"reloc_mm={slam['reloc'][0] * 1000:.3f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ exact. Rendered depth within rtol 1e-5 and color exact on the pixels both
 renderers cover, coverage identical apart from at most 1e-4 of the pixels:
 the two libraries sum the ray products in another order, and the sphere
 root ``(-b - sqrt(b^2 - 4ac)) / 2a`` cancels, which turns an ulp there into
-a few ulps of depth (or flips a ray grazing a rim).
+a few ulps of depth (or flips a ray grazing a rim). The same holds for the
+box scenes (slab intersections); the Kinect noise model and the stress
+scenes are the same numpy and agree exactly.
 """
 
 import ast
@@ -88,10 +90,10 @@ def test_trajectory_and_ate_match():
     est = [p.copy() for p in jp]
     for i, p in enumerate(est):
         p[:3, 3] += np.float32(0.001 * i)
-    assert (tev.ate_rmse(est, jp)
+    assert (tev.ate_rmse(est, jp, align=False)
             == evaluation.ate_rmse(est, jp, align=False) > 0)
-    assert tev.ate_rmse([torch.from_numpy(p) for p in est], jp) \
-        == tev.ate_rmse(est, jp)
+    assert tev.ate_rmse([torch.from_numpy(p) for p in est], jp,
+                        align=False) == tev.ate_rmse(est, jp, align=False)
 
 
 @pytest.mark.parametrize("frame,noise", [(0, 0.0), (7, 0.002)])
@@ -119,6 +121,41 @@ def test_render_depth_matches_numpy(frame, noise):
     np.testing.assert_array_equal(ct[both], cj[both])
 
 
+@pytest.mark.parametrize("scene", ["clutter", "wall_only"])
+def test_stress_scenes_render_and_noise_match(scene):
+    """``clutter_scene`` (boxes in front of spheres) and
+    ``wall_only_scene`` render as in numpy (the bounds above), and
+    ``kinect_noise`` and ``make_sequence`` agree."""
+    cam = jcfg.CameraConfig(width=96, height=72, fx=79.0, fy=79.0, cx=47.5,
+                            cy=35.5)
+    tcam = convert.config_from(cam)
+    jscene = getattr(jsyn, f"{scene}_scene")()
+    tscene = getattr(tsyn, f"{scene}_scene")()
+    assert dataclasses.asdict(tscene) == dataclasses.asdict(jscene)
+    pose = jsyn.make_trajectory(4)[3]
+    dj, cj = jsyn.render_depth(pose, cam, jscene)
+    dt, ct = tsyn.render_depth(pose, tcam, tscene, device="cpu")
+    dt, ct = dt.numpy(), ct.numpy()
+    cover_t, cover_j = np.isfinite(dt), np.isfinite(dj)
+    assert (cover_t != cover_j).mean() <= 1e-4
+    both = cover_t & cover_j
+    np.testing.assert_allclose(dt[both], dj[both], rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(ct[both], cj[both])
+    if scene == "clutter":
+        box_color = np.asarray(jscene.boxes[0].color, np.float32)
+        assert (ct == box_color).all(axis=-1).sum() > 100   # boxes render
+    np.testing.assert_array_equal(tsyn.kinect_noise(dj, tcam, seed=5),
+                                  jsyn.kinect_noise(dj, cam, seed=5))
+    sd, sc, sp = tsyn.make_sequence(3, tcam, tscene, noise_sigma=0.002,
+                                    device="cpu")
+    jd, jc, jp = jsyn.make_sequence(3, cam, jscene, noise_sigma=0.002)
+    assert sd.shape == jd.shape and sc.shape == jc.shape
+    for a, b in zip(sp, jp):
+        np.testing.assert_array_equal(a, b)
+    fin = np.isfinite(sd.numpy()) & np.isfinite(jd)
+    np.testing.assert_allclose(sd.numpy()[fin], jd[fin], rtol=1e-5, atol=0)
+
+
 def test_chip_smoke_imports_only_the_port():
     """``chip_smoke.py`` imports neither JAX nor the JAX package, at the top
     or inside a function."""
@@ -139,6 +176,7 @@ def _entry_points(tmp_path):
     as a call that takes ``**device_kwargs``."""
     from voxelhashing_tpu import blockmap as jbm, engine as jeng
     from voxelhashing_tpu_torch import blockmap as tbm, engine as teng
+    from voxelhashing_tpu_torch import posegraph as tpg
     from voxelhashing_tpu_torch import streaming as tstr
 
     jmap = jcfg.MapConfig(num_blocks=64, table_size=256,
@@ -176,13 +214,16 @@ def _entry_points(tmp_path):
                 jeng.create(jcfg.EngineConfig(map=jmap)), **kw),
         "render_depth": lambda **kw: tsyn.render_depth(
             np.eye(4, dtype=np.float32), cam, tsyn.Scene(), **kw),
+        "make_sequence": lambda **kw: tsyn.make_sequence(2, cam, **kw),
+        "PoseGraph": lambda **kw: tpg.PoseGraph(cam, **kw).device,
     }
 
 
 ENTRY_POINTS = ("engine.create", "blockmap.create", "StreamingManager",
                 "AsyncStreamingManager", "load_map", "bitmask_from_ids",
                 "map_state_from_numpy", "bitmask_from_numpy",
-                "engine_state_from_numpy", "render_depth")
+                "engine_state_from_numpy", "render_depth", "make_sequence",
+                "PoseGraph")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -202,4 +243,6 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     for t in tensors + [getattr(out, "bitmask", None)]:
         if t is not None:
             assert t.device.type == "cpu"
+    if isinstance(out, torch.device):
+        assert out.type == "cpu"
     assert tcfg.resolve_device("cpu") == torch.device("cpu")

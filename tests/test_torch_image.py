@@ -4,7 +4,8 @@ Tolerance: NaN masks identical; values within rtol 1e-5 (``exp`` in the
 bilateral filter may differ by an ulp between the libraries). Normals are
 unit vectors whose small components carry the absolute error of the
 difference quotient, so theirs is 1e-5 relative to their unit length
-(atol 1e-5).
+(atol 1e-5). Depth erosion, pull-push hole filling and the depth-to-color
+remap within 1e-6.
 """
 
 import numpy as np
@@ -60,3 +61,51 @@ def test_bilateral_and_resample():
     _close(timg.resample_half(torch.from_numpy(pts)),
            jimg.resample_half(jnp.asarray(pts)))
     assert timg.resample_half(torch.from_numpy(pts)).shape == (30, 40, 3)
+
+
+@pytest.mark.parametrize("radius,thresh", [(2, 0.1), (1, 0.02)])
+def test_erode_depth_matches(radius, thresh):
+    depth, _ = _frame(3)
+    d_t = timg.erode_depth(torch.from_numpy(depth), radius, thresh)
+    d_j = jimg.erode_depth(jnp.asarray(depth), radius, thresh)
+    np.testing.assert_array_equal(np.isnan(d_t.numpy()),
+                                  np.isnan(np.asarray(d_j)))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-6,
+                               rtol=0, equal_nan=True)
+    # it removed pixels, and kept most of them
+    n_in, n_out = np.isfinite(depth).sum(), np.isfinite(d_t.numpy()).sum()
+    assert 0.5 * n_in < n_out < n_in
+
+
+@pytest.mark.parametrize("levels", [5])
+def test_fill_holes_pullpush_matches(levels):
+    depth, _ = _frame(4)
+    depth[20:30, 10:25] = np.nan                  # a hole to fill
+    d_t = timg.fill_holes_pullpush(torch.from_numpy(depth), levels=levels)
+    d_j = jimg.fill_holes_pullpush(jnp.asarray(depth), levels=levels)
+    np.testing.assert_array_equal(np.isnan(d_t.numpy()),
+                                  np.isnan(np.asarray(d_j)))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-6,
+                               rtol=0, equal_nan=True)
+    assert np.isfinite(d_t.numpy()[20:30, 10:25]).all()
+
+
+def test_remap_depth_to_color_matches():
+    """The calibration path's remap: depth intrinsics and an extrinsic
+    offset into a larger color camera."""
+    depth, _ = _frame(5)
+    k_d = np.array([[65.0, 0, 39.5, 0], [0, 65.0, 29.5, 0], [0, 0, 1, 0],
+                    [0, 0, 0, 1]], np.float32)
+    k_c = np.array([[90.0, 0, 55.5, 0], [0, 90.0, 41.5, 0], [0, 0, 1, 0],
+                    [0, 0, 0, 1]], np.float32)
+    ext_d = np.eye(4, dtype=np.float32)
+    ext_d[0, 3] = 0.025
+    out_t = timg.remap_depth_to_color(depth, k_d, k_c, 112, 84, ext_d,
+                                      np.eye(4, dtype=np.float32))
+    out_j = jimg.remap_depth_to_color(depth, k_d, k_c, 112, 84, ext_d,
+                                      np.eye(4, dtype=np.float32))
+    assert out_t.shape == (84, 112) and out_t.dtype == out_j.dtype
+    np.testing.assert_allclose(out_t, out_j, atol=1e-6, rtol=0,
+                               equal_nan=True)
+    np.testing.assert_array_equal(np.isnan(out_t), np.isnan(out_j))
+    assert np.isfinite(out_t).mean() > 0.3

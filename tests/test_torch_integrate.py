@@ -7,7 +7,12 @@ most 1e-4 of the voxels' weights (a projection that lands exactly on a
 ``floor(x+0.5)`` pixel boundary may round the other way, the bound of
 ``tests/test_pallas_integrate.py``); on the voxels that agree, sdf within
 5e-4 and color within 1 per channel; the GC's culled set identical.
+With ``bilinear_color`` the port's rows, surface flags and GC stats equal
+the JAX XLA integrate's bit for bit (its projection and sample repeat the
+XLA function's operations).
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -212,3 +217,53 @@ def test_frame_color_word_matches_jax(seed):
     green = tint.frame_color_word(None, TCAM, device="cpu")
     assert (green.numpy() == 0x0100FF00).all()
     assert green.shape == (CAM.height * CAM.width,)
+
+
+@pytest.fixture(scope="module")
+def setup_state():
+    """``_setup()`` once for the cases below (JAX states are immutable)."""
+    return _setup()
+
+
+@pytest.mark.parametrize("color_case", ["frame", "edge_values", "none"])
+def test_bilinear_integrate_bit_equal_to_xla(setup_state, color_case):
+    """``MapConfig(bilinear_color=True)``: the validity-weighted bilinear
+    color sample, on the test scene's frame, on a frame with the edge
+    values of ``_edge_color_frame`` (invalid corners drop out; a voxel with
+    none valid is not updated), and depth-only (debug green)."""
+    cfg = dataclasses.replace(CFG, bilinear_color=True)
+    tcfg = convert.config_from(cfg)
+    js, depth, color, pose, aidx, n_act = setup_state
+    if color_case == "edge_values":
+        color = _edge_color_frame(1)
+    elif color_case == "none":
+        color = None
+    mask = jnp.arange(aidx.shape[0]) < n_act
+    ref = jint.integrate(js, jnp.asarray(depth),
+                         None if color is None else jnp.asarray(color),
+                         jnp.asarray(pose), CAM, cfg, active_idx=aidx,
+                         active_mask=mask)
+    ts = convert.map_state_from_numpy(js, device="cpu")
+    ts, (min_sdf, max_w) = fused_integrate(
+        ts, _t(depth), None if color is None else _t(color), _t(pose), TCAM,
+        tcfg, _t(aidx), _t(n_act))
+    got = convert.map_state_to_numpy(ts)
+    for f in ("sdf", "weight", "color", "surf", "block_key"):
+        np.testing.assert_array_equal(
+            got[f].view(np.uint8), np.asarray(getattr(ref, f)).view(np.uint8),
+            err_msg=f)
+    n = int(n_act)
+    rows = np.asarray(aidx)[:n]
+    w = np.asarray(ref.weight).astype(np.float32)[rows]
+    s = np.abs(np.asarray(ref.sdf).astype(np.float32)[rows])
+    np.testing.assert_array_equal(max_w.numpy()[:n], w.max(axis=1))
+    np.testing.assert_array_equal(min_sdf.numpy()[:n],
+                                  np.where(w > 0, s, np.inf).min(axis=1))
+    changed = (got["weight"] != np.asarray(js.weight)).any(axis=1).sum()
+    assert changed > 100
+    if color_case == "frame":
+        # bilinear differs from the nearest sample on many voxels
+        near = jint.integrate(js, jnp.asarray(depth), jnp.asarray(color),
+                              jnp.asarray(pose), CAM, CFG, active_idx=aidx,
+                              active_mask=mask)
+        assert (np.asarray(near.color) != got["color"]).sum() > 1000

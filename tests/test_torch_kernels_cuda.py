@@ -9,6 +9,8 @@ and follow the plain versions' operation order). The file imports only the
 port, so it runs where the JAX package cannot.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +215,10 @@ def test_operations_hand_count():
     stay below the time their bytes take at the card's rates."""
     assert fa.operations(1, 0) == 46 * 512
     assert fa.operations(26186, 1000) == 46 * 512 * 26186 + 28 * 1000
+    # the bilinear variant: its 165-operation color sample in place of the
+    # 15 of one color word
+    assert fa.operations(26186, 1000, bilinear=True) \
+        == fa.operations(26186, 1000) + 150 * 1000
     assert sb.operations(1, 0) == 3 * 512
     assert sb.operations(8072, 500) == 3 * 512 * 8072 + 36 * 500
     assert sb.color_operations(8072, 500) == 3 * 512 * 8072 + 37 * 500
@@ -361,3 +367,41 @@ def test_wrappers_refuse_misaligned_pools_on_the_card(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         splat_zbuf(bad, aidx, mask, geom.invert_rigid(pose), CAM, CFG)
     assert (fused_integrate.launches, splat_zbuf.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["scene", "edge_values", "depth_only"])
+def test_fused_integrate_bilinear_bit_equal(cuda, frame):
+    """Kernel A's bilinear variant (``MapConfig(bilinear_color=True)``)
+    against the plain version's ``_bilinear_color``: rows, surface flags
+    and stats bit-equal on the scene's frame, on a frame of edge color
+    values (invalid corners drop out) and depth-only (debug green); the
+    launch is counted as the variant's, and the plain version is not called
+    on the card."""
+    cfg = dataclasses.replace(CFG, bilinear_color=True)
+    state, d, c, pose, aidx, n = _scene_state(cuda)
+    if frame == "edge_values":
+        c = c.clone()
+        for g, v in enumerate((float("nan"), float("inf"), -0.25, 1.5)):
+            c[:, g::5, g % 3] = v
+    elif frame == "depth_only":
+        c = None
+    before = (fused_integrate.launches, fused_integrate.bilinear_launches,
+              integ.integrate.cuda_calls)
+    sk, (mn_k, mx_k) = fused_integrate(_clone(state), d, c, pose, CAM, cfg,
+                                       aidx, n)
+    assert (fused_integrate.launches, fused_integrate.bilinear_launches,
+            integ.integrate.cuda_calls) == (before[0], before[1] + 1,
+                                            before[2])
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    sp, (mn_p, mx_p) = integ.integrate(_clone(state), d, c, pose, CAM, cfg,
+                                       active_idx=aidx, active_mask=mask)
+    torch.cuda.synchronize()
+    for f in ("sdf", "weight", "color", "surf"):
+        assert torch.equal(_bits(getattr(sk, f)), _bits(getattr(sp, f))), f
+    assert torch.equal(mn_k, mn_p) and torch.equal(mx_k, mx_p)
+    assert bool((sk.weight != state.weight).any())
+    if frame == "scene":
+        near, _ = fused_integrate(_clone(state), d, c, pose, CAM, CFG, aidx,
+                                  n)
+        assert bool((near.color != sk.color).any())

@@ -35,6 +35,13 @@
 // - The color word (packed RGB x255 plus a validity bit) is formed here
 //   from the f32 RGB frame, as integrate.frame_color_word forms it, and
 //   only for voxels that pass every other update test.
+// - Bilinear color (MapConfig.bilinear_color) is the template flag
+//   kBilinear: the color word is then the validity-weighted bilinear sample
+//   of integrate._bilinear_color at the continuous projection (four color
+//   words around the rounded centre, IEEE divides), one per voxel that
+//   passes the other tests; its extra frame reads hit L2. Kernel A's
+//   counterpart on the TPU is XLA (engine.py routes this configuration
+//   away from the Pallas kernel), so the variant follows the XLA function.
 // - The per-row GC stats and surface flag are reduced from registers
 //   (warp shuffles, then four partials per row in shared memory); a row's
 //   partials are combined one row later, after the next ring barrier.
@@ -79,6 +86,66 @@ __device__ __forceinline__ int color_word(const float* __restrict__ rgb,
   return ok ? (packed | 0x01000000) : packed;
 }
 
+// One corner of the bilinear sample (integrate._bilinear_color's fetch):
+// its channels from the color word of the clamped pixel, and whether it is
+// on screen with a valid color.
+__device__ __forceinline__ bool color_corner(const float* __restrict__ rgb,
+                                             int px, int py, int width,
+                                             int height, float (&c)[3]) {
+  const bool on = px >= 0 && px < width && py >= 0 && py < height;
+  const int idx =
+      min(max(py, 0), height - 1) * width + min(max(px, 0), width - 1);
+  const int word = color_word(rgb, idx);
+  c[0] = (float)((word >> 16) & 0xFF);
+  c[1] = (float)((word >> 8) & 0xFF);
+  c[2] = (float)(word & 0xFF);
+  return on && (word >> 24) == 1;
+}
+
+// integrate._bilinear_color for one voxel at the continuous projection
+// (uf, vf), in its operation order: the rounded centre and its neighbours
+// in the direction of the fractional offsets (an offset of exactly 0 goes
+// +1), invalid corners weighted 0, the row normalisations, then the
+// column one, packed as blockmap.pack_rgb packs (clamp, truncate), with
+// bit 24 set when any corner was valid. No frame: the debug green, valid.
+__device__ __forceinline__ int bilinear_word(const float* __restrict__ rgb,
+                                             float uf, float vf, int width,
+                                             int height) {
+  if (rgb == nullptr) return 0x0100FF00;
+  const int p00x = (int)floorf(uf + 0.5f);
+  const int p00y = (int)floorf(vf + 0.5f);
+  const float ox = uf - (float)p00x;
+  const float oy = vf - (float)p00y;
+  const int dirx = ox >= 0.0f ? 1 : -1;
+  const int diry = oy >= 0.0f ? 1 : -1;
+  const float alpha = ox * (float)dirx;
+  const float beta = oy * (float)diry;
+  float c00[3], c10[3], c01[3], c11[3];
+  const bool ok00 = color_corner(rgb, p00x, p00y, width, height, c00);
+  const bool ok10 = color_corner(rgb, p00x + dirx, p00y, width, height, c10);
+  const bool ok01 = color_corner(rgb, p00x, p00y + diry, width, height, c01);
+  const bool ok11 =
+      color_corner(rgb, p00x + dirx, p00y + diry, width, height, c11);
+  const float w00 = ok00 ? 1.0f - alpha : 0.0f;
+  const float w10 = ok10 ? alpha : 0.0f;
+  const float w01 = ok01 ? 1.0f - alpha : 0.0f;
+  const float w11 = ok11 ? alpha : 0.0f;
+  const float wr0 = w00 + w10;
+  const float wr1 = w01 + w11;
+  const float wb0 = wr0 > 0.0f ? 1.0f - beta : 0.0f;
+  const float wb1 = wr1 > 0.0f ? beta : 0.0f;
+  const float ww = wb0 + wb1;
+  int packed = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float p0 = (c00[k] * w00 + c10[k] * w10) / fmaxf(wr0, 1e-12f);
+    const float p1 = (c01[k] * w01 + c11[k] * w11) / fmaxf(wr1, 1e-12f);
+    const float out = (p0 * wb0 + p1 * wb1) / fmaxf(ww, 1e-12f);
+    packed = (packed << 8) | (int)fminf(fmaxf(out, 0.0f), 255.0f);
+  }
+  return ww > 0.0f ? (packed | 0x01000000) : packed;
+}
+
 // Thread 0: fill `stage` with pool row `pool` by three bulk copies that
 // complete on `bar`.
 __device__ __forceinline__ void issue_row(RowStage* stage, uint64_t* bar,
@@ -92,6 +159,7 @@ __device__ __forceinline__ void issue_row(RowStage* stage, uint64_t* bar,
   vh::bulk_g2s(stage->color, color + off, kColorRowBytes, bar);
 }
 
+template <bool kBilinear>
 __global__ void __launch_bounds__(kRowThreads)
 fused_integrate_kernel(const float* __restrict__ view_g,
                        const float* __restrict__ depth,
@@ -203,12 +271,14 @@ fused_integrate_kernel(const float* __restrict__ view_g,
       // depth reads, and then their color reads, are in flight together.
       int pix[4];
       bool in_band[4];
-      float dep[4], sd[4], trunc[4];
+      float dep[4], sd[4], trunc[4], ufs[4], vfs[4];
 #pragma unroll
       for (int j = 0; j < kVoxelsPerThread; ++j) {
         const float safe_z = (pzs[j] == 0.0f) ? 1e-12f : pzs[j];
         const float uf = pxs[j] * fx / safe_z + cx;
         const float vf = pys[j] * fy / safe_z + cy;
+        ufs[j] = uf;
+        vfs[j] = vf;
         int ui = (int)floorf(uf + 0.5f);
         int vi = (int)floorf(vf + 0.5f);
         in_band[j] =
@@ -230,8 +300,15 @@ fused_integrate_kernel(const float* __restrict__ view_g,
       }
       int pc[4];
 #pragma unroll
-      for (int j = 0; j < kVoxelsPerThread; ++j)
-        pc[j] = in_band[j] ? color_word(rgb, pix[j]) : 0;
+      for (int j = 0; j < kVoxelsPerThread; ++j) {
+        if (!in_band[j]) {
+          pc[j] = 0;
+        } else if constexpr (kBilinear) {
+          pc[j] = bilinear_word(rgb, ufs[j], vfs[j], width, height);
+        } else {
+          pc[j] = color_word(rgb, pix[j]);
+        }
+      }
 
       const int old_c[4] = {cw.x, cw.y, cw.z, cw.w};
       uint32_t out_s[4], out_w[4];
@@ -302,38 +379,67 @@ fused_integrate_kernel(const float* __restrict__ view_g,
   if (tid == 0) finalize(prev_row, prev_pool, (it - 1) & 1);
 }
 
-int grid_cache = 0;
+int grid_cache[2] = {0, 0};
 
-}  // namespace
-
-// The persistent grid the kernel launches with (0 if it cannot be found).
-extern "C" int vh_fused_integrate_grid() {
-  return vh::persistent_grid(fused_integrate_kernel, kRowThreads, 0,
-                             &grid_cache);
+template <bool kBilinear>
+int grid_of() {
+  return vh::persistent_grid(fused_integrate_kernel<kBilinear>, kRowThreads,
+                             0, &grid_cache[kBilinear ? 1 : 0]);
 }
 
-extern "C" int vh_fused_integrate(
-    const void* view, const void* depth, const void* rgb,
-    const void* block_key, const void* active_idx, const void* n_active,
-    void* sdf, void* weight, void* color, void* surf, void* stats,
-    int max_rows, int width, int height, float fx, float fy, float cx,
-    float cy, float depth_min, float depth_range, float voxel_size,
-    float truncation, float truncation_scale, float max_dist,
-    float weight_sample15, float weight_max, int world_blocks,
-    void* stream) {
-  const int grid = vh_fused_integrate_grid();
+template <bool kBilinear>
+int launch(const void* view, const void* depth, const void* rgb,
+           const void* block_key, const void* active_idx,
+           const void* n_active, void* sdf, void* weight, void* color,
+           void* surf, void* stats, int max_rows, int width, int height,
+           float fx, float fy, float cx, float cy, float depth_min,
+           float depth_range, float voxel_size, float truncation,
+           float truncation_scale, float max_dist, float weight_sample15,
+           float weight_max, int world_blocks, void* stream) {
+  const int grid = grid_of<kBilinear>();
   if (grid <= 0) {
     const int err = (int)cudaGetLastError();
     return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
   }
   if (max_rows > 0) {
-    fused_integrate_kernel<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)view, (const float*)depth, (const float*)rgb,
-        (const int*)block_key, (const int*)active_idx, (const int*)n_active,
-        (uint16_t*)sdf, (uint16_t*)weight, (int*)color, (uint8_t*)surf,
-        (float*)stats, max_rows, width, height, fx, fy, cx, cy, depth_min,
-        depth_range, voxel_size, truncation, truncation_scale, max_dist,
-        weight_sample15, weight_max, world_blocks);
+    fused_integrate_kernel<kBilinear>
+        <<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)view, (const float*)depth, (const float*)rgb,
+            (const int*)block_key, (const int*)active_idx,
+            (const int*)n_active, (uint16_t*)sdf, (uint16_t*)weight,
+            (int*)color, (uint8_t*)surf, (float*)stats, max_rows, width,
+            height, fx, fy, cx, cy, depth_min, depth_range, voxel_size,
+            truncation, truncation_scale, max_dist, weight_sample15,
+            weight_max, world_blocks);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The persistent grids the two variants launch with (0 if they cannot be
+// found).
+extern "C" int vh_fused_integrate_grid() { return grid_of<false>(); }
+extern "C" int vh_fused_integrate_bilinear_grid() { return grid_of<true>(); }
+
+#define VH_FUSED_INTEGRATE_ARGS                                              \
+  const void *view, const void *depth, const void *rgb,                      \
+      const void *block_key, const void *active_idx, const void *n_active,   \
+      void *sdf, void *weight, void *color, void *surf, void *stats,         \
+      int max_rows, int width, int height, float fx, float fy, float cx,     \
+      float cy, float depth_min, float depth_range, float voxel_size,        \
+      float truncation, float truncation_scale, float max_dist,              \
+      float weight_sample15, float weight_max, int world_blocks, void *stream
+#define VH_FUSED_INTEGRATE_CALL                                              \
+  view, depth, rgb, block_key, active_idx, n_active, sdf, weight, color,     \
+      surf, stats, max_rows, width, height, fx, fy, cx, cy, depth_min,       \
+      depth_range, voxel_size, truncation, truncation_scale, max_dist,       \
+      weight_sample15, weight_max, world_blocks, stream
+
+// Nearest-pixel color (the default) and bilinear color.
+extern "C" int vh_fused_integrate(VH_FUSED_INTEGRATE_ARGS) {
+  return launch<false>(VH_FUSED_INTEGRATE_CALL);
+}
+extern "C" int vh_fused_integrate_bilinear(VH_FUSED_INTEGRATE_ARGS) {
+  return launch<true>(VH_FUSED_INTEGRATE_CALL);
 }

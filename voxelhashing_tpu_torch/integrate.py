@@ -6,7 +6,9 @@
   per-column fold. The DDA's ``lax.scan`` is a Python loop of
   ``alloc_steps``; the tile phase is the host frame counter.
 * ``integrate``: the plain PyTorch fusion pass, the reference that the
-  CUDA kernel of ``ops/fused_integrate.py`` is held against.
+  CUDA kernel of ``ops/fused_integrate.py`` is held against; with
+  ``MapConfig.bilinear_color`` the color sample is the validity-weighted
+  bilinear one of ``_bilinear_color``.
 * ``starve`` / ``garbage_collect``: weight starvation and block culling.
 
 Pool rows are updated in place (see ``blockmap``).
@@ -23,10 +25,6 @@ from . import blockmap
 from . import geometry as geom
 from .blockmap import MapState
 from .geometry import INVALID_KEY
-
-_BILINEAR_TODO = ("bilinear color integration is not ported yet "
-                  "(ROADMAP.md queue 1: bilinear color)")
-
 
 # ---------------------------------------------------------------------------
 # Allocation candidates: DDA through block space along each pixel ray
@@ -239,7 +237,9 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     PyTorch version of the fused-integrate kernel.
 
     For each voxel of each active block: project into the frame, nearest-
-    sample depth and color, sdf = depth - z truncated to the band, and
+    sample depth and color (color bilinear with ``cfg.bilinear_color``;
+    a voxel with no valid corner is not updated), sdf = depth - z
+    truncated to the band, and
     ``combineVoxel`` (weighted sdf mean, weight capped at w_max, 50/50
     color blend) with the sample weight ``max(w_s*1.5*(1-depth01), 1)``.
     Only the rows ``active_idx[active_mask]`` are computed (the mask is
@@ -250,9 +250,9 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     GC stats over the stored values; rows where ``active_mask`` is False
     get (inf, 0), as from the kernel.
     """
-    if cfg.bilinear_color:
-        raise NotImplementedError(_BILINEAR_TODO)
     dev = depth.device
+    if dev.type == "cuda":
+        integrate.cuda_calls += 1
     view = geom.invert_rigid(pose)
     if active_idx is None:
         active_idx, _, _ = blockmap.compactify(state, view, cam, cfg)
@@ -286,9 +286,13 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     w_new = torch.clamp(
         cfg.integration_weight_sample * 1.5 * (1.0 - depth01), min=1.0)
 
-    pc = frame_color_word(color, cam, dev)[pix]
-    c_new = pc & 0x00FFFFFF
-    update &= (pc >> 24) == 1
+    if color is not None and cfg.bilinear_color:
+        c_new, c_ok = _bilinear_color(color, uf, vf, cam)
+        update &= c_ok
+    else:
+        pc = frame_color_word(color, cam, dev)[pix]
+        c_new = pc & 0x00FFFFFF
+        update &= (pc >> 24) == 1
 
     old_sdf = state.sdf[aidx].to(torch.float32)
     old_w = state.weight[aidx].to(torch.float32)
@@ -318,6 +322,59 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     state.surf[aidx] = torch.any((w_f > 0.0) & (abs_s < cfg.voxel_size),
                                  dim=1)
     return state, (min_sdf, max_w)
+
+
+integrate.cuda_calls = 0     # calls on CUDA tensors (the kernel's job there)
+
+
+def _bilinear_color(color, uf, vf, cam: CameraConfig):
+    """Validity-weighted bilinear color sample at the continuous pixel
+    coordinates (uf, vf): the rounded centre and its neighbours in the
+    direction of the fractional offsets (a zero offset goes +1), corners
+    off screen or with an invalid color weighted 0, the two row
+    normalisations, then the column one. Returns (packed int32 0x00RRGGBB,
+    valid bool), invalid where no corner is valid. The kernel's bilinear
+    variant repeats this operation for operation."""
+    h, w = cam.height, cam.width
+    packed, c_ok = _pack_frame_color(color)
+    cflat = packed.reshape(-1)
+    okflat = c_ok.reshape(-1)
+
+    p00x = torch.floor(uf + 0.5).to(torch.int32)
+    p00y = torch.floor(vf + 0.5).to(torch.int32)
+    dirx = torch.where(uf - p00x >= 0, 1, -1).to(torch.int32)
+    diry = torch.where(vf - p00y >= 0, 1, -1).to(torch.int32)
+    alpha = (uf - p00x) * dirx
+    beta = (vf - p00y) * diry
+
+    def fetch(px, py):
+        on = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+        idx = (torch.clamp(py, 0, h - 1) * w
+               + torch.clamp(px, 0, w - 1)).long()
+        return blockmap.unpack_rgb(cflat[idx]), on & okflat[idx]
+
+    c00, ok00 = fetch(p00x, p00y)
+    c10, ok10 = fetch(p00x + dirx, p00y)
+    c01, ok01 = fetch(p00x, p00y + diry)
+    c11, ok11 = fetch(p00x + dirx, p00y + diry)
+
+    w00 = torch.where(ok00, 1 - alpha, 0.0)
+    w10 = torch.where(ok10, alpha, 0.0)
+    s0 = c00 * w00[..., None] + c10 * w10[..., None]
+    wr0 = w00 + w10
+    w01 = torch.where(ok01, 1 - alpha, 0.0)
+    w11 = torch.where(ok11, alpha, 0.0)
+    s1 = c01 * w01[..., None] + c11 * w11[..., None]
+    wr1 = w01 + w11
+
+    p0 = s0 / torch.clamp(wr0, min=1e-12)[..., None]
+    p1 = s1 / torch.clamp(wr1, min=1e-12)[..., None]
+    wb0 = torch.where(wr0 > 0, 1 - beta, 0.0)
+    wb1 = torch.where(wr1 > 0, beta, 0.0)
+    ss = p0 * wb0[..., None] + p1 * wb1[..., None]
+    ww = wb0 + wb1
+    out = ss / torch.clamp(ww, min=1e-12)[..., None]
+    return blockmap.pack_rgb(out), ww > 0
 
 
 def _blend_packed(old_c, new_c):

@@ -1,11 +1,11 @@
 """Synthetic RGB-D frames rendered on the device (PyTorch port of the
-wall + floor + spheres scene and the handheld trajectory of
-``voxelhashing_tpu.io.synthetic``).
+wall + floor + spheres + boxes scene, the handheld trajectory, the stress
+scenes and the Kinect-style noise model of ``voxelhashing_tpu.io.synthetic``).
 
-Exact ray/plane and ray/sphere intersections for every pixel, in the same
-operation order as the numpy renderer. Depth noise is drawn on the host
-with numpy's generator from the frame's seed, so both packages add the same
-noise.
+Exact ray/plane, ray/sphere and ray/box (slab) intersections for every
+pixel, in the same operation order as the numpy renderer. Depth noise is
+drawn on the host with numpy's generator from the frame's seed, so both
+packages add the same noise; ``kinect_noise`` is the same numpy model.
 
 Camera convention: x right, y down, z forward; pose = camera-to-world.
 """
@@ -29,9 +29,18 @@ class Sphere:
 
 
 @dataclasses.dataclass(frozen=True)
+class Box:
+    """Axis-aligned box (clutter and occluder primitive of stress scenes)."""
+
+    lo: Tuple[float, float, float]
+    hi: Tuple[float, float, float]
+    color: Tuple[float, float, float] = (0.7, 0.5, 0.2)
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """A wall plane z = wall_z (world), an optional floor plane y = floor_y
-    (y points down) and spheres in front of them."""
+    (y points down) and spheres and boxes in front of them."""
 
     wall_z: float = 2.5
     wall_color: Tuple[float, float, float] = (0.6, 0.6, 0.65)
@@ -42,6 +51,7 @@ class Scene:
         Sphere(center=(-0.5, -0.2, 2.0), radius=0.25,
                color=(0.2, 0.5, 0.8)),
     )
+    boxes: Tuple[Box, ...] = ()
 
 
 def render_depth(pose, cam: CameraConfig, scene: Scene,
@@ -93,6 +103,17 @@ def render_depth(pose, cam: CameraConfig, scene: Scene,
         disc = b * b - 4 * a * c
         sq = torch.sqrt(torch.clamp(disc, min=0.0))
         consider((-b - sq) / (2 * a), disc > 0, s.color)
+    for bx in scene.boxes:
+        # slab-method ray/box intersection over all pixels
+        lo = torch.tensor(bx.lo, dtype=f32, device=device)
+        hi = torch.tensor(bx.hi, dtype=f32, device=device)
+        safe = torch.where(torch.abs(dirs) > 1e-12, dirs, 1e-12)
+        t0 = (lo - origin) / safe
+        t1 = (hi - origin) / safe
+        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        consider(torch.where(t_near > 0.0, t_near, torch.inf),
+                 (t_near <= t_far) & (t_far > 0.0), bx.color)
 
     # best_t parameterises unit-z rays, so it IS the z-depth.
     depth = torch.where(torch.isfinite(best_t), best_t, torch.nan)
@@ -129,3 +150,77 @@ def make_trajectory(n_frames: int, translation_step: float = 0.008,
         pose[2, 3] = -0.2 * translation_step * i
         poses.append(pose)
     return poses
+
+
+def kinect_noise(depth: np.ndarray, cam: CameraConfig, seed: int = 0,
+                 baseline: float = 0.075, dropout_grad: float = 0.04,
+                 salt_dropout: float = 0.002,
+                 fx_raw: float = 580.0) -> np.ndarray:
+    """Structured-light depth corruption on a host (numpy) depth map:
+    disparity d = f*b/z with Gaussian noise of 1/12 and quantisation to 1/8
+    of a disparity step at the raw sensor's focal length, edge dropout
+    (depth steps above ``dropout_grad``, dilated one pixel) and salt
+    dropout. Invalid pixels are NaN."""
+    rng = np.random.default_rng(seed)
+    fb = fx_raw * baseline
+    valid = np.isfinite(depth) & (depth > 0)
+    z = np.where(valid, depth, 1.0)
+    disp = fb / z
+    disp = disp + rng.normal(0.0, 1.0 / 12.0, disp.shape)
+    disp = np.round(disp * 8.0) / 8.0
+    z_q = fb / np.maximum(disp, 1e-6)
+    gy = np.abs(np.diff(z, axis=0, prepend=z[:1]))
+    gx = np.abs(np.diff(z, axis=1, prepend=z[:, :1]))
+    edge = (np.maximum(gx, gy) > dropout_grad)
+    edge = (edge
+            | np.roll(edge, 1, 0) | np.roll(edge, -1, 0)
+            | np.roll(edge, 1, 1) | np.roll(edge, -1, 1))
+    drop = edge | (rng.random(z.shape) < salt_dropout)
+    return np.where(valid & ~drop, z_q, np.nan).astype(np.float32)
+
+
+def clutter_scene() -> Scene:
+    """Occlusion-heavy stress scene: boxes in front of spheres in front of
+    the wall and floor."""
+    return Scene(
+        wall_z=2.6,
+        floor_y=0.9,
+        spheres=(
+            Sphere(center=(0.0, 0.25, 2.0), radius=0.3),
+            Sphere(center=(-0.55, -0.15, 2.2), radius=0.25,
+                   color=(0.2, 0.5, 0.8)),
+            Sphere(center=(0.65, 0.0, 1.9), radius=0.2,
+                   color=(0.3, 0.7, 0.3)),
+        ),
+        boxes=(
+            Box(lo=(-0.15, -0.05, 1.15), hi=(0.2, 0.45, 1.45)),
+            Box(lo=(-0.75, 0.3, 1.5), hi=(-0.35, 0.75, 1.85),
+                color=(0.4, 0.3, 0.6)),
+            Box(lo=(0.35, -0.5, 1.6), hi=(0.75, -0.15, 2.0),
+                color=(0.25, 0.55, 0.55)),
+            Box(lo=(-0.3, 0.6, 2.0), hi=(0.5, 0.9, 2.5),
+                color=(0.6, 0.55, 0.3)),
+        ),
+    )
+
+
+def wall_only_scene(z: float = 2.0) -> Scene:
+    """Textureless-wall degeneracy scene: one fronto-parallel plane, which
+    point-to-plane ICP constrains in z, pitch and yaw only."""
+    return Scene(wall_z=z, floor_y=None, spheres=(), boxes=())
+
+
+def make_sequence(n_frames: int, cam: CameraConfig,
+                  scene: Optional[Scene] = None, noise_sigma: float = 0.0,
+                  device="cuda"):
+    """Render ``make_trajectory(n_frames)`` on ``device`` (the card unless
+    the caller asks for the CPU), frame i with noise seed i.
+
+    Returns (depths f32[n,h,w], colors f32[n,h,w,3], poses list of 4x4).
+    """
+    scene = scene or Scene()
+    poses = make_trajectory(n_frames)
+    frames = [render_depth(p, cam, scene, noise_sigma=noise_sigma, seed=i,
+                           device=device) for i, p in enumerate(poses)]
+    return (torch.stack([d for d, _ in frames]),
+            torch.stack([c for _, c in frames]), poses)

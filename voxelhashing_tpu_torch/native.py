@@ -1,13 +1,14 @@
 """ctypes binding of the host runtime ``native/voxelhash_host.cpp``: the
-chunk store that holds streamed-out blocks in host memory, and the
-vertex-welding PLY writer.
+chunk store that holds streamed-out blocks in host memory, the
+vertex-welding PLY writer, and the OCCI depth codec of ``.sens`` files.
 
 The C++ source is shared with the JAX package and not changed; this module
 builds its own copy with g++ at first use into
 ``build/voxelhashing_tpu_torch/`` at the repository root (named by a hash
 of the source), and never falls back: a missing compiler or a failed build
 raises. ``streaming.PyChunkStore`` and ``meshing.merge_vertices`` are the
-plain versions, chosen explicitly by callers.
+plain versions, chosen explicitly by callers, as are
+``io.sensfile.occi_decode_plain`` and ``occi_encode_plain``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "chunkstore_peek_count": ([_P, _P, _I32], _I64),
     "chunkstore_peek_chunks": ([_P, _P, _I32, _P, _P, _P, _P, _I32], _I32),
     "mesh_weld_save_ply": ([ctypes.c_char_p, _P, _P, _I64, _F], _I64),
+    "occi_decode_u16": ([_P, _I64, _P, _I64], ctypes.c_int),
+    "occi_encode_u16": ([_P, _I64, _P, _I64], _I64),
 }
 
 
@@ -197,3 +200,25 @@ def weld_save_ply(path: str, triangles: np.ndarray,
     if n < 0:
         raise IOError(f"mesh_weld_save_ply failed: {path}")
     return int(n)
+
+
+def occi_decode(buf: bytes, num_elements: int) -> np.ndarray:
+    """Decode an OCCI depth bitstream into uint16[num_elements]."""
+    out = np.empty(num_elements, np.uint16)
+    src = np.frombuffer(buf, np.uint8)
+    rc = library().occi_decode_u16(_ptr(src), len(src), _ptr(out),
+                                   int(num_elements))
+    if rc != 0:
+        raise ValueError("occi bitstream truncated")
+    return out
+
+
+def occi_encode(values: np.ndarray) -> bytes:
+    """Encode uint16 values (masked to 11 bits) as an OCCI bitstream."""
+    v = np.ascontiguousarray(values, np.uint16).reshape(-1)
+    cap = 2 * v.size + 16
+    out = np.zeros(cap, np.uint8)
+    n = library().occi_encode_u16(_ptr(v), v.size, _ptr(out), cap)
+    if n < 0:
+        raise ValueError("occi encode overflow")
+    return out[:n].tobytes()

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "fused_integrate": {
         "vh_fused_integrate": [_P] * 11 + [_I] * 3 + [_F] * 12 + [_I, _P],
         "vh_fused_integrate_grid": [],
+        "vh_fused_integrate_bilinear":
+            [_P] * 11 + [_I] * 3 + [_F] * 12 + [_I, _P],
+        "vh_fused_integrate_bilinear_grid": [],
     },
     "splat_zbuf": {
         "vh_splat_zbuf": [_P] * 7 + [_I] * 3 + [_F] * 7 + [_I, _P],

@@ -13,8 +13,13 @@ fallback from the kernel to the plain version.
 On a CUDA tensor the wrapper inverts the pose (``geometry.invert_rigid``,
 the same bits as the plain version) and checks what the kernel assumes
 (:func:`prepare`); :func:`launch` then issues the kernel alone, which forms
-each pixel's color word from the f32 RGB frame itself. Its least time on
-the card is the larger of :func:`bytes_moved` over the memory rate and
+each pixel's color word from the f32 RGB frame itself. With
+``MapConfig.bilinear_color`` the wrapper launches the kernel's bilinear
+variant (``vh_fused_integrate_bilinear``, counted in
+``fused_integrate.bilinear_launches``; the nearest-color kernel in
+``fused_integrate.launches``). The plain version counts its calls on CUDA
+tensors (``integrate.integrate.cuda_calls``). Its least time on the card
+is the larger of :func:`bytes_moved` over the memory rate and
 :func:`operations` over the f32 rate; see the source for what its design
 does about the bytes.
 """
@@ -41,7 +46,8 @@ def bytes_moved(n_rows: int, n_updated: int, max_rows: int,
     (f32 depth, and f32 RGB when given); per active row its ``active_idx``
     entry and block key read and its surface flag written; the stats of
     all ``max_rows`` rows written (8 B each); the view matrix and
-    ``n_active`` read."""
+    ``n_active`` read. The bilinear variant moves the same bytes: its
+    three more color reads per updated voxel read the same frame again."""
     pixels = cam.height * cam.width
     row_reads = 2 * 2 * VOXELS_PER_BLOCK * n_rows
     updated = (4 + 2 + 2 + 4) * n_updated
@@ -58,13 +64,24 @@ def bytes_moved(n_rows: int, n_updated: int, max_rows: int,
 # (13: the clamp, the sample weight and the weighted mean)
 _OPS_PER_VOXEL = 3 + 18 + 12 + 8 + 5
 _OPS_PER_UPDATE = 15 + 13
+# the bilinear variant's color sample in place of the one color word (15),
+# counted the same way on integrate._bilinear_color: the rounded centre (4),
+# the offsets, their directions and alpha, beta (6), the corners' pixels
+# (2), per corner the screen test, clamps and index (10) and its color word
+# (15), the weights and normalisers (8), per channel two row sums, three
+# divisions, the column sum and the clamp (14) and the three lower bounds
+# of the divisors (3)
+_OPS_BILINEAR_COLOR = 4 + 6 + 2 + 4 * (10 + 15) + 8 + 3 * 14 + 3
 
 
-def operations(n_rows: int, n_updated: int) -> int:
-    """The f32 operations kernel A must do for ``n_rows`` active rows of
-    which ``n_updated`` voxels update (the counts above)."""
+def operations(n_rows: int, n_updated: int, bilinear: bool = False) -> int:
+    """The f32 operations kernel A (or with ``bilinear`` its bilinear
+    variant) must do for ``n_rows`` active rows of which ``n_updated``
+    voxels update (the counts above)."""
+    per_update = _OPS_PER_UPDATE + (_OPS_BILINEAR_COLOR - 15 if bilinear
+                                    else 0)
     return (_OPS_PER_VOXEL * VOXELS_PER_BLOCK * n_rows
-            + _OPS_PER_UPDATE * n_updated)
+            + per_update * n_updated)
 
 
 def _check_inputs(state: MapState, depth, color, view, active_idx, n_active,
@@ -124,17 +141,25 @@ def prepare(state: MapState, depth, color, view, cam: CameraConfig,
             cam.depth_min, cam.depth_max - cam.depth_min, cfg.voxel_size,
             cfg.truncation, cfg.truncation_scale,
             cfg.max_integration_distance, cfg.integration_weight_sample * 1.5,
-            cfg.integration_weight_max, cfg.world_blocks, depth.device)
+            cfg.integration_weight_max, cfg.world_blocks,
+            cfg.bilinear_color, depth.device)
     return args, stats
 
 
 def launch(args) -> None:
-    """Launch the kernel on prepared arguments, on the current stream (the
-    only place that does; counts the launch)."""
-    *kernel_args, device = args
-    _build.check(_build.library("fused_integrate").vh_fused_integrate(
-        *kernel_args, _build.stream_ptr(device)), "fused_integrate")
-    fused_integrate.launches += 1
+    """Launch the kernel (its bilinear variant when the prepared config
+    asks for it) on prepared arguments, on the current stream (the only
+    place that does; counts the launch)."""
+    *kernel_args, bilinear, device = args
+    lib = _build.library("fused_integrate")
+    fn = lib.vh_fused_integrate_bilinear if bilinear else \
+        lib.vh_fused_integrate
+    _build.check(fn(*kernel_args, _build.stream_ptr(device)),
+                 "fused_integrate")
+    if bilinear:
+        fused_integrate.bilinear_launches += 1
+    else:
+        fused_integrate.launches += 1
 
 
 def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
@@ -151,8 +176,6 @@ def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
                                active_idx=active_idx, active_mask=mask)
     if depth.device.type != "cuda":
         raise ValueError(f"fused_integrate: no kernel for {depth.device}")
-    if cfg.bilinear_color:
-        raise NotImplementedError(integ._BILINEAR_TODO)
     view = geom.invert_rigid(pose.to(torch.float32))
     args, stats = prepare(state, depth.contiguous(),
                           None if color is None else color.contiguous(),
@@ -162,3 +185,4 @@ def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
 
 
 fused_integrate.launches = 0
+fused_integrate.bilinear_launches = 0
