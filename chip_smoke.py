@@ -27,13 +27,17 @@ and then:
    whose bits it changed as the updated ones) and the bound they give at
    3.35 TB/s and 67 TFLOP/s;
 3. does the same for kernel B (splat z-buffer) on the same state: the
-   z-buffers must be bit-identical; and for kernel B's color pass
-   (``check_color``), whose colors must be bit-identical to its plain
-   version's there and on a forced tie (``_with_tie``: a surface row
-   copied into a free slot with another color, listed after it, must win
-   every pixel the row hits); then holds kernels A and B, bit for bit, on
-   the edge cases (``phase_edge_cases``: n_active 0, 1 and M, a frame of
-   edge values, a depth-only frame);
+   z-buffers must be bit-identical; and for a color render
+   (``check_color``: the color walk, one 64-bit atomicMin of (z_surf bits
+   << 32 | 0xFFFFFFFF - flat index) per voxel, and the per-pixel
+   resolve), whose z-buffer and colors must be bit-identical to
+   ``splat_zbuf_plain(with_color=True)`` and whose key buffer to
+   ``splat_keys_plain`` there and on a forced tie (``_with_tie``: a
+   surface row copied into a free slot with another color, listed after
+   it, must win every pixel the row hits); then holds kernels A and B and
+   the color render, bit for bit, on the edge cases
+   (``phase_edge_cases``: n_active 0, 1 and M, a frame of edge values, a
+   depth-only frame);
 4. times each stage of ``engine.step`` (CUDA events at ``engine.STAGES``
    marks) over frames 3-19 of a second run, and the device's busy share
    over three frames (``torch.profiler`` kernel time against the same
@@ -57,8 +61,9 @@ and then:
    (``phase_rgbd``): with the march renderer (the JAX defaults: 48 samples
    per ray, 16-pixel tiles) and with the splat renderer; each run requires
    ATE < 10 mm, every frame valid, a clean map, kernel A on every frame,
-   kernel B and its color pass on every frame with splat and never with
-   the march, and no plain kernel version called on a CUDA tensor, and
+   the color render (walk and resolve) on every frame with splat and
+   never with the march, kernel B never (its renders are all with color),
+   and no plain kernel version called on a CUDA tensor, and
    reports fused frames/s over frames 2-19 (CUDA events), the per-stage
    table of those frames and the host syncs of one frame;
 7. runs the SLAM layer at phase 1's width (``phase_slam``): an out-and-back
@@ -76,8 +81,11 @@ and then:
    kernel A bit-equal to its plain version on the re-integrated map;
    ``PoseGraph.relocalize`` from a stale pose within 1 cm and 0.01 rad;
    and 20 frames of phase 1 with ``MapConfig(bilinear_color=True)``
-   (ATE below 10 mm, kernel A's bilinear variant on every frame, held bit
-   for bit and timed on the state after frame 10 as in phase 2). Reports
+   (ATE below 10 mm, kernel A's bilinear variant and its color-word image
+   on every frame; the image held bit for bit against
+   ``integrate.frame_color_word``, the variant with its image against its
+   plain version on the state after frame 10 and on the edge-value and
+   depth-only frames, and timed there as in phase 2). Reports
    keyframes, edges and loops, ms per ``register`` and ``optimize``, the
    re-integration's fused frames/s, the ``TimingLog`` report and the host
    syncs of two live frames.
@@ -93,6 +101,7 @@ runs it in two checkouts).
 
 import collections
 import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -218,21 +227,27 @@ def _bare_ms(fn, n=BARE_LAUNCHES):
     return a.elapsed_time(b) / n
 
 
-def _profiled_ms(fn, kernel, n=20):
-    """torch.profiler's device time per launch of the kernels whose name
-    holds ``kernel``, over ``n`` calls of ``fn`` (None when it records
-    none)."""
+def _profiled_ms(fn, kernels, n=20):
+    """torch.profiler's device time per call of ``fn``, which launches each
+    kernel whose name holds one of ``kernels`` (a string or a tuple of
+    them) once: the sum over those kernels of each one's mean time per
+    launch over ``n`` calls (None when it records none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(us) / len(us) / 1000.0 if us and sum(us) > 0 else None
+    us = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and any(k in e.name for k in kernels):
+            us[e.name].append(e.self_device_time_total)
+    total = sum(sum(t) / len(t) for t in us.values())
+    return total / 1000.0 if total > 0 else None
 
 
 def _fmt(x):
@@ -299,7 +314,10 @@ def phase_step(cfg, device, gpu_line):
               f"planarity={float(d.icp_planarity):.3e} "
               f"ms={starts[i].elapsed_time(ends[i]):.3f}")
     est_np = [p.cpu().numpy() for p in est]
-    ate = evaluation.ate_rmse(est_np, poses, align=False)
+    # (an older checkout's ate_rmse never aligns and takes no ``align``)
+    unaligned = ({"align": False} if "align" in inspect.signature(
+        evaluation.ate_rmse).parameters else {})
+    ate = evaluation.ate_rmse(est_np, poses, **unaligned)
     viol = blockmap.check_invariants(state.map, cfg.map)
     dev_ms = sum(starts[i].elapsed_time(ends[i]) for i in range(2, N_FRAMES))
     fps = (N_FRAMES - 2) / (dev_ms / 1000.0)
@@ -320,11 +338,13 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
-    if (launches["splat_color"] != 0 or launches["fused_integrate_bilinear"]
+    if (launches["splat_zbuf_color"] != 0
+            or launches["fused_integrate_bilinear"]
+            or launches["frame_color_words"]
             or any(v for k, v in launches.items() if k.startswith("plain"))):
-        raise RuntimeError(f"depth-only step ran a color pass, the bilinear "
-                           f"variant or a plain version on the card: "
-                           f"{launches}")
+        raise RuntimeError(f"depth-only step ran a color render, the "
+                           f"bilinear variant, its color-word image or a "
+                           f"plain version on the card: {launches}")
     return snap, est, depth, color, launches, fps
 
 
@@ -460,14 +480,15 @@ def _bound(nbytes, nops):
 
 
 def _work_a(cfg, n_rows, n_updated, max_rows, with_color):
-    """The bytes kernel A (its bilinear variant with
-    ``cfg.map.bilinear_color``) must move and the f32 operations it must
-    do (``fused_integrate.bytes_moved`` and ``operations`` of this
+    """The bytes kernel A (its bilinear variant and the color-word image
+    with ``cfg.map.bilinear_color``) must move and the f32 operations it
+    must do (``fused_integrate.bytes_moved`` and ``operations`` of this
     tree)."""
     from voxelhashing_tpu_torch.ops import fused_integrate as fa
-    return (fa.bytes_moved(n_rows, n_updated, max_rows, cfg.camera,
-                           with_color),
-            fa.operations(n_rows, n_updated, cfg.map.bilinear_color))
+    cam = cfg.camera
+    return (fa.bytes_moved(n_rows, n_updated, max_rows, cam, with_color),
+            fa.operations(n_rows, n_updated, cfg.map.bilinear_color,
+                          cam.height * cam.width if with_color else 0))
 
 
 def _band_voxels(cfg, map_state, aidx, has_surf):
@@ -487,6 +508,16 @@ def _work_b(cfg, n_surface_rows, n_band, max_rows):
             sb.operations(n_surface_rows, n_band))
 
 
+def _work_color(cfg, n_surface_rows, n_band, n_covered, max_rows):
+    """The bytes a color render (walk and resolve) must move and the f32
+    operations it must do (``splat_zbuf.color_bytes_moved`` and
+    ``operations`` of this tree)."""
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+    return (sb.color_bytes_moved(n_surface_rows, n_covered, max_rows,
+                                 cfg.camera),
+            sb.operations(n_surface_rows, n_band))
+
+
 def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
     """Kernel A's times at this state: the bare kernel (``launch`` on
     prepared arguments, ``_bare_ms``), with torch.profiler's device time as
@@ -495,7 +526,8 @@ def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
     the voxels whose stored bits one launch changed as the updated ones)
     and the bound they give. Repeated launches update the same rows in place:
     the weights grow, but which voxels update and what is read and written
-    stay the same."""
+    stay the same. The bilinear variant's times take in its color-word
+    image, which is also timed alone ("pre_pass_ms")."""
     from voxelhashing_tpu_torch import geometry as geom
     from voxelhashing_tpu_torch.ops import fused_integrate as fa
 
@@ -508,7 +540,11 @@ def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
     n_upd = _changed_voxels(base, st, aidx[:n])
     nbytes, nops = _work_a(cfg, n, n_upd, aidx.shape[0], color is not None)
     ms = _bare_ms(lambda: fa.launch(args))
-    prof_ms = _profiled_ms(lambda: fa.launch(args), "fused_integrate")
+    prof_ms = _profiled_ms(lambda: fa.launch(args),
+                           ("fused_integrate", "frame_color_words"))
+    pre_pass = args[-2]
+    pre_ms = None if pre_pass is None else _bare_ms(
+        lambda: fa.launch_color_words(*pre_pass))
     wrapper_ms = _median_ms(lambda: fa.fused_integrate(
         st, depth, color, pose, cam, mp, aidx, n_act))
     del st
@@ -517,8 +553,10 @@ def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
                                            n_act))
     del sp
     bound, by = _bound(nbytes, nops)
+    pre = ("" if pre_ms is None else
+           f", of which the color-word image alone {pre_ms:.4f} ms")
     print(f"{label}: bare {ms:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
-          f"graph; torch.profiler {_fmt(prof_ms)} ms), wrapper "
+          f"graph{pre}; torch.profiler {_fmt(prof_ms)} ms), wrapper "
           f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; {n} rows, {n_upd} "
           f"updated voxels; {nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s, "
           f"{nops} f32 operations at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s: "
@@ -526,8 +564,8 @@ def time_a(cfg, base, depth, color, pose, aidx, n_act, label, gpu_line):
           f"{gpu_line}")
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
-            "profiler_ms": prof_ms, "rows": n, "updated_voxels": n_upd,
-            "bytes": nbytes, "operations": nops}
+            "profiler_ms": prof_ms, "pre_pass_ms": pre_ms, "rows": n,
+            "updated_voxels": n_upd, "bytes": nbytes, "operations": nops}
 
 
 def check_kernel_a(cfg, base_map, depth, color, pose, frame_idx, label,
@@ -653,10 +691,10 @@ def _edge_frame(depth, color, cfg):
 
 
 def phase_edge_cases(cfg, base_map, depth, color, pose, frame_idx):
-    """Both kernels held bit for bit on the cases the persistent row walk
-    and the in-kernel color word can get wrong: n_active 0, 1 and M (a full
-    active list: every allocated row of the map), the edge-value frame, and
-    a depth-only frame (no color)."""
+    """Kernels A and B and the color render held bit for bit on the cases
+    the persistent row walk and the in-kernel color word can get wrong:
+    n_active 0, 1 and M (a full active list: every allocated row of the
+    map), the edge-value frame, and a depth-only frame (no color)."""
     import torch
     from voxelhashing_tpu_torch import blockmap, geometry as geom
 
@@ -683,6 +721,9 @@ def phase_edge_cases(cfg, base_map, depth, color, pose, frame_idx):
         mask = torch.arange(ai.shape[0], device=dev) < na
         hold_b(cfg, sk, view, ai, sk.surf[ai.long()] & mask,
                f"edge B, {name}", require_cover=False)
+        if name.startswith("n_active"):
+            hold_color(cfg, sk, view, ai, sk.surf[ai.long()] & mask,
+                       f"edge color render, {name}", require_cover=False)
         del sk
 
 
@@ -1091,78 +1132,85 @@ def _with_tie(cfg, map_state, aidx, has_surf):
 
 
 
-def hold_color(cfg, map_state, view, aidx, has_surf, label, tie=False):
-    """The color pass (after kernel B) against its plain version
+def hold_color(cfg, map_state, view, aidx, has_surf, label, tie=False,
+               require_cover=True):
+    """A color render (``splat_zbuf_color``: the color walk, then the
+    resolve) against its plain version
     (``splat_zbuf_plain(with_color=True)``): z-buffers and colors
-    bit-identical; with a forced tie the copy's color must show. Returns
-    the max abs error of the color channels."""
+    bit-identical, and the walk's key buffer bit-identical to
+    ``splat_keys_plain``; with a forced tie the copy's color must show.
+    Returns the max abs error of the depths and the color channels."""
     import torch
-    from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color,
-                                                       splat_zbuf,
-                                                       splat_zbuf_plain)
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
     cam, mp = cfg.camera, cfg.map
-    zk = splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
-    ck = splat_color(map_state, aidx, has_surf, view, cam, mp, zk)
-    zp, cp = splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp,
-                              with_color=True)
+    zk, ck = sb.splat_zbuf_color(map_state, aidx, has_surf, view, cam, mp)
+    args, keys, _, _ = sb.prepare_color(map_state, aidx, has_surf, view,
+                                        cam, mp)
+    sb.launch_color(args)
+    zp, cp = sb.splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp,
+                                 with_color=True)
+    kp = sb.splat_keys_plain(map_state, aidx, has_surf, view, cam, mp)
     torch.cuda.synchronize()
-    equal = _bits_equal(zk, zp) and bool(torch.equal(ck, cp))
-    err = _max_abs(ck.contiguous(), cp)
+    equal = {"zbuf": _bits_equal(zk, zp), "color": bool(torch.equal(ck, cp)),
+             "keys": bool(torch.equal(keys, kp))}
+    err = max(_max_abs(zk, zp), _max_abs(ck, cp))
     colored = int((ck != 0).sum())
     tied = int((ck == TIE_COLOR).sum())
     print(f"{label}: surface rows {int(has_surf.sum())}, colored pixels "
           f"{colored}/{ck.numel()}, pixels won by the tie's copy {tied}, "
           f"bit-identical {equal}, max_abs_err {err}")
-    if not equal or colored == 0 or (tie and tied == 0):
+    if not all(equal.values()) or (require_cover and colored == 0) \
+            or (tie and tied == 0):
         raise RuntimeError(f"{label} disagrees with its plain version")
     return err
 
 
 def time_color(cfg, map_state, view, aidx, has_surf, label, gpu_line):
-    """The color pass's times at this state, as ``time_b``: bare launches
-    on kernel B's finished z-buffer, the wrapper and the plain version
-    (each given that z-buffer); the voxels that hit it (each reads its
-    color and issues one 64-bit atomicMax); the bytes, operations and
-    bound (``splat_zbuf.color_bytes_moved`` and ``color_operations``)."""
+    """A color render's times at this state, as ``time_b``: the color walk
+    and the resolve launched together (``launch_color``) in the bare
+    graph, the wrapper and the plain version; the voxels that pass every
+    test (each issues one 64-bit atomicMin) and the pixels they cover
+    (each reads one pool color); the bytes, operations and bound
+    (``_work_color``)."""
     import torch
     from voxelhashing_tpu_torch.ops import splat_zbuf as sb
 
     cam, mp = cfg.camera, cfg.map
-    zbuf = sb.splat_zbuf(map_state, aidx, has_surf, view, cam, mp)
-    args, _ = sb.prepare_color(map_state, aidx, has_surf, view, cam, mp,
-                               zbuf)
+    args, _, zbuf, _ = sb.prepare_color(map_state, aidx, has_surf, view, cam,
+                                        mp)
     ms = _bare_ms(lambda: sb.launch_color(args))
     prof_ms = _profiled_ms(lambda: sb.launch_color(args),
-                           "splat_zbuf_kernel<true>")
-    wrapper_ms = _median_ms(lambda: sb.splat_color(map_state, aidx, has_surf,
-                                                   view, cam, mp, zbuf))
-    plain_ms = _median_ms(lambda: sb.splat_color_plain(
-        map_state, aidx, has_surf, view, cam, mp, zbuf))
-    _, pix, z_surf, ok = sb.splat_targets(map_state, aidx, has_surf, view,
-                                          cam, mp)
-    p = cam.height * cam.width
-    hits = int((ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)).sum())
+                           ("splat_zbuf_kernel<true>", "splat_resolve"))
+    wrapper_ms = _median_ms(lambda: sb.splat_zbuf_color(
+        map_state, aidx, has_surf, view, cam, mp))
+    plain_ms = _median_ms(lambda: sb.splat_zbuf_plain(
+        map_state, aidx, has_surf, view, cam, mp, with_color=True))
+    _, _, _, ok = sb.splat_targets(map_state, aidx, has_surf, view, cam, mp)
+    survivors = int(ok.sum())
+    covered = int(torch.isfinite(zbuf.view(torch.float32)).sum())
     n_surf = int(has_surf.sum())
     band = _band_voxels(cfg, map_state, aidx, has_surf)
-    nbytes = sb.color_bytes_moved(n_surf, hits, aidx.shape[0], cam)
-    nops = sb.color_operations(n_surf, band)
+    nbytes, nops = _work_color(cfg, n_surf, band, covered, aidx.shape[0])
     bound, by = _bound(nbytes, nops)
-    print(f"{label}: bare {ms:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
-          f"graph; torch.profiler {_fmt(prof_ms)} ms), wrapper "
-          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; {n_surf} surface "
-          f"rows, {band} voxels in the band, {hits} hit the z-buffer and "
-          f"issue {hits} atomics; {nbytes} B at {HBM_BYTES_PER_S / 1e12} "
-          f"TB/s, {nops} f32 operations at {F32_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s: bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% "
-          f"of it; library: none (no single PyTorch call); on {gpu_line}")
+    print(f"{label}: bare {ms:.4f} ms (walk and resolve, {BARE_LAUNCHES} "
+          f"launches of each in one CUDA graph; torch.profiler "
+          f"{_fmt(prof_ms)} ms), wrapper {wrapper_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; {n_surf} surface rows, {band} voxels in the "
+          f"band, {survivors} pass every test and issue {survivors} 64-bit "
+          f"atomics, {covered} pixels covered; {nbytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s, {nops} f32 operations at "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s: bound {bound:.4f} ms by "
+          f"{by}, {100 * bound / ms:.1f}% of it; library: none (no single "
+          f"PyTorch call); on {gpu_line}")
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
             "profiler_ms": prof_ms, "rows": n_surf, "band_voxels": band,
-            "hits": hits, "bytes": nbytes, "operations": nops}
+            "survivors": survivors, "covered": covered, "bytes": nbytes,
+            "operations": nops}
 
 
 def check_color(cfg, map_state, pose, label, gpu_line):
-    """The color pass held bit for bit against its plain version at this
+    """A color render held bit for bit against its plain version at this
     state and with a forced tie, then timed. Returns the result dict."""
     view, aidx, has_surf = _b_inputs(cfg, map_state, pose)
     err = hold_color(cfg, map_state, view, aidx, has_surf, label)
@@ -1187,41 +1235,48 @@ def _rgbd_config(mode):
                                tracker=TrackerConfig(use_rgbd=True))
 
 
-def _counts():
-    """The kernels' launch counts and the plain versions' calls on CUDA
-    tensors, by name. (``ab_step`` also drives older checkouts with this,
-    whose kernel A may have no bilinear variant and whose plain integrate
-    may keep no count: those read 0.)"""
+def _counters():
+    """(name, function, attribute) of each kernel launch count and each
+    plain version's count of calls on CUDA tensors. (``ab_step`` also
+    drives older checkouts with this; a counter such a checkout lacks
+    reads 0.)"""
     from voxelhashing_tpu_torch import integrate as integ
     from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops import splat_zbuf as sb
-    return {"fused_integrate": fused_integrate.launches,
-            "fused_integrate_bilinear": getattr(fused_integrate,
-                                                "bilinear_launches", 0),
-            "splat_zbuf": sb.splat_zbuf.launches,
-            "splat_color": sb.splat_color.launches,
-            "plain integrate on CUDA": getattr(integ.integrate, "cuda_calls",
-                                               0),
-            "plain splat_zbuf on CUDA": sb.splat_zbuf_plain.cuda_calls,
-            "plain splat_color on CUDA": sb.splat_color_plain.cuda_calls}
+    return (("fused_integrate", fused_integrate, "launches"),
+            ("fused_integrate_bilinear", fused_integrate,
+             "bilinear_launches"),
+            ("frame_color_words", fused_integrate, "color_word_launches"),
+            ("splat_zbuf", sb.splat_zbuf, "launches"),
+            ("splat_zbuf_color", getattr(sb, "splat_zbuf_color", None),
+             "launches"),
+            ("plain integrate on CUDA", integ.integrate, "cuda_calls"),
+            ("plain splat_zbuf on CUDA", sb.splat_zbuf_plain, "cuda_calls"),
+            ("plain splat_color on CUDA", sb.splat_color_plain,
+             "cuda_calls"))
+
+
+def _counts():
+    """The kernels' launch counts and the plain versions' calls on CUDA
+    tensors, by name."""
+    return {name: getattr(fn, attr, 0) for name, fn, attr in _counters()}
 
 
 def _zero_counts():
-    from voxelhashing_tpu_torch import integrate as integ
-    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
-    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
-    fused_integrate.launches = fused_integrate.bilinear_launches = 0
-    sb.splat_zbuf.launches = sb.splat_color.launches = 0
-    integ.integrate.cuda_calls = 0
-    sb.splat_zbuf_plain.cuda_calls = sb.splat_color_plain.cuda_calls = 0
+    """Set every count to 0 (only those the checkout has: a counter made
+    here would read as a kernel it does not have)."""
+    for _, fn, attr in _counters():
+        if hasattr(fn, attr):
+            setattr(fn, attr, 0)
 
 
 def phase_rgbd(mode, device, gpu_line):
     """Phase 6, one configuration: 20 frames of ``engine.step`` with RGB-D
     tracking and the ``mode`` renderer on the bench scene (free tracking).
     Requires ATE < 10 mm, every frame valid, a clean map, kernel A on
-    every frame, kernel B and its color pass on every frame in splat mode
-    and never in march mode, and no plain version called on a CUDA tensor.
+    every frame, the color render (walk and resolve) on every frame in
+    splat mode and never in march mode, kernel B never (every render is
+    with color), and no plain version called on a CUDA tensor.
     Reports fused frames/s over frames 2-19 (CUDA events), the per-stage
     table of the same frames (CUDA events at the ``engine.STAGES`` marks)
     and the host syncs of one frame. Returns a dict of the numbers."""
@@ -1293,12 +1348,9 @@ def phase_rgbd(mode, device, gpu_line):
               f"{100 * stages[stage] / total:6.1f}%")
     print(f"  {'total':10s} {total:9.3f} ms")
 
-    splat = mode == "splat"
-    want = {"fused_integrate": N_FRAMES, "fused_integrate_bilinear": 0,
-            "splat_zbuf": N_FRAMES if splat else 0,
-            "splat_color": N_FRAMES if splat else 0,
-            "plain integrate on CUDA": 0,
-            "plain splat_zbuf on CUDA": 0, "plain splat_color on CUDA": 0}
+    want = {name: 0 for name in counts}
+    want["fused_integrate"] = N_FRAMES
+    want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -1560,13 +1612,39 @@ def phase_relocalize(cfg, poses, depth, device, gpu_line):
     return err
 
 
+def hold_color_words(cfg, color, label):
+    """The bilinear variant's color-word image (``launch_color_words``)
+    against ``integrate.frame_color_word``, bit for bit. Returns the max
+    abs error of the packed channels."""
+    import torch
+    from voxelhashing_tpu_torch import integrate as integ
+    from voxelhashing_tpu_torch.ops import fused_integrate as fa
+    cam = cfg.camera
+    n = cam.height * cam.width
+    words = torch.empty((n,), dtype=torch.int32, device=color.device)
+    color = color.contiguous()
+    fa.launch_color_words(color, words)
+    plain = integ.frame_color_word(color, cam, color.device)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(words, plain))
+    err = _max_abs(words, plain)
+    valid = int(((words >> 24) == 1).sum())
+    print(f"{label}: {valid}/{n} valid pixels, bit-identical {equal}, "
+          f"max_abs_err {err}")
+    if not equal:
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    return err
+
+
 def phase_bilinear(device, gpu_line):
     """Phase 7, bilinear color: 20 frames of phase 1 with
     ``MapConfig(bilinear_color=True)`` through ``engine.step``; kernel A's
-    bilinear variant on every frame (the nearest-color kernel never), ATE
-    below 10 mm, then the variant held bit for bit against its plain
-    version and timed on the state after frame 10. Returns (result dict,
-    counts)."""
+    bilinear variant and its color-word image on every frame (the
+    nearest-color kernel never), ATE below 10 mm; then the image held bit
+    for bit against ``integrate.frame_color_word``, and the variant with
+    its image against its plain version on the state after frame 10 (and
+    timed there) and on the edge-value and depth-only frames. Returns
+    (result dict, counts)."""
     import dataclasses
     import torch
     from voxelhashing_tpu_torch import engine, evaluation
@@ -1591,14 +1669,29 @@ def phase_bilinear(device, gpu_line):
     print(f"bilinear color: {N_FRAMES} frames, ATE RMSE {ate * 1000:.3f} mm "
           f"(limit {ATE_LIMIT_M * 1000} mm), counts {counts}")
     want = {"fused_integrate": 0, "fused_integrate_bilinear": N_FRAMES,
-            "splat_zbuf": N_FRAMES}
+            "frame_color_words": N_FRAMES, "splat_zbuf": N_FRAMES,
+            "splat_zbuf_color": 0}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
                            f"expected {want}")
     del state
+    base_map, d, c, aidx, n_act = _a_inputs(cfg, snap.map, depth[11],
+                                            color[11], est[11], 11)
+    ed, ec = _edge_frame(d, c, cfg)
+    err = max(hold_color_words(cfg, c, "color-word image"),
+              hold_color_words(cfg, ec, "color-word image, edge-value "
+                                        "frame"))
+    for name, dd, cc in (("edge-value frame", ed, ec),
+                         ("depth-only frame", d, None)):
+        e, sk = hold_a(cfg, base_map, dd, cc, est[11], aidx, n_act,
+                       f"kernel A, bilinear variant, {name}")
+        err = max(err, e)
+        del sk
+    del base_map
     res, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
                             11, "kernel A, bilinear variant", gpu_line)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
     return res, counts
 
 
@@ -1614,10 +1707,11 @@ def _kernel_entry(res, launches):
 
 
 def _device_time_a(cfg, base, depth, color, pose, aidx, n_act):
-    """Kernel A's device time per launch through its public wrapper
+    """Kernel A's device time per call through its public wrapper
     (torch.profiler, so that any checkout's kernel is timed alike, whatever
-    its launch interface), the wrapper's own time, and the counts its bound
-    needs (``_work_a``)."""
+    its launch interface; with ``cfg.map.bilinear_color`` the variant and
+    its color-word image, where the checkout has one), the wrapper's own
+    time, and the counts its bound needs (``_work_a``)."""
     from voxelhashing_tpu_torch.ops import fused_integrate as fa
 
     cam, mp = cfg.camera, cfg.map
@@ -1627,7 +1721,8 @@ def _device_time_a(cfg, base, depth, color, pose, aidx, n_act):
         st, depth, color, pose, cam, mp, aidx, n_act)
     call()
     n_upd = _changed_voxels(base, st, aidx[:n])
-    return {"device_ms": _profiled_ms(call, "fused_integrate"),
+    return {"device_ms": _profiled_ms(call, ("fused_integrate",
+                                             "frame_color_words")),
             "wrapper_ms": _median_ms(call), "rows": n,
             "updated_voxels": n_upd, "max_rows": aidx.shape[0],
             "with_color": color is not None}
@@ -1646,16 +1741,45 @@ def _device_time_b(cfg, map_state, view, aidx, has_surf):
             "max_rows": aidx.shape[0]}
 
 
+def _device_time_color(cfg, map_state, view, aidx, has_surf):
+    """A color render's times and counts, as ``_device_time_a``: the color
+    walk and the resolve (``splat_zbuf_color``), or in a checkout before
+    them kernel B and its second walk (``splat_zbuf``, then
+    ``splat_color``)."""
+    import torch
+    from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+
+    cam, mp = cfg.camera, cfg.map
+    if hasattr(sb, "splat_zbuf_color"):
+        call = lambda: sb.splat_zbuf_color(                    # noqa: E731
+            map_state, aidx, has_surf, view, cam, mp)
+    else:
+        call = lambda: sb.splat_color(                         # noqa: E731
+            map_state, aidx, has_surf, view, cam, mp,
+            sb.splat_zbuf(map_state, aidx, has_surf, view, cam, mp))
+    zbuf, _ = sb.splat_zbuf_plain(map_state, aidx, has_surf, view, cam, mp)
+    return {"device_ms": _profiled_ms(call, ("splat_zbuf_kernel",
+                                             "splat_resolve")),
+            "wrapper_ms": _median_ms(call), "rows": int(has_surf.sum()),
+            "band_voxels": _band_voxels(cfg, map_state, aidx, has_surf),
+            "covered": int(torch.isfinite(zbuf).sum()),
+            "max_rows": aidx.shape[0]}
+
+
 def kernel_times_here():
     """Kernels A's and B's device and wrapper times (``_device_time_a``,
     ``_device_time_b``) at the phase-2/3 state and at the state just after
-    the large scan's first stream-in, and phase 4's per-stage times, with
-    the kernels of the ``voxelhashing_tpu_torch`` that imports from the
-    working directory (``python -m voxelhashing_tpu_torch.ab_step`` runs
-    this in each checkout). Returns plain numbers."""
+    the large scan's first stream-in, a color render's
+    (``_device_time_color``) and the bilinear variant's (None where the
+    checkout has none) at the phase-2/3 state, and phase 4's per-stage
+    times, with the kernels of the ``voxelhashing_tpu_torch`` that imports
+    from the working directory (``python -m voxelhashing_tpu_torch.ab_step``
+    runs this in each checkout). Returns plain numbers."""
+    import dataclasses
     import torch
     from voxelhashing_tpu_torch import streaming
     from voxelhashing_tpu_torch.io.synthetic import render_depth
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
 
     device = torch.device("cuda", 0)
     gpu_line = _smi()
@@ -1665,10 +1789,16 @@ def kernel_times_here():
     base, d, c, aidx, n_act = _a_inputs(cfg, snap.map, depth[11], color[11],
                                         est[11], 11)
     out["a"] = _device_time_a(cfg, base, d, c, est[11], aidx, n_act)
+    out["bl"] = None
+    if hasattr(fused_integrate, "bilinear_launches"):
+        bcfg = dataclasses.replace(cfg, map=dataclasses.replace(
+            cfg.map, bilinear_color=True))
+        out["bl"] = _device_time_a(bcfg, base, d, c, est[11], aidx, n_act)
     del base
-    out["b"] = _device_time_b(cfg, snap.map, *_b_inputs(cfg, snap.map,
-                                                        snap.pose))
-    del snap, est
+    b_inputs = _b_inputs(cfg, snap.map, snap.pose)
+    out["b"] = _device_time_b(cfg, snap.map, *b_inputs)
+    out["c"] = _device_time_color(cfg, snap.map, *b_inputs)
+    del snap, est, b_inputs
     out["stages"] = phase_stages(cfg, depth, color, device, gpu_line)
     del depth, color
 
@@ -1742,9 +1872,9 @@ def main() -> int:
           f"{lib_a.vh_fused_integrate_grid()} CTAs, its bilinear variant "
           f"{lib_a.vh_fused_integrate_bilinear_grid()} CTAs, splat_zbuf "
           f"{_build.library('splat_zbuf').vh_splat_zbuf_grid()} CTAs, "
-          f"splat_color "
-          f"{_build.library('splat_zbuf').vh_splat_color_grid()} CTAs, of "
-          f"128 threads, on {torch.cuda.get_device_name(0)} "
+          f"its color walk "
+          f"{_build.library('splat_zbuf').vh_splat_zbuf_color_grid()} CTAs, "
+          f"of 128 threads, on {torch.cuda.get_device_name(0)} "
           f"({torch.cuda.get_device_properties(0).multi_processor_count} "
           f"SMs)")
 
@@ -1756,7 +1886,7 @@ def main() -> int:
     res_a, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
                               11, "kernel A", gpu_line)
     res_b = check_kernel_b(cfg, snap.map, snap.pose, "kernel B", gpu_line)
-    res_c = check_color(cfg, snap.map, snap.pose, "color pass", gpu_line)
+    res_c = check_color(cfg, snap.map, snap.pose, "color render", gpu_line)
     phase_edge_cases(cfg, snap.map, depth[11], color[11], est[11], 11)
     phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
@@ -1766,8 +1896,8 @@ def main() -> int:
     slam = phase_slam(device, gpu_line)
     res_bl, bl_counts = phase_bilinear(device, gpu_line)
 
-    names = ("fused_integrate", "splat_zbuf", "splat_color",
-             "fused_integrate_bilinear")
+    names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
+             "fused_integrate_bilinear", "frame_color_words")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -1776,27 +1906,39 @@ def main() -> int:
                       "bilinear": bl_counts[name]}
                for name in names}
     kernels = []
-    for name, key, res, source, replaces, path in (
+    for name, key, res, source, replaces, path, globals_ in (
             ("fused_integrate", "a", res_a,
              "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
-             "voxelhashing_tpu/ops/pallas_integrate.py:321", "step"),
+             "voxelhashing_tpu/ops/pallas_integrate.py:321", "step",
+             ["fused_integrate_kernel<false>"]),
             ("splat_zbuf", "b", res_b,
              "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
-             "voxelhashing_tpu/ops/pallas_splat.py:188", "step"),
-            # no TPU kernel: the XLA color pass of raycast._splat_zbuf
-            ("splat_color", None, res_c,
+             "voxelhashing_tpu/ops/pallas_splat.py:188", "step",
+             ["splat_zbuf_kernel<false>"]),
+            # a color render, the color walk and the resolve, launched
+            # together; no TPU kernel: the XLA color pass of
+            # raycast._splat_zbuf
+            ("splat_zbuf_color", None, res_c,
              "voxelhashing_tpu_torch/csrc/splat_zbuf.cu",
-             "voxelhashing_tpu/raycast.py:437", "splat_rgbd"),
-            # kernel A's bilinear variant: on the TPU this configuration
-            # runs the XLA integrate with integrate._bilinear_color, not
-            # the Pallas kernel
+             "voxelhashing_tpu/raycast.py:437", "splat_rgbd",
+             ["splat_zbuf_kernel<true>", "splat_resolve_kernel"]),
+            # kernel A's bilinear variant after the frame's color-word
+            # image, launched together: on the TPU this configuration runs
+            # the XLA integrate with integrate._bilinear_color, not the
+            # Pallas kernel
             ("fused_integrate_bilinear", None, res_bl,
              "voxelhashing_tpu_torch/csrc/fused_integrate.cu",
-             "voxelhashing_tpu/integrate.py:450", "bilinear")):
+             "voxelhashing_tpu/integrate.py:450", "bilinear",
+             ["frame_color_words_kernel", "fused_integrate_kernel<true>"])):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  **_kernel_entry(res, by_path[name][path]),
-                 "launches_by_path": by_path[name]}
+                 "kernels": globals_, "launches_by_path": by_path[name]}
+        if name == "fused_integrate_bilinear":
+            entry["frame_color_words"] = {
+                "launches": by_path["frame_color_words"][path],
+                "ms": res["pre_pass_ms"],
+                "launches_by_path": by_path["frame_color_words"]}
         if key is not None:
             entry["max_abs_err"] = max(res["max_abs_err"],
                                        scan[key]["max_abs_err"])
@@ -1812,9 +1954,11 @@ def main() -> int:
           f"splat_rgbd_fps={rgbd['splat']['fps']:.3f}; kernel A bare "
           f"{res_a['ms']:.4f} ms ({100 * res_a['bound_share']:.1f}% of its "
           f"bound), kernel B bare {res_b['ms']:.4f} ms "
-          f"({100 * res_b['bound_share']:.1f}%), color pass bare "
-          f"{res_c['ms']:.4f} ms ({100 * res_c['bound_share']:.1f}%), "
-          f"bilinear A bare {res_bl['ms']:.4f} ms "
+          f"({100 * res_b['bound_share']:.1f}%), color render (walk + "
+          f"resolve) bare {res_c['ms']:.4f} ms "
+          f"({100 * res_c['bound_share']:.1f}%), "
+          f"bilinear A (with its color-word image) bare "
+          f"{res_bl['ms']:.4f} ms "
           f"({100 * res_bl['bound_share']:.1f}%); slam loops={slam['loops']} "
           f"ate_mm={slam['ate_mm'][0]:.3f}->{slam['ate_mm'][1]:.3f} "
           f"register_ms={slam['register_ms']:.3f} "

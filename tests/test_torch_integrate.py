@@ -219,6 +219,34 @@ def test_frame_color_word_matches_jax(seed):
     assert green.shape == (CAM.height * CAM.width,)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bilinear_color_from_words_matches_jax(seed):
+    """The plain bilinear sample read from the frame's color-word image
+    (``_bilinear_color(frame_color_word(color), ...)``, what kernel A's
+    bilinear variant reads) equals the JAX ``integrate._bilinear_color``
+    bit for bit, packed color and validity, on the edge-value frames (NaN,
+    +-inf, negative, -0.0, > 1 and exact values) at projections that put
+    corners off screen on every side, on exact pixel centres (offset 0
+    goes +1) and on exact half-pixel boundaries."""
+    rng = np.random.default_rng(seed)
+    c = _edge_color_frame(seed)
+    n = 4000
+    uf = rng.uniform(-2.0, CAM.width + 1.0, n).astype(np.float32)
+    vf = rng.uniform(-2.0, CAM.height + 1.0, n).astype(np.float32)
+    uf[:200] = np.round(uf[:200])                  # offset exactly 0
+    vf[200:400] = np.floor(vf[200:400]) + 0.5      # on the rounding edge
+    uf[400:450] = -0.5                             # left edge
+    vf[450:500] = CAM.height - 0.5                 # bottom edge
+    ref_c, ref_ok = jint._bilinear_color(jnp.asarray(c), jnp.asarray(uf),
+                                         jnp.asarray(vf), CAM)
+    words = tint.frame_color_word(torch.from_numpy(c), TCAM, device="cpu")
+    got_c, got_ok = tint._bilinear_color(words, _t(uf), _t(vf), TCAM)
+    np.testing.assert_array_equal(got_c.numpy().view(np.uint32),
+                                  np.asarray(ref_c))
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(ref_ok))
+    assert 0 < int(got_ok.sum()) < n               # both valid and not
+
+
 @pytest.fixture(scope="module")
 def setup_state():
     """``_setup()`` once for the cases below (JAX states are immutable)."""

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from voxelhashing_tpu_torch import blockmap, geometry as geom
 from voxelhashing_tpu_torch import integrate as integ
@@ -23,9 +24,9 @@ from voxelhashing_tpu_torch.io.synthetic import (Scene, make_trajectory,
 from voxelhashing_tpu_torch.ops import _build
 from voxelhashing_tpu_torch.ops import fused_integrate as fa, splat_zbuf as sb
 from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
-from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color,
-                                                   splat_color_plain,
+from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color_plain,
                                                    splat_zbuf,
+                                                   splat_zbuf_color,
                                                    splat_zbuf_plain)
 
 CAM = CameraConfig(width=128, height=96, fx=104.0, fy=104.0, cx=63.5,
@@ -86,8 +87,21 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         splat_zbuf(state, aidx, mask, torch.eye(4, device=meta), CAM, CFG)
     with pytest.raises(ValueError, match="no kernel"):
-        splat_color(state, aidx, mask, torch.eye(4, device=meta), CAM, CFG,
-                    depth.reshape(-1))
+        splat_zbuf_color(state, aidx, mask, torch.eye(4, device=meta), CAM,
+                         CFG)
+
+
+def test_bilinear_caps_variant_source():
+    """``bilinear_caps`` bounds only the bilinear instantiation's CTAs an
+    SM, in the one ``__launch_bounds__`` of kernel A's source, and builds
+    the source as it is for None."""
+    from voxelhashing_tpu_torch import bilinear_caps
+    src = (_build.CSRC / "fused_integrate.cu").read_text()
+    assert bilinear_caps.variant_source(None) == src
+    capped = bilinear_caps.variant_source(9)
+    assert "__launch_bounds__(kRowThreads, kBilinear ? 9 : 1)" in capped
+    assert capped.replace("kRowThreads, kBilinear ? 9 : 1",
+                          "kRowThreads") == src
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -163,29 +177,36 @@ def _with_tie(state, aidx, n, has_surf):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tie", [False, True])
-def test_splat_color_kernel_bit_equal(cuda, tie):
-    """The color pass after kernel B, bit-equal to its plain version, also
-    where a forced tie decides the color; the plain versions are never
-    called on the card by the wrappers."""
+def test_splat_zbuf_color_kernel_bit_equal(cuda, tie):
+    """A color render (the color walk, then the resolve) bit-equal to its
+    plain version, also where a forced tie decides the color: its
+    z-buffer is kernel B's, its key buffer the plain walk's
+    (``splat_keys_plain``); the plain versions are never called on the
+    card by the wrappers, and kernel B is not launched."""
     state, _, _, pose, aidx, n = _scene_state(cuda)
     mask = torch.arange(aidx.shape[0], device=cuda) < n
     has_surf = state.surf[aidx.long()] & mask
     if tie:
         state, aidx, has_surf = _with_tie(state, aidx, n, has_surf)
     view = geom.invert_rigid(pose)
-    before = (splat_color.launches, splat_zbuf_plain.cuda_calls,
-              splat_color_plain.cuda_calls)
-    zk = splat_zbuf(state, aidx, has_surf, view, CAM, CFG)
-    ck = splat_color(state, aidx, has_surf, view, CAM, CFG, zk)
+    counts = lambda: (splat_zbuf_color.launches, splat_zbuf.launches,  # noqa
+                      splat_zbuf_plain.cuda_calls,
+                      splat_color_plain.cuda_calls)
+    before = counts()
+    zk, ck = splat_zbuf_color(state, aidx, has_surf, view, CAM, CFG)
     torch.cuda.synchronize()
-    assert (splat_color.launches, splat_zbuf_plain.cuda_calls,
-            splat_color_plain.cuda_calls) == (before[0] + 1, *before[1:])
+    assert counts() == (before[0] + 1, *before[1:])
     zp, cp = splat_zbuf_plain(state, aidx, has_surf, view, CAM, CFG,
                               with_color=True)
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
     assert torch.equal(ck, cp)
-    assert torch.equal(ck, splat_color_plain(state, aidx, has_surf, view,
-                                             CAM, CFG, zk))
+    assert torch.equal(zk.view(torch.int32), splat_zbuf(
+        state, aidx, has_surf, view, CAM, CFG).view(torch.int32))
+    args, keys, _, _ = sb.prepare_color(state, aidx, has_surf, view, CAM,
+                                        CFG)
+    sb.launch_color(args)
+    assert torch.equal(keys, sb.splat_keys_plain(state, aidx, has_surf,
+                                                 view, CAM, CFG))
     assert int((ck != 0).sum()) > 1000
     assert bool((ck == 0x123456).any()) == tie
 
@@ -204,8 +225,10 @@ def test_bytes_moved_hand_count():
         == a - 320 * 240 * 12
     b = sb.bytes_moved(8072, 32768, cam)
     assert b == 16531456 + 8072 * 8 + 32768 + 320 * 240 * 4 + 64
-    assert sb.color_bytes_moved(8072, 90000, 32768, cam) \
-        == b + 4 * 90000 + 320 * 240 * 4
+    # a color render: the colors written and one color read per covered
+    # pixel; the 64-bit keys between its two kernels are not counted
+    assert sb.color_bytes_moved(8072, 77000, 32768, cam) \
+        == b + 320 * 240 * 4 + 4 * 77000
 
 
 def test_operations_hand_count():
@@ -215,13 +238,14 @@ def test_operations_hand_count():
     stay below the time their bytes take at the card's rates."""
     assert fa.operations(1, 0) == 46 * 512
     assert fa.operations(26186, 1000) == 46 * 512 * 26186 + 28 * 1000
-    # the bilinear variant: its 165-operation color sample in place of the
-    # 15 of one color word
-    assert fa.operations(26186, 1000, bilinear=True) \
-        == fa.operations(26186, 1000) + 150 * 1000
+    # the bilinear variant: its 117-operation color sample in place of the
+    # 15 of one color word, and 15 per pixel of the color-word image
+    assert fa.operations(26186, 1000, bilinear=True, n_pixels=76800) \
+        == fa.operations(26186, 1000) + 102 * 1000 + 15 * 76800
+    assert fa.operations(26186, 1000, n_pixels=76800) \
+        == fa.operations(26186, 1000)
     assert sb.operations(1, 0) == 3 * 512
     assert sb.operations(8072, 500) == 3 * 512 * 8072 + 36 * 500
-    assert sb.color_operations(8072, 500) == 3 * 512 * 8072 + 37 * 500
     cam = CameraConfig()
     every = 26186 * 512
     assert fa.operations(26186, every) / 67e12 \
@@ -258,10 +282,70 @@ def test_wrappers_refuse_misaligned_pools():
         fa._check_inputs(bad, depth, None, view, aidx, n, CAM)
     with pytest.raises(ValueError, match="int32"):
         fa._check_inputs(state, depth, None, view, aidx, n.long(), CAM)
+    # the color-word image's launch checks its own two tensors
+    with pytest.raises(ValueError, match="color-word image"):
+        fa.launch_color_words(torch.zeros(4, 4, 3),
+                              torch.zeros(15, dtype=torch.int32))
     mask = torch.zeros(8, dtype=torch.bool)
     sb._check_inputs(state, aidx, mask, view)
     with pytest.raises(ValueError, match="16-byte aligned"):
         sb._check_inputs(bad, aidx, mask, view)
+
+
+def test_color_render_refuses_flat_indices_past_32_bits():
+    """The color walk packs flat indices (active-list position * 512 +
+    voxel) into 32 bits: an active list of 2^23 rows fits, one more row is
+    refused by the wrapper's checks (run here on CPU tensors)."""
+    state = blockmap.create(CFG, "cpu")
+    view = torch.eye(4)
+    for m, ok in ((1 << 23, True), ((1 << 23) + 1, False)):
+        aidx = torch.zeros(m, dtype=torch.int32)
+        mask = torch.zeros(m, dtype=torch.bool)
+        if ok:
+            _, keys, _, _ = sb.prepare_color(state, aidx, mask, view, CAM,
+                                             CFG)
+            assert int(keys[0]) == sb.NO_HIT_KEY == 0x7F800000FFFFFFFF
+        else:
+            with pytest.raises(ValueError, match="32 bits"):
+                sb.prepare_color(state, aidx, mask, view, CAM, CFG)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data())
+def test_key_min_is_nearest_then_largest_flat(data):
+    """The color walk's rule: the min of ``pack_splat_keys`` over the
+    voxels of a pixel (``scatter_reduce_`` amin, as the walk's atomics
+    give) decodes to the least z_surf and, among voxels of bit-equal
+    z_surf, the largest flat index; for positive finite z_surf, flat
+    indices up to 2^32 - 1 and forced ties."""
+    n = data.draw(st.integers(1, 40))
+    pixels = data.draw(st.integers(1, 6))
+    z_pool = data.draw(st.lists(
+        st.floats(float(np.float32(1e-30)), float(np.float32(3e38)),
+                  width=32), min_size=1, max_size=4))
+    z = np.array(data.draw(st.lists(st.sampled_from(z_pool), min_size=n,
+                                    max_size=n)), np.float32)
+    flat = np.array(data.draw(st.lists(
+        st.one_of(st.integers(0, 2 ** 32 - 1),
+                  st.integers(2 ** 32 - 64, 2 ** 32 - 1)),
+        min_size=n, max_size=n, unique=True)), np.int64)
+    pix = np.array(data.draw(st.lists(st.integers(0, pixels - 1),
+                                      min_size=n, max_size=n)), np.int64)
+    keys = torch.full((pixels,), sb.NO_HIT_KEY, dtype=torch.int64)
+    keys.scatter_reduce_(0, torch.from_numpy(pix), sb.pack_splat_keys(
+        torch.from_numpy(z), torch.from_numpy(flat)), "amin",
+        include_self=True)
+    assert (keys >= 0).all()
+    for q in range(pixels):
+        at = pix == q
+        if not at.any():
+            assert int(keys[q]) == sb.NO_HIT_KEY
+            continue
+        zq = z[at].min()
+        fq = flat[at][z[at].view(np.int32) == zq.view(np.int32)].max()
+        k = int(keys[q])
+        assert k >> 32 == int(zq.view(np.uint32))
+        assert 0xFFFFFFFF - (k & 0xFFFFFFFF) == fq
 
 
 def _full_list(state):
@@ -293,8 +377,12 @@ def test_kernels_bit_equal_at_list_edges(cuda, n_active):
     has_surf = sk.surf[aidx.long()] & mask
     view = geom.invert_rigid(pose)
     zk = splat_zbuf(sk, aidx, has_surf, view, CAM, CFG)
-    zp, _ = splat_zbuf_plain(sk, aidx, has_surf, view, CAM, CFG)
+    zp, cp = splat_zbuf_plain(sk, aidx, has_surf, view, CAM, CFG,
+                              with_color=True)
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    zc, ck = splat_zbuf_color(sk, aidx, has_surf, view, CAM, CFG)
+    assert torch.equal(zc.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(ck, cp)
 
 
 @pytest.mark.cuda
@@ -375,9 +463,10 @@ def test_fused_integrate_bilinear_bit_equal(cuda, frame):
     """Kernel A's bilinear variant (``MapConfig(bilinear_color=True)``)
     against the plain version's ``_bilinear_color``: rows, surface flags
     and stats bit-equal on the scene's frame, on a frame of edge color
-    values (invalid corners drop out) and depth-only (debug green); the
-    launch is counted as the variant's, and the plain version is not called
-    on the card."""
+    values (invalid corners drop out) and depth-only (debug green); its
+    color-word image equals ``integrate.frame_color_word`` (none is made
+    for a depth-only frame); the launches are counted as the variant's and
+    the image's, and the plain version is not called on the card."""
     cfg = dataclasses.replace(CFG, bilinear_color=True)
     state, d, c, pose, aidx, n = _scene_state(cuda)
     if frame == "edge_values":
@@ -386,13 +475,21 @@ def test_fused_integrate_bilinear_bit_equal(cuda, frame):
             c[:, g::5, g % 3] = v
     elif frame == "depth_only":
         c = None
-    before = (fused_integrate.launches, fused_integrate.bilinear_launches,
-              integ.integrate.cuda_calls)
+    counts = lambda: (fused_integrate.launches,  # noqa: E731
+                      fused_integrate.bilinear_launches,
+                      fused_integrate.color_word_launches,
+                      integ.integrate.cuda_calls)
+    before = counts()
     sk, (mn_k, mx_k) = fused_integrate(_clone(state), d, c, pose, CAM, cfg,
                                        aidx, n)
-    assert (fused_integrate.launches, fused_integrate.bilinear_launches,
-            integ.integrate.cuda_calls) == (before[0], before[1] + 1,
-                                            before[2])
+    assert counts() == (before[0], before[1] + 1,
+                        before[2] + (c is not None), before[3])
+    if c is not None:
+        # the color-word image the variant reads: integrate.frame_color_word
+        words = torch.empty(CAM.height * CAM.width, dtype=torch.int32,
+                            device=cuda)
+        fa.launch_color_words(c.contiguous(), words)
+        assert torch.equal(words, integ.frame_color_word(c, CAM, cuda))
     mask = torch.arange(aidx.shape[0], device=cuda) < n
     sp, (mn_p, mx_p) = integ.integrate(_clone(state), d, c, pose, CAM, cfg,
                                        active_idx=aidx, active_mask=mask)

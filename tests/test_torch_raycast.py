@@ -121,8 +121,9 @@ def test_color_tie_goes_to_largest_flat_index(jstate):
     """A surface row copied into a free pool slot with another color gives
     bit-equal z_surf ties at every pixel the row hits. Listed after the
     original, the copy's color wins every such pixel and no other; listed
-    before it, nothing changes. The wrapper (CPU: the plain color pass)
-    and ``splat_zbuf_plain(with_color=True)`` agree."""
+    before it, nothing changes. ``splat_color_plain``, the color render's
+    wrapper (CPU: its plain version) and
+    ``splat_zbuf_plain(with_color=True)`` agree."""
     ts = convert.map_state_from_numpy(jstate, device="cpu")
     view = tgeom.invert_rigid(_t(POSES[3]))
     aidx, n, _ = tbm.compactify(ts, view, TCAM, TCFG)
@@ -149,11 +150,66 @@ def test_color_tie_goes_to_largest_flat_index(jstate):
         z2, col = sb.splat_zbuf_plain(ts, a2, s2, view, TCAM, TCFG,
                                       with_color=True)
         assert torch.equal(z2.view(torch.int32), zbuf.view(torch.int32))
-        assert torch.equal(sb.splat_color(ts, a2, s2, view, TCAM, TCFG, z2),
-                           col)
+        assert torch.equal(sb.splat_color_plain(ts, a2, s2, view, TCAM, TCFG,
+                                                z2), col)
+        zw, cw = sb.splat_zbuf_color(ts, a2, s2, view, TCAM, TCFG)
+        assert torch.equal(zw.view(torch.int32), z2.view(torch.int32))
+        assert torch.equal(cw, col)
         diff = torch.nonzero(col != col0).reshape(-1)
         if changed:
             assert torch.equal(diff, hit_pix)
             assert (col[hit_pix] == 0x123456).all()
         else:
             assert diff.numel() == 0
+
+
+@pytest.mark.parametrize("case", ["state", "tie"])
+def test_splat_keys_decode_to_plain_render(jstate, case):
+    """The color walk's 64-bit key rule in plain torch: the min of
+    (z_surf bits << 32 | 0xFFFFFFFF - flat index) per pixel
+    (``splat_keys_plain``), decoded (``splat_resolve_plain``), equals
+    ``splat_zbuf_plain`` + ``splat_color_plain`` bit for bit, on the test
+    state and with a forced tie (a surface row copied into a free slot
+    with another color and listed after the last active row, which must
+    win every pixel the row hits); its z-buffer equals the JAX
+    ``_splat_zbuf`` within this file's parity tolerance."""
+    pose = POSES[3]
+    view_j = jgeom.invert_rigid(jnp.asarray(pose))
+    aidx_j, n_j, _ = jbm.compactify(jstate, view_j, CAM, CFG)
+    has_j = jstate.surf[aidx_j] & (jnp.arange(aidx_j.shape[0]) < n_j)
+    zj, _ = jray._splat_zbuf(jstate, jstate.sdf[aidx_j],
+                             jstate.weight[aidx_j], aidx_j, has_j, view_j,
+                             CAM, CFG, False)
+    ts = convert.map_state_from_numpy(jstate, device="cpu")
+    view = tgeom.invert_rigid(_t(pose))
+    aidx, n, _ = tbm.compactify(ts, view, TCAM, TCFG)
+    n = int(n)
+    surf = ts.surf[aidx.long()] & (torch.arange(aidx.shape[0]) < n)
+    if case == "tie":
+        sel = aidx.long()[surf]
+        band = ((ts.weight[sel].float() > 0)
+                & (ts.sdf[sel].float().abs() < TCFG.voxel_size)).sum(dim=1)
+        src = int(sel[torch.argmax(band)])
+        free = int(torch.nonzero(ts.block_key == tgeom.INVALID_KEY)[0])
+        for f in ("block_key", "sdf", "weight", "surf"):
+            getattr(ts, f)[free] = getattr(ts, f)[src]
+        ts.color[free] = 0x123456
+        aidx = aidx.clone()
+        aidx[n] = free
+        surf = ts.surf[aidx.long()] & (torch.arange(aidx.shape[0]) <= n)
+    keys = sb.splat_keys_plain(ts, aidx, surf, view, TCAM, TCFG)
+    assert keys.dtype == torch.int64 and (keys > 0).all()
+    zk, ck = sb.splat_resolve_plain(ts, aidx, keys)
+    zp, cp = sb.splat_zbuf_plain(ts, aidx, surf, view, TCAM, TCFG,
+                                 with_color=True)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(ck, cp)
+    assert torch.equal(ck, sb.splat_color_plain(ts, aidx, surf, view, TCAM,
+                                                TCFG, zp))
+    assert int((ck != 0).sum()) > 1000
+    assert bool((ck == 0x123456).any()) == (case == "tie")
+    assert int((keys == sb.NO_HIT_KEY).sum()) == int(torch.isinf(zk).sum())
+    zj = np.asarray(zj).reshape(CAM.height, CAM.width)
+    _compare_depth(torch.where(torch.isfinite(zk), zk, torch.nan)
+                   .reshape(CAM.height, CAM.width),
+                   np.where(np.isfinite(zj), zj, np.nan))

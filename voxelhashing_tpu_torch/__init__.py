@@ -1,11 +1,35 @@
 """voxelhashing_tpu_torch: the PyTorch/CUDA port of ``voxelhashing_tpu``.
 
-The per-frame reconstruction step (``engine.step``: preprocess ->
-compactify -> splat render -> ICP track -> DDA alloc -> fused integrate ->
-GC -> maintain) written in PyTorch, with the two TPU Pallas kernels of
-that path replaced by hand-written CUDA kernels for Hopper (``ops/``,
-sources in ``csrc/``). Module and function names mirror the JAX package,
-which stays the reference every module is tested against.
+The paths it runs, each written in PyTorch and tested against the JAX
+package, which stays the reference (module and function names mirror it):
+
+* the per-frame reconstruction step (``engine.step``: preprocess ->
+  compactify -> render -> ICP track -> DDA alloc -> fused integrate -> GC
+  -> maintain), with the splat renderer and depth-only ICP by default;
+* the march renderer (``RaycastConfig(mode="march")``) and RGB-D tracking
+  (``TrackerConfig(use_rgbd=True)``), with ``render`` for shaded images
+  and point clouds;
+* the out-of-core path: ``streaming`` (HBM <-> host chunk streaming over
+  the native chunk store of ``native``), checkpoints
+  (``streaming.save_map``/``load_map``) and meshes (``meshing``);
+* the SLAM layer: ``posegraph`` (keyframes, loop closure, relocalization,
+  the pose-graph solve, re-integration), ``diagnostics``, recorded input
+  (``io/``: .sens, TUM, mLib dumps, a network sensor) and the entry point
+  ``python -m voxelhashing_tpu_torch.run_slam``.
+
+The hand-written CUDA kernels for Hopper (``ops/``, sources in
+``csrc/``), and the two TPU Pallas kernels they replace:
+
+* kernel A, the fused TSDF integrate (``ops/fused_integrate.py``,
+  ``csrc/fused_integrate.cu``), for ``voxelhashing_tpu/ops/
+  pallas_integrate.py`` (``pl.pallas_call`` at :321); with
+  ``MapConfig.bilinear_color`` a per-frame color-word image and A's
+  bilinear variant (XLA on the TPU);
+* kernel B, the splat z-buffer (``ops/splat_zbuf.py``,
+  ``csrc/splat_zbuf.cu``), for ``voxelhashing_tpu/ops/pallas_splat.py``
+  (``pl.pallas_call`` at :188); a color render runs B's walk once with a
+  64-bit (depth, index) key per voxel and a per-pixel resolve (XLA on the
+  TPU).
 
 The port imports ``torch`` and never ``jax``, nor anything of the JAX
 package: it carries its own ``config``, synthetic frames

@@ -12,14 +12,16 @@ Needs one CUDA card. Two reports:
    process runs the checkout's own phase 1 twice; the first run warms the
    caches and the second is the one compared. Prints every pair, each
    side's median and quartiles, and how many pairs B won.
-2. Kernels A and B, in the order A, B, B, A: ``chip_smoke.kernel_times_here``
+2. The kernels, in the order A, B, B, A: ``chip_smoke.kernel_times_here``
    of THIS tree drives each checkout's port to the phase-2/3 state (then
    phase 4, the per-stage times of the step) and to the state just after
-   the large scan's first stream-in, and at both states times each kernel
-   through its public wrapper: torch.profiler's device time per launch,
-   the wrapper's own time, and the bound from this tree's byte and
-   operation counts (``chip_smoke._work_a``, ``_work_b`` and ``_bound``).
-   Prints every run and each side's medians.
+   the large scan's first stream-in, and times there through the public
+   wrappers kernels A and B at both states, and a color render and A's
+   bilinear variant (where the checkout has one) at the phase-2/3 state:
+   torch.profiler's device time per call (every kernel of the call), the
+   wrapper's own time, and the bound from this tree's byte and operation
+   counts (``chip_smoke._work_a``, ``_work_b``, ``_work_color`` and
+   ``_bound``). Prints every run and each side's medians.
 
 Each process builds its checkout's kernels (cached in that checkout's
 ``build/``).
@@ -47,8 +49,13 @@ _KERNELS_CHILD = ("import importlib.util, json, sys\n"
                   "spec.loader.exec_module(m)\n"
                   "print('AB_RESULT', json.dumps(m.kernel_times_here()))\n")
 _SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-# kernel_times_here's results by key, and the state each was taken at
-_STATES = {"a": "phase 2", "b": "phase 3", "a5": "phase 5", "b5": "phase 5"}
+# kernel_times_here's results by key: what was timed and at which state
+_STATES = {"a": ("kernel A", "phase 2"),
+           "bl": ("bilinear A with its color-word image", "phase 2"),
+           "b": ("kernel B", "phase 3"),
+           "c": ("color render (B and its second walk, or the color walk "
+                 "and the resolve)", "phase 3"),
+           "a5": ("kernel A", "phase 5"), "b5": ("kernel B", "phase 5")}
 _STAGES = ("integrate", "render")
 
 
@@ -74,10 +81,18 @@ def _smoke():
 
 def _bound(smoke, key: str, k: dict):
     """(ms, what bounds it) for kernel ``key``'s counts ``k``."""
-    cfg = smoke._config() if key in ("a", "b") else smoke._large_scan_config()
-    if key.startswith("a"):
+    import dataclasses
+    cfg = smoke._large_scan_config() if key.endswith("5") \
+        else smoke._config()
+    if key == "bl":
+        cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+            cfg.map, bilinear_color=True))
+    if key.startswith(("a", "bl")):
         work = smoke._work_a(cfg, k["rows"], k["updated_voxels"],
                              k["max_rows"], k["with_color"])
+    elif key == "c":
+        work = smoke._work_color(cfg, k["rows"], k["band_voxels"],
+                                 k["covered"], k["max_rows"])
     else:
         work = smoke._work_b(cfg, k["rows"], k["band_voxels"],
                              k["max_rows"])
@@ -118,12 +133,16 @@ def kernel_report(dirs: dict) -> None:
         r = _child(dirs[side], _KERNELS_CHILD, str(_SMOKE))
         runs[side].append(r)
         print(f"{side} ({dirs[side]}) on {r['card']}:", flush=True)
-        for key, state in _STATES.items():
-            k = r[key]
+        for key, (what, state) in _STATES.items():
+            k = r.get(key)
+            if k is None:
+                print(f"  {what} at the {state} state: not in this "
+                      f"checkout", flush=True)
+                continue
             bound, by = _bound(smoke, key, k)
             share = (f"{100 * bound / k['device_ms']:.1f}%"
                      if k["device_ms"] else "not measured")
-            print(f"  kernel {key[0].upper()} at the {state} state: device "
+            print(f"  {what} at the {state} state: device "
                   f"{_fmt(k['device_ms'])} ms (torch.profiler), wrapper "
                   f"{k['wrapper_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
                   f"({share}), {k['rows']} rows", flush=True)
@@ -137,13 +156,14 @@ def kernel_report(dirs: dict) -> None:
                for s in runs}
         print(f"phase 4 {stage} stage, ms/frame: A median {med['A']:.3f}, "
               f"B median {med['B']:.3f}")
-    for key, state in _STATES.items():
+    for key, (what, state) in _STATES.items():
         for field in ("device_ms", "wrapper_ms"):
-            med = {s: _median([r[key][field] for r in runs[s]])
+            med = {s: _median([r[key][field] for r in runs[s]
+                               if r.get(key) is not None])
                    for s in runs}
             ratio = (f" (B/A {med['B'] / med['A']:.3f})"
                      if med["A"] and med["B"] else "")
-            print(f"kernel {key[0].upper()} at the {state} state, {field}: "
+            print(f"{what} at the {state} state, {field}: "
                   f"A median {_fmt(med['A'])}, B median {_fmt(med['B'])}"
                   f"{ratio}")
 

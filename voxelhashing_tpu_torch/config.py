@@ -72,7 +72,9 @@ class MapConfig:
     maintain_interval: int = 32
     gc_enabled: bool = True
     gc_delete_cap: int = 1024
-    bilinear_color: bool = False       # not ported: raises
+    # bilinear color sample (integrate._bilinear_color; kernel A's
+    # bilinear variant on the card) in place of the nearest pixel's
+    bilinear_color: bool = False
     alloc_rounds_offline: int = 3
 
     @property

@@ -67,8 +67,8 @@ __device__ __forceinline__ void camera_x4(const float (&view)[12], int3 c,
 // (as int bits, positive when kept) and its pixel, -1 where the voxel is
 // dropped (not in the surface band `band`, behind the camera, off screen
 // or outside [depth_min, depth_max]). The operation order of
-// splat_zbuf.splat_targets; kernel B and its color pass both call this,
-// so the color pass finds exactly the z_surf that kernel B kept.
+// splat_zbuf.splat_targets; kernel B and the color walk both call this,
+// so a color render's z-buffer is kernel B's.
 struct SplatCamera {
   int width, height;
   float fx, fy, cx, cy, depth_min, depth_max;

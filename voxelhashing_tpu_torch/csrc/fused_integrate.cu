@@ -39,12 +39,24 @@
 //   kBilinear: the color word is then the validity-weighted bilinear sample
 //   of integrate._bilinear_color at the continuous projection (four color
 //   words around the rounded centre, IEEE divides), one per voxel that
-//   passes the other tests; its extra frame reads hit L2. Kernel A's
-//   counterpart on the TPU is XLA (engine.py routes this configuration
-//   away from the Pallas kernel), so the variant follows the XLA function.
+//   passes the other tests. Kernel A's counterpart on the TPU is XLA
+//   (engine.py routes this configuration away from the Pallas kernel), so
+//   the variant follows the XLA function.
+// - The bilinear variant reads its corners from a per-frame color-word
+//   image (int32 [h*w], 300 KB at 320x240, in L2) that
+//   frame_color_words_kernel builds just before it on the same stream,
+//   one thread per pixel: each of the ~43M corner reads of a frame is then
+//   one 4-byte load and three shifts instead of three f32 loads and the
+//   color word's tests. The variant is then bound by the instructions it
+//   issues per updated voxel (nine IEEE divisions among them), not by its
+//   occupancy: capped at 56 registers (9 CTAs an SM, with spills) it ran
+//   no faster than with its 96 (5 CTAs an SM), so it has no cap (PERF.md
+//   §6).
 // - The per-row GC stats and surface flag are reduced from registers
 //   (warp shuffles, then four partials per row in shared memory); a row's
 //   partials are combined one row later, after the next ring barrier.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -86,20 +98,27 @@ __device__ __forceinline__ int color_word(const float* __restrict__ rgb,
   return ok ? (packed | 0x01000000) : packed;
 }
 
+// The per-frame color-word image of the bilinear variant: one thread per
+// pixel writes color_word (integrate.frame_color_word).
+__global__ void __launch_bounds__(256)
+frame_color_words_kernel(const float* __restrict__ rgb,
+                         int* __restrict__ words, int n_pixels) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix < n_pixels) words[pix] = color_word(rgb, pix);
+}
+
 // One corner of the bilinear sample (integrate._bilinear_color's fetch):
-// its channels from the color word of the clamped pixel, and whether it is
-// on screen with a valid color.
-__device__ __forceinline__ bool color_corner(const float* __restrict__ rgb,
-                                             int px, int py, int width,
-                                             int height, float (&c)[3]) {
+// the color word of the clamped pixel, and in `ok` whether the pixel is on
+// screen with a valid color.
+__device__ __forceinline__ int corner_word(const int* __restrict__ words,
+                                           int px, int py, int width,
+                                           int height, bool& ok) {
   const bool on = px >= 0 && px < width && py >= 0 && py < height;
   const int idx =
       min(max(py, 0), height - 1) * width + min(max(px, 0), width - 1);
-  const int word = color_word(rgb, idx);
-  c[0] = (float)((word >> 16) & 0xFF);
-  c[1] = (float)((word >> 8) & 0xFF);
-  c[2] = (float)(word & 0xFF);
-  return on && (word >> 24) == 1;
+  const int word = __ldg(words + idx);
+  ok = on && (word >> 24) == 1;
+  return word;
 }
 
 // integrate._bilinear_color for one voxel at the continuous projection
@@ -107,11 +126,13 @@ __device__ __forceinline__ bool color_corner(const float* __restrict__ rgb,
 // in the direction of the fractional offsets (an offset of exactly 0 goes
 // +1), invalid corners weighted 0, the row normalisations, then the
 // column one, packed as blockmap.pack_rgb packs (clamp, truncate), with
-// bit 24 set when any corner was valid. No frame: the debug green, valid.
-__device__ __forceinline__ int bilinear_word(const float* __restrict__ rgb,
+// bit 24 set when any corner was valid. The corners' channels are shifted
+// out of their words one channel at a time. No frame: the debug green,
+// valid.
+__device__ __forceinline__ int bilinear_word(const int* __restrict__ words,
                                              float uf, float vf, int width,
                                              int height) {
-  if (rgb == nullptr) return 0x0100FF00;
+  if (words == nullptr) return 0x0100FF00;
   const int p00x = (int)floorf(uf + 0.5f);
   const int p00y = (int)floorf(vf + 0.5f);
   const float ox = uf - (float)p00x;
@@ -120,12 +141,12 @@ __device__ __forceinline__ int bilinear_word(const float* __restrict__ rgb,
   const int diry = oy >= 0.0f ? 1 : -1;
   const float alpha = ox * (float)dirx;
   const float beta = oy * (float)diry;
-  float c00[3], c10[3], c01[3], c11[3];
-  const bool ok00 = color_corner(rgb, p00x, p00y, width, height, c00);
-  const bool ok10 = color_corner(rgb, p00x + dirx, p00y, width, height, c10);
-  const bool ok01 = color_corner(rgb, p00x, p00y + diry, width, height, c01);
-  const bool ok11 =
-      color_corner(rgb, p00x + dirx, p00y + diry, width, height, c11);
+  bool ok00, ok10, ok01, ok11;
+  const int k00 = corner_word(words, p00x, p00y, width, height, ok00);
+  const int k10 = corner_word(words, p00x + dirx, p00y, width, height, ok10);
+  const int k01 = corner_word(words, p00x, p00y + diry, width, height, ok01);
+  const int k11 =
+      corner_word(words, p00x + dirx, p00y + diry, width, height, ok11);
   const float w00 = ok00 ? 1.0f - alpha : 0.0f;
   const float w10 = ok10 ? alpha : 0.0f;
   const float w01 = ok01 ? 1.0f - alpha : 0.0f;
@@ -138,8 +159,13 @@ __device__ __forceinline__ int bilinear_word(const float* __restrict__ rgb,
   int packed = 0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float p0 = (c00[k] * w00 + c10[k] * w10) / fmaxf(wr0, 1e-12f);
-    const float p1 = (c01[k] * w01 + c11[k] * w11) / fmaxf(wr1, 1e-12f);
+    const int sh = 16 - 8 * k;
+    const float c00 = (float)((k00 >> sh) & 0xFF);
+    const float c10 = (float)((k10 >> sh) & 0xFF);
+    const float c01 = (float)((k01 >> sh) & 0xFF);
+    const float c11 = (float)((k11 >> sh) & 0xFF);
+    const float p0 = (c00 * w00 + c10 * w10) / fmaxf(wr0, 1e-12f);
+    const float p1 = (c01 * w01 + c11 * w11) / fmaxf(wr1, 1e-12f);
     const float out = (p0 * wb0 + p1 * wb1) / fmaxf(ww, 1e-12f);
     packed = (packed << 8) | (int)fminf(fmaxf(out, 0.0f), 255.0f);
   }
@@ -159,11 +185,17 @@ __device__ __forceinline__ void issue_row(RowStage* stage, uint64_t* bar,
   vh::bulk_g2s(stage->color, color + off, kColorRowBytes, bar);
 }
 
+// The frame's color as the kernel reads it: the f32 RGB frame (nearest
+// color) or the per-frame color-word image (bilinear); nullptr when the
+// frame is depth-only.
+template <bool kBilinear>
+using FrameColor = std::conditional_t<kBilinear, int, float>;
+
 template <bool kBilinear>
 __global__ void __launch_bounds__(kRowThreads)
 fused_integrate_kernel(const float* __restrict__ view_g,
                        const float* __restrict__ depth,
-                       const float* __restrict__ rgb,
+                       const FrameColor<kBilinear>* __restrict__ frame,
                        const int* __restrict__ block_key,
                        const int* __restrict__ active_idx,
                        const int* __restrict__ n_active,
@@ -304,9 +336,9 @@ fused_integrate_kernel(const float* __restrict__ view_g,
         if (!in_band[j]) {
           pc[j] = 0;
         } else if constexpr (kBilinear) {
-          pc[j] = bilinear_word(rgb, ufs[j], vfs[j], width, height);
+          pc[j] = bilinear_word(frame, ufs[j], vfs[j], width, height);
         } else {
-          pc[j] = color_word(rgb, pix[j]);
+          pc[j] = color_word(frame, pix[j]);
         }
       }
 
@@ -404,13 +436,13 @@ int launch(const void* view, const void* depth, const void* rgb,
   if (max_rows > 0) {
     fused_integrate_kernel<kBilinear>
         <<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)view, (const float*)depth, (const float*)rgb,
-            (const int*)block_key, (const int*)active_idx,
-            (const int*)n_active, (uint16_t*)sdf, (uint16_t*)weight,
-            (int*)color, (uint8_t*)surf, (float*)stats, max_rows, width,
-            height, fx, fy, cx, cy, depth_min, depth_range, voxel_size,
-            truncation, truncation_scale, max_dist, weight_sample15,
-            weight_max, world_blocks);
+        (const float*)view, (const float*)depth,
+        (const FrameColor<kBilinear>*)rgb, (const int*)block_key,
+        (const int*)active_idx, (const int*)n_active, (uint16_t*)sdf,
+        (uint16_t*)weight, (int*)color, (uint8_t*)surf, (float*)stats,
+        max_rows, width, height, fx, fy, cx, cy, depth_min, depth_range,
+        voxel_size, truncation, truncation_scale, max_dist, weight_sample15,
+        weight_max, world_blocks);
   }
   return (int)cudaGetLastError();
 }
@@ -436,10 +468,24 @@ extern "C" int vh_fused_integrate_bilinear_grid() { return grid_of<true>(); }
       depth_range, voxel_size, truncation, truncation_scale, max_dist,       \
       weight_sample15, weight_max, world_blocks, stream
 
-// Nearest-pixel color (the default) and bilinear color.
+// Nearest-pixel color (the default; rgb is the f32 RGB frame) and
+// bilinear color (rgb is the frame's color-word image that
+// vh_frame_color_words wrote).
 extern "C" int vh_fused_integrate(VH_FUSED_INTEGRATE_ARGS) {
   return launch<false>(VH_FUSED_INTEGRATE_CALL);
 }
 extern "C" int vh_fused_integrate_bilinear(VH_FUSED_INTEGRATE_ARGS) {
   return launch<true>(VH_FUSED_INTEGRATE_CALL);
+}
+
+// The bilinear variant's pre-pass: words (int32 [n_pixels]) takes each
+// pixel's color word from rgb (f32 [n_pixels, 3]).
+extern "C" int vh_frame_color_words(const void* rgb, void* words,
+                                    int n_pixels, void* stream) {
+  if (n_pixels > 0) {
+    frame_color_words_kernel<<<(n_pixels + 255) / 256, 256, 0,
+                               (cudaStream_t)stream>>>(
+        (const float*)rgb, (int*)words, n_pixels);
+  }
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Kernel B: splat z-buffer, and its color pass, hand-written for Hopper
-// (sm_90a).
+// Kernel B: splat z-buffer, and its color walk and resolve, hand-written
+// for Hopper (sm_90a).
 //
 // Kernel B replaces the TPU Pallas kernel voxelhashing_tpu/ops/pallas_splat.py
 // (_make_kernel/_body, launched by _run_splat at :188). It computes what the
@@ -12,22 +12,27 @@
 // IEEE floats order like their int bits, and a min does not depend on the
 // order of the atomics, so the result is exactly the scatter-min.
 //
-// The color pass (vh_splat_color) runs after kernel B, on the same rows
-// through the same kernel body (the template flag kColor). The JAX package
-// has no TPU kernel for it: on the TPU the color render stays XLA
+// A color render (vh_splat_zbuf_color) runs B's walk once under the
+// template flag kColor instead of B. The JAX package has no TPU kernel for
+// it: on the TPU the color render stays XLA
 // (voxelhashing_tpu/raycast.py:437-441, a zbuf-equality gather and a color
-// scatter). Each voxel whose z_surf bits equal the finished z-buffer at its
-// pixel is a hit; of the hits at one pixel the one with the largest flat
-// index (active-list position * 512 + voxel) wins, so the result does not
-// depend on the order of the atomics: one 64-bit atomicMax of
-// (flat index << 32 | packed color) per hit. The caller reads the low words.
-// Its plain version is splat_zbuf.splat_color_plain (scatter_reduce_ amax
-// of the same keys).
+// scatter). At each pixel the voxels whose z_surf equals the finished
+// z-buffer are the hits, and of those the one with the largest flat index
+// (active-list position * 512 + voxel) gives the color. Both are one
+// unsigned 64-bit min: of the key (z_surf bits << 32) | (0xFFFFFFFF - flat)
+// the high word orders by depth (the invariant above) and the low word, at
+// equal depth, by the flat index, largest first. So each surviving voxel
+// issues one 64-bit atomicMin into a key buffer that starts at
+// (+inf << 32 | 0xFFFFFFFF), and splat_resolve_kernel, one thread per
+// pixel, writes the z-buffer (the high word) and the winner's color
+// (0 where no voxel hit). Its plain versions are
+// splat_zbuf.splat_keys_plain and splat_resolve_plain (scatter_reduce_
+// amin of the same keys), and together splat_zbuf_plain(with_color=True).
 //
-// What bounds both: the bytes of the surface rows (bf16 sdf and weight, 2 KB
-// of 512 voxels each, read straight from the pool through active_idx) and
-// the 300 KB z-buffer, which stays in L2; the color pass adds one 4-byte
-// color read per hit.
+// What bounds B and the color walk: the bytes of the surface rows (bf16 sdf
+// and weight, 2 KB of 512 voxels each, read straight from the pool through
+// active_idx) and the 300 KB z-buffer (600 KB of keys), which stays in L2;
+// the resolve adds one 4-byte color read per covered pixel.
 //
 // Design:
 // - A persistent grid that finds its own rows: CTA b takes the rows b,
@@ -43,7 +48,7 @@
 //   and weight that complete on the stage's mbarrier.
 // - A thread projects its four voxels side by side, with no branch, so the
 //   four dependent chains (two IEEE divisions each) overlap
-//   (vh::splat_targets_x4, shared by both passes).
+//   (vh::splat_targets_x4).
 // - One atomicMin per surviving voxel. Aggregating first (across the warp
 //   with __match_any_sync, or over a thread's run of voxels on one pixel)
 //   issued fewer atomics and was not faster (PERF.md §6).
@@ -76,8 +81,12 @@ __device__ __forceinline__ void issue_row(SurfStage* stage, uint64_t* bar,
   vh::bulk_g2s(stage->weight, weight + off, kPoolWordBytes, bar);
 }
 
+// The color walk's key buffer before any voxel: +inf, no flat index.
+constexpr unsigned long long kNoHit = 0x7F800000FFFFFFFFull;
+
 // kColor false: kernel B, atomicMin of z_surf bits into zbuf. kColor true:
-// the color pass, zbuf is read and each hit atomicMax-es its key into win.
+// the color walk, atomicMin of (z_surf bits << 32 | 0xFFFFFFFF - flat)
+// into keys.
 template <bool kColor>
 __global__ void __launch_bounds__(kRowThreads)
 splat_zbuf_kernel(const float* __restrict__ view_g,
@@ -86,8 +95,8 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
                   const uint8_t* __restrict__ row_mask,
                   const uint16_t* __restrict__ sdf,
                   const uint16_t* __restrict__ weight,
-                  int* __restrict__ zbuf, const int* __restrict__ color,
-                  unsigned long long* __restrict__ win, int n_rows,
+                  int* __restrict__ zbuf,
+                  unsigned long long* __restrict__ keys, int n_rows,
                   vh::SplatCamera cam, float voxel_size, int world_blocks) {
   __shared__ __align__(128) SurfStage ring[kStages];
   __shared__ __align__(8) uint64_t full[kStages];
@@ -172,14 +181,15 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
       vh::splat_targets_x4(view, corner, tid, voxel_size, cam, sd, band, pix,
                            z_bits);
       if constexpr (kColor) {
-        const size_t base = (size_t)s_pools[k] * kVoxelsPerBlock;
-        const unsigned long long flat0 =
-            (unsigned long long)s_rows[k] * kVoxelsPerBlock + 4 * tid;
+        // flat < 2^32 (the wrapper checks max_rows * 512)
+        const unsigned flat0 =
+            (unsigned)s_rows[k] * kVoxelsPerBlock + 4 * tid;
 #pragma unroll
         for (int j = 0; j < kVoxelsPerThread; ++j) {
-          if (pix[j] >= 0 && zbuf[pix[j]] == (int)z_bits[j]) {
-            const unsigned c = (unsigned)color[base + 4 * tid + j];
-            atomicMax(&win[pix[j]], ((flat0 + j) << 32) | c);
+          if (pix[j] >= 0) {
+            atomicMin(&keys[pix[j]],
+                      ((unsigned long long)z_bits[j] << 32) |
+                          (0xFFFFFFFFu - (flat0 + j)));
           }
         }
       } else {
@@ -190,6 +200,27 @@ splat_zbuf_kernel(const float* __restrict__ view_g,
     }
     __syncthreads();  // the batch's lists are read (before the next one)
   }
+}
+
+// One thread per pixel: the z-buffer is the key's high word and the color
+// that of the voxel with flat index 0xFFFFFFFF - low word (0 where no voxel
+// hit).
+__global__ void __launch_bounds__(256)
+splat_resolve_kernel(const unsigned long long* __restrict__ keys,
+                     const int* __restrict__ active_idx,
+                     const int* __restrict__ color, int* __restrict__ zbuf,
+                     int* __restrict__ colbuf, int n_pixels) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pixels) return;
+  const unsigned long long key = keys[p];
+  zbuf[p] = (int)(key >> 32);
+  int c = 0;
+  if (key != kNoHit) {
+    const unsigned flat = 0xFFFFFFFFu - (unsigned)key;
+    c = color[(size_t)active_idx[flat / kVoxelsPerBlock] * kVoxelsPerBlock +
+              flat % kVoxelsPerBlock];
+  }
+  colbuf[p] = c;
 }
 
 int grid_cache[2] = {0, 0};
@@ -203,10 +234,10 @@ int grid() {
 template <bool kColor>
 int launch(const void* view, const void* block_key, const void* active_idx,
            const void* row_mask, const void* sdf, const void* weight,
-           void* zbuf, const void* color, void* win, int n_rows, int width,
-           int height, float fx, float fy, float cx, float cy,
-           float depth_min, float depth_max, float voxel_size,
-           int world_blocks, void* stream) {
+           void* zbuf, void* keys, int n_rows, int width, int height,
+           float fx, float fy, float cx, float cy, float depth_min,
+           float depth_max, float voxel_size, int world_blocks,
+           void* stream) {
   const int g = grid<kColor>();
   if (g <= 0) {
     const int err = (int)cudaGetLastError();
@@ -218,17 +249,17 @@ int launch(const void* view, const void* block_key, const void* active_idx,
     splat_zbuf_kernel<kColor><<<g, kRowThreads, 0, (cudaStream_t)stream>>>(
         (const float*)view, (const int*)block_key, (const int*)active_idx,
         (const uint8_t*)row_mask, (const uint16_t*)sdf,
-        (const uint16_t*)weight, (int*)zbuf, (const int*)color,
-        (unsigned long long*)win, n_rows, cam, voxel_size, world_blocks);
+        (const uint16_t*)weight, (int*)zbuf, (unsigned long long*)keys,
+        n_rows, cam, voxel_size, world_blocks);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The persistent grids the two passes launch with (0 if not found).
+// The persistent grids of kernel B and of the color walk (0 if not found).
 extern "C" int vh_splat_zbuf_grid() { return grid<false>(); }
-extern "C" int vh_splat_color_grid() { return grid<true>(); }
+extern "C" int vh_splat_zbuf_color_grid() { return grid<true>(); }
 
 // Kernel B: zbuf (int32 bits, filled with +inf by the caller) takes the
 // min z_surf bits of the surface-band voxels of the rows active_idx[k]
@@ -242,25 +273,35 @@ extern "C" int vh_splat_zbuf(const void* view, const void* block_key,
                              float voxel_size, int world_blocks,
                              void* stream) {
   return launch<false>(view, block_key, active_idx, row_mask, sdf, weight,
-                       zbuf, nullptr, nullptr, n_rows, width, height, fx, fy,
-                       cx, cy, depth_min, depth_max, voxel_size,
-                       world_blocks, stream);
+                       zbuf, nullptr, n_rows, width, height, fx, fy, cx, cy,
+                       depth_min, depth_max, voxel_size, world_blocks,
+                       stream);
 }
 
-// The color pass over the same rows, after kernel B has finished zbuf:
-// win (uint64 per pixel, zeroed by the caller) takes the max of
-// (flat index << 32 | color) over the hits at each pixel.
-extern "C" int vh_splat_color(const void* view, const void* block_key,
-                              const void* active_idx, const void* row_mask,
-                              const void* sdf, const void* weight,
-                              const void* color, const void* zbuf, void* win,
-                              int n_rows, int width, int height,
-                              float fx, float fy, float cx, float cy,
-                              float depth_min, float depth_max,
-                              float voxel_size, int world_blocks,
-                              void* stream) {
-  return launch<true>(view, block_key, active_idx, row_mask, sdf, weight,
-                      const_cast<void*>(zbuf), color, win, n_rows, width,
-                      height, fx, fy, cx, cy, depth_min, depth_max,
-                      voxel_size, world_blocks, stream);
+// A color render of the same rows: the color walk into keys (uint64 per
+// pixel, filled with kNoHit by the caller; n_rows * 512 <= 2^32), then the
+// resolve into zbuf (int32 float bits) and colbuf (int32 packed color).
+extern "C" int vh_splat_zbuf_color(const void* view, const void* block_key,
+                                   const void* active_idx,
+                                   const void* row_mask, const void* sdf,
+                                   const void* weight, const void* color,
+                                   void* keys, void* zbuf, void* colbuf,
+                                   int n_rows, int width, int height,
+                                   float fx, float fy, float cx, float cy,
+                                   float depth_min, float depth_max,
+                                   float voxel_size, int world_blocks,
+                                   void* stream) {
+  const int err = launch<true>(view, block_key, active_idx, row_mask, sdf,
+                               weight, nullptr, keys, n_rows, width, height,
+                               fx, fy, cx, cy, depth_min, depth_max,
+                               voxel_size, world_blocks, stream);
+  if (err != 0) return err;
+  const int n_pixels = width * height;
+  if (n_pixels > 0) {
+    splat_resolve_kernel<<<(n_pixels + 255) / 256, 256, 0,
+                           (cudaStream_t)stream>>>(
+        (const unsigned long long*)keys, (const int*)active_idx,
+        (const int*)color, (int*)zbuf, (int*)colbuf, n_pixels);
+  }
+  return (int)cudaGetLastError();
 }

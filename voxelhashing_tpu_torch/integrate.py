@@ -286,11 +286,12 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     w_new = torch.clamp(
         cfg.integration_weight_sample * 1.5 * (1.0 - depth01), min=1.0)
 
+    words = frame_color_word(color, cam, dev)
     if color is not None and cfg.bilinear_color:
-        c_new, c_ok = _bilinear_color(color, uf, vf, cam)
+        c_new, c_ok = _bilinear_color(words, uf, vf, cam)
         update &= c_ok
     else:
-        pc = frame_color_word(color, cam, dev)[pix]
+        pc = words[pix]
         c_new = pc & 0x00FFFFFF
         update &= (pc >> 24) == 1
 
@@ -327,18 +328,17 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
 integrate.cuda_calls = 0     # calls on CUDA tensors (the kernel's job there)
 
 
-def _bilinear_color(color, uf, vf, cam: CameraConfig):
+def _bilinear_color(words, uf, vf, cam: CameraConfig):
     """Validity-weighted bilinear color sample at the continuous pixel
-    coordinates (uf, vf): the rounded centre and its neighbours in the
-    direction of the fractional offsets (a zero offset goes +1), corners
-    off screen or with an invalid color weighted 0, the two row
-    normalisations, then the column one. Returns (packed int32 0x00RRGGBB,
-    valid bool), invalid where no corner is valid. The kernel's bilinear
-    variant repeats this operation for operation."""
+    coordinates (uf, vf), read from the frame's color-word image ``words``
+    (:func:`frame_color_word`, int32 [h*w]): the rounded centre and its
+    neighbours in the direction of the fractional offsets (a zero offset
+    goes +1), corners off screen or with an invalid color weighted 0, the
+    two row normalisations, then the column one. Returns (packed int32
+    0x00RRGGBB, valid bool), invalid where no corner is valid. The
+    kernel's bilinear variant repeats this operation for operation on the
+    same image."""
     h, w = cam.height, cam.width
-    packed, c_ok = _pack_frame_color(color)
-    cflat = packed.reshape(-1)
-    okflat = c_ok.reshape(-1)
 
     p00x = torch.floor(uf + 0.5).to(torch.int32)
     p00y = torch.floor(vf + 0.5).to(torch.int32)
@@ -351,7 +351,8 @@ def _bilinear_color(color, uf, vf, cam: CameraConfig):
         on = (px >= 0) & (px < w) & (py >= 0) & (py < h)
         idx = (torch.clamp(py, 0, h - 1) * w
                + torch.clamp(px, 0, w - 1)).long()
-        return blockmap.unpack_rgb(cflat[idx]), on & okflat[idx]
+        word = words[idx]
+        return blockmap.unpack_rgb(word), on & ((word >> 24) == 1)
 
     c00, ok00 = fetch(p00x, p00y)
     c10, ok10 = fetch(p00x + dirx, p00y)

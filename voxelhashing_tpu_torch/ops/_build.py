@@ -41,12 +41,13 @@ _SIGNATURES = {
         "vh_fused_integrate_bilinear":
             [_P] * 11 + [_I] * 3 + [_F] * 12 + [_I, _P],
         "vh_fused_integrate_bilinear_grid": [],
+        "vh_frame_color_words": [_P, _P, _I, _P],
     },
     "splat_zbuf": {
         "vh_splat_zbuf": [_P] * 7 + [_I] * 3 + [_F] * 7 + [_I, _P],
         "vh_splat_zbuf_grid": [],
-        "vh_splat_color": [_P] * 9 + [_I] * 3 + [_F] * 7 + [_I, _P],
-        "vh_splat_color_grid": [],
+        "vh_splat_zbuf_color": [_P] * 10 + [_I] * 3 + [_F] * 7 + [_I, _P],
+        "vh_splat_zbuf_color_grid": [],
     },
 }
 

@@ -14,14 +14,19 @@ On a CUDA tensor the wrapper inverts the pose (``geometry.invert_rigid``,
 the same bits as the plain version) and checks what the kernel assumes
 (:func:`prepare`); :func:`launch` then issues the kernel alone, which forms
 each pixel's color word from the f32 RGB frame itself. With
-``MapConfig.bilinear_color`` the wrapper launches the kernel's bilinear
-variant (``vh_fused_integrate_bilinear``, counted in
+``MapConfig.bilinear_color`` :func:`launch` issues two kernels on the
+stream: ``vh_frame_color_words``, which writes the frame's color-word image
+(``integrate.frame_color_word``; counted in
+``fused_integrate.color_word_launches``), then the bilinear variant,
+which reads its corners from that image
+(``vh_fused_integrate_bilinear``, counted in
 ``fused_integrate.bilinear_launches``; the nearest-color kernel in
-``fused_integrate.launches``). The plain version counts its calls on CUDA
-tensors (``integrate.integrate.cuda_calls``). Its least time on the card
-is the larger of :func:`bytes_moved` over the memory rate and
-:func:`operations` over the f32 rate; see the source for what its design
-does about the bytes.
+``fused_integrate.launches``). A depth-only frame skips the image. The
+plain version counts its calls on CUDA tensors
+(``integrate.integrate.cuda_calls``). Its least time on the card is the
+larger of :func:`bytes_moved` over the memory rate and :func:`operations`
+over the f32 rate; see the source for what its design does about the
+bytes.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ def bytes_moved(n_rows: int, n_updated: int, max_rows: int,
     entry and block key read and its surface flag written; the stats of
     all ``max_rows`` rows written (8 B each); the view matrix and
     ``n_active`` read. The bilinear variant moves the same bytes: its
-    three more color reads per updated voxel read the same frame again."""
+    color-word image (4 B a pixel, written and read back) is neither an
+    input nor an output, and its corner reads read that image again."""
     pixels = cam.height * cam.width
     row_reads = 2 * 2 * VOXELS_PER_BLOCK * n_rows
     updated = (4 + 2 + 2 + 4) * n_updated
@@ -67,21 +73,27 @@ _OPS_PER_UPDATE = 15 + 13
 # the bilinear variant's color sample in place of the one color word (15),
 # counted the same way on integrate._bilinear_color: the rounded centre (4),
 # the offsets, their directions and alpha, beta (6), the corners' pixels
-# (2), per corner the screen test, clamps and index (10) and its color word
-# (15), the weights and normalisers (8), per channel two row sums, three
-# divisions, the column sum and the clamp (14) and the three lower bounds
-# of the divisors (3)
-_OPS_BILINEAR_COLOR = 4 + 6 + 2 + 4 * (10 + 15) + 8 + 3 * 14 + 3
+# (2), per corner the screen test, clamps and index (10) and its three
+# channels (3), the weights and normalisers (8), per channel two row sums,
+# three divisions, the column sum and the clamp (14) and the three lower
+# bounds of the divisors (3); and once per pixel the color word of the
+# color-word image (15)
+_OPS_BILINEAR_COLOR = 4 + 6 + 2 + 4 * (10 + 3) + 8 + 3 * 14 + 3
+_OPS_COLOR_WORD = 15
 
 
-def operations(n_rows: int, n_updated: int, bilinear: bool = False) -> int:
+def operations(n_rows: int, n_updated: int, bilinear: bool = False,
+               n_pixels: int = 0) -> int:
     """The f32 operations kernel A (or with ``bilinear`` its bilinear
-    variant) must do for ``n_rows`` active rows of which ``n_updated``
-    voxels update (the counts above)."""
-    per_update = _OPS_PER_UPDATE + (_OPS_BILINEAR_COLOR - 15 if bilinear
-                                    else 0)
+    variant and the color-word image of a frame of ``n_pixels``) must do
+    for ``n_rows`` active rows of which ``n_updated`` voxels update (the
+    counts above)."""
+    per_update = _OPS_PER_UPDATE
+    if bilinear:
+        per_update += _OPS_BILINEAR_COLOR - _OPS_COLOR_WORD
     return (_OPS_PER_VOXEL * VOXELS_PER_BLOCK * n_rows
-            + per_update * n_updated)
+            + per_update * n_updated
+            + (_OPS_COLOR_WORD * n_pixels if bilinear else 0))
 
 
 def _check_inputs(state: MapState, depth, color, view, active_idx, n_active,
@@ -128,13 +140,21 @@ def prepare(state: MapState, depth, color, view, cam: CameraConfig,
             cfg: MapConfig, active_idx, n_active):
     """Check the inputs and allocate the stats; returns (launch arguments,
     stats f32[M,2]). Everything :func:`launch` needs is in the arguments
-    (pointers, sizes, the camera and map constants, and the device whose
-    current stream it launches on)."""
+    (pointers, sizes, the camera and map constants, for a bilinear frame
+    with color the frame and its color-word image int32[h*w], and the
+    device whose current stream it launches on)."""
     _check_inputs(state, depth, color, view, active_idx, n_active, cam)
     m = active_idx.shape[0]
-    stats = torch.empty((m, 2), dtype=torch.float32, device=depth.device)
+    dev = depth.device
+    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
     p = _build.ptr
-    args = (p(view), p(depth), _build.ptr_or_null(color),
+    frame, pre_pass = _build.ptr_or_null(color), None
+    if cfg.bilinear_color and color is not None:
+        words = torch.empty((cam.height * cam.width,), dtype=torch.int32,
+                            device=dev)
+        pre_pass = (color, words)
+        frame = p(words)
+    args = (p(view), p(depth), frame,
             p(state.block_key), p(active_idx), p(n_active), p(state.sdf),
             p(state.weight), p(state.color), p(state.surf), p(stats), m,
             cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
@@ -142,15 +162,35 @@ def prepare(state: MapState, depth, color, view, cam: CameraConfig,
             cfg.truncation, cfg.truncation_scale,
             cfg.max_integration_distance, cfg.integration_weight_sample * 1.5,
             cfg.integration_weight_max, cfg.world_blocks,
-            cfg.bilinear_color, depth.device)
+            cfg.bilinear_color, pre_pass, dev)
     return args, stats
 
 
+def launch_color_words(color, words) -> None:
+    """Launch the kernel that writes the color word of each pixel of
+    ``color`` (f32[h,w,3], contiguous, on the card) into ``words``
+    (int32[h*w]), on the current stream (the only place that does; counts
+    the launch)."""
+    if not (color.dtype == torch.float32 and words.dtype == torch.int32
+            and color.is_contiguous() and words.is_contiguous()
+            and color.numel() == 3 * words.numel()
+            and color.device == words.device):
+        raise ValueError("fused_integrate: the color-word image needs a "
+                         "contiguous f32 [h,w,3] frame and int32 [h*w] "
+                         "words on one device")
+    _build.check(_build.library("fused_integrate").vh_frame_color_words(
+        _build.ptr(color), _build.ptr(words), words.numel(),
+        _build.stream_ptr(words.device)), "fused_integrate")
+    fused_integrate.color_word_launches += 1
+
+
 def launch(args) -> None:
-    """Launch the kernel (its bilinear variant when the prepared config
-    asks for it) on prepared arguments, on the current stream (the only
-    place that does; counts the launch)."""
-    *kernel_args, bilinear, device = args
+    """Launch the kernel (its bilinear variant, after the color-word image,
+    when the prepared config asks for it) on prepared arguments, on the
+    current stream (the only place that does; counts the launches)."""
+    *kernel_args, bilinear, pre_pass, device = args
+    if pre_pass is not None:
+        launch_color_words(*pre_pass)
     lib = _build.library("fused_integrate")
     fn = lib.vh_fused_integrate_bilinear if bilinear else \
         lib.vh_fused_integrate
@@ -186,3 +226,4 @@ def fused_integrate(state: MapState, depth, color, pose, cam: CameraConfig,
 
 fused_integrate.launches = 0
 fused_integrate.bilinear_launches = 0
+fused_integrate.color_word_launches = 0

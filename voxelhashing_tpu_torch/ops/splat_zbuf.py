@@ -1,31 +1,36 @@
-"""Kernel B: the splat z-buffer, and its color pass (``csrc/splat_zbuf.cu``).
+"""Kernel B: the splat z-buffer, and the color render's walk and resolve
+(``csrc/splat_zbuf.cu``).
 
 Kernel B replaces the TPU Pallas kernel
 ``voxelhashing_tpu/ops/pallas_splat.py`` (``pl.pallas_call`` at :188,
-reached through ``splat_zbuf_pallas``). The color pass has no TPU kernel
-(the JAX package renders color with XLA, ``raycast._splat_zbuf``); it runs
-on the card after kernel B so that the color render adds no host sync.
+reached through ``splat_zbuf_pallas``). A color render has no TPU kernel
+(the JAX package renders color with XLA, ``raycast._splat_zbuf``); on the
+card it is one walk of the surface rows, B's body with one 64-bit
+``atomicMin`` per voxel of (z_surf bits << 32 | 0xFFFFFFFF - flat index),
+then a per-pixel resolve into the z-buffer and the colors, with no host
+sync.
 
-:func:`splat_zbuf` and :func:`splat_color` launch the CUDA kernels for
-CUDA tensors and run the plain PyTorch versions (:func:`splat_zbuf_plain`,
-the XLA ``raycast._splat_zbuf`` of the JAX package, and
-:func:`splat_color_plain`) for CPU tensors; any other device raises. There
-is no fallback from a kernel to its plain version. Each plain version
-counts its calls on CUDA tensors (``cuda_calls``), so a run can show that
-its main path never took one.
+:func:`splat_zbuf` and :func:`splat_zbuf_color` launch the CUDA kernels
+for CUDA tensors and run the plain PyTorch version (:func:`splat_zbuf_plain`,
+the XLA ``raycast._splat_zbuf`` of the JAX package, with ``with_color``
+for a color render) for CPU tensors; any other device raises. There is no
+fallback from a kernel to its plain version. Each plain version counts
+its calls on CUDA tensors (``cuda_calls``), so a run can show that its
+main path never took one. :func:`splat_keys_plain` and
+:func:`splat_resolve_plain` are the plain versions of the color walk and
+the resolve alone.
 
 Color ties: of the voxels whose z_surf equals the z-buffer at one pixel,
 the one with the largest flat index (active-list position * 512 + voxel)
-gives the color, in both versions, so the kernel and the plain version
+gives the color, in every version, so the kernels and the plain versions
 agree bit for bit.
 
-On a CUDA tensor each wrapper checks what its kernel assumes and makes
+On a CUDA tensor each wrapper checks what its kernels assume and makes
 the outputs (:func:`prepare`, :func:`prepare_color`); :func:`launch` and
-:func:`launch_color` issue a kernel alone. The least time of each on the
-card is the larger of its bytes (:func:`bytes_moved`,
+:func:`launch_color` issue the kernels alone. The least time of each on
+the card is the larger of its bytes (:func:`bytes_moved`,
 :func:`color_bytes_moved`) over the memory rate and its f32 operations
-(:func:`operations`, :func:`color_operations`) over the f32 rate; see the
-source.
+(:func:`operations`, the same for both) over the f32 rate; see the source.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from . import _build
 
 _INF_BITS = 0x7F800000
 _POOL_ALIGN = 16      # bulk copies (TMA) need 16-byte aligned rows
+# the color walk's key at a pixel no voxel hit: +inf, no flat index
+NO_HIT_KEY = (_INF_BITS << 32) | 0xFFFFFFFF
 
 
 def bytes_moved(n_surface_rows: int, max_rows: int,
@@ -70,21 +77,15 @@ def operations(n_surface_rows: int, n_band: int) -> int:
             + _OPS_PER_BAND_VOXEL * n_band)
 
 
-def color_bytes_moved(n_surface_rows: int, n_hits: int, max_rows: int,
+def color_bytes_moved(n_surface_rows: int, n_covered: int, max_rows: int,
                       cam: CameraConfig) -> int:
-    """The least bytes the color pass must move: kernel B's reads
-    (:func:`bytes_moved` without its z-buffer write), the z-buffer read
-    (f32 per pixel), the packed color of each of the ``n_hits`` voxels
-    whose z_surf equals the z-buffer at its pixel (4 B), and the packed
-    color per pixel written (4 B)."""
+    """The least bytes a color render (the color walk and the resolve)
+    must move: kernel B's (:func:`bytes_moved`), the packed color per
+    pixel written (4 B), and the pool color of each of the ``n_covered``
+    pixels' winning voxel read (4 B). The 64-bit key buffer between the
+    two kernels is neither an input nor an output and is not counted."""
     return (bytes_moved(n_surface_rows, max_rows, cam)
-            + 4 * n_hits + 4 * cam.height * cam.width)
-
-
-def color_operations(n_surface_rows: int, n_band: int) -> int:
-    """Kernel B's f32 operations (:func:`operations`) and one compare with
-    the z-buffer per band voxel."""
-    return operations(n_surface_rows, n_band) + n_band
+            + 4 * cam.height * cam.width + 4 * n_covered)
 
 
 def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
@@ -92,9 +93,10 @@ def splat_zbuf_plain(state: MapState, active_idx, row_mask, view,
                      with_color: bool = False):
     """Project the surface-band voxels of the rows ``active_idx[row_mask]``
     and scatter-min their predicted surface depths into a flat z-buffer:
-    the plain PyTorch version of kernel B, and with ``with_color`` of the
-    color pass too (:func:`splat_color_plain`). The mask is resolved on the
-    host, one sync on CUDA.
+    the plain PyTorch version of kernel B, and with ``with_color`` of a
+    color render (the color walk and the resolve of
+    :func:`splat_zbuf_color`; its colors are :func:`splat_color_plain`'s).
+    The mask is resolved on the host, one sync on CUDA.
 
     Returns (zbuf f32[h*w] (+inf = empty), colbuf int32[h*w]) (colbuf all
     zero unless ``with_color``).
@@ -119,10 +121,10 @@ splat_zbuf_plain.cuda_calls = 0
 
 def splat_color_plain(state: MapState, active_idx, row_mask, view,
                       cam: CameraConfig, cfg: MapConfig, zbuf):
-    """The plain PyTorch version of the color pass: for each pixel, the
-    packed color (int32[h*w], 0 where none) of the surface-band voxel of
-    the rows ``active_idx[row_mask]`` whose z_surf equals ``zbuf`` there;
-    of several, the one with the largest flat index."""
+    """The colors of a color render given its z-buffer: for each pixel,
+    the packed color (int32[h*w], 0 where none) of the surface-band voxel
+    of the rows ``active_idx[row_mask]`` whose z_surf equals ``zbuf``
+    there; of several, the one with the largest flat index."""
     if active_idx.device.type == "cuda":
         splat_color_plain.cuda_calls += 1
     targets = splat_targets(state, active_idx, row_mask, view, cam, cfg)
@@ -138,14 +140,59 @@ def _winner_colors(state: MapState, active_idx, targets, zbuf):
     pos, pix, z_surf, ok = targets
     p = zbuf.shape[0]
     zhit = ok & (zbuf[torch.clamp(pix, 0, p - 1)] == z_surf)
-    flat = pos[:, None] * VOXELS_PER_BLOCK + torch.arange(
-        VOXELS_PER_BLOCK, device=pos.device)[None, :]
     color = state.color[active_idx.long()[pos]].to(torch.int64) & 0xFFFFFFFF
     win = torch.zeros((p + 1,), dtype=torch.int64, device=pos.device)
     win.scatter_reduce_(0, torch.where(zhit, pix, p).reshape(-1),
-                        ((flat << 32) | color).reshape(-1), "amax",
-                        include_self=True)
+                        ((_flat_index(pos) << 32) | color).reshape(-1),
+                        "amax", include_self=True)
     return (win[:p] & 0xFFFFFFFF).to(torch.int32)
+
+
+def _flat_index(pos):
+    """Flat index (active-list position * 512 + voxel) int64[R,512] of the
+    voxels of the rows at active-list positions ``pos``."""
+    return pos[:, None] * VOXELS_PER_BLOCK + torch.arange(
+        VOXELS_PER_BLOCK, device=pos.device)[None, :]
+
+
+def pack_splat_keys(z_surf, flat):
+    """The color walk's key of each voxel, int64: (z_surf bits << 32) |
+    (0xFFFFFFFF - flat). For a positive z_surf (< 2^31 as bits) and a flat
+    index below 2^32 it is positive, and its min over the voxels of a
+    pixel is the least z_surf and, among bit-equal ones, the largest flat
+    index."""
+    z_bits = z_surf.contiguous().view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    return (z_bits << 32) | (0xFFFFFFFF - flat)
+
+
+def splat_keys_plain(state: MapState, active_idx, row_mask, view,
+                     cam: CameraConfig, cfg: MapConfig):
+    """The plain version of the color walk: per pixel the min of
+    :func:`pack_splat_keys` over the surviving surface-band voxels of the
+    rows ``active_idx[row_mask]`` (a scatter_reduce_ amin), int64[h*w],
+    ``NO_HIT_KEY`` where none."""
+    p = cam.height * cam.width
+    pos, pix, z_surf, _ = splat_targets(state, active_idx, row_mask, view,
+                                        cam, cfg)
+    keys = torch.full((p + 1,), NO_HIT_KEY, dtype=torch.int64,
+                      device=active_idx.device)
+    keys.scatter_reduce_(0, pix.reshape(-1),
+                         pack_splat_keys(z_surf, _flat_index(pos))
+                         .reshape(-1), "amin", include_self=True)
+    return keys[:p]
+
+
+def splat_resolve_plain(state: MapState, active_idx, keys):
+    """The plain version of the resolve: (zbuf f32[h*w], the keys' high
+    words; colbuf int32[h*w], the pool color of the voxel with flat index
+    0xFFFFFFFF - low word, 0 where ``keys`` is ``NO_HIT_KEY``)."""
+    zbuf = (keys >> 32).to(torch.int32).view(torch.float32)
+    hit = keys != NO_HIT_KEY
+    flat = torch.where(hit, 0xFFFFFFFF - (keys & 0xFFFFFFFF), 0)
+    rows = active_idx.long()[flat // VOXELS_PER_BLOCK]
+    color = state.color[rows, flat % VOXELS_PER_BLOCK]
+    return zbuf, torch.where(hit, color, 0)
 
 
 def splat_targets(state: MapState, active_idx, row_mask, view,
@@ -249,61 +296,66 @@ splat_zbuf.launches = 0
 
 
 def prepare_color(state: MapState, active_idx, row_mask, view,
-                  cam: CameraConfig, cfg: MapConfig, zbuf):
-    """Check the inputs of the color pass and zero its output; returns
-    (launch arguments, win int64[h*w], whose low words are the colors).
-    ``zbuf`` is kernel B's finished z-buffer for the same rows."""
+                  cam: CameraConfig, cfg: MapConfig):
+    """Check the inputs of a color render and make its buffers; returns
+    (launch arguments, keys int64[h*w] filled with ``NO_HIT_KEY``, zbuf
+    int32[h*w] holding float bits, colbuf int32[h*w])."""
     _check_inputs(state, active_idx, row_mask, view)
     p = cam.height * cam.width
     checks = [
         (state.color.dtype == torch.int32
          and tuple(state.color.shape) == tuple(state.sdf.shape),
          "pool color must be int32 [N,512]"),
-        (zbuf.dtype == torch.float32 and tuple(zbuf.shape) == (p,),
-         "zbuf must be f32[h*w]"),
+        (state.color.device == active_idx.device,
+         "all tensors on one device"),
+        (state.color.is_contiguous(), "tensors must be contiguous"),
+        # flat indices (active-list position * 512 + voxel) are 32-bit
+        (active_idx.shape[0] * VOXELS_PER_BLOCK <= 1 << 32,
+         "max_rows * 512 must fit in 32 bits"),
     ]
-    for t in (state.color, zbuf):
-        checks.append((t.device == active_idx.device,
-                       "all tensors on one device"))
-        checks.append((t.is_contiguous(), "tensors must be contiguous"))
     for ok, msg in checks:
         if not ok:
-            raise ValueError(f"splat_color: {msg}")
-    win = torch.zeros((p,), dtype=torch.int64, device=active_idx.device)
+            raise ValueError(f"splat_zbuf_color: {msg}")
+    dev = active_idx.device
+    keys = torch.full((p,), NO_HIT_KEY, dtype=torch.int64, device=dev)
+    zbuf = torch.empty((p,), dtype=torch.int32, device=dev)
+    colbuf = torch.empty((p,), dtype=torch.int32, device=dev)
     ptr = _build.ptr
     args = (ptr(view), ptr(state.block_key), ptr(active_idx),
             ptr(row_mask), ptr(state.sdf), ptr(state.weight),
-            ptr(state.color), ptr(zbuf), ptr(win), active_idx.shape[0],
-            cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
-            cam.depth_min, cam.depth_max, cfg.voxel_size, cfg.world_blocks,
-            active_idx.device)
-    return args, win
+            ptr(state.color), ptr(keys), ptr(zbuf), ptr(colbuf),
+            active_idx.shape[0], cam.width, cam.height, cam.fx, cam.fy,
+            cam.cx, cam.cy, cam.depth_min, cam.depth_max, cfg.voxel_size,
+            cfg.world_blocks, dev)
+    return args, keys, zbuf, colbuf
 
 
 def launch_color(args) -> None:
-    """Launch the color pass on prepared arguments, on the current stream
-    (the only place that does; counts the launch)."""
+    """Launch the color walk and the resolve on prepared arguments, on the
+    current stream (the only place that does; counts the launch)."""
     *kernel_args, device = args
-    _build.check(_build.library("splat_zbuf").vh_splat_color(
+    _build.check(_build.library("splat_zbuf").vh_splat_zbuf_color(
         *kernel_args, _build.stream_ptr(device)), "splat_zbuf")
-    splat_color.launches += 1
+    splat_zbuf_color.launches += 1
 
 
-def splat_color(state: MapState, active_idx, row_mask, view,
-                cam: CameraConfig, cfg: MapConfig, zbuf):
-    """Packed color int32[h*w] (0 where none) of the surface-band voxel of
-    the rows ``active_idx[row_mask]`` that gave ``zbuf`` (kernel B's
-    z-buffer of the same rows, seen from ``view``) its depth at each
-    pixel; ties go to the largest flat index."""
+def splat_zbuf_color(state: MapState, active_idx, row_mask, view,
+                     cam: CameraConfig, cfg: MapConfig):
+    """A color render of the surface-band voxels of the rows
+    ``active_idx[row_mask]`` seen from ``view``: (zbuf f32[h*w], +inf =
+    empty, as :func:`splat_zbuf` gives; colbuf int32[h*w], the packed
+    color of the voxel that gave each pixel its depth, 0 where none; ties
+    go to the largest flat index)."""
     if active_idx.device.type == "cpu":
-        return splat_color_plain(state, active_idx, row_mask, view, cam,
-                                 cfg, zbuf)
+        return splat_zbuf_plain(state, active_idx, row_mask, view, cam, cfg,
+                                with_color=True)
     if active_idx.device.type != "cuda":
-        raise ValueError(f"splat_color: no kernel for {active_idx.device}")
-    args, win = prepare_color(state, active_idx, row_mask, view, cam, cfg,
-                              zbuf)
+        raise ValueError(
+            f"splat_zbuf_color: no kernel for {active_idx.device}")
+    args, _, zbuf, colbuf = prepare_color(state, active_idx, row_mask, view,
+                                          cam, cfg)
     launch_color(args)
-    return win.view(torch.int32)[0::2]
+    return zbuf.view(torch.float32), colbuf
 
 
-splat_color.launches = 0
+splat_zbuf_color.launches = 0

@@ -5,7 +5,9 @@ Two renderers, chosen by ``RaycastConfig.mode``:
 * ``"splat"``: every surface-band voxel of the active blocks predicts the
   surface depth along its own pixel ray (``z_voxel + sdf``, the projective
   TSDF) and the z-buffer keeps the minimum per pixel (kernel B of
-  ``ops/splat_zbuf.py``); the color render adds kernel B's color pass.
+  ``ops/splat_zbuf.py``); a color render runs B's walk once with a
+  64-bit (depth, flat index) key per voxel and a per-pixel resolve
+  instead (``splat_zbuf_color``).
   Then close-range hole fill, optional trilinear refinement, and the
   derived point / normal maps. The kernel takes the whole active list with
   the persistent surface mask (``MapState.surf``), which gives the same
@@ -32,7 +34,7 @@ from .config import CameraConfig, MapConfig, RaycastConfig
 from . import blockmap
 from . import geometry as geom
 from .blockmap import MapState
-from .ops.splat_zbuf import splat_color, splat_zbuf
+from .ops.splat_zbuf import splat_zbuf, splat_zbuf_color
 
 
 class RaycastResult(NamedTuple):
@@ -252,13 +254,13 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     n_surf_total = blockmap._isum(has_surf)
     overflow = n_surf_total - torch.clamp(n_surf_total,
                                           max=active_idx.shape[0] // 2)
-    zbuf = splat_zbuf(state, active_idx, has_surf, view, cam, cfg)
     if with_color:
-        colbuf = splat_color(state, active_idx, has_surf, view, cam, cfg,
-                             zbuf)
+        zbuf, colbuf = splat_zbuf_color(state, active_idx, has_surf, view,
+                                        cam, cfg)
         color = geom.div_const(blockmap.unpack_rgb(colbuf),
                                255.0).reshape(h, w, 3)
     else:
+        zbuf = splat_zbuf(state, active_idx, has_surf, view, cam, cfg)
         color = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
     depth = torch.where(torch.isfinite(zbuf), zbuf, torch.nan).reshape(h, w)
 
