@@ -90,6 +90,29 @@ and then:
    re-integration's fused frames/s, the ``TimingLog`` report and the host
    syncs of two live frames.
 
+8. runs the multi-device path (``phase_sharded``, in ranks started with
+   ``parallel.distributed.spawn``): two ranks over gloo, both on the one
+   card, each with half of phase 1's capacity (500,000 blocks, a 2^20-slot
+   table, a 16,384-block active cap): (a) 20 frames of phase 1's frames
+   through ``sharded.make_sharded_step``, with every frame's keys owned by
+   their rank and the pose and ``valid`` flag bit-equal across ranks, ATE
+   < 10 mm, kernels A and B on every frame of every rank; the host syncs
+   of frame 11 replayed on the state after frame 10; kernels A and B held
+   bit for bit against their plain versions on rank 0's shard after frame
+   10; ``gather_map`` with clean invariants holding every rank's blocks;
+   (b) ``make_sharded_render`` at the last pose against the single-device
+   march of the merged map (coverage XOR < 0.5%, depth < 1e-4 m, color <
+   2/255); (d) ``ShardedStreamingManager``: ``stream_out_all`` then
+   ``stream_in_all`` restores each shard's sorted rows bit for bit, and a
+   partial sweep keeps every block; (c) 10 frames with splat + RGB-D (the
+   color render on every rank) and 3 with the march + RGB-D; (e)
+   ``optimize_distributed`` on phase 7's pose graph within 1e-4 of
+   ``optimize``; then (f) 20 frames on one rank over NCCL (ATE < 10 mm, a
+   clean map). Reports rank 0's fused frames/s, the all-reduces of a frame
+   and their host time, the host syncs of one frame, and the phase's wall
+   time. Two ranks on one card measure the collectives' cost, not
+   scaling.
+
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
 line before the last holds the kernels' numbers as one JSON object; the
@@ -397,11 +420,13 @@ def count_syncs(cfg, snap, depth, color):
     return syncs
 
 
-def _a_inputs(cfg, base_map, depth, color, pose, frame_idx, bitmask=None):
+def _a_inputs(cfg, base_map, depth, color, pose, frame_idx, bitmask=None,
+              key_filter=None):
     """Kernel A's inputs at a state: a clone of ``base_map`` after this
-    frame's allocation (candidates masked by the streaming ``bitmask`` as
-    the engine masks them), the preprocessed frame, and the active list at
-    ``pose``. Returns (state, depth, color, active_idx, n_active)."""
+    frame's allocation (candidates masked by ``key_filter``, a rank's
+    partition, and the streaming ``bitmask`` as the engine masks them),
+    the preprocessed frame, and the active list at ``pose``. Returns
+    (state, depth, color, active_idx, n_active)."""
     from voxelhashing_tpu_torch import blockmap, geometry as geom
     from voxelhashing_tpu_torch import integrate as integ, streaming
     from voxelhashing_tpu_torch.ops.image import preprocess
@@ -411,6 +436,8 @@ def _a_inputs(cfg, base_map, depth, color, pose, frame_idx, bitmask=None):
     base = _clone(base_map)
     keys = integ.alloc_candidates(frame.depth, pose, cam, mp,
                                   tile=mp.alloc_tile, phase=frame_idx)
+    if key_filter is not None:
+        keys = key_filter(keys)
     if bitmask is not None:
         keys = streaming.mask_keys(keys, bitmask, mp, cfg.streaming)
     base, _ = blockmap.allocate(base, keys, mp, rounds=1)
@@ -1513,13 +1540,19 @@ def phase_slam(device, gpu_line):
     _check_map("live map", run.state.map, cfg)
 
     warm = copy.deepcopy(pg)            # a second, warm optimize below
+    # the graph as optimize finds it, for phase 8's optimize_distributed
+    graph = {"poses": np.stack([k.pose for k in pg.keyframes]),
+             "ij": np.array([(e.i, e.j) for e in pg.edges], np.int64),
+             "z": np.stack([e.z_ij for e in pg.edges]),
+             "weight": np.array([e.weight for e in pg.edges]),
+             "is_loop": np.array([e.is_loop for e in pg.edges])}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         run.optimize()
     opt_first = 1000 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    warm.optimize()
+    graph["optimized"] = warm.optimize()
     opt_warm = 1000 * (time.perf_counter() - t0)
     ate_after = evaluation.ate_rmse(run.est, run.gts, align=False)
     print(f"slam: optimize {len(pg.keyframes)} poses, {len(pg.edges)} edges, "
@@ -1575,7 +1608,7 @@ def phase_slam(device, gpu_line):
     return {"live": live, "reintegrate": ri, "loops": n_loops,
             "ate_mm": (ate_before * 1000, ate_after * 1000),
             "register_ms": float(np.mean(reg_ms)), "optimize_ms": opt_warm,
-            "reintegrate_fps": ri_fps, "reloc": reloc}
+            "reintegrate_fps": ri_fps, "reloc": reloc, "graph": graph}
 
 
 def phase_relocalize(cfg, poses, depth, device, gpu_line):
@@ -1693,6 +1726,460 @@ def phase_bilinear(device, gpu_line):
                             11, "kernel A, bilinear variant", gpu_line)
     res["max_abs_err"] = max(res["max_abs_err"], err)
     return res, counts
+
+
+# phase 8: the multi-device path
+SHARD_RANKS = 2             # the ranks of (a)-(e), sharing the one card
+SHARD_SNAP = 10             # A and B held, and syncs counted, after it
+SHARD_RGBD_FRAMES = 10      # (c) with splat + RGB-D
+SHARD_MARCH_FRAMES = 3      # (c) with the march: an all-reduce per fetch
+# tests/test_sharded.py:123-133: coverage XOR share, depth (m), color
+MARCH_BOUNDS = (5e-3, 1e-4, 2 / 255.0)
+POSE_GRAPH_TOL = 1e-4       # tests/test_posegraph.py:184-200
+
+
+def _clone_sharded(st):
+    return st._replace(map=_clone(st.map), pose=st.pose.clone(),
+                       frame=st.frame.clone())
+
+
+def _shard_rows(map_state):
+    """This shard's allocated rows sorted by key, as numpy (keys, sdf and
+    weight bits as int16, color)."""
+    import torch
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    rows = torch.nonzero(map_state.block_key != INVALID_KEY).flatten()
+    return _sorted_rows(
+        map_state.block_key[rows].cpu().numpy(),
+        map_state.sdf[rows].view(torch.int16).cpu().numpy(),
+        map_state.weight[rows].view(torch.int16).cpu().numpy(),
+        map_state.color[rows].cpu().numpy())
+
+
+def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
+    """``n_frames`` of ``sharded.make_sharded_step`` on phase 1's frames on
+    this rank, every rank in step. Every frame is checked: each key of the
+    shard is the rank's (``mix(k) % D``), and the pose and the ``valid``
+    flag are bit-equal on every rank. Reports (rank 0) fused frames/s over
+    frames 2 on (CUDA events), the all-reduces of a frame and their host
+    time, and ATE; with ``hold``, the host syncs of frame 11 replayed on
+    the state after frame 10 on every rank, and kernels A and B held bit
+    for bit against their plain versions on rank 0's shard after frame
+    10. Returns (numbers, state, lcfg, poses, est)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch import evaluation
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    from voxelhashing_tpu_torch.parallel import (collectives, distributed,
+                                                 sharded)
+
+    me, n_dev = collectives.world()
+    poses, depth, color = _frames(cfg.camera, device)
+    poses, depth, color = poses[:n_frames], depth[:n_frames], \
+        color[:n_frames]
+    state, lcfg = distributed.create_sharded_global(cfg,
+                                                    initial_pose=poses[0])
+    step = sharded.make_sharded_step(cfg)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n_frames)]
+    est, valid, reduces, reduce_s, snap = [], [], [], [], None
+    torch.cuda.synchronize()
+    _zero_counts()
+    counted = collectives.all_reduce
+    counted.calls, counted.seconds = 0, 0.0
+    for i in range(n_frames):
+        c0, s0 = counted.calls, counted.seconds
+        ev[i][0].record()
+        state, pose = step(state, depth[i], color[i])
+        ev[i][1].record()
+        reduces.append(counted.calls - c0)
+        reduce_s.append(counted.seconds - s0)
+        est.append(pose.clone())
+        valid.append(state.valid_host)
+        if hold and i == SHARD_SNAP:
+            snap = _clone_sharded(state)
+        # the checks, outside the frame's events
+        keys = state.map.block_key
+        foreign = torch.sum((sharded.owner(keys, n_dev) != me)
+                            & (keys != INVALID_KEY))
+        got = collectives.gather_rows([pose.reshape(1, 16), torch.stack(
+            [foreign.float(), torch.tensor(float(state.valid_host),
+                                           device=device)]).reshape(1, 2)])
+        if me == 0:
+            same = all(_bits_equal(g[0], got[0][0]) and
+                       bool(torch.equal(g[1][0, 1], got[0][1][0, 1]))
+                       for g in got)
+            n_foreign = int(sum(float(g[1][0, 0]) for g in got))
+            if not same or n_foreign:
+                raise RuntimeError(
+                    f"{label} frame {i}: poses or valid flags differ across "
+                    f"ranks ({not same}) or keys on a rank that does not "
+                    f"own them ({n_foreign})")
+    torch.cuda.synchronize()
+    counts = _counts()
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
+                              align=False)
+    timed = range(2, n_frames)
+    dev_ms = sum(ev[i][0].elapsed_time(ev[i][1]) for i in timed)
+    out = {"fps": len(timed) / (dev_ms / 1000.0), "ate_mm": ate * 1000,
+           "valid": valid, "counts": counts,
+           "allocated": int(torch.sum(state.map.block_key != INVALID_KEY)),
+           "reduces_per_frame": float(np.mean([reduces[i] for i in timed])),
+           "reduce_ms_per_frame": 1000 * float(np.mean(
+               [reduce_s[i] for i in timed])),
+           "frame_ms": [ev[i][0].elapsed_time(ev[i][1])
+                        for i in range(n_frames)]}
+    if me == 0:
+        print(f"{label}: {n_frames} frames on {n_dev} ranks, valid "
+              f"{sum(valid)}, ATE RMSE {out['ate_mm']:.3f} mm, rank 0 "
+              f"fused frames/s (frames 2-{n_frames - 1}, CUDA events) "
+              f"{out['fps']:.3f}, {out['reduces_per_frame']:.1f} "
+              f"all-reduces a frame taking {out['reduce_ms_per_frame']:.3f}"
+              f" ms of host time (staging included), rank 0 blocks "
+              f"{out['allocated']}, counts {counts}; on {gpu_line}",
+              flush=True)
+    if hold:
+        s = _clone_sharded(snap)
+        ctx = _sync_sites() if me == 0 else contextlib.nullcontext()
+        c0 = counted.calls
+        with ctx as sites:
+            s, p11 = step(s, depth[SHARD_SNAP + 1], color[SHARD_SNAP + 1])
+        del s
+        out["reduces_replayed"] = counted.calls - c0
+        if me == 0:
+            out["syncs"] = sum(sites.values())
+            print(f"{label}: host syncs of frame {SHARD_SNAP + 1} replayed "
+                  f"on rank 0: {out['syncs']} ({_sites_line(sites)}); "
+                  f"{out['reduces_replayed']} all-reduces; replayed pose "
+                  f"bit-equal {_bits_equal(p11, est[SHARD_SNAP + 1])}",
+                  flush=True)
+            scfg = dataclasses.replace(cfg, map=lcfg)
+            p = est[SHARD_SNAP + 1]
+            base, d, c, aidx, n_act = _a_inputs(
+                scfg, snap.map, depth[SHARD_SNAP + 1],
+                color[SHARD_SNAP + 1], p, SHARD_SNAP + 1,
+                key_filter=lambda k: sharded._owned(k, me, n_dev))
+            out["a_err"], sk = hold_a(scfg, base, d, c, p, aidx, n_act,
+                                      "kernel A (sharded, rank 0's shard)")
+            del base, sk
+            out["b_err"] = hold_b(scfg, snap.map,
+                                  *_b_inputs(scfg, snap.map, snap.pose),
+                                  "kernel B (sharded, rank 0's shard)")
+        del snap
+    return out, state, lcfg, poses, est
+
+
+def _sharded_render(cfg, state, pose, merged, gpu_line):
+    """(b): ``make_sharded_render`` at ``pose`` on every rank; on rank 0
+    against the single-device ``render_march`` of the merged map."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap, geometry as geom, raycast
+    from voxelhashing_tpu_torch.parallel import collectives, sharded
+
+    me, _ = collectives.world()
+    t0 = time.perf_counter()
+    res = sharded.make_sharded_render(cfg)(state, pose)
+    torch.cuda.synchronize()
+    ms = 1000 * (time.perf_counter() - t0)
+    if me != 0:
+        return None
+    aidx, n_act, _ = blockmap.compactify(merged, geom.invert_rigid(pose),
+                                         cfg.camera, cfg.map)
+    mask = torch.arange(aidx.shape[0], device=aidx.device) < n_act
+    ref = raycast.render_march(merged, pose, cfg.camera, cfg.map,
+                               cfg.raycast, active_idx=aidx,
+                               active_mask=mask)
+    cov, cov1 = torch.isfinite(res.depth), torch.isfinite(ref.depth)
+    both = cov & cov1
+    xor = float((cov ^ cov1).float().mean())
+    dz = float((res.depth - ref.depth)[both].abs().max())
+    dc = float((res.color - ref.color)[both].abs().max())
+    print(f"sharded render (march) at the last pose: {ms:.3f} ms host "
+          f"clock, covered {int(cov.sum())} pixels, against the merged "
+          f"map's render: coverage XOR {xor:.5f}, depth {dz:.3e} m, color "
+          f"{dc:.3e} (bounds {MARCH_BOUNDS}); on {gpu_line}", flush=True)
+    if int(cov.sum()) == 0 or xor >= MARCH_BOUNDS[0] \
+            or dz >= MARCH_BOUNDS[1] or dc >= MARCH_BOUNDS[2]:
+        raise RuntimeError("sharded render: out of bounds")
+    return {"ms": ms, "xor": xor, "depth": dz, "color": dc}
+
+
+def _sharded_streaming(cfg, state, lcfg, device, gpu_line):
+    """(d): ``ShardedStreamingManager`` on this rank's shard:
+    ``stream_out_all`` empties every shard and ``stream_in_all`` restores
+    its sorted rows bit for bit; a partial sweep around (0, 0, 1.6) at
+    1.2 m keeps every block, on the card or in the store."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.config import StreamingConfig
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    from voxelhashing_tpu_torch.parallel import collectives
+    from voxelhashing_tpu_torch.parallel.streaming import (
+        ShardedStreamingManager)
+    import numpy as np
+
+    me, _ = collectives.world()
+    scfg = StreamingConfig(enabled=True)
+    before = _shard_rows(state.map)
+    total = sum(collectives.all_gather_counts(len(before[0])))
+    t0 = time.perf_counter()
+    mgr = ShardedStreamingManager(cfg.map, scfg, device=device)
+    smap = mgr.stream_out_all(state.map)
+    left = int(torch.sum(smap.block_key != INVALID_KEY))
+    hosted = mgr.host_block_count()
+    t_out = time.perf_counter() - t0
+    smap = mgr.stream_in_all(smap)
+    t_in = time.perf_counter() - t0 - t_out
+    after = _shard_rows(smap)
+    same = len(before[0]) == len(after[0]) and all(
+        np.array_equal(a, b) for a, b in zip(before, after))
+    viol = blockmap.check_invariants(smap, lcfg)
+    sweep = ShardedStreamingManager(
+        cfg.map, dataclasses.replace(scfg, radius=1.2, out_parts=8),
+        device=device)
+    for _ in range(8):
+        smap, _ = sweep.stream_out(smap, [0.0, 0.0, 1.6])
+    on_dev = sum(collectives.all_gather_counts(
+        int(torch.sum(smap.block_key != INVALID_KEY))))
+    in_store = sweep.host_block_count()
+    if me == 0:
+        print(f"sharded streaming: {total} blocks on 2 ranks; "
+              f"stream_out_all left {left} on rank 0 and {hosted} in the "
+              f"store ({t_out:.3f} s), stream_in_all ({t_in:.3f} s): rank "
+              f"0's sorted rows bit-equal {same}, invariants {viol}; partial "
+              f"sweep: {on_dev} on the card + {in_store} in the store; on "
+              f"{gpu_line}", flush=True)
+    ok = (same and left == 0 and hosted == total
+          and all(v == 0 for v in viol.values())
+          and on_dev + in_store == total and on_dev > 0 and in_store > 0)
+    if not ok:
+        raise RuntimeError(f"sharded streaming failed on rank {me}")
+    return {"total": total, "out_s": t_out, "in_s": t_in,
+            "sweep": [on_dev, in_store]}
+
+
+def _sharded_pose_graph(path, device, gpu_line):
+    """(e): ``optimize_distributed`` on phase 7's pose graph against its
+    single-process ``optimize``."""
+    import numpy as np
+    from voxelhashing_tpu_torch import posegraph
+    from voxelhashing_tpu_torch.config import CameraConfig
+    from voxelhashing_tpu_torch.parallel import collectives
+
+    g = np.load(path)
+    pg = posegraph.PoseGraph(CameraConfig(), device=device)
+    pg.keyframes = [posegraph.Keyframe(index=k, pose=p, points=None,
+                                       normals=None)
+                    for k, p in enumerate(g["poses"])]
+    pg.edges = [posegraph.Edge(i=int(i), j=int(j), z_ij=z, weight=float(w),
+                               is_loop=bool(lp))
+                for (i, j), z, w, lp in zip(g["ij"], g["z"], g["weight"],
+                                            g["is_loop"])]
+    start = [kf.pose.copy() for kf in pg.keyframes]
+    ms = []
+    for _ in range(2):                  # the first call sets torch.func up
+        for kf, p in zip(pg.keyframes, start):
+            kf.pose = p.copy()
+        t0 = time.perf_counter()
+        out = pg.optimize_distributed()
+        ms.append(1000 * (time.perf_counter() - t0))
+    err = float(np.abs(out - g["optimized"]).max())
+    me, n_dev = collectives.world()
+    if me == 0:
+        print(f"optimize_distributed: {len(pg.keyframes)} poses, "
+              f"{len(pg.edges)} edges on {n_dev} ranks, {ms[0]:.3f} ms "
+              f"first call, {ms[1]:.3f} ms warm; max difference from "
+              f"optimize {err:.3e} (limit {POSE_GRAPH_TOL}); on {gpu_line}",
+              flush=True)
+    if not err < POSE_GRAPH_TOL:
+        raise RuntimeError(f"optimize_distributed differs by {err}")
+    return {"ms": ms[1], "first_ms": ms[0], "err": err}
+
+
+# the all-reduces of a step: (name, shape, op, repeats)
+REDUCE_SHAPES = (("ICP sums (6x6 system, 45 f32)", (45,), "sum", 50),
+                 ("whitening moments (5 f32)", (5,), "sum", 50),
+                 ("z-buffer min (240x320 f32)", (240, 320), "min", 20),
+                 ("RGB-D colors (240x320x4 f32)", (240, 320, 4), "sum", 20),
+                 ("march fetch (2x8x48x76800 f32)", (2, 8, 48, 76800),
+                  "sum", 3))
+
+
+def _reduce_times(device, gpu_line):
+    """Host time of one ``collectives.all_reduce`` (gloo, staged through
+    pinned memory) of each shape the step reduces, with the card idle:
+    the mean over the repeats after one warm-up, every rank in step.
+    Returns {name: ms}."""
+    import torch
+    from voxelhashing_tpu_torch.parallel import collectives
+
+    me, _ = collectives.world()
+    out = {}
+    for name, shape, op, n in REDUCE_SHAPES:
+        t = torch.zeros(shape, dtype=torch.float32, device=device)
+        collectives.all_reduce(t, op)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = collectives.all_reduce(t, op)
+        torch.cuda.synchronize()
+        out[name] = 1000 * (time.perf_counter() - t0) / n
+        del t, r
+    if me == 0:
+        print("all-reduce, one call with the card idle (gloo, staged): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+              + f"; on {gpu_line}", flush=True)
+    return out
+
+
+def _sharded_rank(rank, tmp, gpu_line):
+    """One rank of phase 8 (a)-(e) over gloo, both ranks on the card."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.parallel import (collectives, distributed,
+                                                 sharded)
+
+    sys.stdout.reconfigure(line_buffering=True)
+    distributed.initialize(f"file://{tmp}/store", SHARD_RANKS, rank,
+                           backend="gloo")
+    device = distributed.rank_device(rank)
+    torch.cuda.set_device(device)
+    cfg = _config()
+    out = {}
+    out["a"], state, lcfg, _, est = _sharded_run(
+        cfg, device, N_FRAMES, "sharded (a)", gpu_line, hold=True)
+    counts = collectives.all_gather_counts(out["a"]["allocated"])
+    merged = sharded.gather_map(state, lcfg, cfg.map)
+    if rank == 0:
+        viol = blockmap.check_invariants(merged, cfg.map)
+        n = int(blockmap.stats(merged, cfg.map)["n_allocated"])
+        print(f"gather_map: {n} blocks (ranks {counts}), invariants "
+              f"{viol}", flush=True)
+        if n != sum(counts) or any(v != 0 for v in viol.values()):
+            raise RuntimeError("gather_map: invariants or count")
+    out["b"] = _sharded_render(cfg, state, est[-1], merged, gpu_line)
+    del merged
+    out["reduce_ms"] = _reduce_times(device, gpu_line)
+    out["d"] = _sharded_streaming(cfg, state, lcfg, device, gpu_line)
+    del state
+    torch.cuda.empty_cache()
+    for mode, n in (("splat", SHARD_RGBD_FRAMES),
+                    ("march", SHARD_MARCH_FRAMES)):
+        out[f"c_{mode}"], st, _, _, _ = _sharded_run(
+            _rgbd_config(mode), device, n, f"sharded (c) {mode} + RGB-D",
+            gpu_line)
+        del st
+        torch.cuda.empty_cache()
+    out["e"] = _sharded_pose_graph(os.path.join(tmp, "graph.npz"), device,
+                                   gpu_line)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _nccl_rank(rank, tmp, gpu_line):
+    """Phase 8 (f): one rank over NCCL, the whole map on it."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.parallel import distributed, sharded
+
+    sys.stdout.reconfigure(line_buffering=True)
+    distributed.initialize(f"file://{tmp}/store_nccl", 1, rank,
+                           backend="nccl")
+    device = distributed.rank_device(rank)
+    cfg = _config()
+    out, state, lcfg, _, _ = _sharded_run(cfg, device, N_FRAMES,
+                                          "sharded (f) D = 1 over NCCL",
+                                          gpu_line)
+    merged = sharded.gather_map(state, lcfg, cfg.map)
+    out["invariants"] = blockmap.check_invariants(merged, cfg.map)
+    out["merged"] = int(blockmap.stats(merged, cfg.map)["n_allocated"])
+    print(f"sharded (f): gather_map {out['merged']} blocks, invariants "
+          f"{out['invariants']}", flush=True)
+    with open(os.path.join(tmp, "nccl.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_sharded(device, gpu_line, graph):
+    """Phase 8: the multi-device path (``voxelhashing_tpu_torch.parallel``)
+    at phase 1's point, in spawned ranks. (a)-(e) on two ranks over gloo,
+    both on the one card (a shared card measures the collectives' cost,
+    not scaling): (a) 20 frames, (b) the sharded march render, (d) the
+    sharded streaming manager, (c) 10 frames of splat + RGB-D and 3 of
+    march + RGB-D, (e) ``optimize_distributed`` on phase 7's graph; then
+    (f) 20 frames on one rank over NCCL. Requires ATE < 10 mm, every frame
+    valid, kernel A on every frame of every rank and kernel B on every
+    frame (the color render under splat + RGB-D, neither under the march),
+    no plain version on a CUDA tensor. Returns its numbers and counts."""
+    import tempfile
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "graph.npz"), **graph)
+        distributed.spawn(_sharded_rank, SHARD_RANKS, (tmp, gpu_line),
+                          timeout=900)
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t_nccl = time.perf_counter()
+        distributed.spawn(_nccl_rank, 1, (tmp, gpu_line), timeout=600)
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            nccl = json.load(f)
+    t1 = time.perf_counter()
+
+    want = {"a": (N_FRAMES, "splat_zbuf"),
+            "c_splat": (SHARD_RGBD_FRAMES, "splat_zbuf_color"),
+            "c_march": (SHARD_MARCH_FRAMES, None)}
+    for part, (n, render) in want.items():
+        for r, res in enumerate(ranks):
+            exp = {name: 0 for name in res[part]["counts"]}
+            exp["fused_integrate"] = n
+            if render:
+                exp[render] = n
+            if res[part]["counts"] != exp or not all(res[part]["valid"]) \
+                    or res[part]["ate_mm"] >= ATE_LIMIT_M * 1000:
+                raise RuntimeError(
+                    f"phase 8 ({part}), rank {r}: counts "
+                    f"{res[part]['counts']} (expected {exp}), valid "
+                    f"{res[part]['valid']}, ATE {res[part]['ate_mm']} mm")
+    exp = {name: 0 for name in nccl["counts"]}
+    exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
+    if nccl["counts"] != exp or not all(nccl["valid"]) \
+            or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
+            or any(v != 0 for v in nccl["invariants"].values()) \
+            or nccl["merged"] != nccl["allocated"]:
+        raise RuntimeError(f"phase 8 (f): {nccl}")
+    a = ranks[0]["a"]
+    print(f"phase 8: sharded (a) rank 0 {a['fps']:.3f} fused frames/s, "
+          f"ATE {a['ate_mm']:.3f} mm, {a['reduces_per_frame']:.1f} "
+          f"all-reduces a frame ({a['reduce_ms_per_frame']:.3f} ms of host "
+          f"time inside the step; one ICP-sum all-reduce with the card "
+          f"idle {ranks[0]['reduce_ms'][REDUCE_SHAPES[0][0]]:.3f} ms), "
+          f"{a['syncs']} host syncs of one frame; splat + RGB-D "
+          f"{ranks[0]['c_splat']['fps']:.3f} and march + RGB-D "
+          f"{ranks[0]['c_march']['fps']:.3f} frames/s; D = 1 over NCCL "
+          f"{nccl['fps']:.3f} frames/s, ATE {nccl['ate_mm']:.3f} mm; wall "
+          f"{t1 - t0:.1f} s ((a)-(e) {t_nccl - t0:.1f} s, (f) "
+          f"{t1 - t_nccl:.1f} s); two ranks share one card, so this is "
+          f"the collectives' cost, not scaling; on {gpu_line}")
+    counts = {"sharded": [r["a"]["counts"] for r in ranks],
+              "sharded_splat_rgbd": [r["c_splat"]["counts"] for r in ranks],
+              "sharded_march_rgbd": [r["c_march"]["counts"] for r in ranks],
+              "sharded_nccl": [nccl["counts"]]}
+    return {"ranks": ranks, "nccl": nccl, "wall_s": t1 - t0,
+            "counts": {path: {name: sum(c[name] for c in cs)
+                              for name in cs[0]}
+                       for path, cs in counts.items()}}
 
 
 def _kernel_entry(res, launches):
@@ -1895,6 +2382,7 @@ def main() -> int:
             for mode in ("march", "splat")}
     slam = phase_slam(device, gpu_line)
     res_bl, bl_counts = phase_bilinear(device, gpu_line)
+    shard = phase_sharded(device, gpu_line, slam["graph"])
 
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words")
@@ -1903,7 +2391,9 @@ def main() -> int:
                          for mode, r in rgbd.items()},
                       "slam_live": slam["live"][name],
                       "slam_reintegrate": slam["reintegrate"][name],
-                      "bilinear": bl_counts[name]}
+                      "bilinear": bl_counts[name],
+                      **{path: c[name]
+                         for path, c in shard["counts"].items()}}
                for name in names}
     kernels = []
     for name, key, res, source, replaces, path, globals_ in (
@@ -1964,7 +2454,11 @@ def main() -> int:
           f"register_ms={slam['register_ms']:.3f} "
           f"optimize_ms={slam['optimize_ms']:.3f} "
           f"reintegrate_fps={slam['reintegrate_fps']:.3f} "
-          f"reloc_mm={slam['reloc'][0] * 1000:.3f}; on {gpu_line}")
+          f"reloc_mm={slam['reloc'][0] * 1000:.3f} "
+          f"sharded_fps={shard['ranks'][0]['a']['fps']:.3f} "
+          f"sharded_reduces_per_frame="
+          f"{shard['ranks'][0]['a']['reduces_per_frame']:.1f} "
+          f"sharded_wall_s={shard['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ every operation, and the port's invariant checker must report all zeros.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -187,3 +188,70 @@ def test_compactify_and_invariants_agree():
     bad.block_key[int(a_t[0])] = tbm.TOMBSTONE - 5
     jbad = js._replace(block_key=jnp.asarray(bad.block_key.numpy()))
     assert tbm.check_invariants(bad, TCFG) == jbm.check_invariants(jbad, CFG)
+
+
+def _filled(rng, n_keys):
+    """A JAX state with ``n_keys`` candidates allocated and data in the
+    allocated rows, and the port's copy."""
+    js = jbm.create(CFG)
+    ts = convert.map_state_from_numpy(js, device="cpu")
+    ts, js = _alloc(ts, js, _keys(rng, n_keys))
+    w = rng.integers(0, 3, (CFG.num_blocks, 512)).astype(np.float32)
+    w[np.asarray(js.block_key) == jgeom.INVALID_KEY] = 0.0
+    c = rng.integers(0, 1 << 24, (CFG.num_blocks, 512)).astype(np.uint32)
+    sdf = jnp.asarray(rng.normal(0, 0.01, w.shape), jnp.bfloat16)
+    surf = ((w > 0) & (np.abs(np.asarray(sdf, np.float32))
+                       < CFG.voxel_size)).any(axis=1)
+    js = js._replace(weight=jnp.asarray(w, jnp.bfloat16), sdf=sdf,
+                     color=jnp.asarray(c), surf=jnp.asarray(surf))
+    return convert.map_state_from_numpy(js, device="cpu"), js
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_gather_voxels_and_stats_match(with_color):
+    """``gather_voxels`` over voxels of allocated and free blocks (and out
+    of the world), and ``stats``, identical to JAX."""
+    rng = np.random.default_rng(5)
+    ts, js = _filled(rng, 1500)
+    vox = rng.integers(-30 * 8, 30 * 8, (4, 700, 3)).astype(np.int32)
+    vox[0, :5] = 1 << 20                  # outside the world: reads 0
+    got = tbm.gather_voxels(ts, torch.from_numpy(vox), TCFG,
+                            with_color=with_color)
+    ref = jbm.gather_voxels(js, jnp.asarray(vox), CFG,
+                            with_color=with_color)
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+            continue
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert (got[1].numpy() > 0).any() and (got[1].numpy() == 0).any()
+    st_t, st_j = tbm.stats(ts, TCFG), jbm.stats(js, CFG)
+    assert {k: int(v) for k, v in st_t.items()} \
+        == {k: int(v) for k, v in st_j.items()}
+
+
+def test_maybe_rehash_matches():
+    """``maybe_rehash`` leaves the map alone at few tombstones and rehashes
+    past 1/8 of the table, as JAX does."""
+    rng = np.random.default_rng(6)
+    ts, js = _filled(rng, 1800)
+    allocated = np.flatnonzero(np.asarray(js.block_key) != jgeom.INVALID_KEY)
+    # compiled once: op by op JAX takes seconds here
+    jdelete = jax.jit(jbm.delete_blocks, static_argnums=3)
+    jmaybe = jax.jit(jbm.maybe_rehash, static_argnums=1)
+    for n_del in (50, 1100):
+        victims = np.zeros(1100, np.int32)
+        victims[:n_del] = allocated[:n_del]
+        mask = np.arange(1100) < n_del
+        js2 = jmaybe(jdelete(js, jnp.asarray(victims), jnp.asarray(mask),
+                             CFG), CFG)
+        ts2 = tbm.delete_blocks(_clone(ts), torch.from_numpy(victims),
+                                torch.from_numpy(mask), TCFG)
+        ts2 = tbm.maybe_rehash(ts2, TCFG)
+        _same(ts2, js2)
+        _clean(ts2)
+        assert (int(ts2.n_tombstones) == 0) == (n_del > CFG.table_size // 8)
+
+
+def _clone(ts):
+    return type(ts)(*(t.clone() for t in ts))

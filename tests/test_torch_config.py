@@ -96,6 +96,62 @@ def test_trajectory_and_ate_match():
                         align=False) == tev.ate_rmse(est, jp, align=False)
 
 
+PARAMETER_TEXT = """// reference-style parameter file
+s_adapterWidth = 160;
+s_adapterHeight = 120;
+s_sensorDepthMax = 4.5f;
+s_SDFVoxelSize = 0.008f; // metres
+s_SDFTruncation = 0.03f;
+s_SDFIntegrationWeightMax = 128;
+s_hashNumSDFBlocks = 12345;
+s_hashNumBuckets = 1000;
+s_garbageCollectionEnabled = false;
+s_SDFRayIncrementFactor = 0.7f;
+s_SDFUseGradients = true;
+s_depthFilter = false;
+s_maxLevels = 2;
+s_maxOuterIter[0] = 12;
+s_maxOuterIter[1] = 7;
+s_distThres[0] = 0.2f;
+s_weightsColor[0] = 0.25f;
+s_streamingEnabled = true;
+s_streamingVoxelExtents = 1.0f 1.0f 1.0f;
+s_streamingGridDimensions = 513 513 513;
+s_streamingOutParts = 40;
+s_marchingCubesMaxNumTriangles = 9000000;
+s_offlineProcessing = false;
+s_name = "hello world";
+"""
+
+
+def test_parameter_files_match_jax():
+    """``parse_parameter_file`` and ``engine_config_from_parameters`` give
+    JAX's dict and JAX's config (converted) on an inline parameter file
+    (vector indices, f suffixes, vec3 values, strings, booleans,
+    comments), on a capacity-only dict and on an empty one."""
+    got = tcfg.parse_parameter_file(PARAMETER_TEXT)
+    ref = jcfg.parse_parameter_file(PARAMETER_TEXT)
+    assert got == ref
+    assert got["s_streamingGridDimensions"] == [513, 513, 513]
+    assert got["s_maxOuterIter"] == [12, 7] and got["s_name"] == \
+        "hello world"
+    for params in (got, {"s_hashNumSDFBlocks": 12345,
+                         "s_hashNumBuckets": 1000}, {}):
+        assert tcfg.engine_config_from_parameters(params) == \
+            convert.config_from(jcfg.engine_config_from_parameters(params))
+    cfg = tcfg.engine_config_from_parameters(got)
+    assert (cfg.camera.width, cfg.map.num_blocks, cfg.tracker.levels,
+            cfg.streaming.grid_dim, cfg.offline) == (160, 12345, 2, 513,
+                                                     False)
+    ts = cfg.map.table_size
+    assert ts >= 2 * 12345 and ts & (ts - 1) == 0
+    base = tcfg.EngineConfig(camera=tcfg.CameraConfig(width=80, height=60))
+    assert tcfg.engine_config_from_parameters({}, base) == \
+        convert.config_from(jcfg.engine_config_from_parameters(
+            {}, jcfg.EngineConfig(camera=jcfg.CameraConfig(width=80,
+                                                           height=60))))
+
+
 @pytest.mark.parametrize("frame,noise", [(0, 0.0), (7, 0.002)])
 def test_render_depth_matches_numpy(frame, noise):
     cam = jcfg.CameraConfig(width=96, height=72, fx=79.0, fy=79.0, cx=47.5,
@@ -178,6 +234,9 @@ def _entry_points(tmp_path):
     from voxelhashing_tpu_torch import blockmap as tbm, engine as teng
     from voxelhashing_tpu_torch import posegraph as tpg
     from voxelhashing_tpu_torch import streaming as tstr
+    from voxelhashing_tpu_torch.parallel import distributed as tdist
+    from voxelhashing_tpu_torch.parallel import sharded as tsh
+    from voxelhashing_tpu_torch.parallel import streaming as tpst
 
     jmap = jcfg.MapConfig(num_blocks=64, table_size=256,
                           max_active_blocks=64)
@@ -216,14 +275,30 @@ def _entry_points(tmp_path):
             np.eye(4, dtype=np.float32), cam, tsyn.Scene(), **kw),
         "make_sequence": lambda **kw: tsyn.make_sequence(2, cam, **kw),
         "PoseGraph": lambda **kw: tpg.PoseGraph(cam, **kw).device,
+        "create_sharded": lambda **kw: tsh.create_sharded(ecfg, **kw)[0].map,
+        "ShardedStreamingManager": lambda **kw: tpst.ShardedStreamingManager(
+            mp, scfg, out_cap=16, **kw),
+        "sharded_state_from_numpy": lambda **kw:
+            convert.sharded_state_from_numpy(_one_device_sharded(jmap), 0,
+                                             **kw).map,
+        "rank_device": lambda **kw: tdist.rank_device(0, **kw),
     }
+
+
+def _one_device_sharded(jmap):
+    """A JAX ``ShardedState`` on a mesh of one device."""
+    import jax
+    from voxelhashing_tpu.parallel import sharded as jsh
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("d",))
+    return jsh.create_sharded(jcfg.EngineConfig(map=jmap), mesh)[0]
 
 
 ENTRY_POINTS = ("engine.create", "blockmap.create", "StreamingManager",
                 "AsyncStreamingManager", "load_map", "bitmask_from_ids",
                 "map_state_from_numpy", "bitmask_from_numpy",
                 "engine_state_from_numpy", "render_depth", "make_sequence",
-                "PoseGraph")
+                "PoseGraph", "create_sharded", "ShardedStreamingManager",
+                "sharded_state_from_numpy", "rank_device")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

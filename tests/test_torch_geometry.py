@@ -117,3 +117,29 @@ def test_points_normals_and_se3(rng):
     np.testing.assert_allclose(
         float(tgeom.rotation_angle(p_t[:3, :3])),
         float(jgeom.rotation_angle(jnp.asarray(p_j[:3, :3]))), atol=1e-6)
+
+
+def test_voxel_and_camera_helpers(rng):
+    """``world_to_voxel_f``, ``voxel_local_index`` (negative coords too),
+    ``camera_to_screen_int`` and ``rotate_vectors`` against JAX: exact,
+    except the 3x3 rotation (one f32 ulp, atol 1.2e-7 at magnitude 1)."""
+    pos = rng.uniform(-3.0, 3.0, (2000, 3)).astype(np.float32)
+    _eq(tgeom.world_to_voxel_f(_t(pos), VS),
+        jgeom.world_to_voxel_f(jnp.asarray(pos), VS))
+    vox = rng.integers(-700, 700, (3000, 3)).astype(np.int32)
+    idx = tgeom.voxel_local_index(_t(vox))
+    _eq(idx, jgeom.voxel_local_index(jnp.asarray(vox)))
+    assert int(idx.min()) >= 0 and int(idx.max()) < 512
+    p_cam = rng.uniform(-1.0, 1.0, (3000, 3)).astype(np.float32)
+    p_cam[:, 2] = rng.uniform(0.3, 4.0, 3000)
+    uv = tgeom.camera_to_screen_int(_t(p_cam), TCAM)
+    _eq(uv, jgeom.camera_to_screen_int(jnp.asarray(p_cam), CAM))
+    assert uv.dtype == torch.int32 and (uv < 0).any()
+    pose = np.asarray(jgeom.pose_from_x(jnp.asarray(
+        rng.normal(0, 0.3, 6).astype(np.float32))))
+    vecs = rng.normal(0, 1, (500, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tgeom.rotate_vectors(_t(pose), _t(vecs)).numpy(),
+        np.asarray(jgeom.rotate_vectors(jnp.asarray(pose),
+                                        jnp.asarray(vecs))),
+        rtol=0, atol=1.2e-7 * 4)

@@ -4,7 +4,10 @@ package's, and one whole-slice run of both.
 Tolerances: ``se3_exp`` within 1e-6 and its Jacobian at 0 finite;
 keyframe decisions identical; loop edges the same (i, j, is_loop) with
 ``z_ij`` within 1e-4; optimized poses within 1e-4 (both solve in f32, the
-port batched over edges); ``corrected_trajectory`` within 1e-12 from the
+port batched over edges); ``optimize_distributed`` (no process group, a
+gloo group of one, and spawned gloo ranks at D = 2 and 3) within 1e-4 of
+JAX's ``optimize_distributed`` at the same D and of ``optimize``;
+``corrected_trajectory`` within 1e-12 from the
 same optimized poses (float64 numpy on both sides); ``relocalize`` the
 same ``ok`` and pose within 1e-4 (``reintegrate`` alone is held bit for
 bit in ``tests/test_torch_diagnostics.py``, beside the hash histogram of
@@ -204,6 +207,81 @@ def test_optimize_and_corrected_trajectory_match():
     cj = jg.corrected_trajectory(frames)
     np.testing.assert_allclose(np.stack(ct), np.stack(cj), atol=1e-12,
                                rtol=0)
+
+
+def _jax_distributed(n_dev):
+    """JAX's ``optimize_distributed`` on ``_chain_with_loop`` over a mesh of
+    ``n_dev`` virtual devices."""
+    if len(jax.devices()) < n_dev:
+        pytest.skip(f"needs {n_dev} virtual devices")
+    jg, _, gt, _ = _chain_with_loop()
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:n_dev]), ("e",))
+    return jg.optimize_distributed(mesh), gt
+
+
+@pytest.mark.parametrize("group", ["none", "gloo_world_1"])
+def test_optimize_distributed_in_process_matches(group, tmp_path):
+    """With no process group (this process alone) and in a gloo group of
+    one, ``optimize_distributed`` is within 1e-4 of JAX's (two devices)
+    and of the port's ``optimize``."""
+    import torch.distributed as dist
+    from voxelhashing_tpu_torch.parallel import distributed
+
+    oj, gt = _jax_distributed(2)
+    _, tg, _, _ = _chain_with_loop()
+    _, tg2, _, _ = _chain_with_loop()
+    ref = tg2.optimize()
+    if group == "none":
+        if dist.is_initialized():
+            pytest.skip("a process group is already up in this process")
+        out = tg.optimize_distributed()
+    else:
+        if dist.is_initialized():
+            pytest.skip("a process group is already up in this process")
+        distributed.initialize(f"file://{tmp_path}/store", 1, 0,
+                               backend="gloo")
+        try:
+            out = tg.optimize_distributed()
+        finally:
+            dist.destroy_process_group()
+    assert out.dtype == np.float64 and out.shape == oj.shape
+    np.testing.assert_allclose(out, oj, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    assert max(np.abs(out[k] - gt[k]).max() for k in range(8)) < 0.01
+
+
+def _optimize_rank(rank, n_dev, tmp):
+    """One spawned rank: ``optimize_distributed`` of ``_chain_with_loop``
+    over a gloo group of ``n_dev``; writes ``tmp/rank<r>.npy``."""
+    import os
+    import torch.distributed as dist
+    from voxelhashing_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    distributed.initialize(f"file://{tmp}/store", n_dev, rank,
+                           backend="gloo")
+    _, tg, _, _ = _chain_with_loop()
+    np.save(os.path.join(tmp, f"rank{rank}.npy"), tg.optimize_distributed())
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n_dev", [2, 3])
+def test_optimize_distributed_ranks_match(n_dev, tmp_path):
+    """Spawned gloo ranks (D = 2, and D = 3, which pads the 8 edges with a
+    zero-weight one) agree with each other and within 1e-4 with JAX's
+    ``optimize_distributed`` at the same D and with ``optimize``."""
+    from voxelhashing_tpu_torch.parallel import distributed
+
+    oj, _ = _jax_distributed(n_dev)
+    _, tg, _, _ = _chain_with_loop()
+    ref = tg.optimize()
+    distributed.spawn(_optimize_rank, n_dev, (n_dev, str(tmp_path)),
+                      timeout=180)
+    outs = [np.load(tmp_path / f"rank{r}.npy") for r in range(n_dev)]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o, outs[0])
+    np.testing.assert_allclose(outs[0], oj, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(outs[0], ref, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("case", ["blind_motion", "unseen_view"])

@@ -15,7 +15,15 @@ package, which stays the reference (module and function names mirror it):
 * the SLAM layer: ``posegraph`` (keyframes, loop closure, relocalization,
   the pose-graph solve, re-integration), ``diagnostics``, recorded input
   (``io/``: .sens, TUM, mLib dumps, a network sensor) and the entry point
-  ``python -m voxelhashing_tpu_torch.run_slam``.
+  ``python -m voxelhashing_tpu_torch.run_slam``;
+* the multi-device path (``parallel/``), on ``torch.distributed`` with one
+  rank per process: the hash-partitioned step (``sharded``: each rank owns
+  the keys with ``mix(k) % D == rank`` in a map of 1/D capacity and runs
+  kernels A and B on it; one MIN all-reduce of the z-buffers, one SUM
+  all-reduce per ICP sum), the sharded march render, ``gather_map``, the
+  sharded streaming manager and ``PoseGraph.optimize_distributed``; gloo
+  (also for ranks that share a card, staged through pinned memory) or
+  NCCL.
 
 The hand-written CUDA kernels for Hopper (``ops/``, sources in
 ``csrc/``), and the two TPU Pallas kernels they replace:

@@ -36,6 +36,7 @@ from .config import (MapConfig, SDF_BLOCK_SIZE, VOXELS_PER_BLOCK,
                      resolve_device)
 from . import geometry as geom
 from .geometry import INVALID_KEY
+from .parallel import collectives
 
 TOMBSTONE = 0x7FFFFFFE
 POOL_DTYPE = torch.bfloat16
@@ -252,11 +253,33 @@ def lookup(state: MapState, keys, cfg: MapConfig):
     return idx.reshape(shape), found.reshape(shape)
 
 
+def gather_voxels(state: MapState, voxel_coords, cfg: MapConfig,
+                  with_color: bool = True):
+    """Integer voxel coords [...,3] -> (sdf f32[...], weight f32[...],
+    color f32[...,3] in 0..255 | None); voxels of unallocated blocks read
+    0."""
+    vc = voxel_coords.to(torch.int32)
+    shape = vc.shape[:-1]
+    vc = vc.reshape(-1, 3)
+    sdf, w, c = gather_voxels_soa(state, vc[:, 0], vc[:, 1], vc[:, 2], cfg,
+                                  with_color=with_color)
+    sdf, w = sdf.reshape(shape), w.reshape(shape)
+    if not with_color:
+        return sdf, w, None
+    return sdf, w, unpack_rgb(c).reshape(shape + (3,))
+
+
 def gather_voxels_soa(state: MapState, vx, vy, vz, cfg: MapConfig,
-                      with_color: bool = True):
+                      with_color: bool = True, group=None):
     """Integer voxel coordinate components (equal shapes) -> (sdf f32,
     weight f32, packed color int32 | None) of the same shape; voxels of
-    unallocated blocks read 0."""
+    unallocated blocks read 0.
+
+    ``group``: the map is hash-partitioned over the ranks of this process
+    group (``parallel/sharded.py``). Each key lives on one rank, so a sum
+    of the local fetches over the ranks is the global sample, exactly: one
+    all-reduce of (sdf, weight[, color]) in one f32 buffer (a packed
+    24-bit color is exact in f32), and every rank gets the same values."""
     bs = SDF_BLOCK_SIZE
     half = cfg.world_blocks // 2
     wb = cfg.world_blocks
@@ -274,9 +297,14 @@ def gather_voxels_soa(state: MapState, vx, vy, vz, cfg: MapConfig,
                       0.0)
     w = torch.where(found, state.weight.reshape(-1)[lin].to(torch.float32),
                     0.0)
-    if not with_color:
-        return sdf, w, None
-    return sdf, w, torch.where(found, state.color.reshape(-1)[lin], 0)
+    c = (torch.where(found, state.color.reshape(-1)[lin], 0) if with_color
+         else None)
+    if group is not None:
+        parts = [sdf, w] + ([c.to(torch.float32)] if with_color else [])
+        tot = collectives.all_reduce(torch.stack(parts), "sum", group)
+        sdf, w = tot[0], tot[1]
+        c = tot[2].to(torch.int32) if with_color else None
+    return sdf, w, c
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +606,14 @@ def compact_pool(state: MapState, cfg: MapConfig) -> MapState:
                         dense_upto=n)
 
 
+def maybe_rehash(state: MapState, cfg: MapConfig) -> MapState:
+    """:func:`rehash` when the tombstones pass 1/8 of the table (one
+    scalar read)."""
+    if int(state.n_tombstones) > cfg.table_size // 8:
+        return rehash(state, cfg)
+    return state
+
+
 def maybe_maintain(state: MapState, cfg: MapConfig, frame_idx: int
                    ) -> MapState:
     """Compact + rebuild when tombstones pile up or hole fragmentation has
@@ -595,6 +631,18 @@ def maybe_maintain(state: MapState, cfg: MapConfig, frame_idx: int
 # ---------------------------------------------------------------------------
 # Introspection (debugHash analog)
 # ---------------------------------------------------------------------------
+
+
+def stats(state: MapState, cfg: MapConfig) -> dict:
+    """Occupancy counts (int32[] tensors on the state's device)."""
+    allocated = state.block_key != INVALID_KEY
+    tk = state.table_key
+    return {
+        "n_allocated": _isum(allocated),
+        "n_free": _isum(~allocated),
+        "n_table_used": _isum((tk != INVALID_KEY) & (tk != TOMBSTONE)),
+        "n_tombstones": state.n_tombstones,
+    }
 
 
 def check_invariants(state: MapState, cfg: MapConfig) -> dict:

@@ -1,7 +1,9 @@
 """Configuration of the PyTorch port (mirrors ``voxelhashing_tpu.config``).
 
 The same frozen dataclasses, field names and defaults as the JAX package,
-without its TPU-only dispatch tier (``alloc_insert_small``).
+without its TPU-only dispatch tier (``alloc_insert_small``), and the same
+reader of the reference's ``key = value;`` parameter files
+(:func:`parse_parameter_file`, :func:`engine_config_from_parameters`).
 ``convert.config_from`` builds these from a JAX config and refuses one
 that sets a left-out field away from its default.
 """
@@ -9,7 +11,8 @@ that sets a left-out field away from its default.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import re
+from typing import Optional, Tuple
 
 SDF_BLOCK_SIZE = 8
 VOXELS_PER_BLOCK = SDF_BLOCK_SIZE ** 3
@@ -183,3 +186,210 @@ class EngineConfig:
     offline: bool = True
     use_trajectory: bool = False
     use_trajectory_only_init: bool = False
+
+
+_KV_RE = re.compile(
+    r"^\s*([A-Za-z_][A-Za-z0-9_]*)\s*(?:\[(\d+)\])?\s*=\s*(.*?)\s*;?\s*(?://.*)?$"
+)
+
+
+def parse_parameter_file(text: str) -> dict:
+    """Parse a reference-style ``key = value;`` parameter file.
+
+    Same grammar as mLib's ParameterFile consumed by GlobalAppState::readMembers:
+    one ``key = value;`` per line, ``//`` comments, optional ``[i]`` vector
+    indices, trailing f suffixes on floats, quoted strings, booleans.
+    Returns a flat dict; vector keys become lists.
+    """
+    out: dict = {}
+    for line in text.splitlines():
+        line = line.split("//", 1)[0].strip()
+        if not line:
+            continue
+        m = _KV_RE.match(line)
+        if not m:
+            continue
+        key, idx, raw = m.group(1), m.group(2), m.group(3).rstrip(";").strip()
+        val = _parse_value(raw)
+        if idx is None:
+            out[key] = val
+        else:
+            lst = out.setdefault(key, [])
+            i = int(idx)
+            while len(lst) <= i:
+                lst.append(None)
+            lst[i] = val
+    return out
+
+
+def _parse_value(raw: str):
+    if raw.startswith('"') and raw.endswith('"'):
+        return raw[1:-1]
+    low = raw.lower()
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    # space-separated numeric vectors ("1.0f 1.0f 1.0f",
+    # "513 513 513" — the s_streaming* vec3 grammar)
+    toks = raw.split()
+    if len(toks) > 1:
+        vals = [_parse_scalar(t) for t in toks]
+        if all(isinstance(v, (int, float)) for v in vals):
+            return vals
+    return _parse_scalar(raw)
+
+
+def _parse_scalar(raw: str):
+    raw = raw.rstrip("fF") if re.match(r"^-?[\d.]+([eE][-+]?\d+)?[fF]$", raw) else raw
+    try:
+        if re.match(r"^-?\d+$", raw):
+            return int(raw)
+        return float(raw)
+    except ValueError:
+        return raw
+
+
+def engine_config_from_parameters(params: dict,
+                                  base: Optional[EngineConfig] = None) -> EngineConfig:
+    """Build an EngineConfig from parsed reference-style parameters.
+
+    Applies the same key semantics as GlobalAppState/GlobalCameraTrackingState
+    (warn-and-default on missing keys -> here: just default).
+    """
+    cfg = base or EngineConfig()
+    cam = cfg.camera
+    if "s_adapterWidth" in params or "s_adapterHeight" in params:
+        cam = dataclasses.replace(
+            cam,
+            width=int(params.get("s_adapterWidth", cam.width)),
+            height=int(params.get("s_adapterHeight", cam.height)),
+        )
+    cam = dataclasses.replace(
+        cam,
+        depth_min=float(params.get("s_sensorDepthMin", cam.depth_min)),
+        depth_max=float(params.get("s_sensorDepthMax", cam.depth_max)),
+    )
+    mp = dataclasses.replace(
+        cfg.map,
+        voxel_size=float(params.get("s_SDFVoxelSize", cfg.map.voxel_size)),
+        truncation=float(params.get("s_SDFTruncation", cfg.map.truncation)),
+        truncation_scale=float(
+            params.get("s_SDFTruncationScale", cfg.map.truncation_scale)),
+        max_integration_distance=float(
+            params.get("s_SDFMaxIntegrationDistance",
+                       cfg.map.max_integration_distance)),
+        integration_weight_sample=float(
+            params.get("s_SDFIntegrationWeightSample",
+                       cfg.map.integration_weight_sample)),
+        integration_weight_max=float(
+            params.get("s_SDFIntegrationWeightMax",
+                       cfg.map.integration_weight_max)),
+        gc_enabled=bool(params.get("s_garbageCollectionEnabled",
+                                   cfg.map.gc_enabled)),
+        gc_starve_interval=int(params.get("s_garbageCollectionStarve",
+                                          cfg.map.gc_starve_interval)),
+    )
+    # Map capacities (zParametersDefault.txt:34-36): the pool size follows
+    # s_hashNumSDFBlocks directly; the open-addressing table replaces the
+    # bucketed table (s_hashNumBuckets x HASH_BUCKET_SIZE slots) and is
+    # sized to the next power of two >= max(2*num_blocks, numBuckets) so
+    # probe chains stay short at the requested load.
+    if "s_hashNumSDFBlocks" in params or "s_hashNumBuckets" in params:
+        nb = int(params.get("s_hashNumSDFBlocks", mp.num_blocks))
+        want = max(2 * nb, int(params.get("s_hashNumBuckets", 0)), 256)
+        mp = dataclasses.replace(
+            mp, num_blocks=nb,
+            table_size=1 << (want - 1).bit_length(),
+            max_active_blocks=min(mp.max_active_blocks, nb))
+    rc = dataclasses.replace(
+        cfg.raycast,
+        ray_increment_factor=float(
+            params.get("s_SDFRayIncrementFactor",
+                       cfg.raycast.ray_increment_factor)),
+        thres_sample_dist_factor=float(
+            params.get("s_SDFRayThresSampleDistFactor",
+                       cfg.raycast.thres_sample_dist_factor)),
+        thres_dist_factor=float(
+            params.get("s_SDFRayThresDistFactor",
+                       cfg.raycast.thres_dist_factor)),
+        use_gradients=bool(params.get("s_SDFUseGradients",
+                                      cfg.raycast.use_gradients)),
+    )
+    flt = dataclasses.replace(
+        cfg.filter,
+        depth_sigma_d=float(params.get("s_depthSigmaD", cfg.filter.depth_sigma_d)),
+        depth_sigma_r=float(params.get("s_depthSigmaR", cfg.filter.depth_sigma_r)),
+        depth_filter=bool(params.get("s_depthFilter", cfg.filter.depth_filter)),
+        color_sigma_d=float(params.get("s_colorSigmaD", cfg.filter.color_sigma_d)),
+        color_sigma_r=float(params.get("s_colorSigmaR", cfg.filter.color_sigma_r)),
+        color_filter=bool(params.get("s_colorFilter", cfg.filter.color_filter)),
+    )
+    tk = cfg.tracker
+    if "s_maxLevels" in params:
+        n = int(params["s_maxLevels"])
+
+        def vec(key, default):
+            v = params.get(key)
+            if v is None:
+                return tuple(default[:n]) if len(default) >= n else tuple(
+                    list(default) + [default[-1]] * (n - len(default)))
+            v = v[:n]
+            return tuple(x if x is not None else default[min(i, len(default) - 1)]
+                         for i, x in enumerate(v))
+
+        tk = dataclasses.replace(
+            tk,
+            levels=n,
+            max_outer_iter=tuple(int(x) for x in vec("s_maxOuterIter", tk.max_outer_iter)),
+            max_inner_iter=tuple(int(x) for x in vec("s_maxInnerIter", tk.max_inner_iter)),
+            dist_thres=vec("s_distThres", tk.dist_thres),
+            normal_thres=vec("s_normalThres", tk.normal_thres),
+            angle_trans_thres=vec("s_angleTransThres", tk.angle_trans_thres),
+            dist_trans_thres=vec("s_distTransThres", tk.dist_trans_thres),
+            residual_early_out=vec("s_residualEarlyOut", tk.residual_early_out),
+            # RGBD variant weights (GlobalCameraTrackingState.h:13-25);
+            # scalar here — the finest level's value is taken
+            weight_depth=float(vec("s_weightsDepth",
+                                   (tk.weight_depth,) * n)[0]),
+            weight_color=float(vec("s_weightsColor",
+                                   (tk.weight_color,) * n)[0]),
+        )
+    mesh = dataclasses.replace(
+        cfg.mesh,
+        max_triangles=int(params.get("s_marchingCubesMaxNumTriangles",
+                                     cfg.mesh.max_triangles)),
+        thresh_factor=float(params.get("s_SDFMarchingCubeThreshFactor",
+                                       cfg.mesh.thresh_factor)),
+    )
+    def _vec0(v, default):
+        """First component of a vec3 key (chunks are isotropic here; the
+        reference's own chunk math treats the extents per-axis but every
+        shipped config uses equal components)."""
+        if v is None:
+            return default
+        return v[0] if isinstance(v, list) else v
+
+    streaming = dataclasses.replace(
+        cfg.streaming,
+        enabled=bool(params.get("s_streamingEnabled", cfg.streaming.enabled)),
+        out_parts=int(params.get("s_streamingOutParts", cfg.streaming.out_parts)),
+        chunk_size=float(_vec0(params.get("s_streamingVoxelExtents"),
+                               cfg.streaming.chunk_size)),
+        grid_dim=int(_vec0(params.get("s_streamingGridDimensions"),
+                           cfg.streaming.grid_dim)),
+        # the reference marks s_streamingRadius "NOT USED; computed
+        # automatically" (zParametersDefault.txt:99) but honours the key
+        # when present; same here
+        radius=float(params.get("s_streamingRadius", cfg.streaming.radius)),
+    )
+    return dataclasses.replace(
+        cfg, camera=cam, map=mp, tracker=tk, raycast=rc, filter=flt,
+        mesh=mesh, streaming=streaming,
+        offline=bool(params.get("s_offlineProcessing", cfg.offline)),
+        use_trajectory=bool(params.get("s_binaryDumpSensorUseTrajectory",
+                                       cfg.use_trajectory)),
+        use_trajectory_only_init=bool(
+            params.get("s_binaryDumpSensorUseTrajectoryOnlyInit",
+                       cfg.use_trajectory_only_init)),
+    )

@@ -3,8 +3,9 @@ and from the JAX package's configs to the port's.
 
 The JAX side is handed over as numpy (``np.asarray`` of every leaf); bf16
 arrays arrive as ``ml_dtypes.bfloat16`` and travel through an int16 view,
-uint32 colors and eviction-bitmask words through an int32 view. Both packages start every parity test
-from one state and one configuration this way. Nothing here imports the
+uint32 colors and eviction-bitmask words through an int32 view. Both
+packages start every parity test from one state and one configuration this
+way; a sharded state converts rank by rank. Nothing here imports the
 JAX package: it reads the objects it is given.
 """
 
@@ -18,6 +19,7 @@ import torch
 from . import config
 from .blockmap import MapState
 from .engine import EngineState
+from .parallel.sharded import ShardedState
 
 _TPU_TIERS = {"alloc_insert_small"}
 
@@ -137,3 +139,26 @@ def engine_state_to_numpy(es: EngineState) -> dict:
         "tracking_lost": _array(es.tracking_lost),
         "n_integrated": _array(es.n_integrated),
     }
+
+
+def sharded_state_from_numpy(ss, rank: int, device="cuda"):
+    """Rank ``rank``'s part of a JAX ``ShardedState`` (map leaves with a
+    leading device axis, pose and frame replicated; numpy or anything
+    ``np.asarray`` takes) -> the port's per-rank
+    ``parallel.sharded.ShardedState`` on ``device``."""
+    local = type(ss.map)(*(np.asarray(leaf)[rank] for leaf in ss.map))
+    return ShardedState(map=map_state_from_numpy(local, device),
+                        pose=_tensor(ss.pose, device),
+                        frame=_tensor(ss.frame, device),
+                        frame_host=int(np.asarray(ss.frame)))
+
+
+def sharded_state_to_numpy(states) -> dict:
+    """The port's per-rank ``ShardedState`` objects, in rank order -> a
+    dict of numpy arrays in the JAX ``ShardedState`` layout: ``map`` with
+    every leaf stacked on a leading device axis (see
+    :func:`map_state_to_numpy`), ``pose`` and ``frame`` from the first."""
+    maps = [map_state_to_numpy(s.map) for s in states]
+    return {"map": {k: np.stack([m[k] for m in maps]) for k in maps[0]},
+            "pose": _array(states[0].pose),
+            "frame": _array(states[0].frame)}

@@ -90,8 +90,13 @@ def create(cfg: EngineConfig, initial_pose=None, device="cuda"
 
 def _integrate_frame(state: MapState, frame: FrameInputs, pose,
                      cfg: EngineConfig, frame_idx: int, stream_bitmask=None,
-                     reuse_active=None, model_depth=None, mark=_no_mark):
+                     reuse_active=None, model_depth=None, mark=_no_mark,
+                     key_filter=None):
     """alloc -> compactify (or reuse) -> fused integrate -> gc -> maintain.
+
+    ``key_filter``: a mask over the allocation candidates (the multi-device
+    step keeps the keys its rank owns, ``parallel/sharded.py``; it passes
+    its shard's capacity as ``cfg.map``).
 
     ``stream_bitmask``: the streaming eviction bitmask; candidates in
     evicted chunks are dropped (a gather and a mask, no host sync).
@@ -111,6 +116,8 @@ def _integrate_frame(state: MapState, frame: FrameInputs, pose,
         phase=None if cfg.offline else frame_idx,
         model_depth=(model_depth
                      if (not cfg.offline and mp.alloc_novelty) else None))
+    if key_filter is not None:
+        keys = key_filter(keys)
     if stream_bitmask is not None:
         keys = streaming.mask_keys(keys, stream_bitmask, mp, cfg.streaming)
     rounds = mp.alloc_rounds_offline if cfg.offline else 1

@@ -33,6 +33,11 @@ def div_const(x, c: float):
 # ---------------------------------------------------------------------------
 
 
+def world_to_voxel_f(pos, voxel_size):
+    """World position -> continuous voxel coordinates ([...,3] f32)."""
+    return div_const(pos, voxel_size)
+
+
 def world_to_voxel(pos, voxel_size):
     """Symmetric rounding int(p + sign(p)*0.5); the cast truncates toward 0."""
     p = div_const(pos, voxel_size)
@@ -58,6 +63,14 @@ def block_to_world(block, voxel_size):
 
 def world_to_block(pos, voxel_size):
     return voxel_to_block(world_to_voxel(pos, voxel_size))
+
+
+def voxel_local_index(voxel):
+    """Voxel coords [...,3] -> linear index within the block, in [0,512),
+    x fastest (the remainder is non-negative for negative coords)."""
+    local = torch.remainder(voxel, SDF_BLOCK_SIZE)
+    return (local[..., 2] * SDF_BLOCK_SIZE + local[..., 1]) \
+        * SDF_BLOCK_SIZE + local[..., 0]
 
 
 def delinearize_voxel_index(idx):
@@ -123,6 +136,11 @@ def camera_to_screen(pos, cam: CameraConfig):
     return torch.stack([u, v], dim=-1)
 
 
+def camera_to_screen_int(pos, cam: CameraConfig):
+    """Nearest pixel of camera-space points: floor(uv + 0.5), int32."""
+    return torch.floor(camera_to_screen(pos, cam) + 0.5).to(torch.int32)
+
+
 def screen_to_camera(u, v, depth, cam: CameraConfig):
     x = div_const(u - cam.cx, cam.fx)
     y = div_const(v - cam.cy, cam.fy)
@@ -181,6 +199,11 @@ def depth_to_points(depth, cam: CameraConfig):
 
 def transform_points(mat4, pts):
     return pts @ mat4[:3, :3].T + mat4[:3, 3]
+
+
+def rotate_vectors(mat4, vecs):
+    """The rotation part of a 4x4 transform applied to vectors [...,3]."""
+    return vecs @ mat4[:3, :3].T
 
 
 def invert_rigid(mat4):

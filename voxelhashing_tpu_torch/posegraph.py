@@ -8,6 +8,8 @@ and verified by ICP (``tracking.track`` with a two-level tracker config).
 damping, ``gn_iters`` steps in f32 on ``device``: the residuals of all
 edges are one batched expression (one [E,4,4] ``torch.linalg.solve`` per
 side), and their Jacobian comes from ``torch.func.jacfwd``.
+``optimize_distributed`` splits the edges over the ranks of a process
+group and sums the normal equations in one all-reduce per step.
 
 Host reads: a registration reads its pose, ``valid`` flag and residual in
 one transfer; registrations run only at keyframes and relocalizations.
@@ -24,6 +26,7 @@ import torch
 
 from .config import CameraConfig, TrackerConfig, resolve_device
 from . import geometry as geom, tracking
+from .parallel import collectives
 
 
 # ---------------------------------------------------------------------------
@@ -251,18 +254,48 @@ class PoseGraph:
     def optimize(self) -> np.ndarray:
         """Gauss-Newton over all keyframe poses (pose 0 fixed). Updates the
         keyframe poses in place; returns them stacked [K,4,4] float64."""
+        if len(self.keyframes) < 2 or not self.edges:
+            return self._stacked_poses()
+        return self._solve(self.edges, lambda sums: sums)
+
+    def optimize_distributed(self, group=None) -> np.ndarray:
+        """Edge-sharded Gauss-Newton over the ranks of ``group``: the edges
+        are padded with zero-weight edges to a multiple of the world size
+        and split in equal runs; each rank linearizes its run, one SUM
+        all-reduce gives every rank H, b and the loss, and every rank
+        solves the same system (the graph is pose-pose only, so there is
+        no Schur complement). With no process group this process is the
+        only rank. Matches :meth:`optimize` (same residuals and steps).
+        Every rank calls it with the same graph."""
+        if len(self.keyframes) < 2 or not self.edges:
+            return self._stacked_poses()
+        me, n_dev = collectives.world(group)
+        per = -(-len(self.edges) // n_dev)
+        pad = self.edges + [Edge(i=0, j=0, z_ij=np.eye(4), weight=0.0)] \
+            * (per * n_dev - len(self.edges))
+        mine = pad[me * per:(me + 1) * per]
+        if group is None and not torch.distributed.is_initialized():
+            return self._solve(mine, lambda sums: sums)
+        return self._solve(mine, lambda sums: collectives.sum_tuple(sums,
+                                                                    group))
+
+    def _stacked_poses(self) -> np.ndarray:
+        return np.stack([kf.pose for kf in self.keyframes]) \
+            if self.keyframes else np.zeros((0, 4, 4))
+
+    def _solve(self, edges, reduce_sys) -> np.ndarray:
+        """``gn_iters`` Gauss-Newton steps whose normal equations (H, b,
+        loss) are built over ``edges`` and then passed through
+        ``reduce_sys``; the keyframe poses are updated in place."""
         k = len(self.keyframes)
-        if k < 2 or not self.edges:
-            return np.stack([kf.pose for kf in self.keyframes]) \
-                if self.keyframes else np.zeros((0, 4, 4))
         dev, f32 = self.device, torch.float32
         poses = torch.as_tensor(np.stack([kf.pose for kf in self.keyframes]),
                                 dtype=f32, device=dev)
-        ei = torch.tensor([e.i for e in self.edges], device=dev)
-        ej = torch.tensor([e.j for e in self.edges], device=dev)
-        zs = torch.as_tensor(np.stack([e.z_ij for e in self.edges]),
+        ei = torch.tensor([e.i for e in edges], device=dev)
+        ej = torch.tensor([e.j for e in edges], device=dev)
+        zs = torch.as_tensor(np.stack([e.z_ij for e in edges]),
                              dtype=f32, device=dev)
-        sw = torch.sqrt(torch.tensor([e.weight for e in self.edges],
+        sw = torch.sqrt(torch.tensor([e.weight for e in edges],
                                      dtype=f32, device=dev))
 
         def gauge_fixed(xi):
@@ -280,7 +313,8 @@ class PoseGraph:
         for _ in range(self.cfg.gn_iters):
             r = residuals(xi0, poses)
             j = jac(xi0, poses)                            # [E*6, K*6]
-            dx = torch.linalg.solve(j.T @ j + damp, -j.T @ r)
+            h, b, _ = reduce_sys((j.T @ j, -j.T @ r, torch.sum(r * r)))
+            dx = torch.linalg.solve(h + damp, b)
             poses = poses @ se3_exp(gauge_fixed(dx.reshape(k, 6)))
         out = poses.cpu().numpy().astype(np.float64)
         for m, kf in enumerate(self.keyframes):

@@ -34,6 +34,7 @@ from .config import CameraConfig, MapConfig, RaycastConfig
 from . import blockmap
 from . import geometry as geom
 from .blockmap import MapState
+from .parallel import collectives
 from .ops.splat_zbuf import splat_zbuf, splat_zbuf_color
 
 
@@ -56,13 +57,15 @@ _CORNER_LIST = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
 
 
 def trilinear_sample(state: MapState, p_world, cfg: MapConfig,
-                     with_color: bool = False):
+                     with_color: bool = False, group=None):
     """Trilinearly interpolated (sdf, valid[, color]) at world points
-    [...,3]; invalid where any of the 8 corner voxels has zero weight."""
+    [...,3]; invalid where any of the 8 corner voxels has zero weight.
+    ``group``: the map is hash-partitioned over its ranks (see
+    ``blockmap.gather_voxels_soa``)."""
     shape = p_world.shape[:-1]
     pw = p_world.reshape(-1, 3)
     out = trilinear_sample_soa(state, pw[:, 0], pw[:, 1], pw[:, 2], cfg,
-                               with_color=with_color)
+                               with_color=with_color, group=group)
     if with_color:
         s, valid, col = out
         return (s.reshape(shape), valid.reshape(shape),
@@ -72,10 +75,12 @@ def trilinear_sample(state: MapState, p_world, cfg: MapConfig,
 
 
 def trilinear_sample_soa(state: MapState, px, py, pz, cfg: MapConfig,
-                         with_color: bool = False):
+                         with_color: bool = False, group=None):
     """SoA core of :func:`trilinear_sample`: coordinate tensors of one
     shape; the 8 corners are fetched at once on a leading axis ([8,...])
-    and weighted in the JAX order."""
+    and weighted in the JAX order. With ``group`` the fetch is one
+    all-reduce over the hash partition, so a cell whose corners lie in
+    blocks of different ranks still interpolates the global map."""
     vs = cfg.voxel_size
     qx, qy, qz = (geom.div_const(px, vs), geom.div_const(py, vs),
                   geom.div_const(pz, vs))
@@ -88,7 +93,8 @@ def trilinear_sample_soa(state: MapState, px, py, pz, cfg: MapConfig,
     cy = torch.stack([by + o[1] for o in _CORNER_LIST], dim=0)
     cz = torch.stack([bz + o[2] for o in _CORNER_LIST], dim=0)
     sdf, w, c = blockmap.gather_voxels_soa(state, cx, cy, cz, cfg,
-                                           with_color=with_color)
+                                           with_color=with_color,
+                                           group=group)
     valid = torch.all(w > 0.0, dim=0)
 
     s = torch.zeros(fx.shape, dtype=torch.float32, device=fx.device)
@@ -105,7 +111,7 @@ def trilinear_sample_soa(state: MapState, px, py, pz, cfg: MapConfig,
     return s, valid
 
 
-def sdf_gradient(state: MapState, p_world, cfg: MapConfig):
+def sdf_gradient(state: MapState, p_world, cfg: MapConfig, group=None):
     """Central-difference SDF gradient at world points [...,3]: (unit
     gradient, NaN where invalid; valid)."""
     offs = cfg.voxel_size
@@ -114,8 +120,8 @@ def sdf_gradient(state: MapState, p_world, cfg: MapConfig):
     for ax in range(3):
         e = torch.zeros((3,), dtype=torch.float32, device=p_world.device)
         e[ax] = offs
-        sp, vp = trilinear_sample(state, p_world + e, cfg)
-        sm, vm = trilinear_sample(state, p_world - e, cfg)
+        sp, vp = trilinear_sample(state, p_world + e, cfg, group=group)
+        sm, vm = trilinear_sample(state, p_world - e, cfg, group=group)
         grads.append((sp - sm) * 0.5)
         v = vp & vm
         ok = v if ok is None else (ok & v)
@@ -308,13 +314,18 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
 
 
 def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
-                 rc: RaycastConfig, active_idx=None, active_mask=None
-                 ) -> RaycastResult:
+                 rc: RaycastConfig, active_idx=None, active_mask=None,
+                 group=None) -> RaycastResult:
     """Reference-style raycast: the batched trilinear march of
     :func:`march_core`, each ray bounded by its tile's depth range
     (:func:`ray_interval_splat`, widened by the truncation) when
     ``rc.splat_enabled`` and an active list is given, else by the camera's
-    depth range."""
+    depth range.
+
+    ``group``: the map is hash-partitioned over the ranks of this process
+    group. The tile bounds are min/max all-reduced and every TSDF fetch is
+    a summed one (:func:`trilinear_sample_soa`), so every rank marches the
+    global surface and returns the same result."""
     h, w = cam.height, cam.width
     p = h * w
     d = rc.derived(cfg)
@@ -324,6 +335,9 @@ def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     if rc.splat_enabled and active_idx is not None:
         tmin_t, tmax_t = ray_interval_splat(state, active_idx, active_mask,
                                             view, cam, cfg, rc)
+        if group is not None:
+            tmin_t = collectives.all_reduce(tmin_t, "min", group)
+            tmax_t = collectives.all_reduce(tmax_t, "max", group)
         tile = rc.splat_tile
         iy = torch.div(torch.arange(h, device=dev), tile,
                        rounding_mode="floor")
@@ -341,12 +355,12 @@ def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
 
     def sample_soa(px, py, pz, with_color=False):
         return trilinear_sample_soa(state, px, py, pz, cfg,
-                                    with_color=with_color)
+                                    with_color=with_color, group=group)
 
     gradient_fn = None
     if rc.use_gradients:
         def gradient_fn(p_world):
-            return sdf_gradient(state, p_world, cfg)
+            return sdf_gradient(state, p_world, cfg, group=group)
 
     return march_core(sample_soa, pose, cam, t_min, t_max,
                       num_samples=rc.num_samples,

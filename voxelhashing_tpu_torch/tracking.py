@@ -13,6 +13,12 @@ The JAX tracker skips a converged level's outer iterations with
 keeps its carry unchanged (the masked form), which gives identical results
 without reading the device. ``torch.linalg.svd`` may synchronise with the
 host on CUDA; removing that is later work.
+
+``reduce_fn`` (the multi-device step, ``parallel/sharded.py``) reduces
+each tuple of partial sums across ranks at JAX's points: the whitening
+moments, the planarity scatter and the normal equations (with RGB-D, the
+depth and photometric systems together, before they are weighted). The
+input maps are then the rank's row shard and the model maps are global.
 """
 
 from __future__ import annotations
@@ -134,27 +140,35 @@ def _associate(delta, in_soa, tgt8, cam: CameraConfig, dist_thres: float,
     return q, nq, wgt, ok
 
 
-def _whitening(q, ok):
-    """Centroid and inverse scale of the valid correspondence targets."""
+def _no_reduce(sums):
+    return sums
+
+
+def _whitening(q, ok, reduce_sys=_no_reduce):
+    """Centroid and inverse scale of the valid correspondence targets
+    (moments reduced by ``reduce_sys``)."""
     qx, qy, qz = q
     okf = ok.to(torch.float32)
     sum_q = torch.stack([torch.sum(qx * okf), torch.sum(qy * okf),
                          torch.sum(qz * okf)])
     sum_qq = torch.sum((qx * qx + qy * qy + qz * qz) * okf)
-    n = torch.clamp(torch.sum(okf), min=1.0)
+    sum_q, sum_qq, cnt = reduce_sys((sum_q, sum_qq, torch.sum(okf)))
+    n = torch.clamp(cnt, min=1.0)
     mean = sum_q / n
     var = torch.clamp(sum_qq / n - torch.sum(mean * mean), min=1e-8)
     return mean, torch.rsqrt(var)
 
 
-def _planarity(in_soa, wgt, thres: float):
+def _planarity(in_soa, wgt, thres: float, reduce_sys=_no_reduce):
     """Planar-degeneracy probe: second invariant I2 of the unit-trace
-    weighted scatter of the accepted input normals. Returns (planar, i2)."""
+    weighted scatter of the accepted input normals (the scatter reduced by
+    ``reduce_sys``). Returns (planar, i2)."""
     use = wgt > 0.0
     nr = torch.stack([torch.where(use, in_soa[3], 0.0),
                       torch.where(use, in_soa[4], 0.0),
                       torch.where(use, in_soa[5], 0.0)], dim=0)   # [3,P]
     s = (nr * wgt[None, :]) @ nr.T                               # [3,3]
+    (s,) = reduce_sys((s,))
     tr = s[0, 0] + s[1, 1] + s[2, 2]
     sh = s / torch.clamp(tr, min=1e-12)
     i2 = 0.5 * (1.0 - torch.sum(sh * sh.T))
@@ -300,9 +314,11 @@ def intensity_gradients(intensity):
     return gx, gy
 
 
-def planarity_probe(input_points, input_normals, cfg: TrackerConfig):
+def planarity_probe(input_points, input_normals, cfg: TrackerConfig,
+                    reduce_fn=None):
     """Report-only planarity I2 over the valid finest-level input normals
-    (0.0 when the gate is disabled)."""
+    (0.0 when the gate is disabled; the scatter reduced by ``reduce_fn``
+    when given)."""
     if cfg.normal_aniso_thres <= 0.0:
         return torch.zeros((), dtype=torch.float32,
                            device=input_points.device)
@@ -310,20 +326,25 @@ def planarity_probe(input_points, input_normals, cfg: TrackerConfig):
     valid0 = (torch.isfinite(soa0[3]) & torch.isfinite(soa0[4])
               & torch.isfinite(soa0[5]))
     return _planarity(soa0, valid0.to(torch.float32),
-                      cfg.normal_aniso_thres)[1]
+                      cfg.normal_aniso_thres, reduce_fn or _no_reduce)[1]
 
 
 def track(input_points, input_normals, model_points, model_normals,
           last_pose, cam: CameraConfig, cfg: TrackerConfig,
           input_intensity=None, model_intensity=None,
           weight_depth: float = 1.0, weight_color: float = 0.1,
-          color_sigma: float = 0.1) -> TrackingResult:
+          color_sigma: float = 0.1, reduce_fn=None) -> TrackingResult:
     """Align the current frame to the raycast model; new_pose =
     last_pose @ delta. With both intensities ([h,w], NaN where invalid)
     the photometric rows join each system: A = weight_depth * A_depth +
     weight_color * A_color, and the same for b, the residual sum and the
-    weight sum (RGB-D tracking; the planarity gate and probe are off)."""
+    weight sum (RGB-D tracking; the planarity gate and probe are off).
+
+    ``reduce_fn``: applied to each tuple of partial sums (see the module
+    docstring); it must return the same shapes and dtypes. The input maps
+    may then be a row shard of the frame."""
     dev = input_points.device
+    reduce_sys = reduce_fn or _no_reduce
     levels = cfg.levels
     in_pyr = build_pyramid(input_points, input_normals, levels)
     md_pyr = build_pyramid(model_points, model_normals, levels)
@@ -340,7 +361,7 @@ def track(input_points, input_normals, model_points, model_normals,
     def scalar(v, dtype=torch.float32):
         return torch.full((), v, dtype=dtype, device=dev)
 
-    plan_i2 = (planarity_probe(input_points, input_normals, cfg)
+    plan_i2 = (planarity_probe(input_points, input_normals, cfg, reduce_fn)
                if planarity_on else scalar(0.0))
 
     delta = torch.eye(4, dtype=torch.float32, device=dev)
@@ -369,24 +390,31 @@ def track(input_points, input_normals, model_points, model_normals,
             q, nq, wgt, ok = _associate(
                 delta, in_soa, md8, cam_l, cfg.dist_thres[level],
                 cfg.normal_thres[level], cam.depth_min, cam.depth_max)
-            mean, inv_std = _whitening(q, ok)
+            mean, inv_std = _whitening(q, ok, reduce_sys)
             if planarity_on:
-                planar, _ = _planarity(in_soa, wgt, cfg.normal_aniso_thres)
+                planar, _ = _planarity(in_soa, wgt, cfg.normal_aniso_thres,
+                                       reduce_sys)
             else:
                 planar = scalar(False, torch.bool)
             cvals = []
             for _inner in range(n_inner):
-                a, b, sum_res, sum_w, count = _linearize(
-                    delta, in_soa, q, nq, wgt, ok, mean, inv_std)
+                sys_d = _linearize(delta, in_soa, q, nq, wgt, ok, mean,
+                                   inv_std)
                 if use_rgbd:
-                    a_c, b_c, res_c, w_c, _ = _build_system_color(
+                    # the photometric rows join before the reduction: each
+                    # rank's color rows belong to its own row shard
+                    sys_c = _build_system_color(
                         delta, in_pyr[level][0], ii_pyr[level],
                         mi_pyr[level], gx, gy, cam_l, color_sigma,
                         mean=mean, inv_std=inv_std)
+                    (a, b, sum_res, sum_w, count,
+                     a_c, b_c, res_c, w_c, _) = reduce_sys(sys_d + sys_c)
                     a = weight_depth * a + weight_color * a_c
                     b = weight_depth * b + weight_color * b_c
                     sum_res = weight_depth * sum_res + weight_color * res_c
                     sum_w = weight_depth * sum_w + weight_color * w_c
+                else:
+                    a, b, sum_res, sum_w, count = reduce_sys(sys_d)
                 mean_res = sum_res / torch.clamp(sum_w, min=1e-12)
                 done = done | (torch.abs(last_res - mean_res)
                                < cfg.residual_early_out[level])
