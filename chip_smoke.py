@@ -112,6 +112,19 @@ and then:
    and their host time, the host syncs of one frame, and the phase's wall
    time. Two ranks on one card measure the collectives' cost, not
    scaling.
+9. runs the dense voxel-grid baseline (``phase_dense``) at
+   ``scripts/bench_densegrid.py``'s point (a 256^3 grid of 1 cm voxels,
+   truncation 5 cm, 320x240, the wall, floor and three spheres along
+   ``make_trajectory(20)`` with 2 mm noise): (a) integrate-only along the
+   ground truth, ms a frame against the bound of 24 B a voxel; (b) 20
+   frames of ``denseengine.make_step`` with free tracking (ATE < 50 mm,
+   every frame valid, no kernel and no plain kernel version launched),
+   its stage times, peak memory, and the host syncs of a tracked frame
+   and of a replayed one (which must be 0); (c) ``extract_mesh`` on that
+   grid (triangles > 0); (d) at the CPU tests' size, the card's grid
+   bit-equal to the CPU's, and the render's difference; (e) kernel A's
+   fusion of a bare wall within 1.5e-3 of the dense grid's (the dense
+   oracle; its launch shows as ``dense_oracle``).
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
@@ -177,14 +190,14 @@ def _bench_scene():
     ))
 
 
-def _frames(cam, device, poses=None):
-    """The bench scene from ``poses`` (default ``make_trajectory(20)``)
-    with 2 mm depth noise, seed = frame index: (poses, depth with NaN as 0,
-    color)."""
+def _frames(cam, device, poses=None, scene=None):
+    """``scene`` (default the bench scene) from ``poses`` (default
+    ``make_trajectory(20)``) with 2 mm depth noise, seed = frame index:
+    (poses, depth with NaN as 0, color)."""
     import torch
     from voxelhashing_tpu_torch.io.synthetic import (make_trajectory,
                                                      render_depth)
-    scene = _bench_scene()
+    scene = _bench_scene() if scene is None else scene
     poses = make_trajectory(N_FRAMES) if poses is None else poses
     depths, colors = [], []
     for i, pose in enumerate(poses):
@@ -2182,6 +2195,360 @@ def phase_sharded(device, gpu_line, graph):
                        for path, cs in counts.items()}}
 
 
+# phase 9: the dense voxel-grid baseline
+DENSE_DIMS = 256            # scripts/bench_densegrid.py:24-41: a 2.56 m cube
+DENSE_BYTES_PER_VOXEL = 24  # read and write f32 sdf, f32 weight, int32 color
+DENSE_ATE_LIMIT_M = 0.05    # scripts/run_dense.py:88
+DENSE_SYNC_FRAME = 11       # host syncs counted: frame 11 after frame 10
+DENSE_ORACLE_TOL = 1.5e-3   # tests/test_densegrid.py:134-135 (bf16 pool)
+JAX_CUBE_CAP = 1 << 17      # voxelhashing_tpu/densegrid.py:298
+
+
+def _dense_config():
+    """``scripts/bench_densegrid.py:34-54``'s point: a 256^3 grid of 1 cm
+    voxels at (-1.28, -1.28, 0.5), truncation max(5 voxels, 5 cm), the
+    default 320x240 camera, online mode."""
+    from voxelhashing_tpu_torch.config import CameraConfig, EngineConfig
+    from voxelhashing_tpu_torch.densegrid import DenseGridConfig
+    n = DENSE_DIMS
+    vs = 2.56 / n
+    grid = DenseGridConfig(dims=(n, n, n), origin=(-1.28, -1.28, 0.5),
+                           voxel_size=vs, truncation=max(5.0 * vs, 0.05))
+    return EngineConfig(camera=CameraConfig(), offline=False), grid
+
+
+def _dense_scene():
+    """``scripts/bench_densegrid.py:44-48``'s scene: the wall at 2.2 m, the
+    floor and three spheres."""
+    from voxelhashing_tpu_torch.io.synthetic import Scene, Sphere
+    return Scene(wall_z=2.2, spheres=(
+        Sphere(center=(0.0, 0.2, 1.8), radius=0.3),
+        Sphere(center=(-0.5, -0.2, 2.0), radius=0.25, color=(0.2, 0.5, 0.8)),
+        Sphere(center=(0.6, 0.1, 1.5), radius=0.2, color=(0.3, 0.7, 0.3)),
+    ))
+
+
+def _clone_dense(st):
+    return st._replace(grid=_clone(st.grid), pose=st.pose.clone(),
+                       frame=st.frame.clone(),
+                       tracking_lost=st.tracking_lost.clone())
+
+
+def _device_ops(fn):
+    """(device ops, their device time in ms) of one call of ``fn``
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.self_device_time_total for e in ev) / 1000.0
+
+
+def _dense_integrate(cfg, gcfg, poses, depth, color, device, gpu_line):
+    """(a) Integrate-only fusion along the ground truth (in place, as the
+    step fuses): ms a frame over frames 1-19 (CUDA events), voxel updates a
+    second, the share of the bytes bound (each voxel's sdf, weight and
+    color read and written once) and torch.profiler's device ops of one
+    integrate."""
+    import torch
+    from voxelhashing_tpu_torch import densegrid
+
+    cam = cfg.camera
+    grid = densegrid.create(gcfg, device=device)
+    pose_t = [torch.as_tensor(p, device=device) for p in poses]
+    densegrid.integrate(grid, gcfg, depth[0], color[0], pose_t[0], cam,
+                        in_place=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * N_FRAMES)]
+    torch.cuda.synchronize()
+    for i in range(1, N_FRAMES):
+        ev[2 * i].record()
+        densegrid.integrate(grid, gcfg, depth[i], color[i], pose_t[i], cam,
+                            in_place=True)
+        ev[2 * i + 1].record()
+    torch.cuda.synchronize()
+    ms = sum(ev[2 * i].elapsed_time(ev[2 * i + 1])
+             for i in range(1, N_FRAMES)) / (N_FRAMES - 1)
+    n_vox = gcfg.dims[0] * gcfg.dims[1] * gcfg.dims[2]
+    nbytes = DENSE_BYTES_PER_VOXEL * n_vox
+    bound = 1000.0 * nbytes / HBM_BYTES_PER_S
+    n_ops, dev_ms = _device_ops(lambda: densegrid.integrate(
+        grid, gcfg, depth[5], color[5], pose_t[5], cam, in_place=True))
+    fused = int((grid.weight > 0).sum())
+    print(f"dense (a) integrate-only, {gcfg.dims[0]}^3 ({n_vox} voxels, "
+          f"{gcfg.voxel_size * 1000:.0f} mm): {ms:.4f} ms a frame over "
+          f"frames 1-{N_FRAMES - 1} (CUDA events), "
+          f"{n_vox / ms / 1e6:.3f} G voxel-updates/s; bound {bound:.4f} ms "
+          f"({nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s), "
+          f"{100 * bound / ms:.2f}% of it; torch.profiler: {n_ops} device "
+          f"ops, {dev_ms:.4f} ms of device time in one integrate; "
+          f"{fused} voxels with weight; on {gpu_line}")
+    return {"ms": ms, "bound_ms": bound, "bound_share": bound / ms,
+            "device_ops": n_ops, "device_ms": dev_ms,
+            "gvox_per_s": n_vox / ms / 1e6}
+
+
+def _dense_step(cfg, gcfg, poses, depth, color, device, gpu_line):
+    """(b) 20 frames of the free-tracking dense step (``make_step``, grid
+    updated in place): fused frames/s over frames 2-19 and the stage
+    times (CUDA events at the ``denseengine.STAGES`` marks), ATE (limit 50
+    mm), the launch counts (the dense path reaches no kernel), the host
+    syncs of a tracked and of a replayed frame, and the peak memory."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import denseengine, evaluation
+
+    step = denseengine.make_step(cfg, gcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = denseengine.create(gcfg, device=device)
+    events, valid, est, snap = [], [], [], None
+    _zero_counts()
+    for i in range(N_FRAMES):
+        marks = []
+
+        def mark(stage, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        mark("start")
+        state, tr = step(state, depth[i], color[i], mark=mark)
+        mark("end")
+        events.append(marks)
+        valid.append(tr.valid)
+        est.append(state.pose.clone())
+        if i == DENSE_SYNC_FRAME - 1:
+            snap = _clone_dense(state)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    valid = [bool(v) for v in valid]
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
+                              align=False)
+    timed = range(2, N_FRAMES)
+    dev_ms = sum(events[i][0][1].elapsed_time(events[i][-1][1])
+                 for i in timed)
+    fps = len(timed) / (dev_ms / 1000.0)
+    stages = collections.defaultdict(float)
+    for i in timed:
+        for (_, a), (stage, b) in zip(events[i], events[i][1:-1]):
+            stages[stage] += a.elapsed_time(b) / len(timed)
+
+    i = DENSE_SYNC_FRAME
+    with _sync_sites() as tracked:
+        step(_clone_dense(snap), depth[i], color[i])
+    replay = denseengine.make_step(
+        dataclasses.replace(cfg, use_trajectory=True), gcfg, with_hint=True)
+    hint = torch.as_tensor(poses[i], device=device)
+    s = _clone_dense(snap)
+    with _sync_sites() as replayed:
+        replay(s, depth[i], color[i], hint)
+    del s, snap
+
+    print(f"dense (b) free-tracking step: valid frames {sum(valid)} of "
+          f"{N_FRAMES}, ATE RMSE {ate * 1000:.3f} mm (limit "
+          f"{DENSE_ATE_LIMIT_M * 1000:.0f} mm; PERF.md's 10 mm), "
+          f"{fps:.3f} fused frames/s over frames 2-{N_FRAMES - 1} (CUDA "
+          f"events), counts {counts}, peak memory {peak} B; on {gpu_line}")
+    total = sum(stages.values())
+    print(f"dense (b): stages, ms/frame over frames 2-{N_FRAMES - 1} (CUDA "
+          f"events between the step's marks) on {gpu_line}:")
+    for stage in denseengine.STAGES:
+        print(f"  {stage:10s} {stages[stage]:9.3f} ms "
+              f"{100 * stages[stage] / total:6.1f}%")
+    print(f"  {'total':10s} {total:9.3f} ms")
+    print(f"dense (b): host syncs of frame {i} tracked "
+          f"{sum(tracked.values())} ({_sites_line(tracked)}), replayed "
+          f"with its pose on the card {sum(replayed.values())} "
+          f"({_sites_line(replayed)})")
+    if ate >= DENSE_ATE_LIMIT_M or not all(valid):
+        raise RuntimeError(f"dense step: ATE {ate} m, valid {valid}")
+    if any(counts.values()):
+        raise RuntimeError(f"the dense step launched a kernel or a plain "
+                           f"version on the card: {counts}")
+    if sum(replayed.values()) != 0:
+        raise RuntimeError(f"a replayed dense frame synced: {replayed}")
+    return state, {"fps": fps, "ate_mm": ate * 1000,
+                   "stages": dict(stages), "counts": counts,
+                   "peak_bytes": peak,
+                   "syncs": sum(tracked.values()),
+                   "replay_syncs": sum(replayed.values())}
+
+
+def _dense_mesh(gcfg, grid, gpu_line):
+    """(c) ``extract_mesh`` on (b)'s grid: triangles (> 0), seconds, and
+    the surface cubes that JAX's 2^17 cap would drop."""
+    import torch
+    from voxelhashing_tpu_torch import densegrid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk = densegrid.extract_mesh(grid, gcfg)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    near = ((grid.weight > 0.0)
+            & (torch.abs(grid.sdf) < 2.0 * gcfg.voxel_size))[:-1, :-1, :-1]
+    cubes = int(near.sum())
+    finite = bool(torch.isfinite(chunk.vertices).all())
+    print(f"dense (c) extract_mesh: {chunk.n_triangles} triangles from "
+          f"{cubes} surface cubes ({max(cubes - JAX_CUBE_CAP, 0)} beyond "
+          f"JAX's 2^17 cap) in {sec:.3f} s host clock, vertices finite "
+          f"{finite}; on {gpu_line}")
+    if chunk.n_triangles <= 0 or not finite:
+        raise RuntimeError(f"dense mesh: {chunk.n_triangles} triangles, "
+                           f"finite {finite}")
+    return {"triangles": chunk.n_triangles, "s": sec, "cubes": cubes}
+
+
+def _dense_card_vs_cpu(device, gpu_line):
+    """(d) At the CPU tests' size (96^3 at 2 cm, an 80x60 camera, three
+    ground-truth frames of ``Scene()``, rendered once on the CPU): the
+    card's grid bit-equal to the CPU's; the render from the last pose on
+    both, as max abs error where both find a surface."""
+    import torch
+    from voxelhashing_tpu_torch import densegrid
+    from voxelhashing_tpu_torch.config import CameraConfig
+    from voxelhashing_tpu_torch.io.synthetic import (Scene, make_trajectory,
+                                                     render_depth)
+
+    cam = CameraConfig(width=80, height=60, fx=65.0, fy=65.0, cx=39.5,
+                       cy=29.5, depth_min=0.2, depth_max=4.0)
+    gcfg = densegrid.DenseGridConfig(dims=(96, 96, 96),
+                                     origin=(-0.96, -0.96, 0.8),
+                                     voxel_size=0.02, truncation=0.1)
+    cpu = torch.device("cpu")
+    grids = {cpu: densegrid.create(gcfg, device=cpu),
+             device: densegrid.create(gcfg, device=device)}
+    poses = make_trajectory(3)
+    for i, pose in enumerate(poses):
+        d, c = render_depth(pose, cam, Scene(), noise_sigma=0.002, seed=i,
+                            device=cpu)
+        d = torch.nan_to_num(d, nan=0.0)
+        p = torch.as_tensor(pose)
+        for dev in grids:
+            grids[dev] = densegrid.integrate(grids[dev], gcfg, d.to(dev),
+                                             c.to(dev), p.to(dev), cam)
+    equal = {f: _bits_equal(getattr(grids[cpu], f),
+                            getattr(grids[device], f).cpu())
+             for f in ("sdf", "weight", "color")}
+    p = torch.as_tensor(poses[-1])
+    ren = {dev: densegrid.render(grids[dev], gcfg, p.to(dev), cam)
+           for dev in grids}
+    dc, dg = ren[cpu].depth, ren[device].depth.cpu()
+    both = torch.isfinite(dc) & torch.isfinite(dg)
+    err_d = float((dc - dg).abs()[both].max()) if both.any() else 0.0
+    err_p = (float((ren[cpu].points - ren[device].points.cpu()).abs()[both]
+                   .max()) if both.any() else 0.0)
+    xor = float((torch.isfinite(dc) != torch.isfinite(dg)).float().mean())
+    share = float(both.float().mean())
+    fused = int((grids[cpu].weight > 0).sum())
+    print(f"dense (d) card against the CPU, 96^3, 80x60, 3 frames: grids "
+          f"bit-equal {equal} ({fused} voxels with weight); render from "
+          f"the last pose: depth max abs err {err_d:.3e} m, points "
+          f"{err_p:.3e} m where both find a surface ({share:.4f} of the "
+          f"pixels; coverage XOR {xor:.4f}); on {gpu_line}")
+    if not all(equal.values()):
+        raise RuntimeError(f"dense grid: the card differs from the CPU: "
+                           f"{equal}")
+    return {"equal": equal, "depth_err": err_d, "points_err": err_p,
+            "both_share": share, "xor": xor}
+
+
+def _dense_oracle(device, gpu_line):
+    """(e) One frame of a bare wall 1.5 m away at the phase-1 camera fused
+    into the sparse map by kernel A (``truncation_scale=0``, the dense
+    grid's fixed truncation) and into the 96^3 dense grid; 200 seeded
+    probe points just in front of the wall must agree within one bf16 step
+    of the truncation (``tests/test_densegrid.py:97-135``). Returns the
+    error and kernel A's launches."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch import blockmap, densegrid, geometry as geom
+    from voxelhashing_tpu_torch import integrate as integ, raycast
+    from voxelhashing_tpu_torch.config import CameraConfig, MapConfig
+    from voxelhashing_tpu_torch.io.synthetic import Scene, render_depth
+    from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
+
+    cam = CameraConfig()
+    gcfg = densegrid.DenseGridConfig(dims=(96, 96, 96),
+                                     origin=(-0.96, -0.96, 0.8),
+                                     voxel_size=0.02, truncation=0.1)
+    mp = MapConfig(voxel_size=gcfg.voxel_size, truncation=gcfg.truncation,
+                   truncation_scale=0.0, num_blocks=4096, table_size=16384,
+                   max_active_blocks=4096, world_blocks=1024,
+                   integration_weight_sample=1)
+    pose = torch.eye(4, device=device)
+    d, c = render_depth(np.eye(4, dtype=np.float32), cam,
+                        Scene(wall_z=1.5, floor_y=None, spheres=()),
+                        device=device)
+    d = torch.nan_to_num(d, nan=0.0)
+    state = blockmap.create(mp, device=device)
+    _zero_counts()
+    state, _ = integ.allocate_from_depth(state, d, pose, cam, mp)
+    aidx, n_act, _ = blockmap.compactify(state, geom.invert_rigid(pose), cam,
+                                         mp)
+    state, _ = fused_integrate(state, d, c, pose, cam, mp, aidx, n_act)
+    grid = densegrid.integrate(densegrid.create(gcfg, device=device), gcfg,
+                               d, c, pose, cam)
+    torch.cuda.synchronize()
+    counts = _counts()
+    rng = np.random.RandomState(0)
+    pts = [torch.as_tensor(rng.uniform(lo, hi, 200).astype(np.float32),
+                           device=device)
+           for lo, hi in ((-0.3, 0.3), (-0.3, 0.3), (1.42, 1.49))]
+    s_d, ok_d = densegrid.trilinear_sample_soa(grid, gcfg, *pts)
+    s_s, ok_s = raycast.trilinear_sample_soa(state, *pts, mp)
+    both = ok_d & ok_s
+    err = float((s_d - s_s).abs()[both].max()) if both.any() else float(
+        "inf")
+    print(f"dense (e) oracle for kernel A: {int(n_act)} active rows, "
+          f"{int(both.sum())} of 200 probes valid in both, max |dsdf| "
+          f"{err:.3e} (limit {DENSE_ORACLE_TOL}), counts {counts}; on "
+          f"{gpu_line}")
+    if int(both.sum()) <= 50 or err >= DENSE_ORACLE_TOL:
+        raise RuntimeError(f"kernel A against the dense oracle: {err} on "
+                           f"{int(both.sum())} probes")
+    want = {name: 0 for name in counts}
+    want["fused_integrate"] = 1
+    if counts != want:
+        raise RuntimeError(f"dense oracle: counts {counts}, expected {want}")
+    return {"err": err, "probes": int(both.sum()), "counts": counts}
+
+
+def phase_dense(device, gpu_line):
+    """Phase 9: the dense voxel-grid baseline (see the module docstring).
+    Returns its numbers and kernel A's launch counts on the oracle path."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg, gcfg = _dense_config()
+    poses, depth, color = _frames(cfg.camera, device, scene=_dense_scene())
+    out = {"integrate": _dense_integrate(cfg, gcfg, poses, depth, color,
+                                         device, gpu_line)}
+    state, out["step"] = _dense_step(cfg, gcfg, poses, depth, color, device,
+                                     gpu_line)
+    del depth, color
+    out["mesh"] = _dense_mesh(gcfg, state.grid, gpu_line)
+    del state
+    torch.cuda.empty_cache()
+    out["cpu"] = _dense_card_vs_cpu(device, gpu_line)
+    out["oracle"] = _dense_oracle(device, gpu_line)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 9: dense integrate {out['integrate']['ms']:.4f} ms a frame "
+          f"({100 * out['integrate']['bound_share']:.2f}% of its "
+          f"{out['integrate']['bound_ms']:.4f} ms bound), step "
+          f"{out['step']['fps']:.3f} fused frames/s, ATE "
+          f"{out['step']['ate_mm']:.3f} mm, {out['mesh']['triangles']} "
+          f"triangles; wall {out['wall_s']:.1f} s; on {gpu_line}")
+    return out
+
+
 def _kernel_entry(res, launches):
     """One kernel's numbers in the kernels JSON line."""
     return {"launches": launches, "max_abs_err": res["max_abs_err"],
@@ -2383,6 +2750,7 @@ def main() -> int:
     slam = phase_slam(device, gpu_line)
     res_bl, bl_counts = phase_bilinear(device, gpu_line)
     shard = phase_sharded(device, gpu_line, slam["graph"])
+    dense = phase_dense(device, gpu_line)
 
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words")
@@ -2393,7 +2761,9 @@ def main() -> int:
                       "slam_reintegrate": slam["reintegrate"][name],
                       "bilinear": bl_counts[name],
                       **{path: c[name]
-                         for path, c in shard["counts"].items()}}
+                         for path, c in shard["counts"].items()},
+                      "dense_step": dense["step"]["counts"][name],
+                      "dense_oracle": dense["oracle"]["counts"][name]}
                for name in names}
     kernels = []
     for name, key, res, source, replaces, path, globals_ in (
@@ -2458,7 +2828,11 @@ def main() -> int:
           f"sharded_fps={shard['ranks'][0]['a']['fps']:.3f} "
           f"sharded_reduces_per_frame="
           f"{shard['ranks'][0]['a']['reduces_per_frame']:.1f} "
-          f"sharded_wall_s={shard['wall_s']:.1f}; on {gpu_line}")
+          f"sharded_wall_s={shard['wall_s']:.1f} "
+          f"dense_integrate_ms={dense['integrate']['ms']:.4f} "
+          f"dense_fps={dense['step']['fps']:.3f} "
+          f"dense_ate_mm={dense['step']['ate_mm']:.3f} "
+          f"dense_triangles={dense['mesh']['triangles']}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -290,7 +290,9 @@ def test_import_leaves_jax_out():
             "voxelhashing_tpu_torch.posegraph, voxelhashing_tpu_torch."
             "diagnostics, voxelhashing_tpu_torch.io.sensfile, "
             "voxelhashing_tpu_torch.io.tum, voxelhashing_tpu_torch.io."
-            "binarydump, voxelhashing_tpu_torch.io.network; "
+            "binarydump, voxelhashing_tpu_torch.io.network, "
+            "voxelhashing_tpu_torch.densegrid, voxelhashing_tpu_torch."
+            "denseengine, voxelhashing_tpu_torch.run_dense; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'voxelhashing_tpu'}))")
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -23,7 +23,13 @@ package, which stays the reference (module and function names mirror it):
   all-reduce per ICP sum), the sharded march render, ``gather_map``, the
   sharded streaming manager and ``PoseGraph.optimize_distributed``; gloo
   (also for ranks that share a card, staged through pinned memory) or
-  NCCL.
+  NCCL;
+* the dense voxel-grid baseline: ``densegrid`` (a ``[Z,Y,X]`` TSDF volume:
+  integrate, trilinear sampling, the march render, the mesh), its
+  per-frame loop ``denseengine`` (preprocess -> dense render -> ICP ->
+  dense integrate) and the entry point ``python -m
+  voxelhashing_tpu_torch.run_dense``; plain torch, as the JAX package runs
+  it as XLA, and an oracle for kernel A's fusion.
 
 The hand-written CUDA kernels for Hopper (``ops/``, sources in
 ``csrc/``), and the two TPU Pallas kernels they replace:

@@ -18,6 +18,7 @@ import torch
 
 from . import config
 from .blockmap import MapState
+from .densegrid import DenseGrid, DenseGridConfig
 from .engine import EngineState
 from .parallel.sharded import ShardedState
 
@@ -50,6 +51,17 @@ def config_from(cfg):
             raise ValueError(f"{type(cfg).__name__}.{f.name}={value!r} is "
                              "not ported (only its default is accepted)")
     return cls(**kw)
+
+
+def dense_config_from(cfg) -> DenseGridConfig:
+    """The port's ``DenseGridConfig`` with the values of ``cfg``, a JAX
+    ``densegrid.DenseGridConfig`` (the same fields; raises if they
+    differ)."""
+    names = [f.name for f in dataclasses.fields(DenseGridConfig)]
+    if [f.name for f in dataclasses.fields(cfg)] != names:
+        raise ValueError(f"{type(cfg).__name__} has other fields than "
+                         f"DenseGridConfig: {dataclasses.fields(cfg)}")
+    return DenseGridConfig(**{n: getattr(cfg, n) for n in names})
 
 
 def _tensor(a, device, view=None):
@@ -113,6 +125,22 @@ def bitmask_from_numpy(words, device="cuda"):
 def bitmask_to_numpy(words) -> np.ndarray:
     """The port's int32 eviction bitmask -> uint32 words as JAX holds them."""
     return _array(words, np.uint32)
+
+
+def dense_grid_from_numpy(g, device="cuda") -> DenseGrid:
+    """JAX ``DenseGrid`` (leaves as numpy or anything ``np.asarray`` takes)
+    -> the port's on ``device``: sdf and weight as they are, the uint32
+    color as int32 with the same bits."""
+    return DenseGrid(sdf=_tensor(g.sdf, device),
+                     weight=_tensor(g.weight, device),
+                     color=_tensor(g.color, device, np.int32))
+
+
+def dense_grid_to_numpy(g: DenseGrid) -> dict:
+    """The port's ``DenseGrid`` -> dict of numpy arrays in the JAX dtypes
+    (color as uint32)."""
+    return {"sdf": _array(g.sdf), "weight": _array(g.weight),
+            "color": _array(g.color, np.uint32)}
 
 
 def engine_state_from_numpy(es, device="cuda") -> EngineState:
