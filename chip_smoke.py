@@ -118,13 +118,37 @@ and then:
    ``make_trajectory(20)`` with 2 mm noise): (a) integrate-only along the
    ground truth, ms a frame against the bound of 24 B a voxel; (b) 20
    frames of ``denseengine.make_step`` with free tracking (ATE < 50 mm,
-   every frame valid, no kernel and no plain kernel version launched),
+   every frame valid, no kernel but the tracker's 6x6 solve and no plain
+   kernel version launched),
    its stage times, peak memory, and the host syncs of a tracked frame
    and of a replayed one (which must be 0); (c) ``extract_mesh`` on that
    grid (triangles > 0); (d) at the CPU tests' size, the card's grid
    bit-equal to the CPU's, and the render's difference; (e) kernel A's
    fusion of a bare wall within 1.5e-3 of the dense grid's (the dense
    oracle; its launch shows as ``dense_oracle``).
+10. runs ``engine.make_step`` (``phase_graph``), the step as replays of
+   captured CUDA graphs: (a) phase 1's 20 frames through
+   ``make_step(donate=True)`` and twice through the eager step, in
+   lockstep from one start: the eager runs must agree with each other
+   and the graphs with them on every frame (poses, valid flags, every map
+   field and diagnostic bit for bit), two host syncs in tracked frame 11,
+   the pool's tensors kept from frame 1 on with no pool bytes copied in,
+   and kernels A and B (and 18 solves) on every frame; reports frames/s
+   of both, each graph's nodes and capture time, then 20 frames of
+   ``make_step`` alone: frames/s, the device's busy share (torch.profiler)
+   and peak memory; (b) the 6x6 solve kernel (``ops/solve6``) against its
+   plain version on frame 11's 18 systems, on a seeded bank (well- and
+   ill-conditioned, rank 3) and on a non-finite system
+   (``solve6.disagreements``; cond within 1e-4 of an f64 SVD), and its
+   bare time and bound; (c) phase 6's two RGB-D configurations through
+   ``make_step`` (ATE < 10 mm, every frame valid, two host syncs in a
+   tracked frame); (d) the large scan's outward leg through
+   ``make_step(with_hint=True, with_stream_mask=True)`` with
+   ``AsyncStreamingManager`` (a clean map, blocks streamed out, one host
+   sync a frame in the step, no pool bytes copied in); (e) maintenance
+   forced by tombstones at a 65,536-block map: ``compact_pool`` runs
+   between replays, the step takes the compacted pool in, and every
+   frame equals the eager step's.
 
 Any failure raises and the exit code is non-zero. There is no CPU path:
 without a CUDA device the script exits 1 before it prints any result. The
@@ -374,6 +398,10 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
+    if launches.get("solve6", 0) != _solves(cfg) * (N_FRAMES - 1) \
+            and hasattr(_counters()[-2][1], "launches"):
+        raise RuntimeError(f"solve6 launched {launches['solve6']} times, "
+                           f"expected {_solves(cfg)} per tracked frame")
     if (launches["splat_zbuf_color"] != 0
             or launches["fused_integrate_bilinear"]
             or launches["frame_color_words"]
@@ -1283,6 +1311,10 @@ def _counters():
     from voxelhashing_tpu_torch import integrate as integ
     from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
     from voxelhashing_tpu_torch.ops import splat_zbuf as sb
+    try:
+        from voxelhashing_tpu_torch.ops import solve6 as s6
+    except ImportError:                     # a checkout before the kernel
+        s6 = None
     return (("fused_integrate", fused_integrate, "launches"),
             ("fused_integrate_bilinear", fused_integrate,
              "bilinear_launches"),
@@ -1293,7 +1325,17 @@ def _counters():
             ("plain integrate on CUDA", integ.integrate, "cuda_calls"),
             ("plain splat_zbuf on CUDA", sb.splat_zbuf_plain, "cuda_calls"),
             ("plain splat_color on CUDA", sb.splat_color_plain,
+             "cuda_calls"),
+            ("solve6", getattr(s6, "solve6", None), "launches"),
+            ("plain solve6 on CUDA", getattr(s6, "solve6_plain", None),
              "cuda_calls"))
+
+
+def _solves(cfg):
+    """The 6x6 solves (``solve6`` launches) of one tracked frame: one per
+    inner iteration of every outer iteration of every level."""
+    t = cfg.tracker
+    return sum(o * i for o, i in zip(t.max_outer_iter, t.max_inner_iter))
 
 
 def _counts():
@@ -1391,6 +1433,7 @@ def phase_rgbd(mode, device, gpu_line):
     want = {name: 0 for name in counts}
     want["fused_integrate"] = N_FRAMES
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
+    want["solve6"] = _solves(cfg) * (N_FRAMES - 1)
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -2157,6 +2200,7 @@ def phase_sharded(device, gpu_line, graph):
         for r, res in enumerate(ranks):
             exp = {name: 0 for name in res[part]["counts"]}
             exp["fused_integrate"] = n
+            exp["solve6"] = _solves(_config()) * (n - 1)
             if render:
                 exp[render] = n
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
@@ -2167,6 +2211,7 @@ def phase_sharded(device, gpu_line, graph):
                     f"{res[part]['valid']}, ATE {res[part]['ate_mm']} mm")
     exp = {name: 0 for name in nccl["counts"]}
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
+    exp["solve6"] = _solves(_config()) * (N_FRAMES - 1)
     if nccl["counts"] != exp or not all(nccl["valid"]) \
             or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
             or any(v != 0 for v in nccl["invariants"].values()) \
@@ -2367,9 +2412,12 @@ def _dense_step(cfg, gcfg, poses, depth, color, device, gpu_line):
           f"({_sites_line(replayed)})")
     if ate >= DENSE_ATE_LIMIT_M or not all(valid):
         raise RuntimeError(f"dense step: ATE {ate} m, valid {valid}")
-    if any(counts.values()):
-        raise RuntimeError(f"the dense step launched a kernel or a plain "
-                           f"version on the card: {counts}")
+    want = {name: 0 for name in counts}
+    want["solve6"] = _solves(cfg) * (N_FRAMES - 1)
+    if counts != want:
+        raise RuntimeError(f"the dense step launched a kernel other than "
+                           f"the tracker's solve, or a plain version on "
+                           f"the card: {counts}, expected {want}")
     if sum(replayed.values()) != 0:
         raise RuntimeError(f"a replayed dense frame synced: {replayed}")
     return state, {"fps": fps, "ate_mm": ate * 1000,
@@ -2547,6 +2595,501 @@ def phase_dense(device, gpu_line):
           f"{out['step']['ate_mm']:.3f} mm, {out['mesh']['triangles']} "
           f"triangles; wall {out['wall_s']:.1f} s; on {gpu_line}")
     return out
+
+
+# phase 10: the graphed step (engine.make_step)
+GRAPH_SYNC_FRAME = 11       # host syncs counted; solve6's systems recorded
+GRAPH_BUSY_FRAMES = 3       # frames profiled for the device's busy share
+F64_OPS_PER_S = 34e12       # H100 SXM f64 outside the tensor cores (data
+#                             sheet, at 700 W)
+SOLVE6_BANK = 48            # systems of each kind in solve6's bank
+
+
+def _maps_equal(a, b):
+    """Every field of two maps bit-equal."""
+    return all(_bits_equal(x, y) for x, y in zip(a, b))
+
+
+def _pool_ptrs(m):
+    return (m.sdf.data_ptr(), m.weight.data_ptr(), m.color.data_ptr())
+
+
+def _timed_call(fn):
+    """``fn()`` between two CUDA events; returns (result, (start, end))."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    return out, (a, b)
+
+
+def _fps(events, frames):
+    return len(frames) / (sum(events[i][0].elapsed_time(events[i][1])
+                              for i in frames) / 1000.0)
+
+
+@contextlib.contextmanager
+def _recorded_solves(out):
+    """Append (a, b) of every ``tracking`` 6x6 solve inside the block."""
+    from voxelhashing_tpu_torch import tracking
+    solve = tracking.solve6
+
+    def record(a, b, cond_thres):
+        out.append((a.clone(), b.clone()))
+        return solve(a, b, cond_thres)
+
+    tracking.solve6 = record
+    try:
+        yield out
+    finally:
+        tracking.solve6 = solve
+
+
+def _graph_vs_eager(device, gpu_line):
+    """(a), the check: phase 1's 20 frames through ``make_step`` and twice
+    through the eager step, in lockstep from the same start; every frame's
+    pose, valid flag and map compared. Returns the numbers and frame 11's
+    solve systems."""
+    import torch
+    from voxelhashing_tpu_torch import engine
+
+    cfg = _config()
+    _, depth, color = _frames(cfg.camera, device)
+    e1, e2, g = (engine.create(cfg, device=device) for _ in range(3))
+    step = engine.make_step(cfg, donate=True)
+    ev_e, ev_g, per_frame, systems = [], [], [], []
+    ptrs, det_diff, graph_diff, sites = None, [], [], None
+    torch.cuda.synchronize()
+    _zero_counts()
+    for i in range(N_FRAMES):
+        (e1, d1), t = _timed_call(
+            lambda: engine.step(e1, depth[i], color[i], cfg))
+        ev_e.append(t)
+        ctx = (_recorded_solves(systems) if i == GRAPH_SYNC_FRAME
+               else contextlib.nullcontext())
+        with ctx:
+            e2, d2 = engine.step(e2, depth[i], color[i], cfg)
+        c0 = _counts()
+        ctx = (_sync_sites() if i == GRAPH_SYNC_FRAME
+               else contextlib.nullcontext())
+        with ctx as counted:
+            (g, dg), t = _timed_call(lambda: step(g, depth[i], color[i]))
+        ev_g.append(t)
+        if counted is not None:
+            sites = counted
+        c1 = _counts()
+        per_frame.append({k: c1[k] - c0[k] for k in c1})
+        if i == 1:
+            ptrs = _pool_ptrs(g.map)
+        if not (_maps_equal(e1.map, e2.map) and _bits_equal(e1.pose, e2.pose)
+                and bool(d1.tracking_valid) == bool(d2.tracking_valid)):
+            det_diff.append(i)
+        if not (_maps_equal(e1.map, g.map) and _bits_equal(e1.pose, g.pose)
+                and bool(d1.tracking_valid) == bool(dg.tracking_valid)
+                and all(_bits_equal(torch.nan_to_num(x), torch.nan_to_num(y))
+                        for x, y in zip(d1, dg))):
+            graph_diff.append(i)
+    torch.cuda.synchronize()
+    timed = range(2, N_FRAMES)
+    steady = [i for i in timed if i != cfg.map.gc_starve_interval]
+    out = {"fps_eager": _fps(ev_e, timed), "fps_graph": _fps(ev_g, timed),
+           "fps_eager_steady": _fps(ev_e, steady),
+           "fps_graph_steady": _fps(ev_g, steady),
+           "det_diff": det_diff, "graph_diff": graph_diff,
+           "syncs": sum(sites.values()), "sites": sites,
+           "per_frame": per_frame, "ptrs_kept": _pool_ptrs(g.map) == ptrs,
+           "pool_bytes": step.pool_bytes_adopted,
+           "small_bytes": step.bytes_adopted,
+           "graphs": {k: (v.nodes, v.capture_ms)
+                      for k, v in step.graphs.items()}}
+    step.close()
+    del e1, e2, g, step
+    return out, systems
+
+
+def _graph_alone(device, gpu_line):
+    """(a), the measurement: 20 frames of ``make_step`` alone from a fresh
+    state: fused frames/s (CUDA events) over the frames that capture
+    nothing and run unprofiled (2-16 but 15, the first starve frame), the
+    graphs' peak memory, and the device's busy share: torch.profiler's
+    kernel time over frames 17-19 against the unprofiled wall time (host
+    clock, synchronized) of frames 10-12."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from voxelhashing_tpu_torch import engine
+
+    cfg = _config()
+    _, depth, color = _frames(cfg.camera, device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    state = engine.create(cfg, device=device)
+    step = engine.make_step(cfg, donate=True)
+    n_busy = GRAPH_BUSY_FRAMES
+    walled = range(10, 10 + n_busy)
+    profiled = range(N_FRAMES - n_busy, N_FRAMES)
+    starve = cfg.map.gc_starve_interval
+    timed = [i for i in range(2, profiled[0]) if i != starve]
+    events, wall_ms, prof = [], 0.0, None
+    for i in range(N_FRAMES):
+        if i in (walled[0], walled[-1] + 1, profiled[0]):
+            torch.cuda.synchronize()
+        if i == walled[0]:
+            t0 = time.perf_counter()
+        if i == walled[-1] + 1:
+            wall_ms = 1000 * (time.perf_counter() - t0)
+        if i == profiled[0]:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        (state, _), t = _timed_call(lambda: step(state, depth[i], color[i]))
+        events.append(t)
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in ops) / 1000 / n_busy
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    reserved = torch.cuda.memory_reserved()
+    map_bytes = sum(t.numel() * t.element_size() for t in state.map)
+    out = {"fps": _fps(events, timed), "timed": timed,
+           "busy": dev_ms / (wall_ms / n_busy), "dev_ms": dev_ms,
+           "wall_ms": wall_ms / n_busy, "device_ops": len(ops) / n_busy,
+           "peak": peak, "reserved": reserved, "map_bytes": map_bytes}
+    step.close()
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _solve6_check(systems, gpu_line):
+    """(b): the kernel against its plain version on frame 11's systems, on
+    the seeded bank and on a non-finite system; its bare time at the
+    step's shape (one system a launch), its sweeps and bound."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch.ops import solve6 as s6
+
+    thres = _config().tracker.cond_thres
+    dev = systems[0][0].device
+    fa = torch.stack([a for a, _ in systems])
+    fb = torch.stack([b for _, b in systems])
+    ba, bb, _ = s6.system_bank(seed=7, n_per_kind=SOLVE6_BANK,
+                               cond_thres=thres)
+    bad, x_errs = [], {}
+    for label, a, b in (("frame 11", fa, fb),
+                        ("bank", torch.from_numpy(ba).to(dev),
+                         torch.from_numpy(bb).to(dev))):
+        got = tuple(t.cpu().numpy() for t in s6.solve6(a, b, thres))
+        ref = tuple(t.cpu().numpy() for t in s6.solve6_plain(a, b, thres))
+        a64 = a.cpu().double().numpy()
+        s64 = np.linalg.svd(a64, compute_uv=False)
+        c64 = s64[:, 0] / np.maximum(s64[:, -1], 1e-20)
+        dis = s6.disagreements(ref, got, c64, thres)
+        ok = ~got[2]
+        c_err = float(np.max(np.abs(got[1][ok] - c64[ok]) / c64[ok])) \
+            if ok.any() else 0.0
+        x_err = x_errs[label] = float(np.max(np.abs(got[0] - ref[0])))
+        print(f"solve6 ({label}): {len(c64)} systems, {int(got[2].sum())} "
+              f"degenerate (plain {int(ref[2].sum())}), outside the bounds "
+              f"{len(dis)}, max |dx| {x_err:.3e}, cond within "
+              f"{c_err:.3e} of an f64 SVD's (limit 1e-4); cond "
+              f"{float(c64.min()):.3e}-{float(c64.max()):.3e}")
+        if dis or c_err > 1e-4:
+            bad.append((label, dis[:5], c_err))
+    nan_a = fa[0].clone()
+    nan_a[1, 2] = float("nan")
+    x, _, degen = s6.solve6(nan_a, fb[0], thres)
+    xp, _, dp = s6.solve6_plain(nan_a, fb[0], thres)
+    nan_ok = bool(degen) and bool(dp) and not bool(torch.any(x != 0)) \
+        and bool(torch.equal(x, xp))
+    print(f"solve6 (non-finite system): degenerate {bool(degen)} (plain "
+          f"{bool(dp)}), x all zero {not bool(torch.any(x != 0))}")
+    if bad or not nan_ok:
+        raise RuntimeError(f"solve6 against its plain version: {bad}, "
+                           f"non-finite {nan_ok}")
+
+    a1, b1 = systems[0]
+    args, _ = s6.prepare(a1, b1, thres)
+    bare = _bare_ms(lambda: s6.launch(args))
+    args18, _ = s6.prepare(fa, fb, thres)
+    bare18 = _bare_ms(lambda: s6.launch(args18))
+    sweeps = torch.zeros(len(systems), dtype=torch.int32, device=dev)
+    args_s, _ = s6.prepare(fa, fb, thres, sweeps=sweeps)
+    s6.launch(args_s)
+    sw = sweeps.cpu().tolist()
+    plain = _median_ms(lambda: s6.solve6_plain(a1, b1, thres))
+    wrapper = _median_ms(lambda: s6.solve6(a1, b1, thres))
+    nbytes = s6.bytes_moved(1)
+    nops = s6.operations([float(np.mean(sw))])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F64_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"solve6 timing: bare {bare:.4f} ms a launch of one system "
+          f"({BARE_LAUNCHES} launches in one CUDA graph), {bare18:.4f} ms "
+          f"for frame 11's {len(systems)} systems in one launch; plain "
+          f"{plain:.4f} ms a system (torch.linalg.svd, its host reads "
+          f"included); Jacobi sweeps on frame 11 {sw}; {nbytes} B and "
+          f"{nops} f64 operations a system: bound {bound:.2e} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({t_bytes:.2e} "
+          f"ms at 3.35 TB/s, {t_ops:.2e} ms at 34 TFLOP/s): launch-bound; "
+          f"on {gpu_line}")
+    return {"ms": bare, "batch_ms": bare18, "plain_ms": plain,
+            "wrapper_ms": wrapper,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "sweeps": sw, "bytes": nbytes, "operations": nops,
+            "max_abs_err": x_errs["frame 11"], "bank_max_abs_err":
+            x_errs["bank"], "per_frame": len(systems)}
+
+
+def _graph_rgbd(mode, device, gpu_line):
+    """(c): 20 frames of phase 6's configuration through ``make_step``:
+    ATE, valid frames, the host syncs of frame 11, fused frames/s."""
+    import torch
+    from voxelhashing_tpu_torch import engine, evaluation
+
+    cfg = _rgbd_config(mode)
+    poses, depth, color = _frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    step = engine.make_step(cfg)
+    events, est, valid, sites = [], [], [], None
+    torch.cuda.synchronize()
+    _zero_counts()
+    for i in range(N_FRAMES):
+        ctx = (_sync_sites() if i == GRAPH_SYNC_FRAME
+               else contextlib.nullcontext())
+        with ctx as counted:
+            (state, diag), t = _timed_call(
+                lambda: step(state, depth[i], color[i]))
+        if counted is not None:
+            sites = counted
+        events.append(t)
+        est.append(state.pose.clone())
+        valid.append(diag.tracking_valid)
+    torch.cuda.synchronize()
+    counts = _counts()
+    valid = [bool(v) for v in valid]
+    ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
+                              align=False)
+    out = {"fps": _fps(events, range(2, N_FRAMES)), "ate_mm": ate * 1000,
+           "valid": sum(valid), "syncs": sum(sites.values()),
+           "sites": sites, "counts": counts}
+    step.close()
+    return out
+
+
+def _graph_scan(device, gpu_line):
+    """(d): the large scan's outward leg (96 frames, GT replay) through
+    ``make_step(with_hint=True, with_stream_mask=True)`` with
+    ``AsyncStreamingManager``: frames/s (step and streaming step, CUDA
+    events, frames 2-95 but the counted one), the step's host syncs of
+    frame 48 apart from the manager's, the bytes adopted a frame."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap, engine, streaming
+    from voxelhashing_tpu_torch.io.synthetic import render_depth
+
+    cfg = _large_scan_config()
+    scene = _corridor()
+    poses = _large_scan_poses()[:LS_OUT]
+    frames = [render_depth(p, cfg.camera, scene, noise_sigma=0.002, seed=i,
+                           device=device) for i, p in enumerate(poses)]
+    depth = torch.stack([torch.nan_to_num(f[0], nan=0.0) for f in frames])
+    color = torch.stack([f[1] for f in frames])
+    del frames
+    mgr = streaming.AsyncStreamingManager(cfg.map, cfg.streaming,
+                                          device=device)
+    state = engine.create(cfg, initial_pose=poses[0], device=device)
+    step = engine.make_step(cfg, with_hint=True, with_stream_mask=True)
+    events, step_sites, mgr_sites = [], None, None
+    torch.cuda.synchronize()
+    _zero_counts()
+    try:
+        for i, pose in enumerate(poses):
+            ctx = (_sync_sites() if i == LS_SYNC_FRAME
+                   else contextlib.nullcontext())
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            with ctx as counted:
+                state, _ = step(state, depth[i], color[i], pose, mgr.bitmask)
+            if counted is not None:
+                step_sites = counted
+            ctx = (_sync_sites() if i == LS_SYNC_FRAME
+                   else contextlib.nullcontext())
+            with ctx as counted:
+                state = state._replace(map=mgr.step(state.map, pose[:3, 3]))
+            if counted is not None:
+                mgr_sites = counted
+            b.record()
+            events.append((a, b))
+        mgr.flush()
+        torch.cuda.synchronize()
+        counts = _counts()
+        host = mgr.host_block_count()
+        viol = blockmap.check_invariants(state.map, cfg.map)
+    finally:
+        mgr.close()
+    timed = [i for i in range(2, LS_OUT) if i != LS_SYNC_FRAME]
+    out = {"fps": _fps(events, timed), "syncs": sum(step_sites.values()),
+           "sites": step_sites, "mgr_syncs": sum(mgr_sites.values()),
+           "mgr_sites": mgr_sites, "host_blocks": host, "invariants": viol,
+           "bytes_per_frame": step.bytes_adopted / (LS_OUT - 1),
+           "pool_bytes": step.pool_bytes_adopted, "counts": counts}
+    step.close()
+    return out
+
+
+def _graph_maintain(device, gpu_line):
+    """(e): phase 1's frames at a 65,536-block pool and table with empty
+    blocks put behind the wall after frame 1 (9,000 keys, z 2.69-2.98 m):
+    GC culls them and their tombstones pass 1/8 of the table, so
+    ``compact_pool`` runs between two replays and the step takes the
+    compacted map into its buffers. Every frame's map and pose equal the
+    eager step's."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import blockmap, engine, geometry as geom
+
+    base = _config()
+    cfg = dataclasses.replace(base, map=dataclasses.replace(
+        base.map, num_blocks=1 << 16, table_size=1 << 16,
+        max_active_blocks=1 << 16))
+    mp = cfg.map
+    _, depth, color = _frames(cfg.camera, device)
+    vox = mp.block_size_world
+    z0 = int(2.69 / vox)
+    blocks = torch.stack(torch.meshgrid(
+        torch.arange(-15, 15), torch.arange(-15, 15),
+        torch.arange(z0, z0 + 10), indexing="ij"), dim=-1).reshape(-1, 3)
+    keys = geom.pack_block_key(blocks.to(torch.int32).to(device),
+                               mp.world_blocks)
+    e = engine.create(cfg, device=device)
+    g = engine.create(cfg, device=device)
+    step = engine.make_step(cfg)
+    compactions, diff, n_garbage = [], [], 0
+    for i in range(N_FRAMES):
+        if i == 2:
+            me, n = blockmap.allocate(e.map, keys, mp, rounds=16)
+            mg, _ = blockmap.allocate(g.map, keys, mp, rounds=16)
+            e, g, n_garbage = e._replace(map=me), g._replace(map=mg), int(n)
+        before = int(e.map.n_tombstones)
+        e, _ = engine.step(e, depth[i], color[i], cfg)
+        g, _ = step(g, depth[i], color[i])
+        if int(e.map.n_tombstones) < before:
+            compactions.append(i)
+        if not (_maps_equal(e.map, g.map) and _bits_equal(e.pose, g.pose)):
+            diff.append(i)
+    out = {"garbage": n_garbage, "compactions": compactions, "diff": diff,
+           "pool_bytes": step.pool_bytes_adopted}
+    step.close()
+    return out
+
+
+def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
+    """Phase 10: ``engine.make_step`` (see the module docstring). Returns
+    its numbers and each path's launch counts."""
+    t0 = time.perf_counter()
+    cfg = _config()
+    a, systems = _graph_vs_eager(device, gpu_line)
+    names = ("fused_integrate", "splat_zbuf", "solve6")
+    counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
+    every = {k: [f[k] for f in a["per_frame"]] for k in names}
+    print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
+          f"the eager step in lockstep: frames where eager differs from "
+          f"eager {a['det_diff']}, where the graphs differ from eager "
+          f"{a['graph_diff']}; host syncs of tracked frame "
+          f"{GRAPH_SYNC_FRAME} {a['syncs']} ({_sites_line(a['sites'])}); "
+          f"pool kept from frame 1 on {a['ptrs_kept']}, pool bytes copied "
+          f"in {a['pool_bytes']}, other state bytes copied in "
+          f"{a['small_bytes']} (the first adoption); launches a frame "
+          f"{every}")
+    print(f"graph (a): fused frames/s (frames 2-{N_FRAMES - 1}, CUDA events "
+          f"around each call, in lockstep) graphs {a['fps_graph']:.3f}, "
+          f"eager {a['fps_eager']:.3f} (phase 1 {phase1_fps:.3f}); but "
+          f"frame {cfg.map.gc_starve_interval} (the starve graph's "
+          f"capture) graphs {a['fps_graph_steady']:.3f}, eager "
+          f"{a['fps_eager_steady']:.3f}; on {gpu_line}")
+    for key, (nodes, ms) in sorted(a["graphs"].items()):
+        print(f"graph (a): graph {key!r}: {nodes} nodes, captured in "
+              f"{ms:.1f} ms (its front warm-up included)")
+    alone = _graph_alone(device, gpu_line)
+    print(f"graph (a), alone: {alone['fps']:.3f} fused frames/s (frames "
+          f"{alone['timed'][0]}-{alone['timed'][-1]} but "
+          f"{cfg.map.gc_starve_interval}, CUDA events); device "
+          f"{alone['dev_ms']:.3f} ms of kernels and "
+          f"{alone['device_ops']:.0f} device ops a frame (torch.profiler, "
+          f"frames {N_FRAMES - GRAPH_BUSY_FRAMES}-{N_FRAMES - 1}), "
+          f"{alone['wall_ms']:.3f} ms wall a frame unprofiled (frames "
+          f"10-{9 + GRAPH_BUSY_FRAMES}): busy "
+          f"{100 * alone['busy']:.1f}%; peak memory {alone['peak']} B "
+          f"allocated (the map {alone['map_bytes']} B), "
+          f"{alone['reserved']} B reserved with the graphs' pool; on "
+          f"{gpu_line}")
+    s6 = _solve6_check(systems, gpu_line)
+    rgbd = {}
+    for mode in ("splat", "march"):
+        r = _graph_rgbd(mode, device, gpu_line)
+        rgbd[mode] = r
+        print(f"graph (c) {mode} + RGB-D: ATE {r['ate_mm']:.3f} mm, valid "
+              f"{r['valid']} of {N_FRAMES}, host syncs of frame "
+              f"{GRAPH_SYNC_FRAME} {r['syncs']} ({_sites_line(r['sites'])})"
+              f", {r['fps']:.3f} fused frames/s (phase 6 eager "
+              f"{rgbd_fps[mode]:.3f}), counts {r['counts']}; on {gpu_line}")
+    scan = _graph_scan(device, gpu_line)
+    print(f"graph (d) large scan, outward leg, GT replay, streamed: "
+          f"{scan['fps']:.3f} frames/s (phase 5 streamed, eager "
+          f"{scan_fps:.3f}); host syncs of frame {LS_SYNC_FRAME} in "
+          f"make_step {scan['syncs']} ({_sites_line(scan['sites'])}), in "
+          f"the manager {scan['mgr_syncs']} "
+          f"({_sites_line(scan['mgr_sites'])}); host blocks "
+          f"{scan['host_blocks']}; state bytes copied in a frame "
+          f"{scan['bytes_per_frame']:.0f} (pool {scan['pool_bytes']}); "
+          f"invariants {scan['invariants']}; counts {scan['counts']}; on "
+          f"{gpu_line}")
+    mnt = _graph_maintain(device, gpu_line)
+    print(f"graph (e) forced maintain: {mnt['garbage']} empty blocks put "
+          f"behind the wall after frame 1, compact_pool at frames "
+          f"{mnt['compactions']}, pool bytes copied in after it "
+          f"{mnt['pool_bytes']}, frames differing from eager {mnt['diff']}")
+    wall = time.perf_counter() - t0
+    print(f"phase 10: wall {wall:.1f} s")
+
+    fails = []
+    if a["graph_diff"] and a["graph_diff"] != a["det_diff"]:
+        fails.append(f"graphs differ from eager at {a['graph_diff']}")
+    if a["syncs"] != 2:
+        fails.append(f"{a['syncs']} host syncs in a tracked frame")
+    if not a["ptrs_kept"] or a["pool_bytes"]:
+        fails.append("the pool moved or was copied in")
+    want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": _solves(cfg)}
+    if any(f[k] != (0 if (i == 0 and k == "solve6") else v)
+           for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
+        fails.append(f"launches a frame {every}")
+    if any(v for k, v in counts.items() if k.startswith("plain")):
+        fails.append(f"a plain version ran on the card: {counts}")
+    for mode, r in rgbd.items():
+        c = r["counts"]
+        if r["ate_mm"] >= ATE_LIMIT_M * 1000 or r["valid"] != N_FRAMES \
+                or r["syncs"] != 2 or c["fused_integrate"] != N_FRAMES \
+                or c["solve6"] != _solves(cfg) * (N_FRAMES - 1) \
+                or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
+                                             else 0):
+            fails.append(f"{mode} + RGB-D: {r}")
+    if scan["syncs"] != 1 or scan["host_blocks"] <= 0 or scan["pool_bytes"] \
+            or any(v != 0 for v in scan["invariants"].values()) \
+            or scan["counts"]["fused_integrate"] != LS_OUT \
+            or scan["counts"]["splat_zbuf"] != LS_OUT:
+        fails.append(f"large scan: {scan}")
+    if not mnt["compactions"] or mnt["diff"] or not mnt["pool_bytes"]:
+        fails.append(f"forced maintain: {mnt}")
+    if fails:
+        raise RuntimeError("phase 10: " + "; ".join(fails))
+    return {"a": a, "alone": alone, "solve6": s6, "rgbd": rgbd,
+            "scan": scan, "maintain": mnt, "wall_s": wall,
+            "counts": counts}
 
 
 def _kernel_entry(res, launches):
@@ -2751,9 +3294,12 @@ def main() -> int:
     res_bl, bl_counts = phase_bilinear(device, gpu_line)
     shard = phase_sharded(device, gpu_line, slam["graph"])
     dense = phase_dense(device, gpu_line)
+    fps_s, fps_u = scan["fps"]
+    graph = phase_graph(device, gpu_line, fps,
+                        {m: r["fps"] for m, r in rgbd.items()}, fps_s)
 
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
-             "fused_integrate_bilinear", "frame_color_words")
+             "fused_integrate_bilinear", "frame_color_words", "solve6")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -2763,7 +3309,11 @@ def main() -> int:
                       **{path: c[name]
                          for path, c in shard["counts"].items()},
                       "dense_step": dense["step"]["counts"][name],
-                      "dense_oracle": dense["oracle"]["counts"][name]}
+                      "dense_oracle": dense["oracle"]["counts"][name],
+                      "graph_step": graph["counts"][name],
+                      **{f"graph_{mode}_rgbd": r["counts"][name]
+                         for mode, r in graph["rgbd"].items()},
+                      "graph_large_scan": graph["scan"]["counts"][name]}
                for name in names}
     kernels = []
     for name, key, res, source, replaces, path, globals_ in (
@@ -2805,7 +3355,17 @@ def main() -> int:
             entry["large_scan"] = _kernel_entry(
                 scan[key], {k: v[name] for k, v in scan["launches"].items()})
         kernels.append(entry)
-    fps_s, fps_u = scan["fps"]
+    # the tracker's 6x6 solve; no TPU kernel: the XLA SVD of
+    # voxelhashing_tpu/tracking.py:339
+    kernels.append({
+        "name": "solve6", "route": "cuda",
+        "source": "voxelhashing_tpu_torch/csrc/solve6.cu", "replaces": None,
+        **_kernel_entry({**graph["solve6"], "bound_share": graph["solve6"]["bound_ms"]
+                         / graph["solve6"]["ms"], "profiler_ms": None,
+                         "rows": 1}, by_path["solve6"]["step"]),
+        "kernels": ["solve6_kernel"], "batch_ms": graph["solve6"]["batch_ms"],
+        "sweeps": graph["solve6"]["sweeps"],
+        "launches_by_path": by_path["solve6"]})
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
           f"large_scan_fps_unstreamed={fps_u:.3f} "
@@ -2832,7 +3392,17 @@ def main() -> int:
           f"dense_integrate_ms={dense['integrate']['ms']:.4f} "
           f"dense_fps={dense['step']['fps']:.3f} "
           f"dense_ate_mm={dense['step']['ate_mm']:.3f} "
-          f"dense_triangles={dense['mesh']['triangles']}; on {gpu_line}")
+          f"dense_triangles={dense['mesh']['triangles']} "
+          f"graph_fps={graph['alone']['fps']:.3f} "
+          f"graph_lockstep_fps={graph['a']['fps_graph']:.3f} "
+          f"eager_lockstep_fps={graph['a']['fps_eager']:.3f} "
+          f"graph_busy={100 * graph['alone']['busy']:.1f}% "
+          f"graph_syncs={graph['a']['syncs']} "
+          f"graph_splat_rgbd_fps={graph['rgbd']['splat']['fps']:.3f} "
+          f"graph_march_rgbd_fps={graph['rgbd']['march']['fps']:.3f} "
+          f"graph_scan_fps={graph['scan']['fps']:.3f} "
+          f"solve6_ms={graph['solve6']['ms']:.4f} "
+          f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -284,7 +284,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, voxelhashing_tpu_torch.engine, "
             "voxelhashing_tpu_torch.convert, voxelhashing_tpu_torch.ops."
             "fused_integrate, voxelhashing_tpu_torch.ops.splat_zbuf, "
-            "voxelhashing_tpu_torch.ops._build, voxelhashing_tpu_torch."
+            "voxelhashing_tpu_torch.ops._build, voxelhashing_tpu_torch.ops."
+            "solve6, voxelhashing_tpu_torch."
             "evaluation, voxelhashing_tpu_torch.io.synthetic, "
             "voxelhashing_tpu_torch.render, voxelhashing_tpu_torch.run_slam, "
             "voxelhashing_tpu_torch.posegraph, voxelhashing_tpu_torch."

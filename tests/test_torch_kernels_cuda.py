@@ -5,7 +5,10 @@ they skip without one). On a machine with a card:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance on the card: bit-equal (the kernels are built with -fmad=false
-and follow the plain versions' operation order). The file imports only the
+and follow the plain versions' operation order), but for the 6x6 solve
+(``solve6.disagreements``: an f64 Jacobi against the plain version's f32
+SVD). ``engine.make_step``'s graphs on the card are bit-equal to the eager
+step and read the host twice a tracked frame. The file imports only the
 port, so it runs where the JAX package cannot.
 """
 
@@ -104,6 +107,23 @@ def test_bilinear_caps_variant_source():
                           "kRowThreads") == src
 
 
+def test_prime_runs_every_occupancy_query(monkeypatch):
+    """``_build.prime`` (run before a CUDA graph capture) loads every
+    library and calls each kernel's ``*_grid`` query."""
+    called = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda: called.append(fn)
+
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    _build.prime()
+    assert sorted(called) == sorted(
+        fn for fns in _build._SIGNATURES.values() for fn in fns
+        if fn.endswith("_grid"))
+    assert len(called) == 4
+
+
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
@@ -112,7 +132,7 @@ def test_missing_nvcc_raises(monkeypatch):
     assert _build.library_path("splat_zbuf").name.startswith(
         "libvhtorch_splat_zbuf_")
     assert {s.stem for s in _build.sources()} == {"fused_integrate",
-                                                  "splat_zbuf"}
+                                                  "solve6", "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -502,3 +522,87 @@ def test_fused_integrate_bilinear_bit_equal(cuda, frame):
         near, _ = fused_integrate(_clone(state), d, c, pose, CAM, CFG, aidx,
                                   n)
         assert bool((near.color != sk.color).any())
+
+
+@pytest.mark.cuda
+def test_solve6_kernel_matches_plain_and_f64(cuda):
+    """The kernel against its plain version on the seeded bank (within
+    ``solve6.disagreements``), cond within 1e-4 of an f64 SVD's, and a
+    non-finite system degenerate with x = 0."""
+    from voxelhashing_tpu_torch.ops import solve6 as s6
+    thres = 2.0e4
+    a, b, _ = s6.system_bank(seed=7, n_per_kind=48, cond_thres=thres)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    launches = s6.solve6.launches
+    got = tuple(t.cpu().numpy() for t in s6.solve6(ta, tb, thres))
+    assert s6.solve6.launches == launches + 1
+    ref = tuple(t.cpu().numpy() for t in s6.solve6_plain(ta, tb, thres))
+    s64 = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    c64 = s64[:, 0] / np.maximum(s64[:, -1], 1e-20)
+    assert not s6.disagreements(ref, got, c64, thres)
+    ok = ~got[2]
+    np.testing.assert_allclose(got[1][ok], c64[ok], rtol=1e-4)
+    bad = ta[0].clone()
+    bad[1, 2] = float("nan")
+    x, cond, degen = s6.solve6(bad, tb[0], thres)
+    assert bool(degen) and not bool(torch.any(x != 0))
+
+
+def _step_config():
+    from voxelhashing_tpu_torch.config import EngineConfig
+    return EngineConfig(camera=CAM, map=dataclasses.replace(
+        CFG, gc_enabled=True, gc_starve_interval=3), offline=False)
+
+
+@pytest.mark.cuda
+def test_make_step_graphs_are_the_eager_step(cuda):
+    """Eight frames through ``make_step`` on the card against eight eager
+    steps (starve frames 3 and 6 among them): the final state and the last
+    frame's diagnostics bit-equal, the same kernel launches, and two host
+    syncs in a tracked frame after the graphs are captured."""
+    import warnings
+    from voxelhashing_tpu_torch import engine
+    from voxelhashing_tpu_torch.ops import solve6 as s6
+    cfg = _step_config()
+    poses = make_trajectory(8)
+    frames = [render_depth(p, CAM, Scene(), noise_sigma=0.002, seed=i,
+                           device=cuda) for i, p in enumerate(poses)]
+    counters = ((fused_integrate, "launches"), (sb.splat_zbuf, "launches"),
+                (s6.solve6, "launches"))
+
+    def counts():
+        return [getattr(o, a) for o, a in counters]
+
+    a = engine.create(cfg, initial_pose=poses[0], device=cuda)
+    b = engine.create(cfg, initial_pose=poses[0], device=cuda)
+    step = engine.make_step(cfg)
+    c0 = counts()
+    for d, c in frames:
+        a, da = engine.step(a, d, c, cfg)
+    eager = [n - m for n, m in zip(counts(), c0)]
+    c0 = counts()
+    for i, (d, c) in enumerate(frames):
+        if i == 7:
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    b, db = step(b, d, c)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in caught
+                     if "synchronizing CUDA operation" in str(w.message)]
+            assert len(syncs) == 2, [str(w.message) for w in syncs]
+        else:
+            b, db = step(b, d, c)
+    graphed = [n - m for n, m in zip(counts(), c0)]
+    assert graphed == eager and eager[0] == 8 and eager[2] > 0
+    for x, y in zip(list(a.map) + [a.pose, a.frame, a.n_integrated],
+                    list(b.map) + [b.pose, b.frame, b.n_integrated]):
+        assert torch.equal(_bits(x), _bits(y))
+    for x, y in zip(da, db):
+        assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+    assert set(step.graphs) == {"front", "back", "back_starve"}
+    assert step.pool_bytes_adopted == 0
+    step.close()

@@ -5,7 +5,10 @@ package, which stays the reference (module and function names mirror it):
 
 * the per-frame reconstruction step (``engine.step``: preprocess ->
   compactify -> render -> ICP track -> DDA alloc -> fused integrate -> GC
-  -> maintain), with the splat renderer and depth-only ICP by default;
+  -> maintain), with the splat renderer and depth-only ICP by default,
+  and ``engine.make_step``, the same step on a CUDA state as replays of
+  captured CUDA graphs (a front graph to tracking, a back graph from
+  allocation, one host read between them and one after);
 * the march renderer (``RaycastConfig(mode="march")``) and RGB-D tracking
   (``TrackerConfig(use_rgbd=True)``), with ``render`` for shaded images
   and point clouds;
@@ -32,7 +35,8 @@ package, which stays the reference (module and function names mirror it):
   it as XLA, and an oracle for kernel A's fusion.
 
 The hand-written CUDA kernels for Hopper (``ops/``, sources in
-``csrc/``), and the two TPU Pallas kernels they replace:
+``csrc/``), and the two TPU Pallas kernels they replace, where there is
+one:
 
 * kernel A, the fused TSDF integrate (``ops/fused_integrate.py``,
   ``csrc/fused_integrate.cu``), for ``voxelhashing_tpu/ops/
@@ -43,6 +47,10 @@ The hand-written CUDA kernels for Hopper (``ops/``, sources in
   ``csrc/splat_zbuf.cu``), for ``voxelhashing_tpu/ops/pallas_splat.py``
   (``pl.pallas_call`` at :188); a color render runs B's walk once with a
   64-bit (depth, index) key per voxel and a per-pixel resolve (XLA on the
+  TPU);
+* ``solve6``, the tracker's 6x6 truncated-SVD solve (``ops/solve6.py``,
+  ``csrc/solve6.cu``): one-sided Jacobi in f64 with no host read, where
+  ``torch.linalg.svd`` reads the device twice a call (an XLA SVD on the
   TPU).
 
 The port imports ``torch`` and never ``jax``, nor anything of the JAX

@@ -614,16 +614,30 @@ def maybe_rehash(state: MapState, cfg: MapConfig) -> MapState:
     return state
 
 
+def maintain_flags(state: MapState, cfg: MapConfig) -> torch.Tensor:
+    """bool[2] on the device: [tombstones past 1/8 of the table, the row
+    watermark past the allocated count by 1/16 of the pool] (no host
+    read)."""
+    n_alloc = cfg.num_blocks - state.n_free
+    return torch.stack([state.n_tombstones > cfg.table_size // 8,
+                        state.dense_upto - n_alloc > cfg.num_blocks // 16])
+
+
+def need_maintain(flags, cfg: MapConfig, frame_idx: int) -> bool:
+    """The host decision on :func:`maintain_flags` (one read of both): the
+    tombstone flag on every frame, the watermark flag on the frames that
+    are multiples of ``maintain_interval`` (``frame_idx`` is the host frame
+    counter)."""
+    tombstones, watermark = flags.tolist()
+    return bool(tombstones
+                or (watermark and frame_idx % cfg.maintain_interval == 0))
+
+
 def maybe_maintain(state: MapState, cfg: MapConfig, frame_idx: int
                    ) -> MapState:
     """Compact + rebuild when tombstones pile up or hole fragmentation has
-    pushed the row watermark past the allocated count. ``frame_idx`` is the
-    host frame counter; ``need`` costs one scalar read."""
-    n_alloc = cfg.num_blocks - state.n_free
-    need = state.n_tombstones > cfg.table_size // 8
-    if frame_idx % cfg.maintain_interval == 0:
-        need = need | (state.dense_upto - n_alloc > cfg.num_blocks // 16)
-    if bool(need):
+    pushed the row watermark past the allocated count (one host read)."""
+    if need_maintain(maintain_flags(state, cfg), cfg, frame_idx):
         return compact_pool(state, cfg)
     return state
 

@@ -4,7 +4,8 @@
 * ``alloc_candidates``: per-pixel (or per-tile, two rays) 3D-DDA through
   block space over the truncation band, neighbour-shift dedup and
   per-column fold. The DDA's ``lax.scan`` is a Python loop of
-  ``alloc_steps``; the tile phase is the host frame counter.
+  ``alloc_steps``; the tile phase is the frame counter, a host int (the
+  eager step) or a device int32 scalar (the graphed step).
 * ``integrate``: the plain PyTorch fusion pass, the reference that the
   CUDA kernel of ``ops/fused_integrate.py`` is held against; with
   ``MapConfig.bilinear_color`` the color sample is the validity-weighted
@@ -133,7 +134,9 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
 
     ``tile=1``: one DDA ray per pixel (exact, offline replay). ``tile>1``:
     two rays (min- and max-depth band) per ``tile x tile`` tile, the grid
-    origin rotated by ``phase`` (host int, the frame counter).
+    origin rotated by ``phase`` (the frame counter: a host int, or a device
+    int32 scalar, which gives the same keys with no host read: the roll is
+    then a gather and the offset an f32 add of the same small integer).
     ``model_depth``: drop pixels whose depth agrees with the model within
     half a truncation (novelty-driven online allocation).
     Returns flat int32 keys; invalid entries are INVALID_KEY.
@@ -152,7 +155,23 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
         lo = torch.where(pv, depth, torch.inf)
         hi = torch.where(pv, depth, -torch.inf)
         py = px = 0
-        if phase is not None:
+        if isinstance(phase, torch.Tensor):
+            p = phase.to(torch.int64)
+            py = torch.remainder(p, tile)
+            px = torch.remainder(torch.div(p, tile, rounding_mode="floor"),
+                                 tile)
+            rows = torch.arange(h, device=dev)
+            cols = torch.arange(w, device=dev)
+            # torch.roll by (-py, -px) as a gather
+            ridx = torch.remainder(rows + py, h)
+            cidx = torch.remainder(cols + px, w)
+            lo = lo[ridx][:, cidx]
+            hi = hi[ridx][:, cidx]
+            wrap = (rows[:, None] >= h - py) | (cols[None, :] >= w - px)
+            lo = torch.where(wrap, torch.inf, lo)
+            hi = torch.where(wrap, -torch.inf, hi)
+            px, py = px.to(torch.float32), py.to(torch.float32)
+        elif phase is not None:
             py = int(phase) % tile
             px = (int(phase) // tile) % tile
             lo = torch.roll(lo, shifts=(-py, -px), dims=(0, 1))
@@ -162,6 +181,7 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
             wrap = (rows >= h - py) | (cols >= w - px)
             lo = torch.where(wrap, torch.inf, lo)
             hi = torch.where(wrap, -torch.inf, hi)
+            px, py = float(px), float(py)
         for sl in (lambda a, o: a[:, o::tile], lambda a, o: a[o::tile, :]):
             lo = torch.amin(torch.stack([sl(lo, o) for o in range(tile)]), 0)
             hi = torch.amax(torch.stack([sl(hi, o) for o in range(tile)]), 0)
@@ -171,9 +191,9 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
         dmin = torch.where(any_v, dmin, 1.0)
         dmax = torch.where(any_v, dmax, 1.0)
         uc = (torch.arange(wt, dtype=torch.float32, device=dev) + 0.5) \
-            * tile - 0.5 + float(px)
+            * tile - 0.5 + px
         vc = (torch.arange(ht, dtype=torch.float32, device=dev) + 0.5) \
-            * tile - 0.5 + float(py)
+            * tile - 0.5 + py
         u = uc[None, :].expand(ht, wt).reshape(-1)
         v = vc[:, None].expand(ht, wt).reshape(-1)
         xn = geom.div_const(u - cam.cx, cam.fx)
@@ -394,10 +414,10 @@ def _blend_packed(old_c, new_c):
 
 
 def starve(state: MapState, active_idx, active_mask) -> MapState:
-    """Decrement every active voxel weight by 1, clamped at 0 (in place)."""
-    aidx = active_idx.long()
-    w = torch.clamp(state.weight[aidx] - 1.0, min=0.0)
-    state.weight[aidx[active_mask]] = w[active_mask]
+    """Decrement every active voxel weight by 1, clamped at 0 (in place,
+    with no host read)."""
+    w = torch.clamp(state.weight[active_idx.long()] - 1.0, min=0.0)
+    blockmap.set_rows_(state.weight, active_idx, w, active_mask)
     return state
 
 

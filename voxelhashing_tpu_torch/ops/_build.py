@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # exported functions of each library: argument types (all return int)
 _SIGNATURES = {
     "fused_integrate": {
@@ -48,6 +49,9 @@ _SIGNATURES = {
         "vh_splat_zbuf_grid": [],
         "vh_splat_zbuf_color": [_P] * 10 + [_I] * 3 + [_F] * 7 + [_I, _P],
         "vh_splat_zbuf_color_grid": [],
+    },
+    "solve6": {
+        "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
     },
 }
 
@@ -115,6 +119,17 @@ def library(name: str) -> ctypes.CDLL:
     lib.vh_error_string.argtypes = [ctypes.c_int]
     lib.vh_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def prime() -> None:
+    """Load every library and run each kernel's occupancy query (which
+    loads its module on the card), so that no first-use set-up falls
+    inside a CUDA graph capture."""
+    for name, fns in _SIGNATURES.items():
+        lib = library(name)
+        for fn in fns:
+            if fn.endswith("_grid"):
+                getattr(lib, fn)()
 
 
 def check(rc: int, what: str) -> None:

@@ -1,6 +1,6 @@
 """Offline SLAM entry point of the PyTorch port: a sequence (synthetic, a TUM
 directory, an mLib ``.sensor`` dump, or one or more ``.sens`` files)
-through ``engine.step``, with optional RGB-D tracking, streaming, the
+through ``engine.make_step``, with optional RGB-D tracking, streaming, the
 keyframe pose graph with loop closure, relocalization and re-integration
 under the corrected trajectory, per-frame renders, diagnostics, whole-scene
 mesh, point cloud, checkpoints and recording.
@@ -265,7 +265,7 @@ class SlamRun:
     caller can drive the loop frame by frame."""
 
     def __init__(self, args, cfg: EngineConfig, device):
-        from . import diagnostics, posegraph, render, streaming
+        from . import diagnostics, engine, posegraph, render, streaming
         self.args, self.cfg, self.device = args, cfg, device
         self.use_hint = args.gt or args.gt_init
         self.timing = diagnostics.TimingLog()
@@ -283,6 +283,10 @@ class SlamRun:
         self.rtf = (render.RenderToFile(args.render_dir) if args.render_dir
                     else None)
         self.state = None
+        # the step of every live frame (CUDA graphs on the card; it owns
+        # the state's tensors, which it updates in place)
+        self.step = engine.make_step(
+            cfg, with_hint=self.use_hint, with_stream_mask=args.streaming)
         self.est, self.gts = [], []
         self.lost_streak = 0
 
@@ -314,9 +318,9 @@ class SlamRun:
         hint = None
         if self.use_hint:
             hint = gt_pose if gt_pose is not None else self.state.pose
-        self.state, diag = engine.step(
-            self.state, d0, c, cfg, pose_hint=hint,
-            stream_bitmask=None if self.mgr is None else self.mgr.bitmask)
+        extra = (() if hint is None else (hint,)) + (
+            () if self.mgr is None else (self.mgr.bitmask,))
+        self.state, diag = self.step(self.state, d0, c, *extra)
         self.timing.stop("step", sync=self.state.pose)
         host = _to_host(diag, self.state.pose)
         dh = host.diag
@@ -402,10 +406,15 @@ class SlamRun:
 
     def reintegrate(self) -> None:
         """Rebuild the map from the kept frames under the corrected
-        trajectory: a fresh engine and one trajectory-replay
-        ``engine.step`` per frame (kernels A and B on each)."""
+        trajectory: a fresh engine and one trajectory-replay frame of
+        ``engine.make_step(with_hint=True)`` per frame (kernels A and B on
+        each). Ends the live step: the re-integrated map replaces its
+        state."""
         from . import engine, posegraph
         ri_cfg = dataclasses.replace(self.cfg, use_trajectory=True)
+        self.step.close()
+        self.state = None               # frees the live map first
+        ri_step = engine.make_step(ri_cfg, with_hint=True)
 
         def make_state():
             return engine.create(ri_cfg, initial_pose=self.est[0],
@@ -415,12 +424,12 @@ class SlamRun:
             if c is None:
                 c = torch.zeros(d.shape + (3,), dtype=torch.float32,
                                 device=d.device)
-            s2, _ = engine.step(s, d, c, ri_cfg,
-                                pose_hint=np.asarray(p, np.float32))
+            s2, _ = ri_step(s, d, c, np.asarray(p, np.float32))
             return s2
 
         self.state = posegraph.reintegrate(self.rec_frames, self.est,
                                            ri_cfg, make_state, integrate_fn)
+        ri_step.close()
         print(f"re-integrated {len(self.rec_frames)} frames under the "
               f"corrected trajectory")
 
@@ -439,6 +448,7 @@ class SlamRun:
         print(f"recorded {len(self.rec_frames)} frames -> {path}")
 
     def close(self) -> None:
+        self.step.close()
         if self.mgr is not None and hasattr(self.mgr, "close"):
             self.mgr.close()
 

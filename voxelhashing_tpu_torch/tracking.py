@@ -11,8 +11,9 @@ whitened parametrization, and the planarity gate and probe are off.
 The JAX tracker skips a converged level's outer iterations with
 ``lax.cond``; here every iteration runs and a level that was already done
 keeps its carry unchanged (the masked form), which gives identical results
-without reading the device. ``torch.linalg.svd`` may synchronise with the
-host on CUDA; removing that is later work.
+without reading the device. The 6x6 solve is ``ops/solve6`` (a kernel on
+CUDA, ``torch.linalg.svd`` on the CPU), so tracking reads nothing on the
+host and can be captured in a CUDA graph.
 
 ``reduce_fn`` (the multi-device step, ``parallel/sharded.py``) reduces
 each tuple of partial sums across ranks at JAX's points: the whitening
@@ -31,6 +32,7 @@ import torch
 from .config import CameraConfig, TrackerConfig
 from . import geometry as geom
 from .ops.image import resample_half
+from .ops.solve6 import solve6
 
 
 class TrackingResult(NamedTuple):
@@ -213,19 +215,6 @@ def _pose_from_x_whitened(x, mean, inv_std):
     m[:3, :3] = r
     m[:3, 3] = x[3:6] / inv_std + mean - r @ mean
     return m
-
-
-def _solve6(a, b, cond_thres: float):
-    """Truncated-SVD solve of the 6x6 system with the condition gate.
-    Returns (x[6], cond, degenerate)."""
-    u, s, vt = torch.linalg.svd(a, full_matrices=False)
-    cond = s[0] / torch.clamp(s[5], min=1e-20)
-    degenerate = (s[0] <= 0.0) | (cond > cond_thres) | ~torch.all(
-        torch.isfinite(a))
-    s_min = torch.clamp(s[0] / cond_thres, min=1e-10)
-    s_inv = torch.where(s > s_min, 1.0 / s, 0.0)
-    x = vt.T @ (s_inv * (u.T @ b))
-    return torch.where(degenerate, 0.0, x), cond, degenerate
 
 
 def _check_step(x, angle_thres: float, dist_thres: float):
@@ -421,7 +410,7 @@ def track(input_points, input_normals, model_points, model_normals,
                 last_res = mean_res
                 cvals.append(torch.where(done, torch.nan, mean_res))
 
-                x, cond, degen = _solve6(a, b, cfg.cond_thres)
+                x, cond, degen = solve6(a, b, cfg.cond_thres)
                 x_phys = torch.cat([x[:3], x[3:6] / inv_std])
                 step_ok = _check_step(x_phys, cfg.angle_trans_thres[level],
                                       cfg.dist_trans_thres[level])
