@@ -118,7 +118,7 @@ and then:
    ``make_trajectory(20)`` with 2 mm noise): (a) integrate-only along the
    ground truth, ms a frame against the bound of 24 B a voxel; (b) 20
    frames of ``denseengine.make_step`` with free tracking (ATE < 50 mm,
-   every frame valid, no kernel but the tracker's 6x6 solve and no plain
+   every frame valid, no kernel but the tracker's ICP update and no plain
    kernel version launched),
    its stage times, peak memory, and the host syncs of a tracked frame
    and of a replayed one (which must be 0); (c) ``extract_mesh`` on that
@@ -133,14 +133,24 @@ and then:
    and the graphs with them on every frame (poses, valid flags, every map
    field and diagnostic bit for bit), two host syncs in tracked frame 11,
    the pool's tensors kept from frame 1 on with no pool bytes copied in,
-   and kernels A and B (and 18 solves) on every frame; reports frames/s
-   of both, each graph's nodes and capture time, then 20 frames of
+   and kernels A and B and 18 ICP updates (``icp_update``, no ``solve6``)
+   on every frame; reports frames/s of both, each graph's nodes (the
+   front graph's among them) and capture time, then 20 frames of
    ``make_step`` alone: frames/s, the device's busy share (torch.profiler)
-   and peak memory; (b) the 6x6 solve kernel (``ops/solve6``) against its
-   plain version on frame 11's 18 systems, on a seeded bank (well- and
-   ill-conditioned, rank 3) and on a non-finite system
-   (``solve6.disagreements``; cond within 1e-4 of an f64 SVD), and its
-   bare time and bound; (c) phase 6's two RGB-D configurations through
+   and peak memory; (b) the ICP update kernel (``ops/icp_update``, one
+   launch a solve) against its plain version on frame 11's 18 updates
+   (recorded from the eager step, each from the carry before it) and on
+   a seeded bank of updates with every flag path
+   (``icp_update.disagreements``: flags, counts and residuals equal, x
+   and cond within ``solve6.disagreements``, delta within 4e-6 plus the
+   solve's difference carried through the pose, nothing held within 1e-6
+   of a threshold); its bare time (100 launches in one CUDA graph) beside
+   an empty kernel's node timed the same way, its bound, the wrapper's
+   and the plain tail's times; and its core batched (``ops/solve6``)
+   against the plain SVD on frame 11's 18 systems, on a seeded bank
+   (well- and ill-conditioned, rank 3) and on a non-finite system
+   (``solve6.disagreements``; cond within 1e-4 of an f64 SVD), with its
+   bare time, bound and ``torch.linalg.svd``'s time; (c) phase 6's two RGB-D configurations through
    ``make_step`` (ATE < 10 mm, every frame valid, two host syncs in a
    tracked frame); (d) the large scan's outward leg through
    ``make_step(with_hint=True, with_stream_mask=True)`` with
@@ -398,10 +408,14 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
-    if launches.get("solve6", 0) != _solves(cfg) * (N_FRAMES - 1) \
-            and hasattr(_counters()[-2][1], "launches"):
-        raise RuntimeError(f"solve6 launched {launches['solve6']} times, "
-                           f"expected {_solves(cfg)} per tracked frame")
+    has_update = hasattr(dict((n, f) for n, f, _ in _counters())
+                         ["icp_update"], "launches")
+    if has_update and (launches["icp_update"] != _solves(cfg) * (N_FRAMES - 1)
+                       or launches["solve6"] != 0):
+        raise RuntimeError(f"icp_update launched {launches['icp_update']} "
+                           f"times, expected {_solves(cfg)} per tracked "
+                           f"frame, and solve6 {launches['solve6']}, "
+                           f"expected 0")
     if (launches["splat_zbuf_color"] != 0
             or launches["fused_integrate_bilinear"]
             or launches["frame_color_words"]
@@ -1315,6 +1329,10 @@ def _counters():
         from voxelhashing_tpu_torch.ops import solve6 as s6
     except ImportError:                     # a checkout before the kernel
         s6 = None
+    try:
+        from voxelhashing_tpu_torch.ops import icp_update as iu
+    except ImportError:                     # a checkout before the kernel
+        iu = None
     return (("fused_integrate", fused_integrate, "launches"),
             ("fused_integrate_bilinear", fused_integrate,
              "bilinear_launches"),
@@ -1326,15 +1344,19 @@ def _counters():
             ("plain splat_zbuf on CUDA", sb.splat_zbuf_plain, "cuda_calls"),
             ("plain splat_color on CUDA", sb.splat_color_plain,
              "cuda_calls"),
+            ("icp_update", getattr(iu, "icp_update", None), "launches"),
+            ("plain icp_update on CUDA",
+             getattr(iu, "icp_update_plain", None), "cuda_calls"),
             ("solve6", getattr(s6, "solve6", None), "launches"),
             ("plain solve6 on CUDA", getattr(s6, "solve6_plain", None),
              "cuda_calls"))
 
 
 def _solves(cfg):
-    """The 6x6 solves (``solve6`` launches) of one tracked frame: one per
+    """The ICP updates (``icp_update`` launches, one 6x6 solve each) of one
+    tracked frame of ``cfg`` (an engine's or a tracker's config): one per
     inner iteration of every outer iteration of every level."""
-    t = cfg.tracker
+    t = getattr(cfg, "tracker", cfg)
     return sum(o * i for o, i in zip(t.max_outer_iter, t.max_inner_iter))
 
 
@@ -1433,7 +1455,7 @@ def phase_rgbd(mode, device, gpu_line):
     want = {name: 0 for name in counts}
     want["fused_integrate"] = N_FRAMES
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
-    want["solve6"] = _solves(cfg) * (N_FRAMES - 1)
+    want["icp_update"] = _solves(cfg) * (N_FRAMES - 1)
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -1574,6 +1596,10 @@ def phase_slam(device, gpu_line):
         torch.cuda.synchronize()
         live_s = time.perf_counter() - t0
         live = _counts()
+        # every live frame but the first tracks, and so does every
+        # keyframe registration
+        want_updates = (_solves(cfg) * (n - 1)
+                        + _solves(run.pg.tracker) * len(reg_ms))
     events = [ln for ln in log.getvalue().splitlines()
               if "loop closure" in ln or "relocalized" in ln or "LOST" in ln]
     for ln in events:
@@ -1657,9 +1683,13 @@ def phase_slam(device, gpu_line):
         raise RuntimeError(f"slam: ATE before {ate_before} m, after "
                            f"{ate_after} m")
     if any(live[k] != v for k, v in want_live.items()) \
-            or any(ri[k] != v for k, v in want_live.items()) or bad:
+            or any(ri[k] != v for k, v in want_live.items()) or bad \
+            or live["icp_update"] != want_updates or ri["icp_update"] \
+            or live["solve6"] or ri["solve6"]:
         raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
-                           f"expected {want_live} in both")
+                           f"expected {want_live} in both, icp_update "
+                           f"{want_updates} live and 0 re-integrating, "
+                           f"solve6 0")
     reloc = phase_relocalize(cfg, poses, depth, device, gpu_line)
     return {"live": live, "reintegrate": ri, "loops": n_loops,
             "ate_mm": (ate_before * 1000, ate_after * 1000),
@@ -1759,7 +1789,8 @@ def phase_bilinear(device, gpu_line):
           f"(limit {ATE_LIMIT_M * 1000} mm), counts {counts}")
     want = {"fused_integrate": 0, "fused_integrate_bilinear": N_FRAMES,
             "frame_color_words": N_FRAMES, "splat_zbuf": N_FRAMES,
-            "splat_zbuf_color": 0}
+            "splat_zbuf_color": 0,
+            "icp_update": _solves(cfg) * (N_FRAMES - 1), "solve6": 0}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
@@ -2200,7 +2231,7 @@ def phase_sharded(device, gpu_line, graph):
         for r, res in enumerate(ranks):
             exp = {name: 0 for name in res[part]["counts"]}
             exp["fused_integrate"] = n
-            exp["solve6"] = _solves(_config()) * (n - 1)
+            exp["icp_update"] = _solves(_config()) * (n - 1)
             if render:
                 exp[render] = n
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
@@ -2211,7 +2242,7 @@ def phase_sharded(device, gpu_line, graph):
                     f"{res[part]['valid']}, ATE {res[part]['ate_mm']} mm")
     exp = {name: 0 for name in nccl["counts"]}
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
-    exp["solve6"] = _solves(_config()) * (N_FRAMES - 1)
+    exp["icp_update"] = _solves(_config()) * (N_FRAMES - 1)
     if nccl["counts"] != exp or not all(nccl["valid"]) \
             or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
             or any(v != 0 for v in nccl["invariants"].values()) \
@@ -2413,11 +2444,11 @@ def _dense_step(cfg, gcfg, poses, depth, color, device, gpu_line):
     if ate >= DENSE_ATE_LIMIT_M or not all(valid):
         raise RuntimeError(f"dense step: ATE {ate} m, valid {valid}")
     want = {name: 0 for name in counts}
-    want["solve6"] = _solves(cfg) * (N_FRAMES - 1)
+    want["icp_update"] = _solves(cfg) * (N_FRAMES - 1)
     if counts != want:
         raise RuntimeError(f"the dense step launched a kernel other than "
-                           f"the tracker's solve, or a plain version on "
-                           f"the card: {counts}, expected {want}")
+                           f"the tracker's ICP update, or a plain version "
+                           f"on the card: {counts}, expected {want}")
     if sum(replayed.values()) != 0:
         raise RuntimeError(f"a replayed dense frame synced: {replayed}")
     return state, {"fps": fps, "ate_mm": ate * 1000,
@@ -2598,11 +2629,12 @@ def phase_dense(device, gpu_line):
 
 
 # phase 10: the graphed step (engine.make_step)
-GRAPH_SYNC_FRAME = 11       # host syncs counted; solve6's systems recorded
+GRAPH_SYNC_FRAME = 11       # host syncs counted; the ICP updates recorded
 GRAPH_BUSY_FRAMES = 3       # frames profiled for the device's busy share
 F64_OPS_PER_S = 34e12       # H100 SXM f64 outside the tensor cores (data
 #                             sheet, at 700 W)
 SOLVE6_BANK = 48            # systems of each kind in solve6's bank
+UPDATE_BANK = 6             # updates of each case in icp_update's bank
 
 
 def _maps_equal(a, b):
@@ -2630,28 +2662,51 @@ def _fps(events, frames):
                               for i in frames) / 1000.0)
 
 
+def _keep_strides(t):
+    """A copy of ``t`` with its strides (the tracker's a is a [6,6] view of
+    an [8,8] system)."""
+    out = t.new_zeros((t.shape[0], max(t.stride(0), t.shape[1])))
+    out = out[:, :t.shape[1]]
+    out.copy_(t)
+    return out
+
+
 @contextlib.contextmanager
-def _recorded_solves(out):
-    """Append (a, b) of every ``tracking`` 6x6 solve inside the block."""
+def _recorded_updates(out):
+    """Append the arguments of every ``tracking`` ICP update inside the
+    block (copies, the carry as it was before the update)."""
     from voxelhashing_tpu_torch import tracking
-    solve = tracking.solve6
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+    update = tracking.icp_update
 
-    def record(a, b, cond_thres):
-        out.append((a.clone(), b.clone()))
-        return solve(a, b, cond_thres)
+    def opt(t):
+        return None if t is None else t.clone()
 
-    tracking.solve6 = record
+    def record(state, system, mean, inv_std, planar, gate, level, slot,
+               begin=0, color=None, weights=(1.0, 0.1)):
+        out.append((iu.clone_state(state),
+                    (_keep_strides(system[0]),) + tuple(
+                        t.clone() for t in system[1:]),
+                    mean.clone(), inv_std.clone(), opt(planar), gate, level,
+                    slot, begin,
+                    None if color is None else tuple(t.clone()
+                                                     for t in color),
+                    weights))
+        return update(state, system, mean, inv_std, planar, gate, level,
+                      slot, begin, color, weights)
+
+    tracking.icp_update = record
     try:
         yield out
     finally:
-        tracking.solve6 = solve
+        tracking.icp_update = update
 
 
 def _graph_vs_eager(device, gpu_line):
     """(a), the check: phase 1's 20 frames through ``make_step`` and twice
     through the eager step, in lockstep from the same start; every frame's
     pose, valid flag and map compared. Returns the numbers and frame 11's
-    solve systems."""
+    ICP updates (``_recorded_updates``)."""
     import torch
     from voxelhashing_tpu_torch import engine
 
@@ -2659,7 +2714,7 @@ def _graph_vs_eager(device, gpu_line):
     _, depth, color = _frames(cfg.camera, device)
     e1, e2, g = (engine.create(cfg, device=device) for _ in range(3))
     step = engine.make_step(cfg, donate=True)
-    ev_e, ev_g, per_frame, systems = [], [], [], []
+    ev_e, ev_g, per_frame, updates = [], [], [], []
     ptrs, det_diff, graph_diff, sites = None, [], [], None
     torch.cuda.synchronize()
     _zero_counts()
@@ -2667,7 +2722,7 @@ def _graph_vs_eager(device, gpu_line):
         (e1, d1), t = _timed_call(
             lambda: engine.step(e1, depth[i], color[i], cfg))
         ev_e.append(t)
-        ctx = (_recorded_solves(systems) if i == GRAPH_SYNC_FRAME
+        ctx = (_recorded_updates(updates) if i == GRAPH_SYNC_FRAME
                else contextlib.nullcontext())
         with ctx:
             e2, d2 = engine.step(e2, depth[i], color[i], cfg)
@@ -2706,7 +2761,7 @@ def _graph_vs_eager(device, gpu_line):
                       for k, v in step.graphs.items()}}
     step.close()
     del e1, e2, g, step
-    return out, systems
+    return out, updates
 
 
 def _graph_alone(device, gpu_line):
@@ -2766,9 +2821,10 @@ def _graph_alone(device, gpu_line):
 
 
 def _solve6_check(systems, gpu_line):
-    """(b): the kernel against its plain version on frame 11's systems, on
-    the seeded bank and on a non-finite system; its bare time at the
-    step's shape (one system a launch), its sweeps and bound."""
+    """(b): the batched solve (``vh_solve6``, the update kernel's core)
+    against its plain version on frame 11's systems, on the seeded bank and
+    on a non-finite system; its bare time (one system a launch, and the 18
+    in one), its sweeps, its bound and ``torch.linalg.svd``'s time."""
     import numpy as np
     import torch
     from voxelhashing_tpu_torch.ops import solve6 as s6
@@ -2813,9 +2869,10 @@ def _solve6_check(systems, gpu_line):
                            f"non-finite {nan_ok}")
 
     a1, b1 = systems[0]
-    args, _ = s6.prepare(a1, b1, thres)
+    # the outputs stay alive until the replays end
+    args, out1 = s6.prepare(a1, b1, thres)
     bare = _bare_ms(lambda: s6.launch(args))
-    args18, _ = s6.prepare(fa, fb, thres)
+    args18, out18 = s6.prepare(fa, fb, thres)
     bare18 = _bare_ms(lambda: s6.launch(args18))
     sweeps = torch.zeros(len(systems), dtype=torch.int32, device=dev)
     args_s, _ = s6.prepare(fa, fb, thres, sweeps=sweeps)
@@ -2823,6 +2880,7 @@ def _solve6_check(systems, gpu_line):
     sw = sweeps.cpu().tolist()
     plain = _median_ms(lambda: s6.solve6_plain(a1, b1, thres))
     wrapper = _median_ms(lambda: s6.solve6(a1, b1, thres))
+    svd = _median_ms(lambda: torch.linalg.svd(a1, full_matrices=False))
     nbytes = s6.bytes_moved(1)
     nops = s6.operations([float(np.mean(sw))])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F64_OPS_PER_S * 1e3
@@ -2835,14 +2893,111 @@ def _solve6_check(systems, gpu_line):
           f"{nops} f64 operations a system: bound {bound:.2e} ms by "
           f"{'bytes' if t_bytes >= t_ops else 'operations'} ({t_bytes:.2e} "
           f"ms at 3.35 TB/s, {t_ops:.2e} ms at 34 TFLOP/s): launch-bound; "
-          f"on {gpu_line}")
+          f"torch.linalg.svd alone {svd:.4f} ms; on {gpu_line}")
     return {"ms": bare, "batch_ms": bare18, "plain_ms": plain,
-            "wrapper_ms": wrapper,
+            "wrapper_ms": wrapper, "svd_ms": svd,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "sweeps": sw, "bytes": nbytes, "operations": nops,
             "max_abs_err": x_errs["frame 11"], "bank_max_abs_err":
             x_errs["bank"], "per_frame": len(systems)}
+
+
+def _hold_update(iu, args):
+    """One update through the kernel and through the plain version, each
+    on its own copy of the carry: (``icp_update.disagreements``, max
+    |d delta|, max |dx|)."""
+    import torch
+    state, system, mean, inv_std, planar, gate, level, slot, begin, color, \
+        weights = args
+    got, ref = iu.clone_state(state), iu.clone_state(state)
+    iu.icp_update(got, system, mean, inv_std, planar, gate, level, slot,
+                  begin, color, weights)
+    iu.icp_update_plain(ref, system, mean, inv_std, planar, gate, level,
+                        slot, begin, color, weights)
+    torch.cuda.synchronize()
+    bad = iu.disagreements(state, ref, got, mean, inv_std, gate, level,
+                           slot)
+    return (bad, float((got.delta - ref.delta).abs().max()),
+            float((got.x - ref.x).abs().max()))
+
+
+def _icp_update_check(updates, sweeps, gpu_line):
+    """(b): the ICP update kernel against its plain version on frame 11's
+    updates (each from the carry the step left before it) and on the
+    seeded bank of updates (every flag path), within
+    ``icp_update.disagreements``; its bare time (``_bare_ms``: 100 launches
+    in one CUDA graph, on each of frame 11's updates with the level's
+    carry reset, so that every launch solves) beside an empty kernel's
+    node timed the same way, the wrapper's and the plain tail's time, and
+    its bound from frame 11's sweeps."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+
+    dev = updates[0][0].delta.device
+    bank = []
+    for e in iu.update_bank(seed=11, n_per_case=UPDATE_BANK):
+        state, system, mean, inv_std, planar, color = iu.bank_inputs(e, dev)
+        bank.append((state, system, mean, inv_std, planar, iu.BANK_GATE, 1,
+                     2, e["begin"], color, (1.0, 0.1)))
+    bad, errs = [], {}
+    for label, inputs in (("frame 11", updates), ("bank", bank)):
+        held = [_hold_update(iu, u) for u in inputs]
+        dis = [(i, h[0]) for i, h in enumerate(held) if h[0]]
+        errs[label] = (max(h[1] for h in held), max(h[2] for h in held))
+        print(f"icp_update ({label}): {len(inputs)} updates, outside the "
+              f"bounds {len(dis)}, max |d delta| {errs[label][0]:.3e} "
+              f"(bound {iu.POSE_TOL:.0e} + {iu.POSE_DX_GAIN:.0f} |dx| (1 + "
+              f"1/inv_std + |mean|)), max |dx| {errs[label][1]:.3e}")
+        if dis:
+            bad.append((label, dis[:5]))
+    if bad:
+        raise RuntimeError(f"icp_update against its plain version: {bad}")
+
+    def timed(u):
+        state, system, mean, inv_std, planar, gate, level, slot, begin, \
+            color, weights = u
+        st = iu.clone_state(state)          # alive until the replay ends
+        args = iu.prepare(st, system, mean, inv_std, planar, gate, level,
+                          slot, iu.BEGIN_LEVEL | iu.BEGIN_OUTER, color,
+                          weights)
+        return _bare_ms(lambda: iu.launch(args))
+
+    launches = iu.icp_update.launches
+    per_update = [timed(u) for u in updates]
+    bare = float(np.mean(per_update))
+    empty = _bare_ms(lambda: iu.launch_empty(dev))
+    u0 = updates[0]                          # a level's first: never skips
+    st_p, st_k = iu.clone_state(u0[0]), iu.clone_state(u0[0])
+    plain = _median_ms(lambda: iu.icp_update_plain(st_p, *u0[1:]))
+    wrapper = _median_ms(lambda: iu.icp_update(st_k, *u0[1:]))
+    iu.icp_update.launches = launches      # timing launches do not count
+    rgbd = u0[9] is not None
+    nbytes = iu.bytes_moved(rgbd, u0[4] is not None)
+    f64 = float(np.mean([iu.operations(s, rgbd)[0] for s in sweeps]))
+    f32 = iu.operations(1, rgbd)[1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f64 / F64_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"icp_update timing: bare {bare:.4f} ms a launch (mean over frame "
+          f"11's {len(updates)} updates, {min(per_update):.4f}-"
+          f"{max(per_update):.4f}; {BARE_LAUNCHES} launches in one CUDA "
+          f"graph), an empty kernel's node {empty:.4f} ms the same way; "
+          f"wrapper {wrapper:.4f} ms; plain tail {plain:.4f} ms "
+          f"(torch.linalg.svd and ~110 small ops, its host reads "
+          f"included); {nbytes} B, {f64} f64 and {f32} f32 operations: "
+          f"bound {bound:.2e} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({t_bytes:.2e} "
+          f"ms at 3.35 TB/s, {t_ops:.2e} ms at 34 and 67 TFLOP/s); on "
+          f"{gpu_line}")
+    return {"ms": bare, "per_update_ms": per_update, "empty_ms": empty,
+            "plain_ms": plain, "wrapper_ms": wrapper, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": f64 + f32,
+            "max_abs_err": errs["frame 11"][0],
+            "bank_max_abs_err": errs["bank"][0],
+            "max_dx": errs["frame 11"][1], "per_frame": len(updates)}
 
 
 def _graph_rgbd(mode, device, gpu_line):
@@ -2993,8 +3148,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     its numbers and each path's launch counts."""
     t0 = time.perf_counter()
     cfg = _config()
-    a, systems = _graph_vs_eager(device, gpu_line)
-    names = ("fused_integrate", "splat_zbuf", "solve6")
+    a, updates = _graph_vs_eager(device, gpu_line)
+    names = ("fused_integrate", "splat_zbuf", "icp_update", "solve6")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -3028,7 +3183,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
           f"allocated (the map {alone['map_bytes']} B), "
           f"{alone['reserved']} B reserved with the graphs' pool; on "
           f"{gpu_line}")
-    s6 = _solve6_check(systems, gpu_line)
+    s6 = _solve6_check([(u[1][0], u[1][1]) for u in updates], gpu_line)
+    upd = _icp_update_check(updates, s6["sweeps"], gpu_line)
     rgbd = {}
     for mode in ("splat", "march"):
         r = _graph_rgbd(mode, device, gpu_line)
@@ -3064,8 +3220,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         fails.append(f"{a['syncs']} host syncs in a tracked frame")
     if not a["ptrs_kept"] or a["pool_bytes"]:
         fails.append("the pool moved or was copied in")
-    want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": _solves(cfg)}
-    if any(f[k] != (0 if (i == 0 and k == "solve6") else v)
+    want = {"fused_integrate": 1, "splat_zbuf": 1,
+            "icp_update": _solves(cfg), "solve6": 0}
+    if any(f[k] != (0 if (i == 0 and k == "icp_update") else v)
            for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
         fails.append(f"launches a frame {every}")
     if any(v for k, v in counts.items() if k.startswith("plain")):
@@ -3074,21 +3231,23 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         c = r["counts"]
         if r["ate_mm"] >= ATE_LIMIT_M * 1000 or r["valid"] != N_FRAMES \
                 or r["syncs"] != 2 or c["fused_integrate"] != N_FRAMES \
-                or c["solve6"] != _solves(cfg) * (N_FRAMES - 1) \
+                or c["icp_update"] != _solves(cfg) * (N_FRAMES - 1) \
+                or c["solve6"] \
                 or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
                                              else 0):
             fails.append(f"{mode} + RGB-D: {r}")
     if scan["syncs"] != 1 or scan["host_blocks"] <= 0 or scan["pool_bytes"] \
             or any(v != 0 for v in scan["invariants"].values()) \
             or scan["counts"]["fused_integrate"] != LS_OUT \
-            or scan["counts"]["splat_zbuf"] != LS_OUT:
+            or scan["counts"]["splat_zbuf"] != LS_OUT \
+            or scan["counts"]["icp_update"] or scan["counts"]["solve6"]:
         fails.append(f"large scan: {scan}")
     if not mnt["compactions"] or mnt["diff"] or not mnt["pool_bytes"]:
         fails.append(f"forced maintain: {mnt}")
     if fails:
         raise RuntimeError("phase 10: " + "; ".join(fails))
-    return {"a": a, "alone": alone, "solve6": s6, "rgbd": rgbd,
-            "scan": scan, "maintain": mnt, "wall_s": wall,
+    return {"a": a, "alone": alone, "solve6": s6, "icp_update": upd,
+            "rgbd": rgbd, "scan": scan, "maintain": mnt, "wall_s": wall,
             "counts": counts}
 
 
@@ -3299,7 +3458,8 @@ def main() -> int:
                         {m: r["fps"] for m, r in rgbd.items()}, fps_s)
 
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
-             "fused_integrate_bilinear", "frame_color_words", "solve6")
+             "fused_integrate_bilinear", "frame_color_words", "icp_update",
+             "solve6")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -3355,16 +3515,30 @@ def main() -> int:
             entry["large_scan"] = _kernel_entry(
                 scan[key], {k: v[name] for k, v in scan["launches"].items()})
         kernels.append(entry)
-    # the tracker's 6x6 solve; no TPU kernel: the XLA SVD of
-    # voxelhashing_tpu/tracking.py:339
+    # the tracker's ICP update (one launch a 6x6 solve); no TPU kernel:
+    # the XLA tail of voxelhashing_tpu/tracking.py:560-590 and its SVD
+    # (:339)
+    upd = graph["icp_update"]
     kernels.append({
-        "name": "solve6", "route": "cuda",
+        "name": "icp_update", "route": "cuda",
+        "source": "voxelhashing_tpu_torch/csrc/solve6.cu", "replaces": None,
+        **_kernel_entry({**upd, "bound_share": upd["bound_ms"] / upd["ms"],
+                         "profiler_ms": None, "rows": 1},
+                        by_path["icp_update"]["step"]),
+        "kernels": ["icp_update_kernel"], "empty_node_ms": upd["empty_ms"],
+        "svd_ms": graph["solve6"]["svd_ms"], "max_dx": upd["max_dx"],
+        "bank_max_abs_err": upd["bank_max_abs_err"],
+        "launches_by_path": by_path["icp_update"]})
+    # its core batched (the checks; no path launches it)
+    kernels.append({
+        "name": "solve6", "route": "cuda", "on_main_path": False,
         "source": "voxelhashing_tpu_torch/csrc/solve6.cu", "replaces": None,
         **_kernel_entry({**graph["solve6"], "bound_share": graph["solve6"]["bound_ms"]
                          / graph["solve6"]["ms"], "profiler_ms": None,
                          "rows": 1}, by_path["solve6"]["step"]),
         "kernels": ["solve6_kernel"], "batch_ms": graph["solve6"]["batch_ms"],
         "sweeps": graph["solve6"]["sweeps"],
+        "svd_ms": graph["solve6"]["svd_ms"],
         "launches_by_path": by_path["solve6"]})
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
@@ -3401,6 +3575,9 @@ def main() -> int:
           f"graph_splat_rgbd_fps={graph['rgbd']['splat']['fps']:.3f} "
           f"graph_march_rgbd_fps={graph['rgbd']['march']['fps']:.3f} "
           f"graph_scan_fps={graph['scan']['fps']:.3f} "
+          f"front_nodes={graph['a']['graphs']['front'][0]} "
+          f"icp_update_ms={graph['icp_update']['ms']:.4f} "
+          f"empty_node_ms={graph['icp_update']['empty_ms']:.4f} "
           f"solve6_ms={graph['solve6']['ms']:.4f} "
           f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")

@@ -285,7 +285,7 @@ def test_import_leaves_jax_out():
             "voxelhashing_tpu_torch.convert, voxelhashing_tpu_torch.ops."
             "fused_integrate, voxelhashing_tpu_torch.ops.splat_zbuf, "
             "voxelhashing_tpu_torch.ops._build, voxelhashing_tpu_torch.ops."
-            "solve6, voxelhashing_tpu_torch."
+            "solve6, voxelhashing_tpu_torch.ops.icp_update, voxelhashing_tpu_torch."
             "evaluation, voxelhashing_tpu_torch.io.synthetic, "
             "voxelhashing_tpu_torch.render, voxelhashing_tpu_torch.run_slam, "
             "voxelhashing_tpu_torch.posegraph, voxelhashing_tpu_torch."

@@ -7,9 +7,12 @@ they skip without one). On a machine with a card:
 Tolerance on the card: bit-equal (the kernels are built with -fmad=false
 and follow the plain versions' operation order), but for the 6x6 solve
 (``solve6.disagreements``: an f64 Jacobi against the plain version's f32
-SVD). ``engine.make_step``'s graphs on the card are bit-equal to the eager
-step and read the host twice a tracked frame. The file imports only the
-port, so it runs where the JAX package cannot.
+SVD) and the ICP update around it (``icp_update.disagreements``: that
+bound on x and cond, the flags, counts and residuals equal, delta within
+4e-6 plus the solve's difference carried through the pose).
+``engine.make_step``'s graphs on the card are bit-equal to the eager step
+and read the host twice a tracked frame. The file imports only the port,
+so it runs where the JAX package cannot.
 """
 
 import dataclasses
@@ -548,6 +551,29 @@ def test_solve6_kernel_matches_plain_and_f64(cuda):
     assert bool(degen) and not bool(torch.any(x != 0))
 
 
+@pytest.mark.cuda
+def test_icp_update_kernel_matches_plain(cuda):
+    """The update kernel against its plain version on the seeded bank of
+    updates (every flag path), within ``icp_update.disagreements``; one
+    launch an update."""
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+    for e in iu.update_bank(seed=11, n_per_case=6):
+        state, system, mean, inv_std, planar, color = iu.bank_inputs(e,
+                                                                     cuda)
+        before = iu.clone_state(state)
+        ref = iu.clone_state(state)
+        launches = iu.icp_update.launches
+        iu.icp_update(state, system, mean, inv_std, planar, iu.BANK_GATE, 1,
+                      2, e["begin"], color)
+        assert iu.icp_update.launches == launches + 1
+        iu.icp_update_plain(ref, system, mean, inv_std, planar,
+                            iu.BANK_GATE, 1, 2, e["begin"], color)
+        torch.cuda.synchronize()
+        bad = iu.disagreements(before, ref, state, mean, inv_std,
+                               iu.BANK_GATE, 1, 2)
+        assert not bad, (e["case"], bad)
+
+
 def _step_config():
     from voxelhashing_tpu_torch.config import EngineConfig
     return EngineConfig(camera=CAM, map=dataclasses.replace(
@@ -562,13 +588,13 @@ def test_make_step_graphs_are_the_eager_step(cuda):
     syncs in a tracked frame after the graphs are captured."""
     import warnings
     from voxelhashing_tpu_torch import engine
-    from voxelhashing_tpu_torch.ops import solve6 as s6
+    from voxelhashing_tpu_torch.ops import icp_update as iu, solve6 as s6
     cfg = _step_config()
     poses = make_trajectory(8)
     frames = [render_depth(p, CAM, Scene(), noise_sigma=0.002, seed=i,
                            device=cuda) for i, p in enumerate(poses)]
     counters = ((fused_integrate, "launches"), (sb.splat_zbuf, "launches"),
-                (s6.solve6, "launches"))
+                (iu.icp_update, "launches"), (s6.solve6, "launches"))
 
     def counts():
         return [getattr(o, a) for o, a in counters]
@@ -597,7 +623,8 @@ def test_make_step_graphs_are_the_eager_step(cuda):
         else:
             b, db = step(b, d, c)
     graphed = [n - m for n, m in zip(counts(), c0)]
-    assert graphed == eager and eager[0] == 8 and eager[2] > 0
+    assert graphed == eager and eager[0] == 8 and eager[2] > 0 \
+        and eager[3] == 0
     for x, y in zip(list(a.map) + [a.pose, a.frame, a.n_integrated],
                     list(b.map) + [b.pose, b.frame, b.n_integrated]):
         assert torch.equal(_bits(x), _bits(y))

@@ -21,7 +21,6 @@ import pytest
 import torch
 
 from voxelhashing_tpu import tracking as jtr
-from voxelhashing_tpu_torch import tracking as ttr
 from voxelhashing_tpu_torch.ops import solve6 as s6
 
 COND_THRES = 2.0e4          # TrackerConfig.cond_thres
@@ -89,14 +88,15 @@ def test_non_finite_system_is_degenerate_as_in_jax(bad):
 
 
 def test_solve_on_the_cpu_is_the_plain_version():
-    """``solve6`` (what ``tracking.track`` calls) on CPU tensors is
-    ``solve6_plain``, bit for bit, on a strided [6,6] view of an [8,8]
-    system as the tracker passes it, and launches nothing."""
+    """``solve6`` on CPU tensors is ``solve6_plain``, bit for bit, on a
+    strided [6,6] view of an [8,8] system as the tracker passes it, and
+    launches nothing; the tracker's update (``ops/icp_update``) solves
+    with ``solve6_plain`` on the CPU."""
     a, b, _ = BANK
     m = torch.zeros((8, 8))
     m[:6, :6] = torch.from_numpy(a[3])
     launches = s6.solve6.launches
-    got = ttr.solve6(m[:6, :6], torch.from_numpy(b[3]), COND_THRES)
+    got = s6.solve6(m[:6, :6], torch.from_numpy(b[3]), COND_THRES)
     ref = s6.solve6_plain(torch.from_numpy(a[3]), torch.from_numpy(b[3]),
                           COND_THRES)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
@@ -130,5 +130,8 @@ def test_wrapper_checks_and_arguments():
 
 def test_bytes_and_operations():
     assert s6.bytes_moved(18) == 18 * (144 + 24 + 24 + 4 + 1)
-    assert s6.operations([6]) == 15 * s6._OPS_PER_ROTATION * 6 \
+    assert s6.operations([6]) == 15 * (s6._OPS_PER_GATE * 6
+                                       + s6._OPS_PER_ROTATION * 5) \
         + s6._OPS_PER_SYSTEM
+    assert s6.operations([6, 0]) == s6.operations([6]) + 15 * \
+        s6._OPS_PER_GATE + s6._OPS_PER_SYSTEM

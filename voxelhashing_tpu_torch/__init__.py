@@ -48,10 +48,12 @@ one:
   (``pl.pallas_call`` at :188); a color render runs B's walk once with a
   64-bit (depth, index) key per voxel and a per-pixel resolve (XLA on the
   TPU);
-* ``solve6``, the tracker's 6x6 truncated-SVD solve (``ops/solve6.py``,
-  ``csrc/solve6.cu``): one-sided Jacobi in f64 with no host read, where
-  ``torch.linalg.svd`` reads the device twice a call (an XLA SVD on the
-  TPU).
+* the tracker's ICP update (``ops/icp_update.py``, ``csrc/solve6.cu``),
+  one launch a solve: the 6x6 truncated-SVD solve (Jacobi on the f64
+  Gram matrix, with no host read where ``torch.linalg.svd`` reads the
+  device twice a call), the step gate, the de-whitened pose update and
+  the tracker's carry written in place (XLA on the TPU); ``ops/solve6.py``
+  runs its solve batched, for the checks.
 
 The port imports ``torch`` and never ``jax``, nor anything of the JAX
 package: it carries its own ``config``, synthetic frames

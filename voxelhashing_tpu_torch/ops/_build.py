@@ -52,6 +52,8 @@ _SIGNATURES = {
     },
     "solve6": {
         "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
+        "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],
+        "vh_empty": [_P],
     },
 }
 

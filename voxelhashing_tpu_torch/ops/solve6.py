@@ -2,9 +2,13 @@
 
 No TPU kernel: the JAX package solves the system with ``jnp.linalg.svd``
 inside its XLA program (``voxelhashing_tpu/tracking.py:339``). On CUDA,
-``torch.linalg.svd`` reads the device on the host twice a call (18 solves a
-tracked frame, 14 a ``PoseGraph.register``), which also keeps the step out
-of a CUDA graph; the kernel solves with no host read.
+``torch.linalg.svd`` reads the device on the host twice a call, which
+also keeps a step out of a CUDA graph; the kernel's core (two-sided
+Jacobi on the f64 Gram matrix, one thread a system) solves with no host
+read. The tracker runs that core inside its ICP update
+(``ops/icp_update.py``, one launch a solve); :func:`solve6` is the batched
+entry point over the same core, for the checks and the system bank, and
+no path of the port calls it.
 
 :func:`solve6` launches the kernel for CUDA tensors and runs the plain
 version, :func:`solve6_plain`, for CPU tensors; any other device raises.
@@ -26,13 +30,15 @@ from . import _build
 N = 6
 # bytes of one system: a and b read, x, cond and degenerate written
 BYTES_PER_SYSTEM = 4 * N * N + 4 * N + 4 * N + 4 + 1
-# f64 operations of one rotation (counted on csrc/solve6.cu with adds,
-# multiplies, divisions, square roots and compares one each): three 6-term
-# products and sums (3 * 11), the gate (4), the angle (10) and the four
-# column updates of a and V (4 * 6 * 3); and per system after the sweeps the
-# norms and products with b (2 * 11 * 6), the values and the sum (6 * 6)
-_OPS_PER_ROTATION = 3 * 11 + 4 + 10 + 4 * N * 3
-_OPS_PER_SYSTEM = 2 * 11 * N + 6 * N
+# f64 operations (counted on csrc/solve6.cu with adds, multiplies,
+# divisions, square roots and compares one each): per system the Gram
+# matrix's 21 entries and a^T b (27 * 12), its trace (6), and after the
+# sweeps the values (6 * 4), the cut (2) and x (6 * 25); per pair and
+# sweep the gate (6); per rotation the angle (14) and the updates of the
+# four other rows of G (4 * 6), its pair (4) and of V's two columns (6 * 6)
+_OPS_PER_SYSTEM = 27 * 12 + 6 + 6 * 4 + 2 + 6 * 25
+_OPS_PER_GATE = 6
+_OPS_PER_ROTATION = 14 + 4 * 6 + 4 + N * 6
 
 
 def bytes_moved(n_systems: int) -> int:
@@ -43,12 +49,12 @@ def bytes_moved(n_systems: int) -> int:
 
 def operations(sweeps) -> int:
     """The f64 operations of systems that ran ``sweeps`` Jacobi sweeps each
-    (an iterable of counts; every sweep rotates at most 15 pairs and tests
-    all of them: counted as 15 rotations)."""
-    sweeps = list(sweeps)
+    (an iterable of counts): every sweep tests the 15 pairs, and every
+    sweep but the last rotates at most 15 (counted as 15)."""
+    sweeps = [max(int(s), 1) for s in sweeps]
     pairs = N * (N - 1) // 2
-    return (sum(pairs * _OPS_PER_ROTATION * max(int(s), 1) for s in sweeps)
-            + _OPS_PER_SYSTEM * len(sweeps))
+    return sum(pairs * (_OPS_PER_GATE * s + _OPS_PER_ROTATION * (s - 1))
+               + _OPS_PER_SYSTEM for s in sweeps)
 
 
 BANK_KINDS = ("well", "ill", "rank3")

@@ -11,9 +11,11 @@ whitened parametrization, and the planarity gate and probe are off.
 The JAX tracker skips a converged level's outer iterations with
 ``lax.cond``; here every iteration runs and a level that was already done
 keeps its carry unchanged (the masked form), which gives identical results
-without reading the device. The 6x6 solve is ``ops/solve6`` (a kernel on
-CUDA, ``torch.linalg.svd`` on the CPU), so tracking reads nothing on the
-host and can be captured in a CUDA graph.
+without reading the device. Each inner iteration's tail (the 6x6 solve,
+the step gate, the pose update and the carry) is ``ops/icp_update``: one
+kernel on CUDA that writes the carry's buffers in place, the plain torch
+tail around ``torch.linalg.svd`` on the CPU; so tracking reads nothing on
+the host and can be captured in a CUDA graph.
 
 ``reduce_fn`` (the multi-device step, ``parallel/sharded.py``) reduces
 each tuple of partial sums across ranks at JAX's points: the whitening
@@ -31,8 +33,9 @@ import torch
 
 from .config import CameraConfig, TrackerConfig
 from . import geometry as geom
+from .ops.icp_update import (BEGIN_LEVEL, BEGIN_OUTER, Gate, icp_update,
+                             new_state)
 from .ops.image import resample_half
-from .ops.solve6 import solve6
 
 
 class TrackingResult(NamedTuple):
@@ -207,23 +210,6 @@ def _linearize(delta, in_soa, q, nq, wgt, ok, mean, inv_std):
             torch.sum(ok, dtype=torch.int32))
 
 
-def _pose_from_x_whitened(x, mean, inv_std):
-    """De-whiten the solved update: R unchanged,
-    t = x_t/inv_std + mean - R.mean."""
-    r = geom.euler_zyx_to_matrix(x[:3])
-    m = torch.eye(4, dtype=torch.float32, device=x.device)
-    m[:3, :3] = r
-    m[:3, 3] = x[3:6] / inv_std + mean - r @ mean
-    return m
-
-
-def _check_step(x, angle_thres: float, dist_thres: float):
-    """Per-step plausibility gate (rotation angle and translation norm)."""
-    ang = geom.rotation_angle(geom.euler_zyx_to_matrix(x[:3]))
-    return (ang <= angle_thres) & (torch.linalg.vector_norm(x[3:6])
-                                   <= dist_thres)
-
-
 def _build_system_color(delta, in_pts, in_int, tgt_int, tgt_gx, tgt_gy,
                         cam: CameraConfig, dist_sigma: float,
                         mean=None, inv_std=None):
@@ -353,13 +339,9 @@ def track(input_points, input_normals, model_points, model_normals,
     plan_i2 = (planarity_probe(input_points, input_normals, cfg, reduce_fn)
                if planarity_on else scalar(0.0))
 
-    delta = torch.eye(4, dtype=torch.float32, device=dev)
-    lost = scalar(False, torch.bool)
-    residual, corr, condition = scalar(0.0), scalar(0, torch.int32), \
-        scalar(0.0)
     _, (_, max_iters) = stats_shapes(cfg)
-    level_stats = [None] * levels
-    curves = [None] * levels
+    state = new_state(levels, max_iters, dev)
+    weights = (weight_depth, weight_color)
 
     for level in range(levels - 1, -1, -1):        # coarse -> fine
         cam_l = _level_camera(cam, level)
@@ -368,27 +350,21 @@ def track(input_points, input_normals, model_points, model_normals,
         if use_rgbd:
             gx, gy = intensity_gradients(mi_pyr[level])
         n_inner = cfg.max_inner_iter[level]
-        carry = (delta, lost, residual, corr, condition, scalar(0.0),
-                 scalar(0.0), scalar(0, torch.int32), scalar(0.0),
-                 scalar(False, torch.bool), scalar(torch.inf))
-        curve = []
-        for _ in range(cfg.max_outer_iter[level]):
-            skip = carry[9]
-            (delta, lost, residual, corr, condition, lvl_res, lvl_cond,
-             lvl_corr, lvl_w, done, last_res) = carry
+        gate = Gate(cfg.residual_early_out[level],
+                    cfg.angle_trans_thres[level],
+                    cfg.dist_trans_thres[level], cfg.cond_thres)
+        for outer in range(cfg.max_outer_iter[level]):
+            delta = state.delta         # each update writes it in place
             q, nq, wgt, ok = _associate(
                 delta, in_soa, md8, cam_l, cfg.dist_thres[level],
                 cfg.normal_thres[level], cam.depth_min, cam.depth_max)
             mean, inv_std = _whitening(q, ok, reduce_sys)
-            if planarity_on:
-                planar, _ = _planarity(in_soa, wgt, cfg.normal_aniso_thres,
-                                       reduce_sys)
-            else:
-                planar = scalar(False, torch.bool)
-            cvals = []
-            for _inner in range(n_inner):
+            planar = (_planarity(in_soa, wgt, cfg.normal_aniso_thres,
+                                 reduce_sys)[0] if planarity_on else None)
+            for inner in range(n_inner):
                 sys_d = _linearize(delta, in_soa, q, nq, wgt, ok, mean,
                                    inv_std)
+                color = None
                 if use_rgbd:
                     # the photometric rows join before the reduction: each
                     # rank's color rows belong to its own row shard
@@ -396,57 +372,20 @@ def track(input_points, input_normals, model_points, model_normals,
                         delta, in_pyr[level][0], ii_pyr[level],
                         mi_pyr[level], gx, gy, cam_l, color_sigma,
                         mean=mean, inv_std=inv_std)
-                    (a, b, sum_res, sum_w, count,
-                     a_c, b_c, res_c, w_c, _) = reduce_sys(sys_d + sys_c)
-                    a = weight_depth * a + weight_color * a_c
-                    b = weight_depth * b + weight_color * b_c
-                    sum_res = weight_depth * sum_res + weight_color * res_c
-                    sum_w = weight_depth * sum_w + weight_color * w_c
+                    reduced = reduce_sys(sys_d + sys_c)
+                    sys_d, color = reduced[:5], reduced[5:9]
                 else:
-                    a, b, sum_res, sum_w, count = reduce_sys(sys_d)
-                mean_res = sum_res / torch.clamp(sum_w, min=1e-12)
-                done = done | (torch.abs(last_res - mean_res)
-                               < cfg.residual_early_out[level])
-                last_res = mean_res
-                cvals.append(torch.where(done, torch.nan, mean_res))
+                    sys_d = reduce_sys(sys_d)
+                begin = ((BEGIN_LEVEL if outer == inner == 0 else 0)
+                         | (BEGIN_OUTER if inner == 0 else 0))
+                icp_update(state, sys_d, mean, inv_std, planar, gate, level,
+                           outer * n_inner + inner, begin, color, weights)
 
-                x, cond, degen = solve6(a, b, cfg.cond_thres)
-                x_phys = torch.cat([x[:3], x[3:6] / inv_std])
-                step_ok = _check_step(x_phys, cfg.angle_trans_thres[level],
-                                      cfg.dist_trans_thres[level])
-                bad = degen | ~step_ok | (count < 64) | planar
-                lost = lost | (bad & ~done)
-                use = ~done & ~bad
-                delta = torch.where(
-                    use, _pose_from_x_whitened(x, mean, inv_std) @ delta,
-                    delta)
-                keep = use | done
-                residual = torch.where(keep, mean_res, residual)
-                corr = torch.where(keep, count, corr)
-                condition = torch.where(use, cond, condition)
-                lvl_res = torch.where(keep, mean_res, lvl_res)
-                lvl_cond = torch.where(use, cond, lvl_cond)
-                lvl_corr = torch.where(keep, count, lvl_corr)
-                lvl_w = torch.where(keep, sum_w, lvl_w)
-                done = done | bad
-            new = (delta, lost, residual, corr, condition, lvl_res,
-                   lvl_cond, lvl_corr, lvl_w, done, last_res)
-            # a level already done keeps its carry (JAX: lax.cond skip)
-            carry = tuple(torch.where(skip, old, nw)
-                          for old, nw in zip(carry, new))
-            curve.extend(torch.where(skip, torch.nan, c) for c in cvals)
-        (delta, lost, residual, corr, condition, lvl_res, lvl_cond,
-         lvl_corr, lvl_w, done, last_res) = carry
-        level_stats[level] = torch.stack(
-            [lvl_res, lvl_cond, lvl_corr.to(torch.float32), lvl_w])
-        curves[level] = torch.stack(
-            curve + [scalar(torch.nan)] * (max_iters - len(curve)))
-
-    new_pose = last_pose @ delta
-    valid = ~lost & torch.all(torch.isfinite(new_pose))
+    new_pose = last_pose @ state.delta
+    valid = ~state.flags[0] & torch.all(torch.isfinite(new_pose))
     return TrackingResult(pose=torch.where(valid, new_pose, last_pose),
-                          valid=valid, residual=residual, corr_count=corr,
-                          condition=condition,
-                          level_stats=torch.stack(level_stats),
-                          iter_residuals=torch.stack(curves),
-                          planarity=plan_i2)
+                          valid=valid, residual=state.vals[0],
+                          corr_count=state.counts[0],
+                          condition=state.vals[1],
+                          level_stats=state.level_stats,
+                          iter_residuals=state.curve, planarity=plan_i2)
