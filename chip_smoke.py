@@ -41,7 +41,10 @@ and then:
 4. times each stage of ``engine.step`` (CUDA events at ``engine.STAGES``
    marks) over frames 3-19 of a second run, and the device's busy share
    over three frames (``torch.profiler`` kernel time against the same
-   frames' unprofiled wall time);
+   frames' unprofiled wall time); in that profile each stage runs in a
+   ``record_function`` range closed after a synchronize, which splits the
+   device time and the device ops by stage (the front stages' ops are the
+   front graph's nodes by stage);
 5. runs the large scan (``scripts/bench_large_scan.py``'s scan point at
    the reference scan's 800,000-block pool, 1 cm voxels) four times, with
    ``streaming.AsyncStreamingManager`` (S) and with streaming off (U), in
@@ -133,8 +136,8 @@ and then:
    and the graphs with them on every frame (poses, valid flags, every map
    field and diagnostic bit for bit), two host syncs in tracked frame 11,
    the pool's tensors kept from frame 1 on with no pool bytes copied in,
-   and kernels A and B and 18 ICP updates (``icp_update``, no ``solve6``)
-   on every frame; reports frames/s of both, each graph's nodes (the
+   and kernels A and B, 18 associations, 18 linearizations and 18 ICP
+   updates (``icp_update``, no ``solve6``) on every tracked frame; reports frames/s of both, each graph's nodes (the
    front graph's among them) and capture time, then 20 frames of
    ``make_step`` alone: frames/s, the device's busy share (torch.profiler)
    and peak memory; (b) the ICP update kernel (``ops/icp_update``, one
@@ -150,7 +153,16 @@ and then:
    against the plain SVD on frame 11's 18 systems, on a seeded bank
    (well- and ill-conditioned, rank 3) and on a non-finite system
    (``solve6.disagreements``; cond within 1e-4 of an f64 SVD), with its
-   bare time, bound and ``torch.linalg.svd``'s time; (c) phase 6's two RGB-D configurations through
+   bare time, bound and ``torch.linalg.svd``'s time; and the tracker's
+   pass kernels (``ops/icp_linearize``: the association, and the
+   linearization with and without the photometric rows) against their
+   plain versions on frame 11's 18 iterations (recorded from the eager
+   step), on frame 11 of phase 6's splat + RGB-D run and on
+   ``icp_linearize.edge_bank`` (q, n_q, weights and flags, mean and
+   inv_std bit for bit; every sum within ``icp_linearize.disagreements``,
+   (1.01 n + 3) 2^-24 of the sum of its terms' absolute values; counts
+   equal), with each level's bare time beside an empty node's, the bound,
+   the wrapper's and the plain passes' times; (c) phase 6's two RGB-D configurations through
    ``make_step`` (ATE < 10 mm, every frame valid, two host syncs in a
    tracked frame); (d) the large scan's outward leg through
    ``make_step(with_hint=True, with_stream_mask=True)`` with
@@ -408,14 +420,11 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
-    has_update = hasattr(dict((n, f) for n, f, _ in _counters())
-                         ["icp_update"], "launches")
-    if has_update and (launches["icp_update"] != _solves(cfg) * (N_FRAMES - 1)
-                       or launches["solve6"] != 0):
-        raise RuntimeError(f"icp_update launched {launches['icp_update']} "
-                           f"times, expected {_solves(cfg)} per tracked "
-                           f"frame, and solve6 {launches['solve6']}, "
-                           f"expected 0")
+    off = _launches_off(launches, {**_track_launches(cfg, N_FRAMES - 1),
+                                   "solve6": 0})
+    if off:
+        raise RuntimeError(f"the tracker's kernels launched (count, "
+                           f"expected) {off}")
     if (launches["splat_zbuf_color"] != 0
             or launches["fused_integrate_bilinear"]
             or launches["frame_color_words"]
@@ -857,20 +866,97 @@ def phase_stages(cfg, depth, color, device, gpu_line):
     wall_ms = 1000 * (time.perf_counter() - t0)
     s = _clone_engine(before)
     torch.cuda.synchronize()
+    ranges = _StageRanges(engine.STAGES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in frames:
-            s, _ = engine.step(s, depth[i], color[i], cfg)
+            ranges.start()
+            s, _ = engine.step(s, depth[i], color[i], cfg, mark=ranges.mark)
+            ranges.end()
         torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # (a record_function range may also show as a device-side annotation)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("stage:")]
     dev_ms = sum(e.self_device_time_total for e in ops) / 1000
     n = len(frames)
     print(f"device: {dev_ms / n:.3f} ms of kernels and {len(ops) / n:.0f} "
           f"device ops per frame (torch.profiler), {wall_ms / n:.3f} ms "
           f"wall per frame unprofiled: busy {100 * dev_ms / wall_ms:.1f}% "
           f"(frames {frames[0]}-{frames[-1]}, replayed) on {gpu_line}")
+    split = _device_split(prof, ops, engine.STAGES, n)
+    front = ("preprocess", "compactify", "render", "track")
+    print(f"device time by stage, ms/frame (torch.profiler, frames "
+          f"{frames[0]}-{frames[-1]}, each stage in a record_function range "
+          f"that ends in a synchronize) on {gpu_line}:")
+    for stage in engine.STAGES + ("other",):
+        ms, k = split[stage]
+        print(f"  {stage:10s} {ms:9.3f} ms {100 * ms / max(dev_ms / n, 1e-9):6.1f}%"
+              f" {k:8.1f} device ops")
+    front_ops = sum(split[st][1] for st in front)
+    print(f"  front stages ({', '.join(front)}): "
+          f"{sum(split[st][0] for st in front):.3f} ms, {front_ops:.0f} "
+          f"device ops a frame, the front graph's nodes by stage "
+          f"({', '.join(f'{st} {split[st][1]:.0f}' for st in front)}; the "
+          f"front graph had 7,093 nodes before the pass kernels)")
     return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
-            "device_ms": dev_ms / n, "device_ops": len(ops) / n}
+            "device_ms": dev_ms / n, "device_ops": len(ops) / n,
+            "device_split": split}
+
+
+class _StageRanges:
+    """``engine.step``'s ``mark`` for the profiler: each stage's work in a
+    ``record_function`` range ``stage:<name>``, closed after a synchronize
+    so that the stage's kernels run inside it; what follows the last mark
+    goes into ``stage:other``."""
+
+    def __init__(self, stages):
+        self.stages = tuple(stages)
+        self._rf = None
+
+    def _open(self, name):
+        from torch.profiler import record_function
+        self._rf = record_function(f"stage:{name}")
+        self._rf.__enter__()
+
+    def _close(self):
+        import torch
+        torch.cuda.synchronize()
+        self._rf.__exit__(None, None, None)
+        self._rf = None
+
+    def start(self):
+        self._open(self.stages[0])
+
+    def mark(self, stage):
+        self._close()
+        k = self.stages.index(stage) + 1
+        self._open(self.stages[k] if k < len(self.stages) else "other")
+
+    def end(self):
+        self._close()
+
+
+def _device_split(prof, ops, stages, n_frames):
+    """{stage: (device ms a frame, device ops a frame)} of ``ops`` (the
+    profile's device events) by the ``stage:`` range whose time holds each
+    op's start, and "other" for the ops after a step's last mark or in no
+    range."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    e.name[len("stage:"):]) for e in prof.events()
+                   if e.name.startswith("stage:")
+                   and e.device_type == DeviceType.CPU)
+    starts = [sp[0] for sp in spans]
+    out = {st: [0.0, 0] for st in tuple(stages) + ("other",)}
+    for e in ops:
+        k = bisect.bisect_right(starts, e.time_range.start) - 1
+        st = "other"
+        if k >= 0 and e.time_range.start < spans[k][1]:
+            st = spans[k][2]
+        out[st][0] += e.self_device_time_total / 1000
+        out[st][1] += 1
+    return {st: (ms / n_frames, k / n_frames) for st, (ms, k) in out.items()}
 
 
 # phase 5: the large scan, streamed
@@ -1333,6 +1419,10 @@ def _counters():
         from voxelhashing_tpu_torch.ops import icp_update as iu
     except ImportError:                     # a checkout before the kernel
         iu = None
+    try:
+        from voxelhashing_tpu_torch.ops import icp_linearize as il
+    except ImportError:                     # a checkout before the kernels
+        il = None
     return (("fused_integrate", fused_integrate, "launches"),
             ("fused_integrate_bilinear", fused_integrate,
              "bilinear_launches"),
@@ -1349,7 +1439,17 @@ def _counters():
              getattr(iu, "icp_update_plain", None), "cuda_calls"),
             ("solve6", getattr(s6, "solve6", None), "launches"),
             ("plain solve6 on CUDA", getattr(s6, "solve6_plain", None),
-             "cuda_calls"))
+             "cuda_calls"),
+            ("icp_associate", getattr(il, "associate", None), "launches"),
+            ("icp_linearize", getattr(il, "linearize", None), "launches"),
+            ("icp_linearize_color", getattr(il, "linearize", None),
+             "color_launches"),
+            ("plain associate on CUDA", getattr(il, "associate_plain", None),
+             "cuda_calls"),
+            ("plain linearize on CUDA", getattr(il, "linearize_plain", None),
+             "cuda_calls"),
+            ("plain color system on CUDA",
+             getattr(il, "color_system_plain", None), "cuda_calls"))
 
 
 def _solves(cfg):
@@ -1358,6 +1458,27 @@ def _solves(cfg):
     inner iteration of every outer iteration of every level."""
     t = getattr(cfg, "tracker", cfg)
     return sum(o * i for o, i in zip(t.max_outer_iter, t.max_inner_iter))
+
+
+def _track_launches(cfg, frames=1, rgbd=False):
+    """The tracker's launches in ``frames`` tracked frames of ``cfg`` (an
+    engine's or a tracker's config): one association an outer iteration,
+    one linearization (with the photometric rows under RGB-D) and one ICP
+    update an inner iteration."""
+    t = getattr(cfg, "tracker", cfg)
+    solves = _solves(t) * frames
+    return {"icp_update": solves,
+            "icp_associate": sum(t.max_outer_iter) * frames,
+            "icp_linearize": 0 if rgbd else solves,
+            "icp_linearize_color": solves if rgbd else 0}
+
+
+def _launches_off(counts, want):
+    """The kernels whose count in ``counts`` is not ``want``'s, as
+    {name: (count, wanted)} (only those the checkout counts)."""
+    have = {name for name, fn, attr in _counters() if hasattr(fn, attr)}
+    return {k: (counts[k], v) for k, v in want.items()
+            if k in have and counts[k] != v}
 
 
 def _counts():
@@ -1455,7 +1576,7 @@ def phase_rgbd(mode, device, gpu_line):
     want = {name: 0 for name in counts}
     want["fused_integrate"] = N_FRAMES
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
-    want["icp_update"] = _solves(cfg) * (N_FRAMES - 1)
+    want.update(_track_launches(cfg, N_FRAMES - 1, rgbd=True))
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -1598,8 +1719,9 @@ def phase_slam(device, gpu_line):
         live = _counts()
         # every live frame but the first tracks, and so does every
         # keyframe registration
-        want_updates = (_solves(cfg) * (n - 1)
-                        + _solves(run.pg.tracker) * len(reg_ms))
+        want_track = {k: v + _track_launches(run.pg.tracker,
+                                             len(reg_ms))[k]
+                      for k, v in _track_launches(cfg, n - 1).items()}
     events = [ln for ln in log.getvalue().splitlines()
               if "loop closure" in ln or "relocalized" in ln or "LOST" in ln]
     for ln in events:
@@ -1682,13 +1804,15 @@ def phase_slam(device, gpu_line):
             and ate_after <= ate_before + 0.001):
         raise RuntimeError(f"slam: ATE before {ate_before} m, after "
                            f"{ate_after} m")
+    no_track = {k: 0 for k in want_track}
     if any(live[k] != v for k, v in want_live.items()) \
             or any(ri[k] != v for k, v in want_live.items()) or bad \
-            or live["icp_update"] != want_updates or ri["icp_update"] \
+            or _launches_off(live, want_track) \
+            or _launches_off(ri, no_track) \
             or live["solve6"] or ri["solve6"]:
         raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
-                           f"expected {want_live} in both, icp_update "
-                           f"{want_updates} live and 0 re-integrating, "
+                           f"expected {want_live} in both, the tracker's "
+                           f"{want_track} live and none re-integrating, "
                            f"solve6 0")
     reloc = phase_relocalize(cfg, poses, depth, device, gpu_line)
     return {"live": live, "reintegrate": ri, "loops": n_loops,
@@ -1789,8 +1913,8 @@ def phase_bilinear(device, gpu_line):
           f"(limit {ATE_LIMIT_M * 1000} mm), counts {counts}")
     want = {"fused_integrate": 0, "fused_integrate_bilinear": N_FRAMES,
             "frame_color_words": N_FRAMES, "splat_zbuf": N_FRAMES,
-            "splat_zbuf_color": 0,
-            "icp_update": _solves(cfg) * (N_FRAMES - 1), "solve6": 0}
+            "splat_zbuf_color": 0, "solve6": 0,
+            **_track_launches(cfg, N_FRAMES - 1)}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
@@ -2231,7 +2355,7 @@ def phase_sharded(device, gpu_line, graph):
         for r, res in enumerate(ranks):
             exp = {name: 0 for name in res[part]["counts"]}
             exp["fused_integrate"] = n
-            exp["icp_update"] = _solves(_config()) * (n - 1)
+            exp.update(_track_launches(_config(), n - 1, rgbd=part != "a"))
             if render:
                 exp[render] = n
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
@@ -2242,7 +2366,7 @@ def phase_sharded(device, gpu_line, graph):
                     f"{res[part]['valid']}, ATE {res[part]['ate_mm']} mm")
     exp = {name: 0 for name in nccl["counts"]}
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
-    exp["icp_update"] = _solves(_config()) * (N_FRAMES - 1)
+    exp.update(_track_launches(_config(), N_FRAMES - 1))
     if nccl["counts"] != exp or not all(nccl["valid"]) \
             or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
             or any(v != 0 for v in nccl["invariants"].values()) \
@@ -2444,10 +2568,10 @@ def _dense_step(cfg, gcfg, poses, depth, color, device, gpu_line):
     if ate >= DENSE_ATE_LIMIT_M or not all(valid):
         raise RuntimeError(f"dense step: ATE {ate} m, valid {valid}")
     want = {name: 0 for name in counts}
-    want["icp_update"] = _solves(cfg) * (N_FRAMES - 1)
+    want.update(_track_launches(cfg, N_FRAMES - 1))
     if counts != want:
         raise RuntimeError(f"the dense step launched a kernel other than "
-                           f"the tracker's ICP update, or a plain version "
+                           f"the tracker's, or a plain version "
                            f"on the card: {counts}, expected {want}")
     if sum(replayed.values()) != 0:
         raise RuntimeError(f"a replayed dense frame synced: {replayed}")
@@ -2705,8 +2829,9 @@ def _recorded_updates(out):
 def _graph_vs_eager(device, gpu_line):
     """(a), the check: phase 1's 20 frames through ``make_step`` and twice
     through the eager step, in lockstep from the same start; every frame's
-    pose, valid flag and map compared. Returns the numbers and frame 11's
-    ICP updates (``_recorded_updates``)."""
+    pose, valid flag and map compared. Returns the numbers, frame 11's
+    ICP updates (``_recorded_updates``) and its passes
+    (``_recorded_passes``)."""
     import torch
     from voxelhashing_tpu_torch import engine
 
@@ -2714,7 +2839,7 @@ def _graph_vs_eager(device, gpu_line):
     _, depth, color = _frames(cfg.camera, device)
     e1, e2, g = (engine.create(cfg, device=device) for _ in range(3))
     step = engine.make_step(cfg, donate=True)
-    ev_e, ev_g, per_frame, updates = [], [], [], []
+    ev_e, ev_g, per_frame, updates, passes = [], [], [], [], []
     ptrs, det_diff, graph_diff, sites = None, [], [], None
     torch.cuda.synchronize()
     _zero_counts()
@@ -2724,7 +2849,9 @@ def _graph_vs_eager(device, gpu_line):
         ev_e.append(t)
         ctx = (_recorded_updates(updates) if i == GRAPH_SYNC_FRAME
                else contextlib.nullcontext())
-        with ctx:
+        ctx2 = (_recorded_passes(passes) if i == GRAPH_SYNC_FRAME
+                else contextlib.nullcontext())
+        with ctx, ctx2:
             e2, d2 = engine.step(e2, depth[i], color[i], cfg)
         c0 = _counts()
         ctx = (_sync_sites() if i == GRAPH_SYNC_FRAME
@@ -2761,7 +2888,7 @@ def _graph_vs_eager(device, gpu_line):
                       for k, v in step.graphs.items()}}
     step.close()
     del e1, e2, g, step
-    return out, updates
+    return out, updates, passes
 
 
 def _graph_alone(device, gpu_line):
@@ -2920,6 +3047,216 @@ def _hold_update(iu, args):
                            slot)
     return (bad, float((got.delta - ref.delta).abs().max()),
             float((got.x - ref.x).abs().max()))
+
+
+class _Recording:
+    """``tracking``'s view of ``ops/icp_linearize`` with associate and
+    linearize replaced; every other name is the module's."""
+
+    def __init__(self, mod, **fns):
+        self._mod = mod
+        self.__dict__.update(fns)
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+@contextlib.contextmanager
+def _recorded_passes(out):
+    """Append the inputs of every ``tracking`` association inside the block
+    as a dict: delta (a copy), the level (``icp_linearize.Level``), the
+    association's arguments, and the linearization's planarity threshold
+    and color sigma."""
+    from voxelhashing_tpu_torch import tracking
+    icp = tracking.icp
+
+    def associate(delta, lv, *args):
+        out.append({"delta": delta.clone(), "lv": lv, "args": args})
+        return icp.associate(delta, lv, *args)
+
+    def linearize(delta, lv, assoc, moments, s, planar_thres,
+                  color_sigma=None):
+        out[-1].update(planar_thres=planar_thres, color_sigma=color_sigma)
+        return icp.linearize(delta, lv, assoc, moments, s, planar_thres,
+                             color_sigma)
+
+    tracking.icp = _Recording(icp, associate=associate, linearize=linearize)
+    try:
+        yield out
+    finally:
+        tracking.icp = icp
+
+
+def _saved_pass_counts():
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    return (il.associate.launches, il.linearize.launches,
+            il.linearize.color_launches)
+
+
+def _restore_pass_counts(saved):
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    (il.associate.launches, il.linearize.launches,
+     il.linearize.color_launches) = saved
+
+
+def _hold_passes(records, label):
+    """Each recorded iteration through the pass kernels and their plain
+    versions (``icp_linearize.check_pass``: the association, mean and
+    inv_std bit for bit, the sums within ``disagreements``, counts
+    equal); raises on any failure. Returns {"n", "assoc"/"depth"/"color":
+    (max |d|, max excess)}."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    saved = _saved_pass_counts()
+    fails, worst = [], {}
+    for k, r in enumerate(records):
+        bad, out = il.check_pass(r["delta"], r["lv"], r["args"],
+                                 r["planar_thres"], r["color_sigma"])
+        if bad:
+            fails.append((k, r["lv"].n, bad))
+        for key in ("assoc", "depth", "color"):
+            if key in out:
+                e, x = out[key]
+                pe, px = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(pe, e), max(px, x))
+    _restore_pass_counts(saved)
+    sizes = sorted({r["lv"].n for r in records}, reverse=True)
+    print(f"icp passes ({label}): {len(records)} iterations at "
+          f"{sizes} pixels: association bit-equal and every sum within "
+          f"the bound in {len(records) - len(fails)} of {len(records)}; "
+          + "; ".join(f"{key} max |d| {e:.3e}, excess {x:.2f} of 2^-24 "
+                      f"sum|t| (bound {il.bound_factor(sizes[0]):.0f})"
+                      for key, (e, x) in worst.items()))
+    if fails:
+        raise RuntimeError(f"icp passes ({label}) against their plain "
+                           f"versions: {fails[:4]}")
+    return {"n": len(records), **worst}
+
+
+def _edge_records(device):
+    """``icp_linearize.edge_bank`` as records: each level depth-only with
+    the scatter, and with the photometric rows."""
+    import torch
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    out = []
+    for e in il.edge_bank():
+        delta = torch.from_numpy(e["delta"]).to(device)
+        for scatter, sigma in ((True, None), (False, th["color_sigma"])):
+            out.append({"delta": delta, "lv": il.edge_level(e, device),
+                        "args": (th["dist_thres"], th["normal_thres"],
+                                 th["depth_min"], th["depth_max"], scatter),
+                        "planar_thres": th["planar_thres"],
+                        "color_sigma": sigma, "case": e["case"]})
+    return out
+
+
+def _rgbd_records(device):
+    """Frame 11's passes of phase 6's splat + RGB-D run (the same 12 frames
+    through the eager step)."""
+    from voxelhashing_tpu_torch import engine
+    cfg = _rgbd_config("splat")
+    _, depth, color = _frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    records = []
+    saved = _counts()
+    for i in range(GRAPH_SYNC_FRAME + 1):
+        ctx = (_recorded_passes(records) if i == GRAPH_SYNC_FRAME
+               else contextlib.nullcontext())
+        with ctx:
+            state, _ = engine.step(state, depth[i], color[i], cfg)
+    for name, fn, attr in _counters():
+        if hasattr(fn, attr):
+            setattr(fn, attr, saved[name])
+    return records
+
+
+def _pass_times(records, gpu_line, label):
+    """Bare, wrapper and plain times of the two passes at each level of
+    ``records`` (one frame's iterations), with an empty kernel's node, the
+    bytes and operations of each launch and the bound they give; and the
+    means over the frame's launches. Returns {"associate", "linearize"}:
+    per-launch means and the per-level numbers."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+
+    saved = _saved_pass_counts()
+    dev = records[0]["delta"].device
+    color = records[0]["color_sigma"] is not None
+    lin_kind = "linearize_color" if color else "linearize"
+    levels = {}
+    for r in records:
+        levels.setdefault(id(r["lv"]), r)
+    per = {"associate": [], lin_kind: []}
+    for r in levels.values():
+        delta, lv, args = r["delta"], r["lv"], r["args"]
+        scatter, sigma, pt = args[-1], r["color_sigma"], r["planar_thres"]
+        a_args, a = il.prepare_associate(delta, lv, *args)
+        il.launch_associate(a_args)
+        l_args, lin = il.prepare_linearize(delta, lv, a, a.moments, a.s, pt,
+                                           sigma)
+        il.launch_linearize(l_args)
+        torch.cuda.synchronize()
+        n_ok = int(a.ok.sum())
+        n_use = int((a.wgt > 0).sum()) if scatter else 0
+        n_ok_c = int(lin.color[4]) if color else 0
+        n_md = lv.md_pts.shape[0] * lv.md_pts.shape[1]
+        bare_l = _bare_ms(lambda: il.launch_linearize(l_args))
+        bare_a = _bare_ms(lambda: il.launch_associate(a_args))
+        for kind, bare, call, plain in (
+                ("associate", bare_a,
+                 lambda: il.associate(delta, lv, *args),
+                 lambda: il.associate_reference(delta, lv, *args)),
+                (lin_kind, bare_l,
+                 lambda: il.linearize(delta, lv, a, a.moments, a.s, pt,
+                                      sigma),
+                 lambda: il.linearize_reference(delta, lv, a, a.moments,
+                                                a.s, pt, sigma))):
+            nbytes = il.bytes_moved(kind, lv.n, n_md, scatter,
+                                    scatter and kind != "associate")
+            f32, f64 = il.operations(kind, lv.n, n_ok, n_use, n_ok_c)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = (f32 / F32_OPS_PER_S + f64 / F64_OPS_PER_S) * 1e3
+            wrapper = _median_ms(call)
+            plain_ms = _median_ms(plain)
+            per[kind].append({
+                "pixels": lv.n, "ms": bare, "wrapper_ms": wrapper,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "operations": f32 + f64, "accepted": n_ok})
+            # the association above wrote the level's buffers again
+            if kind == "associate":
+                il.launch_associate(a_args)
+    empty = _bare_ms(lambda: iu.launch_empty(dev))
+    torch.cuda.synchronize()
+    _restore_pass_counts(saved)
+    by_n = {kind: {p["pixels"]: p for p in v} for kind, v in per.items()}
+    out = {}
+    for kind, rows in per.items():
+        launches = [by_n[kind][r["lv"].n] for r in records]
+        mean = {k: float(np.mean([p[k] for p in launches]))
+                for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+        for p in rows:
+            print(f"icp {kind} timing ({label}, {p['pixels']} pixels, "
+                  f"{p['accepted']} accepted): bare {p['ms']:.4f} ms "
+                  f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
+                  f"kernel's node {empty:.4f} ms; wrapper "
+                  f"{p['wrapper_ms']:.4f} ms; plain {p['plain_ms']:.4f} ms; "
+                  f"{p['bytes']} B and {p['operations']} operations: bound "
+                  f"{p['bound_ms']:.2e} ms by {p['bound_by']}, "
+                  f"{100 * p['bound_ms'] / p['ms']:.1f}% of it; on "
+                  f"{gpu_line}")
+        print(f"icp {kind} timing ({label}): {len(launches)} launches a "
+              f"frame, bare {mean['ms']:.4f} ms a launch on average "
+              f"({sum(p['ms'] for p in launches):.4f} ms a frame), plain "
+              f"{mean['plain_ms']:.4f} ms")
+        out[kind] = {**mean, "bound_by": rows[0]["bound_by"],
+                     "bound_share": mean["bound_ms"] / mean["ms"],
+                     "empty_ms": empty, "frame_ms":
+                     sum(p["ms"] for p in launches), "levels": rows,
+                     "per_frame": len(launches)}
+    return out
 
 
 def _icp_update_check(updates, sweeps, gpu_line):
@@ -3148,8 +3485,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     its numbers and each path's launch counts."""
     t0 = time.perf_counter()
     cfg = _config()
-    a, updates = _graph_vs_eager(device, gpu_line)
-    names = ("fused_integrate", "splat_zbuf", "icp_update", "solve6")
+    a, updates, passes = _graph_vs_eager(device, gpu_line)
+    names = ("fused_integrate", "splat_zbuf", "icp_update", "icp_associate",
+             "icp_linearize", "solve6")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -3168,7 +3506,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
           f"capture) graphs {a['fps_graph_steady']:.3f}, eager "
           f"{a['fps_eager_steady']:.3f}; on {gpu_line}")
     for key, (nodes, ms) in sorted(a["graphs"].items()):
-        print(f"graph (a): graph {key!r}: {nodes} nodes, captured in "
+        print(f"graph (a): graph {key!r}: {nodes} nodes"
+              f"{' (7,093 before the pass kernels)' if key == 'front' else ''}"
+              f", captured in "
               f"{ms:.1f} ms (its front warm-up included)")
     alone = _graph_alone(device, gpu_line)
     print(f"graph (a), alone: {alone['fps']:.3f} fused frames/s (frames "
@@ -3185,6 +3525,16 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
           f"{gpu_line}")
     s6 = _solve6_check([(u[1][0], u[1][1]) for u in updates], gpu_line)
     upd = _icp_update_check(updates, s6["sweeps"], gpu_line)
+    rgbd_passes = _rgbd_records(device)
+    held = {"frame11": _hold_passes(passes, "frame 11, depth only"),
+            "rgbd": _hold_passes(rgbd_passes, "frame 11, splat + RGB-D"),
+            "edge": _hold_passes(_edge_records(device), "edge bank")}
+    pass_times = _pass_times(passes, gpu_line, "frame 11, depth only")
+    rgbd_times = _pass_times(rgbd_passes, gpu_line,
+                             "frame 11, splat + RGB-D")
+    pass_times.update(linearize_color=rgbd_times["linearize_color"],
+                      associate_rgbd=rgbd_times["associate"])
+    del rgbd_passes
     rgbd = {}
     for mode in ("splat", "march"):
         r = _graph_rgbd(mode, device, gpu_line)
@@ -3220,9 +3570,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         fails.append(f"{a['syncs']} host syncs in a tracked frame")
     if not a["ptrs_kept"] or a["pool_bytes"]:
         fails.append("the pool moved or was copied in")
-    want = {"fused_integrate": 1, "splat_zbuf": 1,
-            "icp_update": _solves(cfg), "solve6": 0}
-    if any(f[k] != (0 if (i == 0 and k == "icp_update") else v)
+    track = _track_launches(cfg)
+    want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": 0, **track}
+    if any(f[k] != (0 if (i == 0 and k in track) else v)
            for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
         fails.append(f"launches a frame {every}")
     if any(v for k, v in counts.items() if k.startswith("plain")):
@@ -3231,7 +3581,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         c = r["counts"]
         if r["ate_mm"] >= ATE_LIMIT_M * 1000 or r["valid"] != N_FRAMES \
                 or r["syncs"] != 2 or c["fused_integrate"] != N_FRAMES \
-                or c["icp_update"] != _solves(cfg) * (N_FRAMES - 1) \
+                or _launches_off(c, _track_launches(cfg, N_FRAMES - 1,
+                                                    rgbd=True)) \
                 or c["solve6"] \
                 or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
                                              else 0):
@@ -3240,15 +3591,16 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
             or any(v != 0 for v in scan["invariants"].values()) \
             or scan["counts"]["fused_integrate"] != LS_OUT \
             or scan["counts"]["splat_zbuf"] != LS_OUT \
-            or scan["counts"]["icp_update"] or scan["counts"]["solve6"]:
+            or _launches_off(scan["counts"], {k: 0 for k in track}) \
+            or scan["counts"]["solve6"]:
         fails.append(f"large scan: {scan}")
     if not mnt["compactions"] or mnt["diff"] or not mnt["pool_bytes"]:
         fails.append(f"forced maintain: {mnt}")
     if fails:
         raise RuntimeError("phase 10: " + "; ".join(fails))
     return {"a": a, "alone": alone, "solve6": s6, "icp_update": upd,
-            "rgbd": rgbd, "scan": scan, "maintain": mnt, "wall_s": wall,
-            "counts": counts}
+            "held": held, "pass_times": pass_times, "rgbd": rgbd,
+            "scan": scan, "maintain": mnt, "wall_s": wall, "counts": counts}
 
 
 def _kernel_entry(res, launches):
@@ -3459,7 +3811,8 @@ def main() -> int:
 
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words", "icp_update",
-             "solve6")
+             "solve6", "icp_associate", "icp_linearize",
+             "icp_linearize_color")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -3540,6 +3893,39 @@ def main() -> int:
         "sweeps": graph["solve6"]["sweeps"],
         "svd_ms": graph["solve6"]["svd_ms"],
         "launches_by_path": by_path["solve6"]})
+    # the tracker's passes (one association an outer iteration, one
+    # linearization an inner one); no TPU kernel: the XLA passes of
+    # voxelhashing_tpu/tracking.py (_associate :125, _whitening :183,
+    # _planarity :210, _linearize :242, _build_system_color :358)
+    held, times = graph["held"], graph["pass_times"]
+    for name, kind, path, replaces, globals_, hkey in (
+            ("icp_associate", "associate", "step",
+             "voxelhashing_tpu/tracking.py:125",
+             ["icp_associate_kernel"], "assoc"),
+            ("icp_linearize", "linearize", "step",
+             "voxelhashing_tpu/tracking.py:242",
+             ["icp_linearize_kernel<false>"], "depth"),
+            ("icp_linearize_color", "linearize_color", "splat_rgbd",
+             "voxelhashing_tpu/tracking.py:358",
+             ["icp_linearize_kernel<true>"], "color")):
+        t = times[kind]
+        errs = [h[hkey] for h in held.values() if hkey in h]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "voxelhashing_tpu_torch/csrc/icp_linearize.cu",
+            "replaces": replaces, "launches": by_path[name][path],
+            "max_abs_err": max(e[0] for e in errs), "ms": t["ms"],
+            "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_share": t["bound_share"], "library_ms": None,
+            "empty_node_ms": t["empty_ms"], "frame_ms": t["frame_ms"],
+            "per_frame": t["per_frame"],
+            "excess": max(e[1] for e in errs),
+            "levels": [{k: p[k] for k in ("pixels", "ms", "wrapper_ms",
+                                           "plain_ms", "bound_ms",
+                                           "accepted")}
+                       for p in t["levels"]],
+            "kernels": globals_, "launches_by_path": by_path[name]})
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
           f"large_scan_fps_unstreamed={fps_u:.3f} "
@@ -3577,6 +3963,9 @@ def main() -> int:
           f"graph_scan_fps={graph['scan']['fps']:.3f} "
           f"front_nodes={graph['a']['graphs']['front'][0]} "
           f"icp_update_ms={graph['icp_update']['ms']:.4f} "
+          f"icp_associate_ms={times['associate']['ms']:.4f} "
+          f"icp_linearize_ms={times['linearize']['ms']:.4f} "
+          f"icp_linearize_color_ms={times['linearize_color']['ms']:.4f} "
           f"empty_node_ms={graph['icp_update']['empty_ms']:.4f} "
           f"solve6_ms={graph['solve6']['ms']:.4f} "
           f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")

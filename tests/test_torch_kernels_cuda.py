@@ -9,7 +9,11 @@ and follow the plain versions' operation order), but for the 6x6 solve
 (``solve6.disagreements``: an f64 Jacobi against the plain version's f32
 SVD) and the ICP update around it (``icp_update.disagreements``: that
 bound on x and cond, the flags, counts and residuals equal, delta within
-4e-6 plus the solve's difference carried through the pose).
+4e-6 plus the solve's difference carried through the pose), and the
+tracker's pass kernels, whose association, mean and inv_std are
+bit-equal and whose sums are held by ``icp_linearize.disagreements``
+((1.01 n + 3) 2^-24 of the sum of the terms' absolute values; an f64
+sum in a fixed order against cuBLAS's f32 product), counts equal.
 ``engine.make_step``'s graphs on the card are bit-equal to the eager step
 and read the host twice a tracked frame. The file imports only the port,
 so it runs where the JAX package cannot.
@@ -124,7 +128,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 4
+    assert len(called) == 5
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -134,8 +138,8 @@ def test_missing_nvcc_raises(monkeypatch):
         _build._nvcc()
     assert _build.library_path("splat_zbuf").name.startswith(
         "libvhtorch_splat_zbuf_")
-    assert {s.stem for s in _build.sources()} == {"fused_integrate",
-                                                  "solve6", "splat_zbuf"}
+    assert {s.stem for s in _build.sources()} == {
+        "fused_integrate", "icp_linearize", "solve6", "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -633,3 +637,88 @@ def test_make_step_graphs_are_the_eager_step(cuda):
     assert set(step.graphs) == {"front", "back", "back_starve"}
     assert step.pool_bytes_adopted == 0
     step.close()
+
+
+def _hold_icp_pass(delta, lv, scatter, sigma):
+    """One iteration through the pass kernels and their plain versions
+    (``icp_linearize.check_pass``) at the edge bank's thresholds."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    bad, _ = il.check_pass(delta, lv, (th["dist_thres"], th["normal_thres"],
+                                       th["depth_min"], th["depth_max"],
+                                       scatter),
+                           th["planar_thres"], sigma)
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_icp_pass_kernels_match_plain_on_the_edge_bank(cuda):
+    """The association and linearization kernels against their plain
+    versions on ``icp_linearize.edge_bank`` (NaN pixels, pz == 0,
+    projections off every border, counts of 0, a 1x1 level, a row shard,
+    strided maps), depth-only with the scatter and with the photometric
+    rows; two runs give the same bits."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    for e in il.edge_bank():
+        lv = il.edge_level(e, cuda)
+        delta = torch.from_numpy(e["delta"]).to(cuda)
+        _hold_icp_pass(delta, lv, True, None)
+        _hold_icp_pass(delta, lv, False, th["color_sigma"])
+        runs = []
+        for _ in range(2):
+            a = il.associate(delta, lv, th["dist_thres"], th["normal_thres"],
+                             th["depth_min"], th["depth_max"], True)
+            lin = il.linearize(delta, lv, a, a.moments, a.s,
+                               th["planar_thres"], th["color_sigma"])
+            runs.append([t.clone() for t in a.moments + (a.s,) + lin.depth
+                         + lin.color + (lin.mean, lin.inv_std, lin.planar)])
+        for x, y in zip(*runs):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_track_runs_the_pass_kernels(cuda, rgbd):
+    """``tracking.track`` on the card: one association launch an outer
+    iteration and one linearization an inner one (with the photometric
+    rows under RGB-D), no plain pass on the card, each iteration held to
+    the plain versions, and the pose within 1e-4 of the CPU's."""
+    from voxelhashing_tpu_torch import tracking
+    from voxelhashing_tpu_torch.config import FilterConfig, TrackerConfig
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    from voxelhashing_tpu_torch.ops.image import preprocess
+    poses = make_trajectory(3, translation_step=0.01)
+    maps = []
+    for i in (0, 2):
+        d, c = render_depth(poses[i], CAM, Scene(), noise_sigma=0.002,
+                            seed=i, device=cuda)
+        f = preprocess(d, c, CAM, FilterConfig())
+        maps.append((f.points, f.normals, f.intensity))
+    cfg = TrackerConfig(levels=2, max_outer_iter=(6, 4),
+                        max_inner_iter=(1, 1))
+    kw = (dict(input_intensity=maps[1][2], model_intensity=maps[0][2])
+          if rgbd else {})
+    before = (il.associate.launches, il.linearize.launches,
+              il.linearize.color_launches, il.associate_plain.cuda_calls,
+              il.linearize_plain.cuda_calls,
+              il.color_system_plain.cuda_calls)
+    res = tracking.track(maps[1][0], maps[1][1], maps[0][0], maps[0][1],
+                         torch.eye(4, device=cuda), CAM, cfg, **kw)
+    after = (il.associate.launches, il.linearize.launches,
+             il.linearize.color_launches, il.associate_plain.cuda_calls,
+             il.linearize_plain.cuda_calls,
+             il.color_system_plain.cuda_calls)
+    assert [a - b for a, b in zip(after, before)] == \
+        [10, 0 if rgbd else 10, 10 if rgbd else 0, 0, 0, 0]
+    cpu = tracking.track(*(t.cpu() for t in (maps[1][0], maps[1][1],
+                                             maps[0][0], maps[0][1])),
+                         torch.eye(4), CAM, cfg,
+                         **{k: v.cpu() for k, v in kw.items()})
+    assert bool(res.valid) and bool(cpu.valid)
+    np.testing.assert_allclose(res.pose.cpu().numpy(), cpu.pose.numpy(),
+                               atol=1e-4, rtol=0)
+    lv = il.Level(maps[1][0], maps[1][1], maps[0][0], maps[0][1], CAM,
+                  *((maps[1][2], maps[0][2]) if rgbd else ()))
+    _hold_icp_pass(res.pose.contiguous(), lv, not rgbd,
+                   0.1 if rgbd else None)

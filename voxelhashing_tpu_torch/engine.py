@@ -387,13 +387,16 @@ def graph_keys(cfg: EngineConfig, frame_idx: int, replay: bool):
 def _launch_counters():
     """(owner, attribute) of every kernel launch count."""
     from .ops import fused_integrate as fa, icp_update as iu, solve6 as s6
-    from .ops import splat_zbuf as sb
+    from .ops import icp_linearize as il, splat_zbuf as sb
     return ((fa.fused_integrate, "launches"),
             (fa.fused_integrate, "bilinear_launches"),
             (fa.fused_integrate, "color_word_launches"),
             (sb.splat_zbuf, "launches"),
             (sb.splat_zbuf_color, "launches"),
             (iu.icp_update, "launches"),
+            (il.associate, "launches"),
+            (il.linearize, "launches"),
+            (il.linearize, "color_launches"),
             (s6.solve6, "launches"))
 
 

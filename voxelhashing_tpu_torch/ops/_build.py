@@ -50,6 +50,14 @@ _SIGNATURES = {
         "vh_splat_zbuf_color": [_P] * 10 + [_I] * 3 + [_F] * 7 + [_I, _P],
         "vh_splat_zbuf_color_grid": [],
     },
+    "icp_linearize": {
+        "vh_icp_associate": [_P] * 3 + [_LL] * 2 + [_I] * 2 + [_P] * 2
+        + [_LL] * 2 + [_I] * 4 + [_F] * 9 + [_I] + [_P] * 6,
+        "vh_icp_linearize": [_P] * 2 + [_LL] * 2 + [_I] * 2 + [_P] * 6
+        + [_F, _I, _P] + [_LL] * 2 + [_P] + [_LL] * 2 + [_I] * 4 + [_F] * 5
+        + [_P] * 6,
+        "vh_icp_linearize_grid": [],
+    },
     "solve6": {
         "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],
