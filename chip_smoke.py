@@ -14,8 +14,16 @@ and then:
    cap) and the bench's real-time point (320x240, 4 mm voxels, truncation
    2 cm + 1 cm/m, online allocation, splat renderer, depth-only ICP with 3
    levels, GC on); requires ATE < 10 mm, a clean map, and that the step
-   went through both kernels; reports fused frames/s over frames 2-19
-   (CUDA events) and the host syncs of one frame;
+   went through both kernels and the front kernels (one preprocess launch
+   a frame, one candidates launch an integrated frame); reports fused
+   frames/s over frames 2-19 (CUDA events) and the host syncs of one
+   frame; then (``phase_front``) holds the front kernels, the depth
+   preprocess (``ops/preprocess``) and the allocator's candidates
+   (``ops/alloc_candidates``), against their plain versions on every frame
+   (the candidates on each call as the step made it, with the phase as a
+   device int32 scalar, and in pixel mode): bit for bit, the keys position
+   for position; on their edge banks; and times them at frame 11 (bare,
+   an empty kernel's node, wrapper, plain, bytes, operations, bound);
 2. holds kernel A (fused integrate) against its plain PyTorch version on
    clones of the state after frame 10 and frame 11's inputs: rows, surface
    flags and GC stats must be bit-equal (the kernels are built with
@@ -57,6 +65,8 @@ and then:
    (``streaming.save_map(manager=)``) equal to the first unstreamed run's;
    holds kernels A and B against their plain versions, bit for bit, on the
    state just after the first stream-in, and times them there as in 2-3;
+   holds the front kernels on every frame of the first streamed run (in
+   pixel mode on every 12th) and times them at frame 48;
    reports each run's frames/s on the outward leg (eviction) and on the
    return leg (stream-in), and the host syncs of one frame;
 6. runs 20 frames of phase 1's scene and configuration with RGB-D
@@ -370,14 +380,15 @@ def phase_step(cfg, device, gpu_line):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(N_FRAMES)]
     diags, est, snap = [], [], None
     t0 = time.perf_counter()
-    for i in range(N_FRAMES):
-        starts[i].record()
-        state, diag = engine.step(state, depth[i], color[i], cfg)
-        ends[i].record()
-        diags.append(diag)
-        est.append(state.pose.clone())
-        if i == 10:
-            snap = _clone_engine(state)      # outside the timed events
+    with _recorded_candidates() as calls:
+        for i in range(N_FRAMES):
+            starts[i].record()
+            state, diag = engine.step(state, depth[i], color[i], cfg)
+            ends[i].record()
+            diags.append(diag)
+            est.append(state.pose.clone())
+            if i == 10:
+                snap = _clone_engine(state)  # outside the timed events
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
@@ -421,10 +432,11 @@ def phase_step(cfg, device, gpu_line):
             f"fused_integrate launched {launches['fused_integrate']} times, "
             f"expected {sum(valid)} (one per valid frame)")
     off = _launches_off(launches, {**_track_launches(cfg, N_FRAMES - 1),
-                                   "solve6": 0})
+                                   "solve6": 0,
+                                   **_front_launches(N_FRAMES, sum(valid))})
     if off:
-        raise RuntimeError(f"the tracker's kernels launched (count, "
-                           f"expected) {off}")
+        raise RuntimeError(f"the tracker's or the front kernels launched "
+                           f"(count, expected) {off}")
     if (launches["splat_zbuf_color"] != 0
             or launches["fused_integrate_bilinear"]
             or launches["frame_color_words"]
@@ -432,7 +444,7 @@ def phase_step(cfg, device, gpu_line):
         raise RuntimeError(f"depth-only step ran a color render, the "
                            f"bilinear variant, its color-word image or a "
                            f"plain version on the card: {launches}")
-    return snap, est, depth, color, launches, fps
+    return snap, est, depth, color, launches, fps, calls
 
 
 @contextlib.contextmanager
@@ -818,6 +830,239 @@ def phase_edge_cases(cfg, base_map, depth, color, pose, frame_idx):
         del sk
 
 
+# ---------------------------------------------------------------------------
+# The front kernels: the depth preprocess and the allocator's candidates
+# ---------------------------------------------------------------------------
+
+def _front_launches(n_preprocessed, n_integrated):
+    """The front kernels' launches: one preprocess a preprocessed frame,
+    one candidates launch an integrated frame."""
+    return {"preprocess": n_preprocessed, "alloc_candidates": n_integrated}
+
+
+@contextlib.contextmanager
+def _recorded_candidates():
+    """The inputs of every ``integrate.alloc_candidates`` call made inside
+    the block, as dicts (by reference: the eager step writes none of them
+    again); the calls run and count as they do. A checkout before the
+    candidates kernel records nothing."""
+    from voxelhashing_tpu_torch import integrate as integ
+    calls = []
+    real = getattr(integ, "_candidates", None)
+    if real is None:
+        yield calls
+        return
+
+    class _Recorder:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def alloc_candidates(depth, pose, cam, cfg, tile=1, phase=None,
+                             model_depth=None):
+            calls.append({"depth": depth, "pose": pose, "cam": cam,
+                          "cfg": cfg, "tile": tile, "phase": phase,
+                          "model_depth": model_depth})
+            return real.alloc_candidates(depth, pose, cam, cfg, tile=tile,
+                                         phase=phase,
+                                         model_depth=model_depth)
+
+    integ._candidates = _Recorder()
+    try:
+        yield calls
+    finally:
+        integ._candidates = real
+
+
+def hold_preprocess(depth, color, cam, flt, label):
+    """The preprocess kernel against its plain version: the filtered
+    depth, points, normals and intensity bit for bit. Returns the max abs
+    error over the finite values (0 when bit-equal)."""
+    import torch
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    got = pp.preprocess_depth(depth, color, cam, flt)
+    ref = pp.preprocess_plain(depth, color, cam, flt)
+    torch.cuda.synchronize()
+    fields = ["depth", "points", "normals"]
+    if ref.intensity is not None or got.intensity is not None:
+        fields.append("intensity")
+    bad = [f for f in fields
+           if getattr(got, f) is None or getattr(ref, f) is None
+           or not _bits_equal(getattr(got, f), getattr(ref, f))]
+    if bad:
+        raise RuntimeError(f"{label}: the preprocess kernel differs from "
+                           f"its plain version in {bad}")
+    return max(_max_abs(getattr(got, f), getattr(ref, f)) for f in fields)
+
+
+def hold_candidates(call, label, tile=None, device_phase=False):
+    """The candidates kernel against its plain version on a recorded call
+    (``_recorded_candidates``; ``tile`` overrides its tile, 1 for pixel
+    mode; ``device_phase`` gives its phase as a device int32 scalar): the
+    flat keys equal position for position. Returns the valid keys."""
+    import torch
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    phase = call["phase"]
+    if device_phase and phase is not None \
+            and not isinstance(phase, torch.Tensor):
+        phase = torch.tensor(phase, dtype=torch.int32,
+                             device=call["depth"].device)
+    args = (call["depth"], call["pose"], call["cam"], call["cfg"])
+    kw = {"tile": call["tile"] if tile is None else tile, "phase": phase,
+          "model_depth": call["model_depth"]}
+    got = ac.alloc_candidates(*args, **kw)
+    ref = ac.alloc_candidates_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        n = int((got != ref).sum()) if got.shape == ref.shape else -1
+        raise RuntimeError(f"{label}: the candidates kernel differs from "
+                           f"its plain version at {n} of {ref.numel()} "
+                           f"positions (tile {kw['tile']}, phase {phase})")
+    return int((ref != INVALID_KEY).sum())
+
+
+def _hold_front_frames(cfg, depth, color, calls, label, pixel_every=1):
+    """Both front kernels held bit for bit on every frame: the preprocess
+    on each frame's inputs, the candidates on each recorded call as the
+    step made it, with its phase as a device int32 scalar, and (every
+    ``pixel_every``-th call) in pixel mode. Returns (max abs error, keys
+    held)."""
+    err, keys = 0.0, 0
+    for i in range(depth.shape[0]):
+        err = max(err, hold_preprocess(depth[i], color[i], cfg.camera,
+                                       cfg.filter, f"{label}, frame {i}"))
+    for i, call in enumerate(calls):
+        keys += hold_candidates(call, f"{label}, call {i}")
+        if call["tile"] > 1 and call["phase"] is not None:
+            hold_candidates(call, f"{label}, call {i}, device phase",
+                            device_phase=True)
+        if i % pixel_every == 0:
+            keys += hold_candidates(call, f"{label}, call {i}, pixel mode",
+                                    tile=1)
+    print(f"{label}: preprocess kernel bit-equal on {depth.shape[0]} "
+          f"frames, candidates kernel position for position on "
+          f"{len(calls)} calls (as the step made them, with the phase on "
+          f"the device, and in pixel mode on every {pixel_every}-th): "
+          f"{keys} valid keys held")
+    return err, keys
+
+
+def phase_front_edge_banks(device):
+    """Both front kernels held bit for bit on their edge banks
+    (``preprocess.edge_bank``, ``alloc_candidates.edge_bank``): the
+    candidates in tile and pixel mode, at each phase as a host int and as
+    a device int32 scalar, with novelty on and off."""
+    import torch
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    for e in pp.edge_bank():
+        d, c = pp.edge_frame(e, device)
+        err = hold_preprocess(d, c, e["cam"], e["flt"],
+                              f"edge preprocess, {e['case']}")
+        print(f"edge preprocess, {e['case']} ({e['cam'].width}x"
+              f"{e['cam'].height}): bit-equal, max_abs_err {err}")
+    for e in ac.edge_bank():
+        base = {"depth": torch.from_numpy(e["depth"]).to(device),
+                "pose": torch.from_numpy(e["pose"]).to(device),
+                "cam": e["cam"], "cfg": e["cfg"]}
+        md = torch.from_numpy(e["model_depth"]).to(device)
+        n, keys = 0, 0
+        for tile in (1, e["tile"]):
+            for phase in e["phases"]:
+                for model in (None, md):
+                    call = dict(base, tile=tile, phase=phase,
+                                model_depth=model)
+                    lbl = f"edge candidates, {e['case']}"
+                    keys += hold_candidates(call, lbl)
+                    n += 1
+                    if phase is not None:
+                        hold_candidates(call, lbl, device_phase=True)
+                        n += 1
+        print(f"edge candidates, {e['case']} ({e['cam'].width}x"
+              f"{e['cam'].height}): {n} calls position for position, "
+              f"{keys} valid keys")
+
+
+def time_front(cfg, depth, color, call, label, gpu_line):
+    """Each front kernel's times at one frame: bare (``launch`` on prepared
+    arguments, ``_bare_ms``), an empty kernel's node timed alike, the
+    wrapper and the plain version (``_median_ms``); the bytes it must move,
+    the operations it must do (``preprocess.work_counts``,
+    ``alloc_candidates.work_counts``: this frame's valid taps, points and
+    normals; its valid rays and live DDA steps) and the bound they give.
+    The candidates are also timed in pixel mode on the same frame.
+    Returns {"preprocess", "alloc_candidates", "alloc_candidates_pixel"}."""
+    import torch
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+
+    cam, flt = cfg.camera, cfg.filter
+    saved = _counts()
+    out = {}
+    args, frame = pp.prepare(depth, color, cam, flt)
+    pp.launch(args)
+    torch.cuda.synchronize()
+    with_int = frame.intensity is not None
+    work = pp.work_counts(depth, cam, flt, frame)
+    out["preprocess"] = {
+        "ms": _bare_ms(lambda: pp.launch(args)),
+        "wrapper_ms": _median_ms(lambda: pp.preprocess_depth(depth, color,
+                                                             cam, flt)),
+        "plain_ms": _median_ms(lambda: pp.preprocess_plain(depth, color,
+                                                           cam, flt)),
+        "bytes": pp.bytes_moved(depth.numel(), with_int),
+        "operations": pp.operations(*work), "work": work}
+    for key, tile in (("alloc_candidates", call["tile"]),
+                      ("alloc_candidates_pixel", 1)):
+        kw = {"tile": tile, "phase": call["phase"],
+              "model_depth": call["model_depth"]}
+        a = (call["depth"], call["pose"], call["cam"], call["cfg"])
+        c_args, keys = ac.prepare(*a, **kw)
+        ac.launch(c_args)
+        torch.cuda.synchronize()
+        work = ac.work_counts(*a, **kw)
+        novelty = work[-1]
+        out[key] = {
+            "ms": _bare_ms(lambda: ac.launch(c_args)),
+            "wrapper_ms": _median_ms(lambda: ac.alloc_candidates(*a, **kw)),
+            "plain_ms": _median_ms(
+                lambda: ac.alloc_candidates_plain(*a, **kw)),
+            "bytes": ac.bytes_moved(depth.numel(), keys.numel(), novelty),
+            "operations": ac.operations(*work), "work": work[:4]}
+    empty = _bare_ms(lambda: iu.launch_empty(depth.device))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    for key, r in out.items():
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["operations"])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["empty_ms"] = empty
+        print(f"{key} timing ({label}): bare {r['ms']:.4f} ms "
+              f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
+              f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
+              f"ms; plain {r['plain_ms']:.4f} ms; {r['bytes']} B at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {r['operations']} operations "
+              f"at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s (work {r['work']}): "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+              f"{100 * r['bound_share']:.1f}% of it; on {gpu_line}")
+    return out
+
+
+def phase_front(cfg, depth, color, calls, gpu_line):
+    """The front kernels on phase 1's frames: held on every frame and on
+    the edge banks, and timed at frame 11. Returns the timings with the
+    max abs error."""
+    err, _ = _hold_front_frames(cfg, depth, color, calls,
+                                "front kernels (phase 1)")
+    phase_front_edge_banks(depth.device)
+    times = time_front(cfg, depth[11], color[11], calls[11],
+                       "phase 1, frame 11", gpu_line)
+    for r in times.values():
+        r["max_abs_err"] = err
+    return times
+
+
 def phase_stages(cfg, depth, color, device, gpu_line):
     """Phase 4: per-stage time of ``engine.step`` and the device's busy
     share. Returns {stage: ms/frame}, with the device's kernel ms and ops
@@ -897,7 +1142,7 @@ def phase_stages(cfg, depth, color, device, gpu_line):
           f"{sum(split[st][0] for st in front):.3f} ms, {front_ops:.0f} "
           f"device ops a frame, the front graph's nodes by stage "
           f"({', '.join(f'{st} {split[st][1]:.0f}' for st in front)}; the "
-          f"front graph had 7,093 nodes before the pass kernels)")
+          f"front graph had 2,150 nodes before the preprocess kernel)")
     return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
             "device_ms": dev_ms / n, "device_ops": len(ops) / n,
             "device_split": split}
@@ -1019,14 +1264,15 @@ def _large_scan_poses():
     return poses
 
 
-def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label):
+def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label,
+              record=False):
     """One pass of the scan through ``engine.step`` (and ``mgr.step`` when
     streaming). Returns a dict: the final state, the kernel launches of the
     run, frames/s over outward frames 2-95 but the sync-counted one (fused
     frames, stream-out) and over the return frames 96-143 (nothing fused,
     stream-in), the host syncs of that frame, the host store's size after
-    the outward leg, and (streamed) a snapshot taken just after the first
-    stream-in."""
+    the outward leg, (streamed) a snapshot taken just after the first
+    stream-in and (``record``) the candidates' recorded calls."""
     import torch
     from voxelhashing_tpu_torch import engine
     from voxelhashing_tpu_torch.geometry import INVALID_KEY
@@ -1041,41 +1287,52 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label):
     sites, host_after_out, snap = None, None, None
     host_ms = [0.0] * n
     torch.cuda.synchronize()
+    front = [(name, fn, attr) for name, fn, attr in _counters()
+             if name in ("preprocess", "alloc_candidates")
+             and hasattr(fn, attr)]
+    for _, fn, attr in front:
+        setattr(fn, attr, 0)
     fused_integrate.launches = 0
     splat_zbuf.launches = 0
+    recording = (_recorded_candidates() if record
+                 else contextlib.nullcontext([]))
     t0 = time.perf_counter()
-    for i, pose in enumerate(poses):
-        ctx = (_sync_sites() if i == LS_SYNC_FRAME
-               else contextlib.nullcontext())
-        with ctx as counted:
-            starts[i].record()
-            state, _ = engine.step(
-                state, depth[i], color[i], cfg, pose_hint=pose,
-                stream_bitmask=None if mgr is None else mgr.bitmask)
-            mids[i].record()
-            keys_before = blocks_in = None
-            if mgr is not None:
-                if i >= LS_OUT and snap is None:
-                    keys_before = state.map.block_key.clone()
-                    blocks_in = mgr.blocks_in
-                h0 = time.perf_counter()
-                state = state._replace(map=mgr.step(state.map, pose[:3, 3]))
-                host_ms[i] = 1000 * (time.perf_counter() - h0)
-            ends[i].record()
-        if counted is not None:
-            sites = counted
-        if i == LS_OUT - 1 and mgr is not None:
-            mgr.flush()
-            host_after_out = mgr.host_block_count()
-        if blocks_in is not None and mgr.blocks_in > blocks_in:
-            new_rows = torch.nonzero((state.map.block_key != INVALID_KEY)
-                                     & (keys_before == INVALID_KEY))
-            snap = (i, _clone(state.map), mgr.bitmask.clone(),
-                    new_rows.reshape(-1).to(torch.int32))
+    with recording as calls:
+        for i, pose in enumerate(poses):
+            ctx = (_sync_sites() if i == LS_SYNC_FRAME
+                   else contextlib.nullcontext())
+            with ctx as counted:
+                starts[i].record()
+                state, _ = engine.step(
+                    state, depth[i], color[i], cfg, pose_hint=pose,
+                    stream_bitmask=None if mgr is None else mgr.bitmask)
+                mids[i].record()
+                keys_before = blocks_in = None
+                if mgr is not None:
+                    if i >= LS_OUT and snap is None:
+                        keys_before = state.map.block_key.clone()
+                        blocks_in = mgr.blocks_in
+                    h0 = time.perf_counter()
+                    state = state._replace(map=mgr.step(state.map,
+                                                        pose[:3, 3]))
+                    host_ms[i] = 1000 * (time.perf_counter() - h0)
+                ends[i].record()
+            if counted is not None:
+                sites = counted
+            if i == LS_OUT - 1 and mgr is not None:
+                mgr.flush()
+                host_after_out = mgr.host_block_count()
+            if blocks_in is not None and mgr.blocks_in > blocks_in:
+                new_rows = torch.nonzero(
+                    (state.map.block_key != INVALID_KEY)
+                    & (keys_before == INVALID_KEY))
+                snap = (i, _clone(state.map), mgr.bitmask.clone(),
+                        new_rows.reshape(-1).to(torch.int32))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_integrate": fused_integrate.launches,
-                "splat_zbuf": splat_zbuf.launches}
+                "splat_zbuf": splat_zbuf.launches,
+                **{name: getattr(fn, attr) for name, fn, attr in front}}
     syncs = sum(sites.values())
     fps = {}
     for leg, timed in (("out", [i for i in range(2, LS_OUT)
@@ -1097,7 +1354,8 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label):
           f"launches {launches}; host syncs of frame {LS_SYNC_FRAME} on the "
           f"main thread: {syncs} ({_sites_line(sites)})")
     return {"state": state, "launches": launches, "fps": fps,
-            "syncs": syncs, "host_after_out": host_after_out, "snap": snap}
+            "syncs": syncs, "host_after_out": host_after_out, "snap": snap,
+            "calls": calls}
 
 
 def _sorted_rows(keys, *rows):
@@ -1151,7 +1409,7 @@ def phase_large_scan(device, gpu_line):
             label = (f"{'streamed' if streamed else 'unstreamed'} "
                      f"(run {k + 1} of 4)")
             r = _scan_run(cfg, poses, depth, color, device, mgr, gpu_line,
-                          label)
+                          label, record=k == 0)
             if mgr is not None:
                 mgr.flush()
             if any(v != n_frames for v in r["launches"].values()):
@@ -1217,6 +1475,16 @@ def phase_large_scan(device, gpu_line):
         for m in mgrs:
             m.close()
 
+    calls = runs[0].pop("calls")
+    front_err, _ = _hold_front_frames(cfg, depth, color, calls,
+                                      "front kernels (large scan)",
+                                      pixel_every=12)
+    front = time_front(cfg, depth[LS_SYNC_FRAME], color[LS_SYNC_FRAME],
+                       calls[LS_SYNC_FRAME],
+                       f"large scan, frame {LS_SYNC_FRAME}", gpu_line)
+    for r in front.values():
+        r["max_abs_err"] = front_err
+    del calls
     if snap is None:
         raise RuntimeError("large scan: no stream-in on the return leg")
     snap_map, bitmask, new_rows, pose, d, c = _stream_in_inputs(
@@ -1242,7 +1510,7 @@ def phase_large_scan(device, gpu_line):
     return {"launches": {"streamed": runs[0]["launches"],
                          "unstreamed": runs[1]["launches"]},
             "fps": (runs[0]["fps"]["out"], runs[1]["fps"]["out"]),
-            "a": res_a, "b": res_b}
+            "a": res_a, "b": res_b, "front": front}
 
 
 def _stream_in_inputs(cfg, scene, snap, device):
@@ -1423,7 +1691,20 @@ def _counters():
         from voxelhashing_tpu_torch.ops import icp_linearize as il
     except ImportError:                     # a checkout before the kernels
         il = None
-    return (("fused_integrate", fused_integrate, "launches"),
+    try:
+        from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+        from voxelhashing_tpu_torch.ops import preprocess as pp
+    except ImportError:                     # a checkout before the kernels
+        ac = pp = None
+    return (("preprocess", getattr(pp, "preprocess_depth", None),
+             "launches"),
+            ("alloc_candidates", getattr(ac, "alloc_candidates", None),
+             "launches"),
+            ("plain preprocess on CUDA", getattr(pp, "preprocess_plain",
+                                                 None), "cuda_calls"),
+            ("plain alloc_candidates on CUDA",
+             getattr(ac, "alloc_candidates_plain", None), "cuda_calls"),
+            ("fused_integrate", fused_integrate, "launches"),
             ("fused_integrate_bilinear", fused_integrate,
              "bilinear_launches"),
             ("frame_color_words", fused_integrate, "color_word_launches"),
@@ -1490,9 +1771,15 @@ def _counts():
 def _zero_counts():
     """Set every count to 0 (only those the checkout has: a counter made
     here would read as a kernel it does not have)."""
-    for _, fn, attr in _counters():
+    _set_counts({name: 0 for name, _, _ in _counters()})
+
+
+def _set_counts(counts):
+    """Set every count the checkout has to its value in ``counts`` (as
+    ``_counts`` returns them)."""
+    for name, fn, attr in _counters():
         if hasattr(fn, attr):
-            setattr(fn, attr, 0)
+            setattr(fn, attr, counts[name])
 
 
 def phase_rgbd(mode, device, gpu_line):
@@ -1577,6 +1864,7 @@ def phase_rgbd(mode, device, gpu_line):
     want["fused_integrate"] = N_FRAMES
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
     want.update(_track_launches(cfg, N_FRAMES - 1, rgbd=True))
+    want.update(_front_launches(N_FRAMES, N_FRAMES))
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -1805,15 +2093,20 @@ def phase_slam(device, gpu_line):
         raise RuntimeError(f"slam: ATE before {ate_before} m, after "
                            f"{ate_after} m")
     no_track = {k: 0 for k in want_track}
+    # live: every frame and every keyframe's maps are preprocessed
+    front_live = _front_launches(n + len(pg.keyframes), n)
     if any(live[k] != v for k, v in want_live.items()) \
             or any(ri[k] != v for k, v in want_live.items()) or bad \
             or _launches_off(live, want_track) \
             or _launches_off(ri, no_track) \
+            or _launches_off(live, front_live) \
+            or _launches_off(ri, _front_launches(n, n)) \
             or live["solve6"] or ri["solve6"]:
         raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
                            f"expected {want_live} in both, the tracker's "
                            f"{want_track} live and none re-integrating, "
-                           f"solve6 0")
+                           f"the front kernels' {front_live} live and "
+                           f"{n} of each re-integrating, solve6 0")
     reloc = phase_relocalize(cfg, poses, depth, device, gpu_line)
     return {"live": live, "reintegrate": ri, "loops": n_loops,
             "ate_mm": (ate_before * 1000, ate_after * 1000),
@@ -1914,7 +2207,8 @@ def phase_bilinear(device, gpu_line):
     want = {"fused_integrate": 0, "fused_integrate_bilinear": N_FRAMES,
             "frame_color_words": N_FRAMES, "splat_zbuf": N_FRAMES,
             "splat_zbuf_color": 0, "solve6": 0,
-            **_track_launches(cfg, N_FRAMES - 1)}
+            **_track_launches(cfg, N_FRAMES - 1),
+            **_front_launches(N_FRAMES, N_FRAMES)}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
@@ -2356,6 +2650,7 @@ def phase_sharded(device, gpu_line, graph):
             exp = {name: 0 for name in res[part]["counts"]}
             exp["fused_integrate"] = n
             exp.update(_track_launches(_config(), n - 1, rgbd=part != "a"))
+            exp.update(_front_launches(n, n))
             if render:
                 exp[render] = n
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
@@ -2367,6 +2662,7 @@ def phase_sharded(device, gpu_line, graph):
     exp = {name: 0 for name in nccl["counts"]}
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
     exp.update(_track_launches(_config(), N_FRAMES - 1))
+    exp.update(_front_launches(N_FRAMES, N_FRAMES))
     if nccl["counts"] != exp or not all(nccl["valid"]) \
             or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
             or any(v != 0 for v in nccl["invariants"].values()) \
@@ -2569,6 +2865,7 @@ def _dense_step(cfg, gcfg, poses, depth, color, device, gpu_line):
         raise RuntimeError(f"dense step: ATE {ate} m, valid {valid}")
     want = {name: 0 for name in counts}
     want.update(_track_launches(cfg, N_FRAMES - 1))
+    want.update(_front_launches(N_FRAMES, 0))
     if counts != want:
         raise RuntimeError(f"the dense step launched a kernel other than "
                            f"the tracker's, or a plain version "
@@ -2717,6 +3014,7 @@ def _dense_oracle(device, gpu_line):
                            f"{int(both.sum())} probes")
     want = {name: 0 for name in counts}
     want["fused_integrate"] = 1
+    want.update(_front_launches(0, 1))     # the oracle's blocks allocated
     if counts != want:
         raise RuntimeError(f"dense oracle: counts {counts}, expected {want}")
     return {"err": err, "probes": int(both.sum()), "counts": counts}
@@ -3486,8 +3784,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     t0 = time.perf_counter()
     cfg = _config()
     a, updates, passes = _graph_vs_eager(device, gpu_line)
-    names = ("fused_integrate", "splat_zbuf", "icp_update", "icp_associate",
-             "icp_linearize", "solve6")
+    names = ("preprocess", "alloc_candidates", "fused_integrate",
+             "splat_zbuf", "icp_update", "icp_associate", "icp_linearize",
+             "solve6")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -3507,7 +3806,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
           f"{a['fps_eager_steady']:.3f}; on {gpu_line}")
     for key, (nodes, ms) in sorted(a["graphs"].items()):
         print(f"graph (a): graph {key!r}: {nodes} nodes"
-              f"{' (7,093 before the pass kernels)' if key == 'front' else ''}"
+              f"{' (2,150 before the preprocess kernel)' if key == 'front' else ''}"
               f", captured in "
               f"{ms:.1f} ms (its front warm-up included)")
     alone = _graph_alone(device, gpu_line)
@@ -3571,7 +3870,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     if not a["ptrs_kept"] or a["pool_bytes"]:
         fails.append("the pool moved or was copied in")
     track = _track_launches(cfg)
-    want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": 0, **track}
+    want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": 0, **track,
+            **_front_launches(1, 1)}
     if any(f[k] != (0 if (i == 0 and k in track) else v)
            for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
         fails.append(f"launches a frame {every}")
@@ -3583,6 +3883,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
                 or r["syncs"] != 2 or c["fused_integrate"] != N_FRAMES \
                 or _launches_off(c, _track_launches(cfg, N_FRAMES - 1,
                                                     rgbd=True)) \
+                or _launches_off(c, _front_launches(N_FRAMES, N_FRAMES)) \
                 or c["solve6"] \
                 or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
                                              else 0):
@@ -3591,6 +3892,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
             or any(v != 0 for v in scan["invariants"].values()) \
             or scan["counts"]["fused_integrate"] != LS_OUT \
             or scan["counts"]["splat_zbuf"] != LS_OUT \
+            or _launches_off(scan["counts"], _front_launches(LS_OUT,
+                                                             LS_OUT)) \
             or _launches_off(scan["counts"], {k: 0 for k in track}) \
             or scan["counts"]["solve6"]:
         fails.append(f"large scan: {scan}")
@@ -3692,7 +3995,7 @@ def kernel_times_here():
     device = torch.device("cuda", 0)
     gpu_line = _smi()
     cfg = _config()
-    snap, est, depth, color, _, _ = phase_step(cfg, device, gpu_line)
+    snap, est, depth, color, _, _, _ = phase_step(cfg, device, gpu_line)
     out = {"card": gpu_line}
     base, d, c, aidx, n_act = _a_inputs(cfg, snap.map, depth[11], color[11],
                                         est[11], 11)
@@ -3787,8 +4090,8 @@ def main() -> int:
           f"SMs)")
 
     cfg = _config()
-    snap, est, depth, color, launches, fps = phase_step(cfg, device,
-                                                        gpu_line)
+    snap, est, depth, color, launches, fps, calls = phase_step(cfg, device,
+                                                               gpu_line)
     syncs = count_syncs(cfg, snap, depth, color)
     # phases 2 and 3: the state after frame 10, frame 11's inputs
     res_a, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
@@ -3796,6 +4099,8 @@ def main() -> int:
     res_b = check_kernel_b(cfg, snap.map, snap.pose, "kernel B", gpu_line)
     res_c = check_color(cfg, snap.map, snap.pose, "color render", gpu_line)
     phase_edge_cases(cfg, snap.map, depth[11], color[11], est[11], 11)
+    front = phase_front(cfg, depth, color, calls, gpu_line)
+    del calls
     phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
     scan = phase_large_scan(device, gpu_line)
@@ -3812,7 +4117,7 @@ def main() -> int:
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words", "icp_update",
              "solve6", "icp_associate", "icp_linearize",
-             "icp_linearize_color")
+             "icp_linearize_color", "preprocess", "alloc_candidates")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -3926,6 +4231,39 @@ def main() -> int:
                                            "accepted")}
                        for p in t["levels"]],
             "kernels": globals_, "launches_by_path": by_path[name]})
+    # the front kernels (one preprocess a preprocessed frame, one
+    # candidates launch an integrated frame); no TPU kernel: the XLA
+    # preprocess of voxelhashing_tpu/ops/image.py:217-245 (with
+    # geometry.py:203 and :269) and the XLA candidates of
+    # voxelhashing_tpu/integrate.py:177 (_dda_band_keys :39,
+    # _dedup_and_fold :137)
+    for name, replaces, globals_ in (
+            ("preprocess", "voxelhashing_tpu/ops/image.py:217",
+             ["preprocess_kernel<4>"]),
+            ("alloc_candidates", "voxelhashing_tpu/integrate.py:177",
+             ["alloc_candidates_kernel<2>"])):
+        t, ls = front[name], scan["front"][name]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"voxelhashing_tpu_torch/csrc/{name}.cu",
+                 "replaces": replaces, "launches": by_path[name]["step"],
+                 "max_abs_err": max(t["max_abs_err"], ls["max_abs_err"]),
+                 **{k: t[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "bound_share")},
+                 "library_ms": None, "empty_node_ms": t["empty_ms"],
+                 "bytes": t["bytes"], "operations": t["operations"],
+                 "per_frame": by_path[name]["step"] / N_FRAMES,
+                 "large_scan": {k: ls[k] for k in (
+                     "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                     "bound_by", "bound_share", "bytes", "operations")},
+                 "kernels": globals_, "launches_by_path": by_path[name]}
+        if name == "alloc_candidates":
+            entry["pixel_mode"] = {
+                "kernels": ["alloc_candidates_kernel<1>"],
+                **{k: front["alloc_candidates_pixel"][k]
+                   for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                             "bound_by")}}
+        kernels.append(entry)
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
           f"large_scan_fps_unstreamed={fps_u:.3f} "
@@ -3968,6 +4306,8 @@ def main() -> int:
           f"icp_linearize_color_ms={times['linearize_color']['ms']:.4f} "
           f"empty_node_ms={graph['icp_update']['empty_ms']:.4f} "
           f"solve6_ms={graph['solve6']['ms']:.4f} "
+          f"preprocess_ms={front['preprocess']['ms']:.4f} "
+          f"alloc_candidates_ms={front['alloc_candidates']['ms']:.4f} "
           f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))

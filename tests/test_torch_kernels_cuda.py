@@ -99,6 +99,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         splat_zbuf_color(state, aidx, mask, torch.eye(4, device=meta), CAM,
                          CFG)
+    from voxelhashing_tpu_torch.config import FilterConfig
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    with pytest.raises(ValueError, match="no kernel"):
+        pp.preprocess_depth(depth, None, CAM, FilterConfig())
+    with pytest.raises(ValueError, match="no kernel"):
+        ac.alloc_candidates(depth, torch.eye(4, device=meta), CAM, CFG,
+                            tile=4, phase=1)
 
 
 def test_bilinear_caps_variant_source():
@@ -128,7 +136,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 5
+    assert len(called) == 7
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -139,7 +147,8 @@ def test_missing_nvcc_raises(monkeypatch):
     assert _build.library_path("splat_zbuf").name.startswith(
         "libvhtorch_splat_zbuf_")
     assert {s.stem for s in _build.sources()} == {
-        "fused_integrate", "icp_linearize", "solve6", "splat_zbuf"}
+        "alloc_candidates", "fused_integrate", "icp_linearize", "preprocess",
+        "solve6", "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -722,3 +731,77 @@ def test_track_runs_the_pass_kernels(cuda, rgbd):
                   *((maps[1][2], maps[0][2]) if rgbd else ()))
     _hold_icp_pass(res.pose.contiguous(), lv, not rgbd,
                    0.1 if rgbd else None)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_bit_equal_on_the_edge_bank(cuda):
+    """``preprocess_kernel`` against ``preprocess_plain`` on every
+    ``preprocess.edge_bank`` frame (NaN, +-inf, 0, negative and
+    out-of-range depths, an all-invalid frame, an odd frame smaller than a
+    tile, the filter off, no color, a 17x17 window): depth, points,
+    normals and intensity bit for bit, one launch each."""
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    for e in pp.edge_bank():
+        d, c = pp.edge_frame(e, cuda)
+        n0 = pp.preprocess_depth.launches
+        got = pp.preprocess_depth(d, c, e["cam"], e["flt"])
+        ref = pp.preprocess_plain(d, c, e["cam"], e["flt"])
+        assert pp.preprocess_depth.launches == n0 + 1
+        for name in ("depth", "points", "normals", "intensity"):
+            a, b = getattr(got, name), getattr(ref, name)
+            assert (a is None) == (b is None), (e["case"], name)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32)), (e["case"], name)
+
+
+@pytest.mark.cuda
+def test_alloc_candidates_kernel_matches_plain_on_the_edge_bank(cuda):
+    """``alloc_candidates_kernel`` against ``alloc_candidates_plain`` on
+    every ``alloc_candidates.edge_bank`` frame, in pixel and tile mode, at
+    each phase as a host int and as a device int32 scalar, with novelty
+    off and on: the keys position for position, one launch each."""
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    for e in ac.edge_bank():
+        d = torch.from_numpy(e["depth"]).to(cuda)
+        pose = torch.from_numpy(e["pose"]).to(cuda)
+        md = torch.from_numpy(e["model_depth"]).to(cuda)
+        for tile in (1, e["tile"]):
+            for phase in e["phases"]:
+                phases = [phase] if phase is None else [
+                    phase, torch.tensor(phase, dtype=torch.int32,
+                                        device=cuda)]
+                for ph in phases:
+                    for model in (None, md):
+                        kw = dict(tile=tile, phase=ph, model_depth=model)
+                        n0 = ac.alloc_candidates.launches
+                        got = ac.alloc_candidates(d, pose, e["cam"],
+                                                  e["cfg"], **kw)
+                        ref = ac.alloc_candidates_plain(d, pose, e["cam"],
+                                                        e["cfg"], **kw)
+                        assert ac.alloc_candidates.launches == n0 + 1
+                        assert torch.equal(got, ref), (e["case"], tile, ph)
+
+
+@pytest.mark.cuda
+def test_step_launches_the_front_kernels(cuda):
+    """``engine.step`` on the card: one preprocess launch and one
+    candidates launch a frame, and no plain version on the card."""
+    from voxelhashing_tpu_torch import engine
+    from voxelhashing_tpu_torch.config import EngineConfig
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    cfg = EngineConfig(camera=CAM, map=CFG, offline=False)
+    poses = make_trajectory(3)
+    state = engine.create(cfg, device=cuda)
+    counts = (pp.preprocess_depth.launches, ac.alloc_candidates.launches,
+              pp.preprocess_plain.cuda_calls,
+              ac.alloc_candidates_plain.cuda_calls)
+    for i in range(3):
+        d, c = render_depth(poses[i], CAM, Scene(), noise_sigma=0.002,
+                            seed=i, device=cuda)
+        state, _ = engine.step(state, d, c, cfg)
+    after = (pp.preprocess_depth.launches, ac.alloc_candidates.launches,
+             pp.preprocess_plain.cuda_calls,
+             ac.alloc_candidates_plain.cuda_calls)
+    assert [a - b for a, b in zip(after, counts)] == [3, 3, 0, 0]

@@ -388,7 +388,10 @@ def _launch_counters():
     """(owner, attribute) of every kernel launch count."""
     from .ops import fused_integrate as fa, icp_update as iu, solve6 as s6
     from .ops import icp_linearize as il, splat_zbuf as sb
-    return ((fa.fused_integrate, "launches"),
+    from .ops import alloc_candidates as ac, preprocess as pp
+    return ((pp.preprocess_depth, "launches"),
+            (ac.alloc_candidates, "launches"),
+            (fa.fused_integrate, "launches"),
             (fa.fused_integrate, "bilinear_launches"),
             (fa.fused_integrate, "color_word_launches"),
             (sb.splat_zbuf, "launches"),

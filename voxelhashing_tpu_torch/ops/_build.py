@@ -58,6 +58,16 @@ _SIGNATURES = {
         + [_P] * 6,
         "vh_icp_linearize_grid": [],
     },
+    "preprocess": {
+        "vh_preprocess": [_P, _LL, _LL, _I, _I, _P] + [_LL] * 3 + [_F] * 2
+        + [_I] * 2 + [_F, _P] + [_F] * 7 + [_P] * 5,
+        "vh_preprocess_grid": [],
+    },
+    "alloc_candidates": {
+        "vh_alloc_candidates": [_P, _LL, _LL, _I, _I, _P, _LL, _LL, _P, _P]
+        + [_I] * 8 + [_F] * 10 + [_I, _P, _P],
+        "vh_alloc_candidates_grid": [],
+    },
     "solve6": {
         "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],

@@ -233,28 +233,12 @@ class FrameInputs:
 def preprocess(depth_raw, color_raw, cam: CameraConfig, flt: FilterConfig
                ) -> FrameInputs:
     """Depth range gate, optional bilateral depth filter, optional color
-    filter, intensity, position map and input normal map.
+    filter, intensity, position map and input normal map: on a CUDA tensor
+    one launch of ``preprocess_kernel`` (``ops/preprocess.py``), on a CPU
+    tensor its plain version ``preprocess.preprocess_plain``.
 
     depth_raw: [h,w] float32 metres, NaN/<=0 invalid.
     color_raw: [h,w,3] float32 in [0,1], or None.
     """
-    depth = torch.where(
-        torch.isfinite(depth_raw)
-        & (depth_raw >= cam.depth_min) & (depth_raw <= cam.depth_max),
-        depth_raw, torch.nan)
-    if flt.depth_filter:
-        depth = bilateral_filter_depth(depth, flt.depth_sigma_d,
-                                       flt.depth_sigma_r)
-    color = color_raw
-    intensity = None
-    if color_raw is not None:
-        if flt.color_filter:
-            color = torch.stack(
-                [gauss_filter_depth(color_raw[..., i], flt.color_sigma_d,
-                                    flt.color_sigma_r) for i in range(3)],
-                dim=-1)
-        intensity = color_to_intensity(color)
-    points = geom.depth_to_points(depth, cam)
-    normals = geom.normals_from_points(points)
-    return FrameInputs(depth=depth, points=points, normals=normals,
-                       color=color, intensity=intensity)
+    from .preprocess import preprocess_depth
+    return preprocess_depth(depth_raw, color_raw, cam, flt)
