@@ -24,6 +24,15 @@ and then:
    device int32 scalar, and in pixel mode): bit for bit, the keys position
    for position; on their edge banks; and times them at frame 11 (bare,
    an empty kernel's node, wrapper, plain, bytes, operations, bound);
+   then (``phase_hash``) holds the map's hash kernels, the insert
+   (``blockmap.allocate``) and the delete (``blockmap.delete_blocks``,
+   ``ops/hash_table``), against their plain versions, bit for bit in every
+   output, on every call phase 1 made (an insert and a GC delete a frame,
+   recorded with the rows a delete names gathered before and after it;
+   the plain delete runs on a zeroed scratch pool), on
+   ``hash_table.edge_bank`` and on the whole map after frame 10 (a
+   1,024-row delete: every field and the pools equal, a per-row checksum
+   unchanged off the freed rows), and times them at frame 11;
 2. holds kernel A (fused integrate) against its plain PyTorch version on
    clones of the state after frame 10 and frame 11's inputs: rows, surface
    flags and GC stats must be bit-equal (the kernels are built with
@@ -66,7 +75,10 @@ and then:
    holds kernels A and B against their plain versions, bit for bit, on the
    state just after the first stream-in, and times them there as in 2-3;
    holds the front kernels on every frame of the first streamed run (in
-   pixel mode on every 12th) and times them at frame 48;
+   pixel mode on every 12th) and times them at frame 48; holds the hash
+   kernels on every call of that run (the step's inserts and GC deletes,
+   the stream-out deletes and the stream-in inserts) and times them at
+   frame 48 and at the first stream-in and stream-out;
    reports each run's frames/s on the outward leg (eviction) and on the
    return leg (stream-in), and the host syncs of one frame;
 6. runs 20 frames of phase 1's scene and configuration with RGB-D
@@ -367,8 +379,9 @@ def _max_abs(a, b):
     return float("inf") if bool(mism) else float(diff.max())
 
 
-def phase_step(cfg, device, gpu_line):
-    """Phase 1: 20 frames of engine.step through both kernels."""
+def phase_step(cfg, device, gpu_line, hash_calls=None):
+    """Phase 1: 20 frames of engine.step through both kernels (the hash
+    kernels' calls recorded into ``hash_calls``, a list, when given)."""
     import torch
     from voxelhashing_tpu_torch import blockmap, engine, evaluation
 
@@ -380,7 +393,9 @@ def phase_step(cfg, device, gpu_line):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(N_FRAMES)]
     diags, est, snap = [], [], None
     t0 = time.perf_counter()
-    with _recorded_candidates() as calls:
+    hashed = (_recorded_hash_calls(hash_calls) if hash_calls is not None
+              else contextlib.nullcontext())
+    with _recorded_candidates() as calls, hashed:
         for i in range(N_FRAMES):
             starts[i].record()
             state, diag = engine.step(state, depth[i], color[i], cfg)
@@ -433,10 +448,11 @@ def phase_step(cfg, device, gpu_line):
             f"expected {sum(valid)} (one per valid frame)")
     off = _launches_off(launches, {**_track_launches(cfg, N_FRAMES - 1),
                                    "solve6": 0,
-                                   **_front_launches(N_FRAMES, sum(valid))})
+                                   **_front_launches(N_FRAMES, sum(valid)),
+                                   **_hash_launches(sum(valid))})
     if off:
-        raise RuntimeError(f"the tracker's or the front kernels launched "
-                           f"(count, expected) {off}")
+        raise RuntimeError(f"the tracker's, the front or the hash kernels "
+                           f"launched (count, expected) {off}")
     if (launches["splat_zbuf_color"] != 0
             or launches["fused_integrate_bilinear"]
             or launches["frame_color_words"]
@@ -1063,6 +1079,343 @@ def phase_front(cfg, depth, color, calls, gpu_line):
     return times
 
 
+# ---------------------------------------------------------------------------
+# The map's hash writes: the insert and the delete kernels
+# ---------------------------------------------------------------------------
+
+def _hash_launches(n_integrated, rounds=1, gc=True):
+    """The hash kernels' launches in ``n_integrated`` integrated frames:
+    one insert launch a round of allocation, one delete (GC) a frame."""
+    return {"hash_insert": n_integrated * rounds,
+            "hash_delete": n_integrated if gc else 0}
+
+
+@contextlib.contextmanager
+def _recorded_hash_calls(calls):
+    """Record every hash insert and delete made through ``blockmap`` inside
+    the block into ``calls`` (dicts), with the call's outputs. Inputs and
+    outputs by reference: nothing writes them again, but ``surf`` (which
+    kernel A updates in place) is cloned, and the pool rows a delete names
+    are gathered just before and just after it (the delete zeroes them in
+    place; no host read). A checkout before the hash kernels records
+    nothing."""
+    from voxelhashing_tpu_torch import blockmap
+    real = getattr(blockmap, "_hash", None)
+    if real is None:
+        yield calls
+        return
+
+    class _Recorder:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def allocate(tk, tv, bk, fs, nf, du, keys, cfg, rounds=2):
+            out = real.allocate(tk, tv, bk, fs, nf, du, keys, cfg, rounds)
+            calls.append({"kind": "insert", "args": (tk, tv, bk, fs, nf, du,
+                                                     keys, cfg, rounds),
+                          "out": out})
+            return out
+
+        @staticmethod
+        def delete_blocks(tk, bk, surf, fs, nf, nt, sdf, weight, color, idx,
+                          mask, cfg):
+            rows = idx.long()
+            before = (sdf[rows], weight[rows], color[rows])
+            surf_in = surf.clone()
+            out = real.delete_blocks(tk, bk, surf, fs, nf, nt, sdf, weight,
+                                     color, idx, mask, cfg)
+            calls.append({"kind": "delete",
+                          "args": (tk, bk, surf_in, fs, nf, nt, idx, mask,
+                                   cfg),
+                          "before": before,
+                          "after": (sdf[rows], weight[rows], color[rows]),
+                          "out": out[:2] + (out[2].clone(),) + out[3:]})
+            return out
+
+    blockmap._hash = _Recorder()
+    try:
+        yield calls
+    finally:
+        blockmap._hash = real
+
+
+def _scratch_pool(cfg, device):
+    """Zeroed sdf, weight and color pools of ``cfg``'s size, for the plain
+    delete (which zeroes rows in place) away from the live map."""
+    import torch
+    n = cfg.num_blocks
+    return (torch.zeros((n, 512), dtype=torch.bfloat16, device=device),
+            torch.zeros((n, 512), dtype=torch.bfloat16, device=device),
+            torch.zeros((n, 512), dtype=torch.int32, device=device))
+
+
+def _plain_insert(args):
+    from voxelhashing_tpu_torch import blockmap
+    tk, tv, bk, fs, nf, du, keys, cfg, rounds = args
+    st, n = blockmap.allocate_plain(blockmap.MapState(
+        tk, tv, bk, None, None, None, None, fs, nf, None, du), keys, cfg,
+        rounds)
+    return (st.table_key, st.table_val, st.block_key, st.n_free,
+            st.dense_upto, n)
+
+
+def _plain_delete(args, pools):
+    from voxelhashing_tpu_torch import blockmap
+    tk, bk, surf, fs, nf, nt, idx, mask, cfg = args
+    st = blockmap.delete_blocks_plain(blockmap.MapState(
+        tk, None, bk, *pools, surf, fs, nf, nt, None), idx, mask, cfg)
+    return (st.table_key, st.block_key, st.surf, st.free_stack, st.n_free,
+            st.n_tombstones)
+
+
+INSERT_FIELDS = ("table_key", "table_val", "block_key", "n_free",
+                 "dense_upto", "count")
+DELETE_FIELDS = ("table_key", "block_key", "surf", "free_stack", "n_free",
+                 "n_tombstones")
+
+
+def hold_hash_calls(calls, label):
+    """Both hash kernels against their plain versions on recorded calls
+    (``_recorded_hash_calls``): every output bit for bit; for a delete, the
+    plain version runs on a zeroed scratch pool holding the named rows as
+    they were before the call, and the named rows after it must equal the
+    kernel's. Returns the counts held."""
+    import torch
+    saved = _counts()
+    pools, held = None, collections.Counter()
+    for i, c in enumerate(calls):
+        if c["kind"] == "insert":
+            ref, names = _plain_insert(c["args"]), INSERT_FIELDS
+            held["insert"] += 1
+            held["keys"] += int((c["args"][6] != 0x7FFFFFFF).sum())
+            held["inserted"] += int(c["out"][5])
+        else:
+            if pools is None:
+                pools = _scratch_pool(c["args"][-1], c["args"][0].device)
+            rows = c["args"][6].long()
+            for p, b in zip(pools, c["before"]):
+                p[rows] = b
+            ref, names = _plain_delete(c["args"], pools), DELETE_FIELDS
+            bad_rows = [n for n, p, a in zip(("sdf", "weight", "color"),
+                                             pools, c["after"])
+                        if not _bits_equal(p[rows], a)]
+            for p in pools:
+                p[rows] = 0
+            if bad_rows:
+                raise RuntimeError(f"{label}, call {i}: the delete kernel's "
+                                   f"rows {bad_rows} differ from its plain "
+                                   f"version's")
+            held["delete"] += 1
+            held["freed"] += int(ref[4] - c["args"][4])
+        bad = [n for n, a, b in zip(names, c["out"], ref)
+               if not torch.equal(a, b)]
+        if bad:
+            raise RuntimeError(f"{label}, call {i} ({c['kind']}): the "
+                               f"kernel differs from its plain version in "
+                               f"{bad}")
+    torch.cuda.synchronize()
+    if pools is not None and any(int(torch.count_nonzero(p)) for p in pools):
+        raise RuntimeError(f"{label}: the plain delete wrote rows it was not "
+                           f"given")
+    _set_counts(saved)
+    print(f"{label}: hash kernels bit-equal to their plain versions on "
+          f"{held['insert']} insert calls ({held['keys']} valid keys, "
+          f"{held['inserted']} blocks allocated) and {held['delete']} delete "
+          f"calls ({held['freed']} rows freed)")
+    return dict(held)
+
+
+def phase_hash_edge_bank(device):
+    """Both hash kernels against their plain versions on every
+    ``hash_table.edge_bank`` call, from one state on the card: every map
+    field, the pool rows included, and the count bit for bit; an insert
+    launch a round, a delete launch a call; the empty list raises."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    saved = _counts()
+    for e in ht.edge_bank():
+        kind, cfg, a, b = e["op"]
+        st = ht.edge_state(e, device)
+        idx = torch.from_numpy(a).to(device)
+        if a.size == 0:
+            try:
+                blockmap.allocate(st, idx, cfg, rounds=b)
+            except (ValueError, RuntimeError) as err:
+                print(f"edge hash, {e['case']}: the empty list raises, as "
+                      f"in the plain version ({err})")
+                continue
+            raise RuntimeError("edge hash: an empty key list did not raise")
+        n0 = (ht.allocate.launches, ht.delete_blocks.launches)
+        if kind == "allocate":
+            got, n = blockmap.allocate(_clone(st), idx, cfg, rounds=b)
+            ref, n_ref = blockmap.allocate_plain(_clone(st), idx, cfg,
+                                                 rounds=b)
+            launched, what = ht.allocate.launches - n0[0], int(n_ref)
+            ok = int(n) == what and launched == b
+        else:
+            mask = torch.from_numpy(b).to(device)
+            got = blockmap.delete_blocks(_clone(st), idx, mask, cfg)
+            ref = blockmap.delete_blocks_plain(_clone(st), idx, mask, cfg)
+            launched = ht.delete_blocks.launches - n0[1]
+            what = int(ref.n_free - st.n_free)
+            ok = launched == 1
+        torch.cuda.synchronize()
+        bad = [f for f in blockmap.MapState._fields
+               if not _bits_equal(getattr(got, f), getattr(ref, f))]
+        print(f"edge hash, {e['case']} ({kind}, {a.size} entries, table "
+              f"{cfg.table_size}): {launched} launches, "
+              f"{'allocated' if kind == 'allocate' else 'freed'} {what}, "
+              f"fields that differ {bad}")
+        if bad or not ok:
+            raise RuntimeError(f"edge hash, {e['case']}: {bad}, launches "
+                               f"{launched}")
+    _set_counts(saved)
+
+
+def check_hash_snapshot(cfg, map_state, gpu_line):
+    """The delete kernel on a whole map (phase 1's state after frame 10):
+    a GC-sized list of 1,024 allocated rows with the first 700 kept, on
+    two clones, kernel and plain version: every field bit for bit, the
+    whole pools equal, and a per-row checksum of the kernel's pool
+    unchanged on every row but the freed ones, which are zero."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    mp, dev = cfg.map, map_state.block_key.device
+    rows = torch.nonzero(map_state.block_key != INVALID_KEY).flatten()
+    idx = rows[::max(1, rows.numel() // 1024)][:1024].to(torch.int32)
+    mask = torch.arange(idx.numel(), device=dev) < 700
+    g = torch.Generator(device="cpu").manual_seed(0)
+    mult = torch.randint(1, 1 << 20, (3, 512), generator=g,
+                         dtype=torch.int64).to(dev)
+
+    def checksums(st):
+        return sum((p.view(torch.int16) if p.dtype == torch.bfloat16
+                    else p).to(torch.int64).mul(m).sum(1)
+                   for p, m in zip((st.sdf, st.weight, st.color), mult))
+
+    saved = _counts()
+    sk, sp = _clone(map_state), _clone(map_state)
+    before = checksums(sk)
+    sk = blockmap.delete_blocks(sk, idx, mask, mp)
+    sp = blockmap.delete_blocks_plain(sp, idx, mask, mp)
+    after = checksums(sk)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    freed = torch.zeros_like(before, dtype=torch.bool)
+    freed[idx[mask].long()] = True
+    bad = [f for f in blockmap.MapState._fields
+           if not _bits_equal(getattr(sk, f), getattr(sp, f))]
+    moved = int(((before != after) & ~freed).sum())
+    nonzero = int((after[freed] != 0).sum())
+    print(f"hash delete (phase 1 map, {int(mask.sum())} of {idx.numel()} "
+          f"rows freed): fields that differ from the plain version {bad}, "
+          f"rows changed outside the list {moved}, freed rows not zero "
+          f"{nonzero}; on {gpu_line}")
+    if bad or moved or nonzero:
+        raise RuntimeError("hash delete on the phase-1 map disagrees")
+
+
+def time_hash(insert, delete, label, gpu_line):
+    """Each hash kernel's times on a recorded call: bare (``_bare_ms``; the
+    insert reads and writes its table, so each of its launches is preceded
+    by a copy that restores it, timed alone and taken off), an empty
+    kernel's node, the wrapper (clones included) and the plain version
+    (``_median_ms``); the bytes and operations of the call
+    (``hash_table.work_counts`` on the insert's first round,
+    ``delete_work_counts``) and the bound they give. The delete runs on a
+    scratch pool. Returns {"hash_insert", "hash_delete"} (either None
+    without its call)."""
+    import torch
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+    saved = _counts()
+    out = {"hash_insert": None, "hash_delete": None}
+    dev = None
+    if insert is not None:
+        a = insert["args"]
+        dev = a[0].device
+        args, outs = ht.prepare_allocate(*a)
+
+        def restore():
+            for dst, src in zip(outs[:3], a[:3]):
+                dst.copy_(src)
+
+        restore()
+        ht.launch_allocate(args[0])
+        torch.cuda.synchronize()
+        work = ht.work_counts(a[6], outs[5])
+        both = _bare_ms(lambda: (restore(), ht.launch_allocate(args[0])))
+        copies = _bare_ms(restore)
+        out["hash_insert"] = {
+            "ms": both - copies, "copy_ms": copies,
+            "wrapper_ms": _median_ms(lambda: ht.allocate(*a)),
+            "plain_ms": _median_ms(lambda: _plain_insert(a)),
+            "bytes": ht.bytes_moved(work), "operations": ht.operations(work),
+            "work": tuple(work), "rounds": a[8]}
+    if delete is not None:
+        a = delete["args"]
+        dev = a[0].device
+        pools = _scratch_pool(a[-1], dev)
+        tk, bk, surf, fs, nf, nt, idx, mask, cfg = a
+        args, _ = ht.prepare_delete(tk, bk, surf, fs, nf, nt, *pools, idx,
+                                    mask, cfg)
+        work = ht.delete_work_counts(bk, idx, mask)
+        out["hash_delete"] = {
+            "ms": _bare_ms(lambda: ht.launch_delete(args)),
+            "wrapper_ms": _median_ms(lambda: ht.delete_blocks(
+                tk, bk, surf, fs, nf, nt, *pools, idx, mask, cfg)),
+            "plain_ms": _median_ms(lambda: _plain_delete(a, pools)),
+            "bytes": ht.bytes_moved(work), "operations": ht.operations(work),
+            "work": tuple(work)}
+        del pools
+    empty = (_bare_ms(lambda: iu.launch_empty(dev)) if dev is not None
+             else None)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    for key, r in out.items():
+        if r is None:
+            continue
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["operations"])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["empty_ms"] = empty
+        extra = (f" (a round of {r['rounds']}, less its table restore "
+                 f"{r['copy_ms']:.4f} ms)" if key == "hash_insert" else "")
+        print(f"{key} timing ({label}): bare {r['ms']:.4f} ms{extra} "
+              f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
+              f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
+              f"ms; plain {r['plain_ms']:.4f} ms; {r['bytes']} B at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {r['operations']} operations "
+              f"at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s (work {r['work']}): "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+              f"{100 * r['bound_share']:.2f}% of it; on {gpu_line}")
+    return out
+
+
+def phase_hash(cfg, map_state, calls, gpu_line):
+    """The hash kernels on phase 1: held on every recorded call (an insert
+    and a GC delete a frame), on the edge bank and on the whole phase-1 map
+    after frame 10, and timed on frame 11's calls. Returns the timings
+    with the calls held."""
+    inserts = [c for c in calls if c["kind"] == "insert"]
+    deletes = [c for c in calls if c["kind"] == "delete"]
+    if len(inserts) != N_FRAMES or len(deletes) != N_FRAMES:
+        raise RuntimeError(f"phase 1 recorded {len(inserts)} inserts and "
+                           f"{len(deletes)} deletes, expected {N_FRAMES} "
+                           f"of each")
+    held = hold_hash_calls(calls, "hash kernels (phase 1)")
+    phase_hash_edge_bank(map_state.block_key.device)
+    check_hash_snapshot(cfg, map_state, gpu_line)
+    times = time_hash(inserts[11], deletes[11], "phase 1, frame 11",
+                      gpu_line)
+    for r in times.values():
+        r["max_abs_err"] = 0.0
+        r["held"] = held
+    return times
+
+
 def phase_stages(cfg, depth, color, device, gpu_line):
     """Phase 4: per-stage time of ``engine.step`` and the device's busy
     share. Returns {stage: ms/frame}, with the device's kernel ms and ops
@@ -1272,7 +1625,8 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label,
     frames, stream-out) and over the return frames 96-143 (nothing fused,
     stream-in), the host syncs of that frame, the host store's size after
     the outward leg, (streamed) a snapshot taken just after the first
-    stream-in and (``record``) the candidates' recorded calls."""
+    stream-in and (``record``) the candidates' and the hash kernels'
+    recorded calls, and the hash kernels' launches."""
     import torch
     from voxelhashing_tpu_torch import engine
     from voxelhashing_tpu_torch.geometry import INVALID_KEY
@@ -1290,14 +1644,19 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label,
     front = [(name, fn, attr) for name, fn, attr in _counters()
              if name in ("preprocess", "alloc_candidates")
              and hasattr(fn, attr)]
-    for _, fn, attr in front:
+    hashk = [(name, fn, attr) for name, fn, attr in _counters()
+             if name in ("hash_insert", "hash_delete") and hasattr(fn, attr)]
+    for _, fn, attr in front + hashk:
         setattr(fn, attr, 0)
     fused_integrate.launches = 0
     splat_zbuf.launches = 0
     recording = (_recorded_candidates() if record
                  else contextlib.nullcontext([]))
+    hash_calls = []
+    hash_rec = (_recorded_hash_calls(hash_calls) if record
+                else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with recording as calls:
+    with recording as calls, hash_rec:
         for i, pose in enumerate(poses):
             ctx = (_sync_sites() if i == LS_SYNC_FRAME
                    else contextlib.nullcontext())
@@ -1355,7 +1714,8 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label,
           f"main thread: {syncs} ({_sites_line(sites)})")
     return {"state": state, "launches": launches, "fps": fps,
             "syncs": syncs, "host_after_out": host_after_out, "snap": snap,
-            "calls": calls}
+            "calls": calls, "hash_calls": hash_calls,
+            "hash": {name: getattr(fn, attr) for name, fn, attr in hashk}}
 
 
 def _sorted_rows(keys, *rows):
@@ -1368,6 +1728,36 @@ def _sorted_tris(tris):
     import numpy as np
     flat = tris.reshape(len(tris), -1)
     return flat[np.lexsort(flat.T[::-1])]
+
+
+def _hold_scan_hash(calls, gpu_line):
+    """The hash kernels on the first streamed scan run's recorded calls:
+    held on every call, then timed at frame 48's insert and GC delete and
+    at the first stream-in insert and the first stream-out delete that
+    frees rows. Returns (the counts held, the timings)."""
+    import torch
+    held = hold_hash_calls(calls, "hash kernels (large scan, streamed)")
+    step_ins = [c for c in calls if c["kind"] == "insert"
+                and c["args"][8] == 1]
+    stream_ins = [c for c in calls if c["kind"] == "insert"
+                  and c["args"][8] > 1]
+    gc = [c for c in calls if c["kind"] == "delete"
+          and c["args"][6].numel() != 4096]
+    out_del = [c for c in calls if c["kind"] == "delete"
+               and c["args"][6].numel() == 4096
+               and bool(torch.any(c["args"][7]))]
+    if len(step_ins) != LS_OUT + LS_BACK or not stream_ins or not out_del:
+        raise RuntimeError(f"large scan: {len(step_ins)} step inserts, "
+                           f"{len(stream_ins)} stream-in inserts, "
+                           f"{len(out_del)} stream-out deletes that free rows")
+    times = time_hash(step_ins[LS_SYNC_FRAME], gc[LS_SYNC_FRAME],
+                      f"large scan, frame {LS_SYNC_FRAME}", gpu_line)
+    stream = time_hash(stream_ins[0], out_del[0],
+                       "large scan, the first stream-in and stream-out",
+                       gpu_line)
+    del calls[:]
+    torch.cuda.empty_cache()
+    return held, {"step": times, "stream": stream}
 
 
 def phase_large_scan(device, gpu_line):
@@ -1416,6 +1806,17 @@ def phase_large_scan(device, gpu_line):
                 raise RuntimeError(f"large scan {label}: launches "
                                    f"{r['launches']}, expected {n_frames} "
                                    f"of each kernel")
+            # an insert and a GC delete a frame; streamed, a stream-out
+            # delete a frame and the stream-in inserts
+            h = r["hash"]
+            print(f"large scan {label}: hash kernel launches {h}")
+            if h and (h["hash_delete"] != n_frames * (2 if streamed else 1)
+                      or h["hash_insert"] < n_frames
+                      or (not streamed and h["hash_insert"] != n_frames)):
+                raise RuntimeError(f"large scan {label}: hash launches {h}")
+            if k == 0:
+                hash_held, hash_times = _hold_scan_hash(
+                    r.pop("hash_calls"), gpu_line)
             if k >= 2:      # the second pair is timed only
                 del r["state"], r["snap"]
             runs.append(r)
@@ -1507,10 +1908,13 @@ def phase_large_scan(device, gpu_line):
               f"S {f[3]:.3f} (U first, ratio {f[3] / f[2]:.3f}); host syncs "
               f"of one frame S {runs[0]['syncs']} U {runs[1]['syncs']}; on "
               f"{gpu_line}")
-    return {"launches": {"streamed": runs[0]["launches"],
-                         "unstreamed": runs[1]["launches"]},
+    return {"launches": {"streamed": {**runs[0]["launches"],
+                                      **runs[0]["hash"]},
+                         "unstreamed": {**runs[1]["launches"],
+                                        **runs[1]["hash"]}},
             "fps": (runs[0]["fps"]["out"], runs[1]["fps"]["out"]),
-            "a": res_a, "b": res_b, "front": front}
+            "a": res_a, "b": res_b, "front": front,
+            "hash": {"held": hash_held, **hash_times}}
 
 
 def _stream_in_inputs(cfg, scene, snap, device):
@@ -1696,8 +2100,19 @@ def _counters():
         from voxelhashing_tpu_torch.ops import preprocess as pp
     except ImportError:                     # a checkout before the kernels
         ac = pp = None
+    try:
+        from voxelhashing_tpu_torch.ops import hash_table as ht
+    except ImportError:                     # a checkout before the kernels
+        ht = None
+    from voxelhashing_tpu_torch import blockmap as bm
     return (("preprocess", getattr(pp, "preprocess_depth", None),
              "launches"),
+            ("hash_insert", getattr(ht, "allocate", None), "launches"),
+            ("hash_delete", getattr(ht, "delete_blocks", None), "launches"),
+            ("plain allocate on CUDA", getattr(bm, "allocate_plain", None),
+             "cuda_calls"),
+            ("plain delete_blocks on CUDA",
+             getattr(bm, "delete_blocks_plain", None), "cuda_calls"),
             ("alloc_candidates", getattr(ac, "alloc_candidates", None),
              "launches"),
             ("plain preprocess on CUDA", getattr(pp, "preprocess_plain",
@@ -1865,6 +2280,7 @@ def phase_rgbd(mode, device, gpu_line):
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
     want.update(_track_launches(cfg, N_FRAMES - 1, rgbd=True))
     want.update(_front_launches(N_FRAMES, N_FRAMES))
+    want.update(_hash_launches(N_FRAMES))
     if ate >= ATE_LIMIT_M:
         raise RuntimeError(f"{label}: ATE {ate} m >= {ATE_LIMIT_M} m")
     if not all(valid):
@@ -2101,12 +2517,15 @@ def phase_slam(device, gpu_line):
             or _launches_off(ri, no_track) \
             or _launches_off(live, front_live) \
             or _launches_off(ri, _front_launches(n, n)) \
+            or _launches_off(live, _hash_launches(n)) \
+            or _launches_off(ri, _hash_launches(n)) \
             or live["solve6"] or ri["solve6"]:
         raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
                            f"expected {want_live} in both, the tracker's "
                            f"{want_track} live and none re-integrating, "
                            f"the front kernels' {front_live} live and "
-                           f"{n} of each re-integrating, solve6 0")
+                           f"{n} of each re-integrating, the hash kernels' "
+                           f"{_hash_launches(n)} in both, solve6 0")
     reloc = phase_relocalize(cfg, poses, depth, device, gpu_line)
     return {"live": live, "reintegrate": ri, "loops": n_loops,
             "ate_mm": (ate_before * 1000, ate_after * 1000),
@@ -2208,7 +2627,8 @@ def phase_bilinear(device, gpu_line):
             "frame_color_words": N_FRAMES, "splat_zbuf": N_FRAMES,
             "splat_zbuf_color": 0, "solve6": 0,
             **_track_launches(cfg, N_FRAMES - 1),
-            **_front_launches(N_FRAMES, N_FRAMES)}
+            **_front_launches(N_FRAMES, N_FRAMES),
+            **_hash_launches(N_FRAMES)}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
@@ -2651,6 +3071,7 @@ def phase_sharded(device, gpu_line, graph):
             exp["fused_integrate"] = n
             exp.update(_track_launches(_config(), n - 1, rgbd=part != "a"))
             exp.update(_front_launches(n, n))
+            exp.update(_hash_launches(n))
             if render:
                 exp[render] = n
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
@@ -2663,6 +3084,7 @@ def phase_sharded(device, gpu_line, graph):
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
     exp.update(_track_launches(_config(), N_FRAMES - 1))
     exp.update(_front_launches(N_FRAMES, N_FRAMES))
+    exp.update(_hash_launches(N_FRAMES))
     if nccl["counts"] != exp or not all(nccl["valid"]) \
             or nccl["ate_mm"] >= ATE_LIMIT_M * 1000 \
             or any(v != 0 for v in nccl["invariants"].values()) \
@@ -3015,6 +3437,8 @@ def _dense_oracle(device, gpu_line):
     want = {name: 0 for name in counts}
     want["fused_integrate"] = 1
     want.update(_front_launches(0, 1))     # the oracle's blocks allocated
+    # (two rounds of integrate.allocate_from_depth, no GC)
+    want.update(_hash_launches(1, rounds=2, gc=False))
     if counts != want:
         raise RuntimeError(f"dense oracle: counts {counts}, expected {want}")
     return {"err": err, "probes": int(both.sum()), "counts": counts}
@@ -3786,7 +4210,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     a, updates, passes = _graph_vs_eager(device, gpu_line)
     names = ("preprocess", "alloc_candidates", "fused_integrate",
              "splat_zbuf", "icp_update", "icp_associate", "icp_linearize",
-             "solve6")
+             "solve6", "hash_insert", "hash_delete")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -3871,7 +4295,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         fails.append("the pool moved or was copied in")
     track = _track_launches(cfg)
     want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": 0, **track,
-            **_front_launches(1, 1)}
+            **_front_launches(1, 1), **_hash_launches(1)}
     if any(f[k] != (0 if (i == 0 and k in track) else v)
            for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
         fails.append(f"launches a frame {every}")
@@ -3884,6 +4308,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
                 or _launches_off(c, _track_launches(cfg, N_FRAMES - 1,
                                                     rgbd=True)) \
                 or _launches_off(c, _front_launches(N_FRAMES, N_FRAMES)) \
+                or _launches_off(c, _hash_launches(N_FRAMES)) \
                 or c["solve6"] \
                 or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
                                              else 0):
@@ -3895,6 +4320,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
             or _launches_off(scan["counts"], _front_launches(LS_OUT,
                                                              LS_OUT)) \
             or _launches_off(scan["counts"], {k: 0 for k in track}) \
+            or scan["counts"]["hash_insert"] < LS_OUT \
+            or scan["counts"]["hash_delete"] < LS_OUT \
             or scan["counts"]["solve6"]:
         fails.append(f"large scan: {scan}")
     if not mnt["compactions"] or mnt["diff"] or not mnt["pool_bytes"]:
@@ -3985,7 +4412,8 @@ def kernel_times_here():
     checkout has none) at the phase-2/3 state, and phase 4's per-stage
     times, with the kernels of the ``voxelhashing_tpu_torch`` that imports
     from the working directory (``python -m voxelhashing_tpu_torch.ab_step``
-    runs this in each checkout). Returns plain numbers."""
+    runs this in each checkout), and the streamed large-scan run's
+    frames/s. Returns plain numbers."""
     import dataclasses
     import torch
     from voxelhashing_tpu_torch import streaming
@@ -4029,6 +4457,7 @@ def kernel_times_here():
     finally:
         mgr.close()
     del depth, color
+    out["scan_fps"] = run["fps"]
     snap_map, bitmask, _, pose, d, c = _stream_in_inputs(
         lcfg, scene, run["snap"], device)
     del run
@@ -4090,8 +4519,9 @@ def main() -> int:
           f"SMs)")
 
     cfg = _config()
-    snap, est, depth, color, launches, fps, calls = phase_step(cfg, device,
-                                                               gpu_line)
+    hash_calls = []
+    snap, est, depth, color, launches, fps, calls = phase_step(
+        cfg, device, gpu_line, hash_calls=hash_calls)
     syncs = count_syncs(cfg, snap, depth, color)
     # phases 2 and 3: the state after frame 10, frame 11's inputs
     res_a, _ = check_kernel_a(cfg, snap.map, depth[11], color[11], est[11],
@@ -4101,6 +4531,8 @@ def main() -> int:
     phase_edge_cases(cfg, snap.map, depth[11], color[11], est[11], 11)
     front = phase_front(cfg, depth, color, calls, gpu_line)
     del calls
+    hashed = phase_hash(cfg, snap.map, hash_calls, gpu_line)
+    del hash_calls
     phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
     scan = phase_large_scan(device, gpu_line)
@@ -4117,7 +4549,8 @@ def main() -> int:
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words", "icp_update",
              "solve6", "icp_associate", "icp_linearize",
-             "icp_linearize_color", "preprocess", "alloc_candidates")
+             "icp_linearize_color", "preprocess", "alloc_candidates",
+             "hash_insert", "hash_delete")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -4264,6 +4697,31 @@ def main() -> int:
                    for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
                              "bound_by")}}
         kernels.append(entry)
+    # the map's hash writes (one insert launch a round of allocation, one
+    # delete a GC call or a stream-out); no TPU kernel: the XLA allocate of
+    # voxelhashing_tpu/blockmap.py:187 (_allocate_unique :264, _insert_new
+    # :343) and its delete_blocks :564
+    for name, source, replaces, globals_, extra in (
+            ("hash_insert", "hash_alloc", "voxelhashing_tpu/blockmap.py:187",
+             ["hash_alloc_kernel"], "stream_in"),
+            ("hash_delete", "hash_delete", "voxelhashing_tpu/blockmap.py:564",
+             ["hash_delete_kernel"], "stream_out")):
+        t = hashed[name]
+        keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "bytes", "operations", "work")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"voxelhashing_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": by_path[name]["step"],
+            "max_abs_err": 0.0, **{k: t[k] for k in keys},
+            "library_ms": None, "empty_node_ms": t["empty_ms"],
+            "per_frame": by_path[name]["step"] / N_FRAMES,
+            "held": {"phase1": t["held"], "large_scan": scan["hash"]["held"]},
+            "large_scan": {k: scan["hash"]["step"][name][k] for k in keys},
+            extra: {k: scan["hash"]["stream"][name][k] for k in keys},
+            "large_scan_launches": {k: v[name]
+                                    for k, v in scan["launches"].items()},
+            "kernels": globals_, "launches_by_path": by_path[name]})
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
           f"large_scan_fps_unstreamed={fps_u:.3f} "
@@ -4308,6 +4766,8 @@ def main() -> int:
           f"solve6_ms={graph['solve6']['ms']:.4f} "
           f"preprocess_ms={front['preprocess']['ms']:.4f} "
           f"alloc_candidates_ms={front['alloc_candidates']['ms']:.4f} "
+          f"hash_insert_ms={hashed['hash_insert']['ms']:.4f} "
+          f"hash_delete_ms={hashed['hash_delete']['ms']:.4f} "
           f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))

@@ -136,7 +136,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 7
+    assert len(called) == 9
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -147,8 +147,8 @@ def test_missing_nvcc_raises(monkeypatch):
     assert _build.library_path("splat_zbuf").name.startswith(
         "libvhtorch_splat_zbuf_")
     assert {s.stem for s in _build.sources()} == {
-        "alloc_candidates", "fused_integrate", "icp_linearize", "preprocess",
-        "solve6", "splat_zbuf"}
+        "alloc_candidates", "fused_integrate", "hash_alloc", "hash_delete",
+        "icp_linearize", "preprocess", "solve6", "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -805,3 +805,73 @@ def test_step_launches_the_front_kernels(cuda):
              pp.preprocess_plain.cuda_calls,
              ac.alloc_candidates_plain.cuda_calls)
     assert [a - b for a, b in zip(after, counts)] == [3, 3, 0, 0]
+
+
+def _map_fields_equal(a, b):
+    """The map fields of ``a`` and ``b`` that differ (pool rows by bits)."""
+    return [f for f in blockmap.MapState._fields
+            if not torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f)))]
+
+
+@pytest.mark.cuda
+def test_hash_kernels_bit_equal_on_the_edge_bank(cuda):
+    """``hash_alloc_kernel`` and ``hash_delete_kernel`` against
+    ``blockmap.allocate_plain`` and ``delete_blocks_plain`` on every
+    ``hash_table.edge_bank`` call, from one state on the card: every field
+    of the map (the pool rows too) and the count bit for bit, one insert
+    launch a round, one delete launch a call; an empty key list raises."""
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    for e in ht.edge_bank():
+        kind, cfg, a, b = e["op"]
+        st = ht.edge_state(e, cuda)
+        keys = torch.from_numpy(a).to(cuda)
+        if a.size == 0:
+            with pytest.raises(ValueError, match="no candidate keys"):
+                blockmap.allocate(st, keys, cfg, rounds=b)
+            continue
+        n0 = (ht.allocate.launches, ht.delete_blocks.launches)
+        if kind == "allocate":
+            got, n = blockmap.allocate(_clone(st), keys, cfg, rounds=b)
+            ref, n_ref = blockmap.allocate_plain(_clone(st), keys, cfg,
+                                                 rounds=b)
+            assert int(n) == int(n_ref), e["case"]
+            want = (n0[0] + b, n0[1])
+        else:
+            mask = torch.from_numpy(b).to(cuda)
+            got = blockmap.delete_blocks(_clone(st), keys, mask, cfg)
+            ref = blockmap.delete_blocks_plain(_clone(st), keys, mask, cfg)
+            want = (n0[0], n0[1] + 1)
+        torch.cuda.synchronize()
+        assert (ht.allocate.launches, ht.delete_blocks.launches) == want
+        assert not _map_fields_equal(got, ref), (e["case"],
+                                                 _map_fields_equal(got, ref))
+
+
+@pytest.mark.cuda
+def test_step_and_make_step_launch_the_hash_kernels(cuda):
+    """``engine.step`` and ``engine.make_step`` on the card: one insert and
+    one delete launch an integrated frame (GC on), the same counts through
+    the graphs, and no plain version on the card."""
+    from voxelhashing_tpu_torch import engine
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    cfg = _step_config()
+    poses = make_trajectory(6)
+    frames = [render_depth(p, CAM, Scene(), noise_sigma=0.002, seed=i,
+                           device=cuda) for i, p in enumerate(poses)]
+
+    def counts():
+        return (ht.allocate.launches, ht.delete_blocks.launches,
+                blockmap.allocate_plain.cuda_calls,
+                blockmap.delete_blocks_plain.cuda_calls)
+
+    for run in ("eager", "graphed"):
+        state = engine.create(cfg, initial_pose=poses[0], device=cuda)
+        step = engine.make_step(cfg) if run == "graphed" else None
+        c0 = counts()
+        for d, c in frames:
+            state, _ = (step(state, d, c) if step is not None
+                        else engine.step(state, d, c, cfg))
+        torch.cuda.synchronize()
+        assert [x - y for x, y in zip(counts(), c0)] == [6, 6, 0, 0], run
+        if step is not None:
+            step.close()

@@ -21,7 +21,9 @@ Needs one CUDA card. Two reports:
    torch.profiler's device time per call (every kernel of the call), the
    wrapper's own time, and the bound from this tree's byte and operation
    counts (``chip_smoke._work_a``, ``_work_b``, ``_work_color`` and
-   ``_bound``). Prints every run and each side's medians.
+   ``_bound``), phase 4's device split of the alloc, integrate, render
+   and GC stages, and the streamed large scan's frames/s. Prints every
+   run and each side's medians.
 
 Each process builds its checkout's kernels (cached in that checkout's
 ``build/``).
@@ -40,7 +42,7 @@ from pathlib import Path
 _FPS_CHILD = ("import json, torch, chip_smoke as c\n"
               "cfg, g = c._config(), c._smi()\n"
               "d = torch.device('cuda', 0)\n"
-              "fps = [c.phase_step(cfg, d, g)[-1] for _ in range(2)]\n"
+              "fps = [c.phase_step(cfg, d, g)[5] for _ in range(2)]\n"
               "print('AB_RESULT', json.dumps(fps))\n")
 _KERNELS_CHILD = ("import importlib.util, json, sys\n"
                   "spec = importlib.util.spec_from_file_location(\n"
@@ -56,7 +58,7 @@ _STATES = {"a": ("kernel A", "phase 2"),
            "c": ("color render (B and its second walk, or the color walk "
                  "and the resolve)", "phase 3"),
            "a5": ("kernel A", "phase 5"), "b5": ("kernel B", "phase 5")}
-_STAGES = ("integrate", "render")
+_STAGES = ("alloc", "integrate", "render", "gc")
 
 
 def _child(path: str, code: str, *args: str):
@@ -147,10 +149,17 @@ def kernel_report(dirs: dict) -> None:
                   f"{k['wrapper_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
                   f"({share}), {k['rows']} rows", flush=True)
         st = r["stages"]
+        split = st.get("device_split", {})
         print(f"  phase 4, ms/frame: "
               + ", ".join(f"{s} {st[s]:.3f}" for s in _STAGES)
               + f"; device {st['device_ms']:.3f} ms and "
-              f"{st['device_ops']:.0f} ops per frame", flush=True)
+              f"{st['device_ops']:.0f} ops per frame"
+              + "".join(f"; {s} {split[s][0]:.3f} ms and {split[s][1]:.1f} "
+                        f"ops" for s in _STAGES if s in split), flush=True)
+        if "scan_fps" in r:
+            print(f"  large scan, streamed, frames/s: out "
+                  f"{r['scan_fps']['out']:.3f}, back "
+                  f"{r['scan_fps']['back']:.3f}", flush=True)
     for stage in _STAGES:
         med = {s: statistics.median(r["stages"][stage] for r in runs[s])
                for s in runs}

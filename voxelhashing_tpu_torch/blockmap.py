@@ -24,6 +24,11 @@ afterwards as if unchanged (clone it first).
 
 The TPU tier conds (the small/full insert lane, the half/full compactify
 scan) are dropped: the full width gives identical results by construction.
+
+On a CUDA state :func:`allocate` and :func:`delete_blocks` run the
+hand-written hash kernels (``ops/hash_table.py``), bit-equal to
+:func:`allocate_plain` and :func:`delete_blocks_plain`, which are the CPU
+path and the reference on the card.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .config import (MapConfig, SDF_BLOCK_SIZE, VOXELS_PER_BLOCK,
                      resolve_device)
 from . import geometry as geom
 from .geometry import INVALID_KEY
+from .ops import hash_table as _hash
 from .parallel import collectives
 
 TOMBSTONE = 0x7FFFFFFE
@@ -314,12 +320,29 @@ def gather_voxels_soa(state: MapState, vx, vy, vz, cfg: MapConfig,
 
 def allocate(state: MapState, candidate_keys, cfg: MapConfig,
              rounds: int = 2) -> Tuple[MapState, torch.Tensor]:
+    """Allocate pool blocks for candidate keys not yet in the map (see
+    :func:`allocate_plain`): on a CUDA state one launch of the hash insert
+    kernel a round (``ops/hash_table.py``), on a CPU state
+    :func:`allocate_plain`. Returns (new_state, n_allocated int32[])."""
+    tk, tv, bk, n_free, dense_upto, n = _hash.allocate(
+        state.table_key, state.table_val, state.block_key, state.free_stack,
+        state.n_free, state.dense_upto, candidate_keys, cfg, rounds)
+    return state._replace(table_key=tk, table_val=tv, block_key=bk,
+                          n_free=n_free, dense_upto=dense_upto), n
+
+
+def allocate_plain(state: MapState, candidate_keys, cfg: MapConfig,
+                   rounds: int = 2) -> Tuple[MapState, torch.Tensor]:
     """Allocate pool blocks for candidate keys not yet in the map.
 
     Per round: resident pre-drop (two found-only probes), compaction to the
     stage list, staging dedup by scatter-min of instance ids, then the
-    contended insert. Returns (new_state, n_allocated int32[]).
+    contended insert. Returns (new_state, n_allocated int32[]). The plain
+    version of the hash insert kernel (the CPU path; the reference on the
+    card).
     """
+    if state.table_key.device.type == "cuda":
+        allocate_plain.cuda_calls += 1
     keys0 = candidate_keys.to(torch.int32).reshape(-1)
     dev = keys0.device
     h = cfg.table_size
@@ -352,6 +375,9 @@ def allocate(state: MapState, candidate_keys, cfg: MapConfig,
         state, n = _allocate_unique(state, keys, cfg)
         total = total + n
     return state, total
+
+
+allocate_plain.cuda_calls = 0
 
 
 def _allocate_unique(state: MapState, keys, cfg: MapConfig
@@ -512,11 +538,30 @@ def compactify_all(state: MapState, cfg: MapConfig):
 
 def delete_blocks(state: MapState, pool_indices, delete_mask,
                   cfg: MapConfig) -> MapState:
+    """Free the given pool slots (see :func:`delete_blocks_plain`): on a
+    CUDA state one launch of the hash delete kernel
+    (``ops/hash_table.py``), on a CPU state :func:`delete_blocks_plain`.
+    The voxels are zeroed in place."""
+    tk, bk, surf, free_stack, n_free, n_tomb = _hash.delete_blocks(
+        state.table_key, state.block_key, state.surf, state.free_stack,
+        state.n_free, state.n_tombstones, state.sdf, state.weight,
+        state.color, pool_indices, delete_mask, cfg)
+    return state._replace(table_key=tk, block_key=bk, surf=surf,
+                          free_stack=free_stack, n_free=n_free,
+                          n_tombstones=n_tomb)
+
+
+def delete_blocks_plain(state: MapState, pool_indices, delete_mask,
+                        cfg: MapConfig) -> MapState:
     """Free the given pool slots: zero their voxels (in place), clear the
     pool key, tombstone the table slot and push the slot on the free stack.
 
     Callers pass duplicate-free index lists. An all-false mask is a no-op.
+    The plain version of the hash delete kernel (the CPU path; the
+    reference on the card).
     """
+    if state.table_key.device.type == "cuda":
+        delete_blocks_plain.cuda_calls += 1
     pool_indices = pool_indices.to(torch.int32)
     keys = state.block_key[pool_indices.long()]
     delete_mask = delete_mask & (keys != INVALID_KEY)
@@ -540,6 +585,9 @@ def delete_blocks(state: MapState, pool_indices, delete_mask,
                           surf=surf, free_stack=free_stack,
                           n_free=state.n_free + n_deleted,
                           n_tombstones=state.n_tombstones + n_deleted)
+
+
+delete_blocks_plain.cuda_calls = 0
 
 
 def rehash(state: MapState, cfg: MapConfig) -> MapState:

@@ -40,7 +40,7 @@ from .config import EngineConfig, resolve_device
 from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
 from . import streaming
 from .blockmap import MapState
-from .ops import _build
+from .ops import _build, hash_table
 from .ops.fused_integrate import fused_integrate
 from .ops.image import FrameInputs, color_to_intensity, preprocess
 from .raycast import RaycastResult
@@ -389,8 +389,11 @@ def _launch_counters():
     from .ops import fused_integrate as fa, icp_update as iu, solve6 as s6
     from .ops import icp_linearize as il, splat_zbuf as sb
     from .ops import alloc_candidates as ac, preprocess as pp
+    from .ops import hash_table as ht
     return ((pp.preprocess_depth, "launches"),
             (ac.alloc_candidates, "launches"),
+            (ht.allocate, "launches"),
+            (ht.delete_blocks, "launches"),
             (fa.fused_integrate, "launches"),
             (fa.fused_integrate, "bilinear_launches"),
             (fa.fused_integrate, "color_word_launches"),
@@ -659,6 +662,7 @@ class GraphStep:
 
     def _capture(self, key: str, fn) -> CountedGraph:
         dev = self._buf.pose.device
+        hash_table.reserve(dev, self.cfg.map.table_size)
         if self._stream is None:
             _build.prime()
             self._stream = torch.cuda.Stream(dev)

@@ -68,6 +68,14 @@ _SIGNATURES = {
         + [_I] * 8 + [_F] * 10 + [_I, _P, _P],
         "vh_alloc_candidates_grid": [],
     },
+    "hash_alloc": {
+        "vh_hash_alloc": [_P] + [_I] * 10 + [_P] * 9 + [_I] + [_P] * 5,
+        "vh_hash_alloc_grid": [],
+    },
+    "hash_delete": {
+        "vh_hash_delete": [_P] * 2 + [_I] + [_P] * 13 + [_I] * 3 + [_P] * 2,
+        "vh_hash_delete_grid": [],
+    },
     "solve6": {
         "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],
