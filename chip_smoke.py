@@ -61,7 +61,8 @@ and then:
    frames' unprofiled wall time); in that profile each stage runs in a
    ``record_function`` range closed after a synchronize, which splits the
    device time and the device ops by stage (the front stages' ops are the
-   front graph's nodes by stage);
+   front graph's nodes by stage); phase 6 splits the march + RGB-D
+   step's device time the same way;
 5. runs the large scan (``scripts/bench_large_scan.py``'s scan point at
    the reference scan's 800,000-block pool, 1 cm voxels) four times, with
    ``streaming.AsyncStreamingManager`` (S) and with streaming off (U), in
@@ -90,7 +91,19 @@ and then:
    never with the march, kernel B never (its renders are all with color),
    and no plain kernel version called on a CUDA tensor, and
    reports fused frames/s over frames 2-19 (CUDA events), the per-stage
-   table of those frames and the host syncs of one frame;
+   table of those frames and the host syncs of one frame. The march run
+   also requires one launch of each march kernel a frame (the tile
+   bounds, ``ray_bounds_kernel``, and the march, ``raymarch_kernel``;
+   ``ops/raymarch``) and no call of their plain versions on the card;
+   splits its device time by stage as phase 4 does (frames 11-13 replayed
+   from frame 10); and (``phase_march``) holds both kernels against their
+   plain versions on the frame-10 map with each of the 20 renders' poses
+   and active lists as the step made them (recorded around
+   ``raycast.render_march``), and on ``raymarch.edge_bank``, with and
+   without gradients: the tile bounds, every field of the hits and the
+   rendered frame bit for bit; and times them at frame 11's render (bare,
+   an empty kernel's node, wrapper, plain, bytes, operations, bound;
+   samples and block lookups a ray);
 7. runs the SLAM layer at phase 1's width (``phase_slam``): an out-and-back
    trajectory (``_loop_poses``: 30 frames out along ``make_trajectory``'s
    motion and 30 back over the same poses) on the bench scene with 2 mm
@@ -130,7 +143,8 @@ and then:
    2/255); (d) ``ShardedStreamingManager``: ``stream_out_all`` then
    ``stream_in_all`` restores each shard's sorted rows bit for bit, and a
    partial sweep keeps every block; (c) 10 frames with splat + RGB-D (the
-   color render on every rank) and 3 with the march + RGB-D; (e)
+   color render on every rank) and 3 with the march + RGB-D (the tile
+   bounds kernel on every rank, the march the distributed plain one); (e)
    ``optimize_distributed`` on phase 7's pose graph within 1e-4 of
    ``optimize``; then (f) 20 frames on one rank over NCCL (ATE < 10 mm, a
    clean map). Reports rank 0's fused frames/s, the all-reduces of a frame
@@ -449,7 +463,8 @@ def phase_step(cfg, device, gpu_line, hash_calls=None):
     off = _launches_off(launches, {**_track_launches(cfg, N_FRAMES - 1),
                                    "solve6": 0,
                                    **_front_launches(N_FRAMES, sum(valid)),
-                                   **_hash_launches(sum(valid))})
+                                   **_hash_launches(sum(valid)),
+                                   **_march_launches(0, 0)})
     if off:
         raise RuntimeError(f"the tracker's, the front or the hash kernels "
                            f"launched (count, expected) {off}")
@@ -1421,8 +1436,6 @@ def phase_stages(cfg, depth, color, device, gpu_line):
     share. Returns {stage: ms/frame}, with the device's kernel ms and ops
     per frame under "device_ms" and "device_ops"."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from voxelhashing_tpu_torch import engine
 
     frames = range(N_FRAMES - 3, N_FRAMES)
@@ -1455,6 +1468,25 @@ def phase_stages(cfg, depth, color, device, gpu_line):
         print(f"  {stage:10s} {ms:9.3f} ms {share:6.1f}%")
     print(f"  {'total':10s} {total / n_timed:9.3f} ms")
 
+    dev = _device_stages(cfg, before, depth, color, frames,
+                         "depth only", gpu_line)
+    return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
+            "device_ms": dev["device_ms"], "device_ops": dev["device_ops"],
+            "device_split": dev["split"]}
+
+
+def _device_stages(cfg, before, depth, color, frames, label, gpu_line):
+    """The device's busy share and its time and ops by stage over
+    ``frames`` of ``engine.step`` replayed from ``before`` (the state
+    before the first of them): the frames' unprofiled wall time, then a
+    torch.profiler run with each stage in a ``record_function`` range
+    closed after a synchronize. Returns {"device_ms", "device_ops",
+    "busy", "split"} a frame."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from voxelhashing_tpu_torch import engine
+
     s = _clone_engine(before)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1480,10 +1512,12 @@ def phase_stages(cfg, depth, color, device, gpu_line):
     print(f"device: {dev_ms / n:.3f} ms of kernels and {len(ops) / n:.0f} "
           f"device ops per frame (torch.profiler), {wall_ms / n:.3f} ms "
           f"wall per frame unprofiled: busy {100 * dev_ms / wall_ms:.1f}% "
-          f"(frames {frames[0]}-{frames[-1]}, replayed) on {gpu_line}")
+          f"(frames {frames[0]}-{frames[-1]}, replayed; {label}) on "
+          f"{gpu_line}")
     split = _device_split(prof, ops, engine.STAGES, n)
     front = ("preprocess", "compactify", "render", "track")
-    print(f"device time by stage, ms/frame (torch.profiler, frames "
+    print(f"device time by stage ({label}), ms/frame (torch.profiler, "
+          f"frames "
           f"{frames[0]}-{frames[-1]}, each stage in a record_function range "
           f"that ends in a synchronize) on {gpu_line}:")
     for stage in engine.STAGES + ("other",):
@@ -1496,9 +1530,8 @@ def phase_stages(cfg, depth, color, device, gpu_line):
           f"device ops a frame, the front graph's nodes by stage "
           f"({', '.join(f'{st} {split[st][1]:.0f}' for st in front)}; the "
           f"front graph had 2,150 nodes before the preprocess kernel)")
-    return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
-            "device_ms": dev_ms / n, "device_ops": len(ops) / n,
-            "device_split": split}
+    return {"device_ms": dev_ms / n, "device_ops": len(ops) / n,
+            "busy": dev_ms / wall_ms, "split": split}
 
 
 class _StageRanges:
@@ -2104,6 +2137,10 @@ def _counters():
         from voxelhashing_tpu_torch.ops import hash_table as ht
     except ImportError:                     # a checkout before the kernels
         ht = None
+    try:
+        from voxelhashing_tpu_torch.ops import raymarch as rm
+    except ImportError:                     # a checkout before the kernels
+        rm = None
     from voxelhashing_tpu_torch import blockmap as bm
     return (("preprocess", getattr(pp, "preprocess_depth", None),
              "launches"),
@@ -2145,7 +2182,13 @@ def _counters():
             ("plain linearize on CUDA", getattr(il, "linearize_plain", None),
              "cuda_calls"),
             ("plain color system on CUDA",
-             getattr(il, "color_system_plain", None), "cuda_calls"))
+             getattr(il, "color_system_plain", None), "cuda_calls"),
+            ("ray_bounds", getattr(rm, "ray_bounds", None), "launches"),
+            ("raymarch", getattr(rm, "march", None), "launches"),
+            ("plain ray_bounds on CUDA", getattr(rm, "ray_bounds_plain",
+                                                 None), "cuda_calls"),
+            ("plain march on CUDA", getattr(rm, "march_plain", None),
+             "cuda_calls"))
 
 
 def _solves(cfg):
@@ -2216,27 +2259,31 @@ def phase_rgbd(mode, device, gpu_line):
     state = engine.create(cfg, device=device)
     events, diags, est, snap = [], [], [], None
     torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    for i in range(N_FRAMES):
-        marks = []
+    record = (_recorded_marches() if mode == "march"
+              else contextlib.nullcontext([]))
+    with record as calls:
+        _zero_counts()
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            marks = []
 
-        def mark(stage, marks=marks):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev))
+            def mark(stage, marks=marks):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((stage, ev))
 
-        mark("start")
-        state, diag = engine.step(state, depth[i], color[i], cfg, mark=mark)
-        mark("end")
-        events.append(marks)
-        diags.append(diag)
-        est.append(state.pose.clone())
-        if i == 10:
-            snap = _clone_engine(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
+            mark("start")
+            state, diag = engine.step(state, depth[i], color[i], cfg,
+                                      mark=mark)
+            mark("end")
+            events.append(marks)
+            diags.append(diag)
+            est.append(state.pose.clone())
+            if i == 10:
+                snap = _clone_engine(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
 
     valid = [bool(d.tracking_valid) for d in diags]
     for i, d in enumerate(diags):
@@ -2278,6 +2325,8 @@ def phase_rgbd(mode, device, gpu_line):
     want = {name: 0 for name in counts}
     want["fused_integrate"] = N_FRAMES
     want["splat_zbuf_color"] = N_FRAMES if mode == "splat" else 0
+    if mode == "march":
+        want.update(_march_launches(N_FRAMES, N_FRAMES))
     want.update(_track_launches(cfg, N_FRAMES - 1, rgbd=True))
     want.update(_front_launches(N_FRAMES, N_FRAMES))
     want.update(_hash_launches(N_FRAMES))
@@ -2289,8 +2338,213 @@ def phase_rgbd(mode, device, gpu_line):
         raise RuntimeError(f"{label}: map invariants violated: {viol}")
     if counts != want:
         raise RuntimeError(f"{label}: counts {counts}, expected {want}")
-    return {"fps": fps, "ate_mm": ate * 1000, "syncs": syncs,
-            "stages": dict(stages), "counts": counts}
+    out = {"fps": fps, "ate_mm": ate * 1000, "syncs": syncs,
+           "stages": dict(stages), "counts": counts}
+    if mode == "march":
+        out["device"] = _device_stages(cfg, snap, depth, color,
+                                       range(11, 14), label, gpu_line)
+        out["march"] = phase_march(snap.map, calls, gpu_line)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The march kernels: the tile bounds and the per-ray march
+# ---------------------------------------------------------------------------
+
+def _march_launches(n_bounds, n_march):
+    """The march renderer's launches: one bounds launch a render with an
+    active list, one march launch a single-device render."""
+    return {"ray_bounds": n_bounds, "raymarch": n_march}
+
+
+@contextlib.contextmanager
+def _recorded_marches():
+    """The inputs of every ``raycast.render_march`` call made inside the
+    block, as dicts (pose, active list and mask cloned); the calls run and
+    count as they do."""
+    from voxelhashing_tpu_torch import raycast
+    calls = []
+    real = raycast.render_march
+
+    def recorder(state, pose, cam, cfg, rc, active_idx=None,
+                 active_mask=None, group=None):
+        calls.append({"pose": pose.clone(), "cam": cam, "cfg": cfg,
+                      "rc": rc,
+                      "active_idx": None if active_idx is None
+                      else active_idx.clone(),
+                      "active_mask": None if active_mask is None
+                      else active_mask.clone()})
+        return real(state, pose, cam, cfg, rc, active_idx=active_idx,
+                    active_mask=active_mask, group=group)
+
+    raycast.render_march = recorder
+    try:
+        yield calls
+    finally:
+        raycast.render_march = real
+
+
+def _hits_differ(a, b):
+    """The fields of two ``MarchHits`` (or ``RaycastResult``s) whose bits
+    differ."""
+    return [f for f in a._fields if getattr(a, f) is not None
+            and not _bits_equal(getattr(a, f), getattr(b, f))]
+
+
+def hold_march(map_state, call, label, use_gradients):
+    """Both march kernels against their plain versions on one call (a
+    recorded render or an edge case): the tile bounds, every field of the
+    hits and the rendered frame (through the shared epilogue) bit for bit.
+    Returns (the rays with a hit, the max abs error over the finite
+    values: 0 when bit-equal)."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import geometry as geom, raycast
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    cam, cfg, pose = call["cam"], call["cfg"], call["pose"]
+    rc = dataclasses.replace(call["rc"], use_gradients=use_gradients)
+    aidx, mask = call["active_idx"], call["active_mask"]
+    out = []
+    for bounds_fn, march_fn in ((rm.ray_bounds, rm.march),
+                                (rm.ray_bounds_plain, rm.march_plain)):
+        bounds = None
+        if rc.splat_enabled and aidx is not None:
+            bounds = bounds_fn(map_state.block_key, aidx, mask,
+                               geom.invert_rigid(pose), cam, cfg, rc)
+        hits = march_fn(map_state, pose, cam, cfg, rc, bounds)
+        out.append((bounds, hits, raycast.march_epilogue(hits, pose, cam)))
+    torch.cuda.synchronize()
+    (bk, hk, rk), (bp, hp, rp) = out
+    bad = []
+    if bk is not None and not all(_bits_equal(x, y)
+                                  for x, y in zip(bk, bp)):
+        bad.append("tile bounds")
+    bad += _hits_differ(hk, hp)
+    bad += [f"frame {f}" for f in _hits_differ(rk, rp)
+            if f != "splat_overflow"]
+    if bad:
+        raise RuntimeError(f"{label} (gradients {use_gradients}): the "
+                           f"march kernels differ from their plain "
+                           f"versions in {bad}")
+    pairs = [(x, y) for x, y in zip(hk, hp) if x is not None
+             and x.dtype == torch.float32]
+    if bk is not None:
+        pairs += list(zip(bk, bp))
+    return int(hk.found.sum()), max(_max_abs(x, y) for x, y in pairs)
+
+
+def phase_march_edge_bank(device):
+    """Both march kernels held bit for bit on ``raymarch.edge_bank``, with
+    gradients and without. Returns the max abs error (0 when bit-equal)."""
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    err = 0.0
+    for e in rm.edge_bank():
+        st, pose, aidx, mask = rm.edge_inputs(e, device)
+        call = {"pose": pose, "cam": e["cam"], "cfg": e["cfg"],
+                "rc": e["rc"], "active_idx": aidx, "active_mask": mask}
+        held = [hold_march(st, call, f"edge march, {e['case']}", g)
+                for g in (False, True)]
+        err = max(err, *(h[1] for h in held))
+        print(f"edge march, {e['case']} ({e['cam'].width}x"
+              f"{e['cam'].height}, {e['rc'].num_samples} samples, "
+              f"{'no bounds' if aidx is None else 'tile bounds'}): "
+              f"bit-equal with and without gradients, {held[0][0]} hits")
+    return err
+
+
+def time_march(map_state, call, label, gpu_line):
+    """Both march kernels' times on one recorded render: bare (``launch``
+    on prepared arguments, ``_bare_ms``; the bounds' fill included), an
+    empty kernel's node timed alike, the wrapper and the plain version
+    (``_median_ms``); the bytes they must move and the operations they
+    must do on this call's data (``raymarch.work_counts``,
+    ``bounds_work``) and the bound they give. Returns {"raymarch",
+    "ray_bounds"}."""
+    import torch
+    from voxelhashing_tpu_torch import geometry as geom
+    from voxelhashing_tpu_torch.ops import icp_update as iu
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    cam, cfg, rc, pose = call["cam"], call["cfg"], call["rc"], call["pose"]
+    aidx, mask = call["active_idx"], call["active_mask"]
+    view = geom.invert_rigid(pose)
+    bk = map_state.block_key
+    saved = _counts()
+    out = {}
+    b_args, bounds = rm.prepare_bounds(bk, aidx, mask, view, cam, cfg, rc)
+    rm.launch(b_args)
+    m_args, _ = rm.prepare_march(map_state, pose, cam, cfg, rc, bounds)
+    rm.launch(m_args)
+    torch.cuda.synchronize()
+    n_active, writes = rm.bounds_work(bk, aidx, mask, view, cam, cfg, rc)
+    out["ray_bounds"] = {
+        "ms": _bare_ms(lambda: rm.launch(b_args)),
+        "wrapper_ms": _median_ms(lambda: rm.ray_bounds(bk, aidx, mask, view,
+                                                       cam, cfg, rc)),
+        "plain_ms": _median_ms(lambda: rm.ray_bounds_plain(
+            bk, aidx, mask, view, cam, cfg, rc)),
+        "bytes": rm.bounds_bytes(aidx.shape[0], n_active,
+                                 bounds[0].numel()),
+        "operations": rm.bounds_operations(n_active, writes),
+        "work": {"active_rows": n_active, "tile_writes": writes,
+                 "tiles": bounds[0].numel()}}
+    work = rm.work_counts(map_state, pose, cam, cfg, rc, bounds)
+    rays = work.rays
+    out["raymarch"] = {
+        "ms": _bare_ms(lambda: rm.launch(m_args)),
+        "wrapper_ms": _median_ms(lambda: rm.march(map_state, pose, cam, cfg,
+                                                  rc, bounds)),
+        "plain_ms": _median_ms(lambda: rm.march_plain(
+            map_state, pose, cam, cfg, rc, bounds), repeats=5),
+        "bytes": rm.bytes_moved(work), "operations": rm.operations(work),
+        "work": work._asdict(),
+        "samples_per_ray": (work.samples + 4 * work.crossed) / rays,
+        "lookups_per_ray": work.lookups / rays,
+        "plain_lookups_per_ray": 8 * (rc.num_samples + 4)}
+    empty = _bare_ms(lambda: iu.launch_empty(pose.device))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    for key, r in out.items():
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["operations"])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["empty_ms"] = empty
+        extra = ""
+        if key == "raymarch":
+            extra = (f"; {r['samples_per_ray']:.3f} samples and "
+                     f"{r['lookups_per_ray']:.3f} block lookups a ray "
+                     f"(the plain version: {rc.num_samples + 4} samples "
+                     f"and {r['plain_lookups_per_ray']} corner lookups)")
+        print(f"{key} timing ({label}): bare {r['ms']:.4f} ms "
+              f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
+              f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
+              f"ms; plain {r['plain_ms']:.4f} ms; {r['bytes']} B at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {r['operations']} operations "
+              f"at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s (work {r['work']}): "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+              f"{100 * r['bound_share']:.2f}% of it{extra}; one launch a "
+              f"rendered frame; on {gpu_line}")
+    return out
+
+
+def phase_march(map_state, calls, gpu_line):
+    """The march kernels on phase 6's march run: held on its frame-10 map
+    with each of the 20 recorded renders' poses and active lists, with
+    and without gradients, and on the edge bank; timed at frame 11's
+    render. Returns the timings, each with the max abs error of the
+    holds (0 when bit-equal)."""
+    held = [hold_march(map_state, c, f"march (phase 6), call {i}", g)
+            for i, c in enumerate(calls) for g in (False, True)]
+    hits = [h[0] for h in held]
+    print(f"march kernels (phase 6): bounds, hits and frames bit-equal to "
+          f"the plain versions on {len(calls)} recorded renders at the "
+          f"frame-10 map, with and without gradients ({min(hits)}-"
+          f"{max(hits)} hits a render)")
+    err = max(phase_march_edge_bank(map_state.sdf.device),
+              *(h[1] for h in held))
+    out = time_march(map_state, calls[11], "phase 6, frame 11's render",
+                     gpu_line)
+    for r in out.values():
+        r["max_abs_err"] = err
+    return out
 
 
 # phase 7: the SLAM layer
@@ -2519,6 +2773,8 @@ def phase_slam(device, gpu_line):
             or _launches_off(ri, _front_launches(n, n)) \
             or _launches_off(live, _hash_launches(n)) \
             or _launches_off(ri, _hash_launches(n)) \
+            or _launches_off(live, _march_launches(0, 0)) \
+            or _launches_off(ri, _march_launches(0, 0)) \
             or live["solve6"] or ri["solve6"]:
         raise RuntimeError(f"slam: counts live {live}, re-integration {ri}, "
                            f"expected {want_live} in both, the tracker's "
@@ -2628,7 +2884,7 @@ def phase_bilinear(device, gpu_line):
             "splat_zbuf_color": 0, "solve6": 0,
             **_track_launches(cfg, N_FRAMES - 1),
             **_front_launches(N_FRAMES, N_FRAMES),
-            **_hash_launches(N_FRAMES)}
+            **_hash_launches(N_FRAMES), **_march_launches(0, 0)}
     if ate >= ATE_LIMIT_M or any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k.startswith("plain")):
         raise RuntimeError(f"bilinear color: ATE {ate} m, counts {counts}, "
@@ -3074,6 +3330,10 @@ def phase_sharded(device, gpu_line, graph):
             exp.update(_hash_launches(n))
             if render:
                 exp[render] = n
+            if part == "c_march":
+                # the bounds per rank, all-reduced; the march is the
+                # distributed plain one (every fetch an all-reduce)
+                exp.update(_march_launches(n, 0))
             if res[part]["counts"] != exp or not all(res[part]["valid"]) \
                     or res[part]["ate_mm"] >= ATE_LIMIT_M * 1000:
                 raise RuntimeError(
@@ -4295,7 +4555,8 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
         fails.append("the pool moved or was copied in")
     track = _track_launches(cfg)
     want = {"fused_integrate": 1, "splat_zbuf": 1, "solve6": 0, **track,
-            **_front_launches(1, 1), **_hash_launches(1)}
+            **_front_launches(1, 1), **_hash_launches(1),
+            **_march_launches(0, 0)}
     if any(f[k] != (0 if (i == 0 and k in track) else v)
            for i, f in enumerate(a["per_frame"]) for k, v in want.items()):
         fails.append(f"launches a frame {every}")
@@ -4309,6 +4570,10 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
                                                     rgbd=True)) \
                 or _launches_off(c, _front_launches(N_FRAMES, N_FRAMES)) \
                 or _launches_off(c, _hash_launches(N_FRAMES)) \
+                or _launches_off(c, _march_launches(
+                    *(2 * (N_FRAMES if mode == "march" else 0,)))) \
+                or c.get("plain ray_bounds on CUDA") \
+                or c.get("plain march on CUDA") \
                 or c["solve6"] \
                 or c["splat_zbuf_color"] != (N_FRAMES if mode == "splat"
                                              else 0):
@@ -4320,6 +4585,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
             or _launches_off(scan["counts"], _front_launches(LS_OUT,
                                                              LS_OUT)) \
             or _launches_off(scan["counts"], {k: 0 for k in track}) \
+            or _launches_off(scan["counts"], _march_launches(0, 0)) \
             or scan["counts"]["hash_insert"] < LS_OUT \
             or scan["counts"]["hash_delete"] < LS_OUT \
             or scan["counts"]["solve6"]:
@@ -4550,7 +4816,7 @@ def main() -> int:
              "fused_integrate_bilinear", "frame_color_words", "icp_update",
              "solve6", "icp_associate", "icp_linearize",
              "icp_linearize_color", "preprocess", "alloc_candidates",
-             "hash_insert", "hash_delete")
+             "hash_insert", "hash_delete", "ray_bounds", "raymarch")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -4722,11 +4988,46 @@ def main() -> int:
             "large_scan_launches": {k: v[name]
                                     for k, v in scan["launches"].items()},
             "kernels": globals_, "launches_by_path": by_path[name]})
+    # the march renderer (one bounds launch and one march launch a
+    # rendered frame with the march); no TPU kernel: the XLA march of
+    # voxelhashing_tpu/raycast.py (ray_interval_splat :148, render_march
+    # :455, march_core :509, trilinear_sample_soa :83, sdf_gradient :119)
+    # and blockmap.py (lookup :156, gather_voxels_soa :520)
+    marched = rgbd["march"]["march"]
+    for name, replaces, globals_ in (
+            ("raymarch", "voxelhashing_tpu/raycast.py:509",
+             ["raymarch_kernel<false>"]),
+            ("ray_bounds", "voxelhashing_tpu/raycast.py:148",
+             ["ray_bounds_kernel"])):
+        t = marched[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": "voxelhashing_tpu_torch/csrc/raymarch.cu",
+                 "replaces": replaces,
+                 "launches": by_path[name]["march_rgbd"],
+                 "max_abs_err": t["max_abs_err"],
+                 **{k: t[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "bound_share")},
+                 "library_ms": None, "empty_node_ms": t["empty_ms"],
+                 "bytes": t["bytes"], "operations": t["operations"],
+                 "work": t["work"],
+                 "per_frame": by_path[name]["march_rgbd"] / N_FRAMES,
+                 "kernels": globals_, "launches_by_path": by_path[name]}
+        if name == "raymarch":
+            entry.update({k: t[k] for k in ("samples_per_ray",
+                                            "lookups_per_ray",
+                                            "plain_lookups_per_ray")})
+        kernels.append(entry)
+    split = rgbd["march"]["device"]["split"]
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "
           f"large_scan_fps_streamed={fps_s:.3f} "
           f"large_scan_fps_unstreamed={fps_u:.3f} "
           f"march_rgbd_fps={rgbd['march']['fps']:.3f} "
           f"march_rgbd_render_ms={rgbd['march']['stages']['render']:.3f} "
+          f"march_rgbd_render_device_ms={split['render'][0]:.4f} "
+          f"march_rgbd_render_device_ops={split['render'][1]:.1f} "
+          f"raymarch_ms={marched['raymarch']['ms']:.4f} "
+          f"ray_bounds_ms={marched['ray_bounds']['ms']:.4f} "
           f"splat_rgbd_fps={rgbd['splat']['fps']:.3f}; kernel A bare "
           f"{res_a['ms']:.4f} ms ({100 * res_a['bound_share']:.1f}% of its "
           f"bound), kernel B bare {res_b['ms']:.4f} ms "

@@ -136,7 +136,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 9
+    assert len(called) == 10
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -148,7 +148,7 @@ def test_missing_nvcc_raises(monkeypatch):
         "libvhtorch_splat_zbuf_")
     assert {s.stem for s in _build.sources()} == {
         "alloc_candidates", "fused_integrate", "hash_alloc", "hash_delete",
-        "icp_linearize", "preprocess", "solve6", "splat_zbuf"}
+        "icp_linearize", "preprocess", "raymarch", "solve6", "splat_zbuf"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -873,5 +873,116 @@ def test_step_and_make_step_launch_the_hash_kernels(cuda):
                         else engine.step(state, d, c, cfg))
         torch.cuda.synchronize()
         assert [x - y for x, y in zip(counts(), c0)] == [6, 6, 0, 0], run
+        if step is not None:
+            step.close()
+
+
+def _raymarch_pair(state, pose, cam, cfg, rc, aidx, mask):
+    """The bounds and the march by the kernels and by their plain versions
+    on the same inputs: ((bounds, hits) kernel, (bounds, hits) plain)."""
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    out = []
+    for bounds_fn, march_fn in ((rm.ray_bounds, rm.march),
+                                (rm.ray_bounds_plain, rm.march_plain)):
+        bounds = None
+        if aidx is not None:
+            bounds = bounds_fn(state.block_key, aidx, mask,
+                               geom.invert_rigid(pose), cam, cfg, rc)
+        out.append((bounds, march_fn(state, pose, cam, cfg, rc, bounds)))
+    torch.cuda.synchronize()
+    return out
+
+
+def _hits_differ(a, b):
+    """The fields of two ``MarchHits`` that differ in their bits."""
+    bad = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None and y is None:
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(f)
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_gradients", [False, True])
+def test_raymarch_kernels_bit_equal_on_the_edge_bank(cuda, use_gradients):
+    """``ray_bounds_kernel`` and ``raymarch_kernel`` against their plain
+    versions on every ``raymarch.edge_bank`` case: the tile bounds and
+    every field of the hits bit for bit (NaN where no hit), one launch of
+    each a call."""
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    for e in rm.edge_bank():
+        st, pose, aidx, mask = rm.edge_inputs(e, cuda)
+        rc = dataclasses.replace(e["rc"], use_gradients=use_gradients)
+        n0 = (rm.ray_bounds.launches, rm.march.launches)
+        (bk, hk), (bp, hp) = _raymarch_pair(st, pose, e["cam"], e["cfg"], rc,
+                                            aidx, mask)
+        with_bounds = aidx is not None
+        assert (rm.ray_bounds.launches - n0[0],
+                rm.march.launches - n0[1]) == (int(with_bounds), 1)
+        if with_bounds:
+            for a, b in zip(bk, bp):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                    e["case"]
+        assert not _hits_differ(hk, hp), (e["case"], _hits_differ(hk, hp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_gradients", [False, True])
+def test_raymarch_kernels_bit_equal_on_a_fused_map(cuda, use_gradients):
+    """Both kernels on a map after two fusions, from the next frame's pose
+    with its active list, at the JAX defaults (48 samples, 16-pixel
+    tiles): bit-equal to the plain versions, and the rendered frame
+    through the shared epilogue too."""
+    from voxelhashing_tpu_torch import raycast
+    from voxelhashing_tpu_torch.config import RaycastConfig
+    state, _, _, pose, aidx, n = _scene_state(cuda)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    rc = RaycastConfig(mode="march", use_gradients=use_gradients)
+    (bk, hk), (bp, hp) = _raymarch_pair(state, pose, CAM, CFG, rc, aidx,
+                                        mask)
+    for a, b in zip(bk, bp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not _hits_differ(hk, hp), _hits_differ(hk, hp)
+    assert int(hk.found.sum()) > CAM.width * CAM.height // 4
+    ok = raycast.march_epilogue(hk, pose, CAM)
+    ref = raycast.march_epilogue(hp, pose, CAM)
+    for f in ("depth", "points", "normals", "color"):
+        assert torch.equal(getattr(ok, f).view(torch.int32),
+                           getattr(ref, f).view(torch.int32)), f
+
+
+@pytest.mark.cuda
+def test_march_step_launches_the_raymarch_kernels(cuda):
+    """``engine.step`` and ``engine.make_step`` with the march renderer on
+    the card: one bounds and one march launch a frame, the same counts
+    through the graphs, and no plain version on the card."""
+    from voxelhashing_tpu_torch import engine
+    from voxelhashing_tpu_torch.config import RaycastConfig
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    cfg = dataclasses.replace(_step_config(),
+                              raycast=RaycastConfig(mode="march"))
+    poses = make_trajectory(6)
+    frames = [render_depth(p, CAM, Scene(), noise_sigma=0.002, seed=i,
+                           device=cuda) for i, p in enumerate(poses)]
+
+    def counts():
+        return (rm.ray_bounds.launches, rm.march.launches,
+                rm.ray_bounds_plain.cuda_calls, rm.march_plain.cuda_calls)
+
+    for run in ("eager", "graphed"):
+        state = engine.create(cfg, initial_pose=poses[0], device=cuda)
+        step = engine.make_step(cfg) if run == "graphed" else None
+        c0 = counts()
+        for d, c in frames:
+            state, _ = (step(state, d, c) if step is not None
+                        else engine.step(state, d, c, cfg))
+        torch.cuda.synchronize()
+        got = [x - y for x, y in zip(counts(), c0)]
+        assert got == [6, 6, 0, 0], (run, got)
         if step is not None:
             step.close()

@@ -53,7 +53,10 @@ one:
   Gram matrix, with no host read where ``torch.linalg.svd`` reads the
   device twice a call), the step gate, the de-whitened pose update and
   the tracker's carry written in place (XLA on the TPU); ``ops/solve6.py``
-  runs its solve batched, for the checks.
+  runs its solve batched, for the checks;
+* the march renderer's tile bounds and per-ray march (``ops/raymarch.py``,
+  ``csrc/raymarch.cu``), one launch each a render on a single device
+  (XLA on the TPU).
 
 The port imports ``torch`` and never ``jax``, nor anything of the JAX
 package: it carries its own ``config``, synthetic frames

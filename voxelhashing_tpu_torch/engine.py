@@ -389,7 +389,7 @@ def _launch_counters():
     from .ops import fused_integrate as fa, icp_update as iu, solve6 as s6
     from .ops import icp_linearize as il, splat_zbuf as sb
     from .ops import alloc_candidates as ac, preprocess as pp
-    from .ops import hash_table as ht
+    from .ops import hash_table as ht, raymarch as rm
     return ((pp.preprocess_depth, "launches"),
             (ac.alloc_candidates, "launches"),
             (ht.allocate, "launches"),
@@ -399,6 +399,8 @@ def _launch_counters():
             (fa.fused_integrate, "color_word_launches"),
             (sb.splat_zbuf, "launches"),
             (sb.splat_zbuf_color, "launches"),
+            (rm.ray_bounds, "launches"),
+            (rm.march, "launches"),
             (iu.icp_update, "launches"),
             (il.associate, "launches"),
             (il.linearize, "launches"),

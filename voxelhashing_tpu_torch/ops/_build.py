@@ -76,6 +76,13 @@ _SIGNATURES = {
         "vh_hash_delete": [_P] * 2 + [_I] + [_P] * 13 + [_I] * 3 + [_P] * 2,
         "vh_hash_delete_grid": [],
     },
+    "raymarch": {
+        "vh_ray_bounds": [_P] * 3 + [_I, _P] + [_I] * 6 + [_F] * 8
+        + [_P] * 4,
+        "vh_raymarch": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3 + [_I] * 5
+        + [_F] * 12 + [_P] * 7,
+        "vh_raymarch_grid": [],
+    },
     "solve6": {
         "vh_solve6": [_P, _P, _LL, _I, _LL, _F] + [_P] * 4 + [_I, _P],
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],

@@ -13,11 +13,15 @@ Two renderers, chosen by ``RaycastConfig.mode``:
   the persistent surface mask (``MapState.surf``), which gives the same
   z-buffer as the JAX culled-list tiers; ``splat_overflow`` is still
   computed as in JAX.
-* ``"march"``: the reference's ray march, batched: per-tile depth bounds
-  from the active blocks (:func:`ray_interval_splat`), ``num_samples``
-  trilinear TSDF samples per ray in one pass, the first + to - crossing,
-  three secant steps. The JAX package runs it as XLA, so it is plain torch
-  here (no kernel).
+* ``"march"``: the reference's ray march: per-tile depth bounds from the
+  active blocks (:func:`ray_interval_splat`), up to ``num_samples``
+  trilinear TSDF samples per ray, the first + to - crossing, three secant
+  steps. On a CUDA map with no process group both run as hand-written
+  kernels (``ops/raymarch.py``: the bounds, then one thread a ray that
+  stops past the band and at the first crossing); on the CPU, and for the
+  sharded and dense marches, the batched plain version (:func:`march_hits`:
+  all samples of every ray in one [S, P] pass). Both end in one shared
+  epilogue (:func:`march_epilogue`).
 
 Where the JAX code divides by a constant the port uses
 ``geometry.div_const``, so that the CPU and the card round alike.
@@ -35,6 +39,8 @@ from . import blockmap
 from . import geometry as geom
 from .blockmap import MapState
 from .parallel import collectives
+from .ops import raymarch as _march
+from .ops.raymarch import MarchHits
 from .ops.splat_zbuf import splat_zbuf, splat_zbuf_color
 
 
@@ -111,9 +117,11 @@ def trilinear_sample_soa(state: MapState, px, py, pz, cfg: MapConfig,
     return s, valid
 
 
-def sdf_gradient(state: MapState, p_world, cfg: MapConfig, group=None):
-    """Central-difference SDF gradient at world points [...,3]: (unit
-    gradient, NaN where invalid; valid)."""
+def sdf_gradient_samples(state: MapState, p_world, cfg: MapConfig,
+                         group=None):
+    """The six central-difference samples of :func:`sdf_gradient` at world
+    points [...,3]: (g [...,3] = (s(p + e) - s(p - e)) * 0.5 with e one
+    voxel along each axis, unnormalized; valid where all six are)."""
     offs = cfg.voxel_size
     grads = []
     ok = None
@@ -125,7 +133,12 @@ def sdf_gradient(state: MapState, p_world, cfg: MapConfig, group=None):
         grads.append((sp - sm) * 0.5)
         v = vp & vm
         ok = v if ok is None else (ok & v)
-    g = torch.stack(grads, dim=-1)
+    return torch.stack(grads, dim=-1), ok
+
+
+def gradient_epilogue(g, ok):
+    """Unit gradients from :func:`sdf_gradient_samples`: (g / |g|, NaN
+    where invalid or zero; valid)."""
     n = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
     good = ok & (n[..., 0] > 0.0)
     g = torch.where(good[..., None], g / torch.where(n > 0, n, 1.0),
@@ -133,12 +146,16 @@ def sdf_gradient(state: MapState, p_world, cfg: MapConfig, group=None):
     return g, good
 
 
+def sdf_gradient(state: MapState, p_world, cfg: MapConfig, group=None):
+    """Central-difference SDF gradient at world points [...,3]: (unit
+    gradient, NaN where invalid; valid)."""
+    return gradient_epilogue(*sdf_gradient_samples(state, p_world, cfg,
+                                                   group=group))
+
+
 # ---------------------------------------------------------------------------
 # Ray-interval tile bounds
 # ---------------------------------------------------------------------------
-
-_SPAN = 4    # tiles a block may span per axis before it counts everywhere
-
 
 def ray_interval_splat(state: MapState, active_idx, active_mask,
                        view_matrix, cam: CameraConfig, cfg: MapConfig,
@@ -147,67 +164,11 @@ def ray_interval_splat(state: MapState, active_idx, active_mask,
     each block's 8 corners projected, its screen box and depth range
     scatter-min/maxed into a (tiles_y, tiles_x) grid over a span of at
     most 4x4 tiles; blocks that span more (or cross the near plane) widen
-    every tile. Tiles no block touches get t_min=+inf > t_max=-inf."""
-    tile = rc.splat_tile
-    ty = -(-cam.height // tile)
-    tx = -(-cam.width // tile)
-    dev = active_idx.device
-
-    blocks = geom.unpack_block_key(state.block_key[active_idx.long()],
-                                   cfg.world_blocks)                 # [M,3]
-    corner0 = geom.block_to_world(blocks, cfg.voxel_size)
-    # the 8 corner offsets in _CORNER_LIST order, made on the device (a
-    # host list copied up would wait for the stream)
-    k = torch.arange(8, device=dev)
-    offs = torch.stack([k & 1, (k >> 1) & 1, (k >> 2) & 1], dim=-1)
-    corners = corner0[:, None, :] + cfg.block_size_world * offs.to(
-        torch.float32)
-    p_cam = geom.transform_points(view_matrix, corners)              # [M,8,3]
-
-    z = p_cam[..., 2]
-    z_min = torch.amin(z, dim=-1)
-    z_max = torch.amax(z, dim=-1)
-    near_ok = z_min > 1e-3
-
-    uv = geom.camera_to_screen(p_cam, cam)                           # [M,8,2]
-    u_min = torch.floor(torch.amin(uv[..., 0], dim=-1)).to(torch.int32)
-    u_max = torch.floor(torch.amax(uv[..., 0], dim=-1)).to(torch.int32)
-    v_min = torch.floor(torch.amin(uv[..., 1], dim=-1)).to(torch.int32)
-    v_max = torch.floor(torch.amax(uv[..., 1], dim=-1)).to(torch.int32)
-
-    def tile_of(x, n):
-        return torch.clamp(torch.div(x, tile, rounding_mode="floor"), 0,
-                           n - 1)
-
-    t0x, t1x = tile_of(u_min, tx), tile_of(u_max, tx)
-    t0y, t1y = tile_of(v_min, ty), tile_of(v_max, ty)
-    on_screen = ((u_max >= 0) & (u_min < cam.width)
-                 & (v_max >= 0) & (v_min < cam.height))
-
-    fits = (t1x - t0x < _SPAN) & (t1y - t0y < _SPAN)
-    scatter_ok = active_mask & near_ok & on_screen & fits
-    overflow = active_mask & on_screen & ~(near_ok & fits)
-    any_overflow = torch.any(overflow)
-    g_min = torch.amin(torch.where(
-        overflow, torch.clamp(z_min, min=cam.depth_min), torch.inf))
-    g_max = torch.amax(torch.where(overflow, z_max, -torch.inf))
-
-    n = ty * tx
-    t_min = torch.full((n + 1,), torch.inf, dtype=torch.float32, device=dev)
-    t_max = torch.full((n + 1,), -torch.inf, dtype=torch.float32, device=dev)
-    for dy in range(_SPAN):
-        for dx in range(_SPAN):
-            iy = t0y + dy
-            ix = t0x + dx
-            ok = scatter_ok & (iy <= t1y) & (ix <= t1x)
-            lin = torch.where(ok, iy * tx + ix, n).long()   # n = dropped
-            t_min.scatter_reduce_(0, lin, z_min, "amin", include_self=True)
-            t_max.scatter_reduce_(0, lin, z_max, "amax", include_self=True)
-    t_min = t_min[:n].reshape(ty, tx)
-    t_max = t_max[:n].reshape(ty, tx)
-    t_min = torch.where(any_overflow, torch.minimum(t_min, g_min), t_min)
-    t_max = torch.where(any_overflow, torch.maximum(t_max, g_max), t_max)
-    return t_min, t_max
+    every tile. Tiles no block touches get t_min=+inf > t_max=-inf.
+    On a CUDA map: ``ray_bounds_kernel`` (``ops/raymarch.ray_bounds``);
+    on the CPU its plain version."""
+    return _march.ray_bounds(state.block_key, active_idx, active_mask,
+                             view_matrix, cam, cfg, rc)
 
 
 # ---------------------------------------------------------------------------
@@ -316,42 +277,34 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
 def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
                  rc: RaycastConfig, active_idx=None, active_mask=None,
                  group=None) -> RaycastResult:
-    """Reference-style raycast: the batched trilinear march of
-    :func:`march_core`, each ray bounded by its tile's depth range
+    """Reference-style raycast: each ray bounded by its tile's depth range
     (:func:`ray_interval_splat`, widened by the truncation) when
     ``rc.splat_enabled`` and an active list is given, else by the camera's
-    depth range.
+    depth range, then the march and :func:`march_epilogue`. With no
+    ``group`` the march is ``ops/raymarch.march``: the march kernel on a
+    CUDA map, its plain version (the batched :func:`march_hits`) on the
+    CPU.
 
     ``group``: the map is hash-partitioned over the ranks of this process
     group. The tile bounds are min/max all-reduced and every TSDF fetch is
     a summed one (:func:`trilinear_sample_soa`), so every rank marches the
-    global surface and returns the same result."""
-    h, w = cam.height, cam.width
-    p = h * w
-    d = rc.derived(cfg)
-    view = geom.invert_rigid(pose)
-    dev = pose.device
-
+    global surface and returns the same result. That is the distributed
+    function, the batched :func:`march_hits` with the summed sampler, on
+    the card too: each fetch is an all-reduce, so it cannot run inside one
+    kernel (a sharded march kernel is a ROADMAP item)."""
+    bounds = None
     if rc.splat_enabled and active_idx is not None:
-        tmin_t, tmax_t = ray_interval_splat(state, active_idx, active_mask,
-                                            view, cam, cfg, rc)
+        view = geom.invert_rigid(pose)
+        bounds = ray_interval_splat(state, active_idx, active_mask, view,
+                                    cam, cfg, rc)
         if group is not None:
-            tmin_t = collectives.all_reduce(tmin_t, "min", group)
-            tmax_t = collectives.all_reduce(tmax_t, "max", group)
-        tile = rc.splat_tile
-        iy = torch.div(torch.arange(h, device=dev), tile,
-                       rounding_mode="floor")
-        ix = torch.div(torch.arange(w, device=dev), tile,
-                       rounding_mode="floor")
-        t_min = torch.clamp(tmin_t[iy[:, None], ix[None, :]]
-                            - cfg.truncation, min=cam.depth_min).reshape(-1)
-        t_max = torch.clamp(tmax_t[iy[:, None], ix[None, :]]
-                            + cfg.truncation, max=cam.depth_max).reshape(-1)
-    else:
-        t_min = torch.full((p,), cam.depth_min, dtype=torch.float32,
-                           device=dev)
-        t_max = torch.full((p,), cam.depth_max, dtype=torch.float32,
-                           device=dev)
+            bounds = (collectives.all_reduce(bounds[0], "min", group),
+                      collectives.all_reduce(bounds[1], "max", group))
+    if group is None:
+        hits = _march.march(state, pose, cam, cfg, rc, bounds)
+        return march_epilogue(hits, pose, cam)
+
+    t_min, t_max = _march.ray_interval(bounds, pose.device, cam, cfg, rc)
 
     def sample_soa(px, py, pz, with_color=False):
         return trilinear_sample_soa(state, px, py, pz, cfg,
@@ -360,8 +313,9 @@ def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     gradient_fn = None
     if rc.use_gradients:
         def gradient_fn(p_world):
-            return sdf_gradient(state, p_world, cfg, group=group)
+            return sdf_gradient_samples(state, p_world, cfg, group=group)
 
+    d = rc.derived(cfg)
     return march_core(sample_soa, pose, cam, t_min, t_max,
                       num_samples=rc.num_samples,
                       ray_inc=d["ray_increment"],
@@ -372,14 +326,26 @@ def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
 def march_core(sample_soa, pose, cam: CameraConfig, t_min, t_max,
                num_samples: int, ray_inc, thres_sample_dist, thres_dist,
                gradient_fn=None) -> RaycastResult:
+    """Batched ray march (:func:`march_hits`) and the shared epilogue
+    (:func:`march_epilogue`). ``sample_soa(px, py, pz, with_color=False)``
+    evaluates the TSDF; ``gradient_fn`` (optional) gives the raw
+    central-difference gradient at the hits (:func:`sdf_gradient_samples`'
+    contract), for analytic-gradient normals."""
+    return march_epilogue(
+        march_hits(sample_soa, pose, cam, t_min, t_max, num_samples,
+                   ray_inc, thres_sample_dist, thres_dist,
+                   gradient_fn=gradient_fn), pose, cam)
+
+
+def march_hits(sample_soa, pose, cam: CameraConfig, t_min, t_max,
+               num_samples: int, ray_inc, thres_sample_dist, thres_dist,
+               gradient_fn=None) -> MarchHits:
     """Batched ray march: every ray evaluates ``num_samples`` samples at
     once ([S,P], P minor) between ``t_min`` and ``t_max`` (z-depth, [P]),
     takes its first + to - crossing, refines it with three secant steps
     and keeps it where the interpolated |sdf| is below ``thres_dist``.
-    ``sample_soa(px, py, pz, with_color=False)`` evaluates the TSDF;
-    ``gradient_fn`` (optional) gives analytic-gradient normals."""
-    h, w = cam.height, cam.width
-    view = geom.invert_rigid(pose)
+    Rays with no kept hit hold NaN t_hit, points and gradients and 0
+    colors (the march kernel writes the same)."""
     dwx, dwy, dwz = _ray_directions(pose, cam)
     ox_, oy_, oz_ = pose[0, 3], pose[1, 3], pose[2, 3]
 
@@ -424,17 +390,38 @@ def march_core(sample_soa, pose, cam: CameraConfig, t_min, t_max,
 
     hx, hy, hz = ox_ + dwx * t_hit, oy_ + dwy * t_hit, oz_ + dwz * t_hit
     s_hit, ok_hit, col = sample_soa(hx, hy, hz, with_color=True)
-    p_hit = torch.stack([hx, hy, hz], dim=-1)
     found = found & ok_hit & (torch.abs(s_hit) < thres_dist)
 
-    depth = torch.where(found, t_hit, torch.nan).reshape(h, w)
-    finite = torch.isfinite(depth)
-    p_cam = geom.transform_points(view, p_hit).reshape(h, w, 3)
-    p_cam = torch.where(finite[..., None], p_cam, torch.nan)
-    color = torch.where(found[:, None], col, 0.0).reshape(h, w, 3)
-
+    t_hit = torch.where(found, t_hit, torch.nan)
+    p_hit = torch.where(found[:, None], torch.stack([hx, hy, hz], dim=-1),
+                        torch.nan)
+    col = torch.where(found[:, None], col, 0.0)
+    g = g_ok = None
     if gradient_fn is not None:
-        g, gok = gradient_fn(p_hit)
+        g, g_ok = gradient_fn(p_hit)
+        g = torch.where(found[:, None], g, torch.nan)
+        g_ok = g_ok & found
+    return MarchHits(t_hit=t_hit, found=found, p_hit=p_hit, color=col,
+                     grad=g, grad_ok=g_ok)
+
+
+def march_epilogue(hits: MarchHits, pose, cam: CameraConfig
+                   ) -> RaycastResult:
+    """The march's hits ([P] per ray, the plain version's or the
+    kernel's) as the predicted frame: the depth map, camera-space points,
+    colors and normals (from the points, or from the gradients when the
+    hits carry them)."""
+    h, w = cam.height, cam.width
+    view = geom.invert_rigid(pose)
+    found = hits.found
+    depth = torch.where(found, hits.t_hit, torch.nan).reshape(h, w)
+    finite = torch.isfinite(depth)
+    p_cam = geom.transform_points(view, hits.p_hit).reshape(h, w, 3)
+    p_cam = torch.where(finite[..., None], p_cam, torch.nan)
+    color = torch.where(found[:, None], hits.color, 0.0).reshape(h, w, 3)
+
+    if hits.grad is not None:
+        g, gok = gradient_epilogue(hits.grad, hits.grad_ok)
         n_world = torch.where((found & gok)[:, None], g, torch.nan)
         normals = (n_world @ view[:3, :3].T).reshape(h, w, 3)
     else:
