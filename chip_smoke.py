@@ -190,15 +190,20 @@ and then:
    (well- and ill-conditioned, rank 3) and on a non-finite system
    (``solve6.disagreements``; cond within 1e-4 of an f64 SVD), with its
    bare time, bound and ``torch.linalg.svd``'s time; and the tracker's
-   pass kernels (``ops/icp_linearize``: the association, and the
-   linearization with and without the photometric rows) against their
-   plain versions on frame 11's 18 iterations (recorded from the eager
-   step), on frame 11 of phase 6's splat + RGB-D run and on
-   ``icp_linearize.edge_bank`` (q, n_q, weights and flags, mean and
-   inv_std bit for bit; every sum within ``icp_linearize.disagreements``,
-   (1.01 n + 3) 2^-24 of the sum of its terms' absolute values; counts
-   equal), with each level's bare time beside an empty node's, the bound,
-   the wrapper's and the plain passes' times; (c) phase 6's two RGB-D configurations through
+   pass kernels (``ops/icp_linearize``: the fused launch of a single
+   device, and the split association and linearization, with and
+   without the photometric rows) on frame 11's 18 iterations (recorded
+   from the eager step), on frame 11 of phase 6's splat + RGB-D run and
+   on ``icp_linearize.edge_bank``, three ways: the fused launch against
+   the split pair (every output bit for bit) and the split pair against
+   the plain versions (q, n_q, weights and flags, mean and inv_std bit
+   for bit; every sum within ``icp_linearize.disagreements``, (1.01 n +
+   3) 2^-24 of the sum of its terms' absolute values; counts equal), with
+   each form's bare time at each level beside an empty node's, the
+   bound, the wrapper's and the plain passes' times and the plain
+   version's [8, P] x [P, 8] product alone, and the pass launches a
+   tracked frame by path (18 fused on a single device, 18 + 18 split on
+   the sharded path); (c) phase 6's two RGB-D configurations through
    ``make_step`` (ATE < 10 mm, every frame valid, two host syncs in a
    tracked frame); (d) the large scan's outward leg through
    ``make_step(with_hint=True, with_stream_mask=True)`` with
@@ -2177,6 +2182,10 @@ def _counters():
             ("icp_linearize", getattr(il, "linearize", None), "launches"),
             ("icp_linearize_color", getattr(il, "linearize", None),
              "color_launches"),
+            ("icp_associate_linearize",
+             getattr(il, "associate_linearize", None), "launches"),
+            ("icp_associate_linearize_color",
+             getattr(il, "associate_linearize", None), "color_launches"),
             ("plain associate on CUDA", getattr(il, "associate_plain", None),
              "cuda_calls"),
             ("plain linearize on CUDA", getattr(il, "linearize_plain", None),
@@ -2199,17 +2208,24 @@ def _solves(cfg):
     return sum(o * i for o, i in zip(t.max_outer_iter, t.max_inner_iter))
 
 
-def _track_launches(cfg, frames=1, rgbd=False):
+def _track_launches(cfg, frames=1, rgbd=False, sharded=False):
     """The tracker's launches in ``frames`` tracked frames of ``cfg`` (an
-    engine's or a tracker's config): one association an outer iteration,
-    one linearization (with the photometric rows under RGB-D) and one ICP
-    update an inner iteration."""
+    engine's or a tracker's config): one ICP update an inner iteration;
+    on a single device one fused pass launch (association and
+    linearization, with the photometric rows under RGB-D) an outer
+    iteration and a split linearization each later inner iteration; on
+    the sharded path (``sharded``) one association an outer iteration and
+    one linearization an inner one."""
     t = getattr(cfg, "tracker", cfg)
     solves = _solves(t) * frames
+    outer = sum(t.max_outer_iter) * frames
+    fused = 0 if sharded else outer
     return {"icp_update": solves,
-            "icp_associate": sum(t.max_outer_iter) * frames,
-            "icp_linearize": 0 if rgbd else solves,
-            "icp_linearize_color": solves if rgbd else 0}
+            "icp_associate": outer - fused,
+            "icp_linearize": 0 if rgbd else solves - fused,
+            "icp_linearize_color": solves - fused if rgbd else 0,
+            "icp_associate_linearize": 0 if rgbd else fused,
+            "icp_associate_linearize_color": fused if rgbd else 0}
 
 
 def _launches_off(counts, want):
@@ -3325,7 +3341,8 @@ def phase_sharded(device, gpu_line, graph):
         for r, res in enumerate(ranks):
             exp = {name: 0 for name in res[part]["counts"]}
             exp["fused_integrate"] = n
-            exp.update(_track_launches(_config(), n - 1, rgbd=part != "a"))
+            exp.update(_track_launches(_config(), n - 1, rgbd=part != "a",
+                                       sharded=True))
             exp.update(_front_launches(n, n))
             exp.update(_hash_launches(n))
             if render:
@@ -3342,7 +3359,7 @@ def phase_sharded(device, gpu_line, graph):
                     f"{res[part]['valid']}, ATE {res[part]['ate_mm']} mm")
     exp = {name: 0 for name in nccl["counts"]}
     exp["fused_integrate"] = exp["splat_zbuf"] = N_FRAMES
-    exp.update(_track_launches(_config(), N_FRAMES - 1))
+    exp.update(_track_launches(_config(), N_FRAMES - 1, sharded=True))
     exp.update(_front_launches(N_FRAMES, N_FRAMES))
     exp.update(_hash_launches(N_FRAMES))
     if nccl["counts"] != exp or not all(nccl["valid"]) \
@@ -4047,13 +4064,14 @@ class _Recording:
 def _recorded_passes(out):
     """Append the inputs of every ``tracking`` association inside the block
     as a dict: delta (a copy), the level (``icp_linearize.Level``), the
-    association's arguments, and the linearization's planarity threshold
-    and color sigma."""
+    association's arguments, the linearization's planarity threshold and
+    color sigma, and whether the two ran as one fused launch."""
     from voxelhashing_tpu_torch import tracking
     icp = tracking.icp
 
     def associate(delta, lv, *args):
-        out.append({"delta": delta.clone(), "lv": lv, "args": args})
+        out.append({"delta": delta.clone(), "lv": lv, "args": args,
+                    "fused": False})
         return icp.associate(delta, lv, *args)
 
     def linearize(delta, lv, assoc, moments, s, planar_thres,
@@ -4062,7 +4080,15 @@ def _recorded_passes(out):
         return icp.linearize(delta, lv, assoc, moments, s, planar_thres,
                              color_sigma)
 
-    tracking.icp = _Recording(icp, associate=associate, linearize=linearize)
+    def associate_linearize(delta, lv, *args):
+        *assoc_args, planar_thres, color_sigma = args
+        out.append({"delta": delta.clone(), "lv": lv,
+                    "args": tuple(assoc_args), "fused": True,
+                    "planar_thres": planar_thres, "color_sigma": color_sigma})
+        return icp.associate_linearize(delta, lv, *args)
+
+    tracking.icp = _Recording(icp, associate=associate, linearize=linearize,
+                              associate_linearize=associate_linearize)
     try:
         yield out
     finally:
@@ -4072,20 +4098,23 @@ def _recorded_passes(out):
 def _saved_pass_counts():
     from voxelhashing_tpu_torch.ops import icp_linearize as il
     return (il.associate.launches, il.linearize.launches,
-            il.linearize.color_launches)
+            il.linearize.color_launches, il.associate_linearize.launches,
+            il.associate_linearize.color_launches)
 
 
 def _restore_pass_counts(saved):
     from voxelhashing_tpu_torch.ops import icp_linearize as il
     (il.associate.launches, il.linearize.launches,
-     il.linearize.color_launches) = saved
+     il.linearize.color_launches, il.associate_linearize.launches,
+     il.associate_linearize.color_launches) = saved
 
 
 def _hold_passes(records, label):
-    """Each recorded iteration through the pass kernels and their plain
-    versions (``icp_linearize.check_pass``: the association, mean and
-    inv_std bit for bit, the sums within ``disagreements``, counts
-    equal); raises on any failure. Returns {"n", "assoc"/"depth"/"color":
+    """Each recorded iteration three ways (``icp_linearize.check_pass``):
+    the split pair against the plain versions (the association, mean and
+    inv_std bit for bit, the sums within ``disagreements``, counts equal)
+    and the fused launch against the split pair, every output bit for bit;
+    raises on any failure. Returns {"n", "fused", "assoc"/"depth"/"color":
     (max |d|, max excess)}."""
     from voxelhashing_tpu_torch.ops import icp_linearize as il
     saved = _saved_pass_counts()
@@ -4102,16 +4131,19 @@ def _hold_passes(records, label):
                 worst[key] = (max(pe, e), max(px, x))
     _restore_pass_counts(saved)
     sizes = sorted({r["lv"].n for r in records}, reverse=True)
+    fused = sum(r.get("fused", False) for r in records)
     print(f"icp passes ({label}): {len(records)} iterations at "
-          f"{sizes} pixels: association bit-equal and every sum within "
-          f"the bound in {len(records) - len(fails)} of {len(records)}; "
+          f"{sizes} pixels ({fused} recorded as fused launches): the fused "
+          f"launch equal to the split pair bit for bit, the association "
+          f"bit-equal and every sum within the bound in "
+          f"{len(records) - len(fails)} of {len(records)}; "
           + "; ".join(f"{key} max |d| {e:.3e}, excess {x:.2f} of 2^-24 "
                       f"sum|t| (bound {il.bound_factor(sizes[0]):.0f})"
                       for key, (e, x) in worst.items()))
     if fails:
         raise RuntimeError(f"icp passes ({label}) against their plain "
                            f"versions: {fails[:4]}")
-    return {"n": len(records), **worst}
+    return {"n": len(records), "fused": fused, **worst}
 
 
 def _edge_records(device):
@@ -4153,11 +4185,15 @@ def _rgbd_records(device):
 
 
 def _pass_times(records, gpu_line, label):
-    """Bare, wrapper and plain times of the two passes at each level of
-    ``records`` (one frame's iterations), with an empty kernel's node, the
-    bytes and operations of each launch and the bound they give; and the
-    means over the frame's launches. Returns {"associate", "linearize"}:
-    per-launch means and the per-level numbers."""
+    """Bare, wrapper and plain times at each level of ``records`` (one
+    frame's iterations) of the fused pass launch and of the split pair,
+    with an empty kernel's node, the bytes and operations of each launch
+    and the bound they give, and the plain version's [8, P] x [P, 8] f32
+    product (cuBLAS, ``torch.mm``) as a partial yardstick: it is not the
+    same function (the rows, the whitening and the association are not in
+    it); and the means over the frame's launches. Returns {kind: the
+    per-launch means and the per-level numbers} for "pass" (or
+    "pass_color"), "associate" and "linearize" (or "linearize_color")."""
     import numpy as np
     import torch
     from voxelhashing_tpu_torch.ops import icp_linearize as il
@@ -4167,49 +4203,66 @@ def _pass_times(records, gpu_line, label):
     dev = records[0]["delta"].device
     color = records[0]["color_sigma"] is not None
     lin_kind = "linearize_color" if color else "linearize"
+    pass_kind = "pass_color" if color else "pass"
     levels = {}
     for r in records:
         levels.setdefault(id(r["lv"]), r)
-    per = {"associate": [], lin_kind: []}
+    per = {pass_kind: [], "associate": [], lin_kind: []}
     for r in levels.values():
         delta, lv, args = r["delta"], r["lv"], r["args"]
         scatter, sigma, pt = args[-1], r["color_sigma"], r["planar_thres"]
+        f_args, _ = il.prepare_associate_linearize(delta, lv, *args, pt,
+                                                   sigma)
         a_args, a = il.prepare_associate(delta, lv, *args)
-        il.launch_associate(a_args)
+        il.launch(a_args)
         l_args, lin = il.prepare_linearize(delta, lv, a, a.moments, a.s, pt,
                                            sigma)
-        il.launch_linearize(l_args)
+        il.launch(l_args)
         torch.cuda.synchronize()
         n_ok = int(a.ok.sum())
         n_use = int((a.wgt > 0).sum()) if scatter else 0
         n_ok_c = int(lin.color[4]) if color else 0
         n_md = lv.md_pts.shape[0] * lv.md_pts.shape[1]
-        bare_l = _bare_ms(lambda: il.launch_linearize(l_args))
-        bare_a = _bare_ms(lambda: il.launch_associate(a_args))
-        for kind, bare, call, plain in (
-                ("associate", bare_a,
+        rows = il.linearize_rows_plain(delta, lv.plain()[0], a.q, a.nq,
+                                       a.wgt, a.ok, lin.mean, lin.inv_std)
+        jw = rows * a.wgt[None, :]
+        prod = torch.empty((8, 8), dtype=torch.float32, device=dev)
+        gemm = _bare_ms(lambda: torch.mm(jw, rows.T, out=prod))
+        del rows, jw
+
+        def plain_pass():
+            ar = il.associate_reference(delta, lv, *args)
+            return il.linearize_reference(delta, lv, ar, ar.moments, ar.s,
+                                          pt, sigma)
+
+        for kind, launch_args, call, plain in (
+                (pass_kind, f_args,
+                 lambda: il.associate_linearize(delta, lv, *args, pt, sigma),
+                 plain_pass),
+                ("associate", a_args,
                  lambda: il.associate(delta, lv, *args),
                  lambda: il.associate_reference(delta, lv, *args)),
-                (lin_kind, bare_l,
+                (lin_kind, l_args,
                  lambda: il.linearize(delta, lv, a, a.moments, a.s, pt,
                                       sigma),
                  lambda: il.linearize_reference(delta, lv, a, a.moments,
                                                 a.s, pt, sigma))):
+            # every launch here writes the level's correspondences with
+            # the same values, so the split linearization's inputs hold
+            bare = _bare_ms(lambda: il.launch(launch_args))
             nbytes = il.bytes_moved(kind, lv.n, n_md, scatter,
                                     scatter and kind != "associate")
             f32, f64 = il.operations(kind, lv.n, n_ok, n_use, n_ok_c)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = (f32 / F32_OPS_PER_S + f64 / F64_OPS_PER_S) * 1e3
-            wrapper = _median_ms(call)
-            plain_ms = _median_ms(plain)
             per[kind].append({
-                "pixels": lv.n, "ms": bare, "wrapper_ms": wrapper,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "pixels": lv.n, "grid": lv.grid, "ms": bare,
+                "wrapper_ms": _median_ms(call),
+                "plain_ms": _median_ms(plain),
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "operations": f32 + f64, "accepted": n_ok})
-            # the association above wrote the level's buffers again
-            if kind == "associate":
-                il.launch_associate(a_args)
+                "bytes": nbytes, "operations": f32 + f64, "accepted": n_ok,
+                "gemm_ms": gemm})
     empty = _bare_ms(lambda: iu.launch_empty(dev))
     torch.cuda.synchronize()
     _restore_pass_counts(saved)
@@ -4218,13 +4271,16 @@ def _pass_times(records, gpu_line, label):
     for kind, rows in per.items():
         launches = [by_n[kind][r["lv"].n] for r in records]
         mean = {k: float(np.mean([p[k] for p in launches]))
-                for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+                for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                          "gemm_ms")}
         for p in rows:
-            print(f"icp {kind} timing ({label}, {p['pixels']} pixels, "
-                  f"{p['accepted']} accepted): bare {p['ms']:.4f} ms "
-                  f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
-                  f"kernel's node {empty:.4f} ms; wrapper "
-                  f"{p['wrapper_ms']:.4f} ms; plain {p['plain_ms']:.4f} ms; "
+            print(f"icp {kind} timing ({label}, {p['pixels']} pixels on "
+                  f"{p['grid']} CTAs, {p['accepted']} accepted): bare "
+                  f"{p['ms']:.4f} ms ({BARE_LAUNCHES} launches in one CUDA "
+                  f"graph), an empty kernel's node {empty:.4f} ms; wrapper "
+                  f"{p['wrapper_ms']:.4f} ms; plain {p['plain_ms']:.4f} ms "
+                  f"(its [8, P] x [P, 8] f32 product alone "
+                  f"{p['gemm_ms']:.4f} ms, a partial yardstick); "
                   f"{p['bytes']} B and {p['operations']} operations: bound "
                   f"{p['bound_ms']:.2e} ms by {p['bound_by']}, "
                   f"{100 * p['bound_ms'] / p['ms']:.1f}% of it; on "
@@ -4238,6 +4294,11 @@ def _pass_times(records, gpu_line, label):
                      "empty_ms": empty, "frame_ms":
                      sum(p["ms"] for p in launches), "levels": rows,
                      "per_frame": len(launches)}
+    split = out["associate"]["frame_ms"] + out[lin_kind]["frame_ms"]
+    print(f"icp passes ({label}): {out[pass_kind]['frame_ms']:.4f} ms a "
+          f"tracked frame in {len(records)} fused launches on a single "
+          f"device, {split:.4f} ms in {len(records)} + {len(records)} split "
+          f"launches (the sharded path's form); on {gpu_line}")
     return out
 
 
@@ -4469,8 +4530,9 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     cfg = _config()
     a, updates, passes = _graph_vs_eager(device, gpu_line)
     names = ("preprocess", "alloc_candidates", "fused_integrate",
-             "splat_zbuf", "icp_update", "icp_associate", "icp_linearize",
-             "solve6", "hash_insert", "hash_delete")
+             "splat_zbuf", "icp_update", "icp_associate_linearize",
+             "icp_associate", "icp_linearize", "solve6", "hash_insert",
+             "hash_delete")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -4516,6 +4578,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     rgbd_times = _pass_times(rgbd_passes, gpu_line,
                              "frame 11, splat + RGB-D")
     pass_times.update(linearize_color=rgbd_times["linearize_color"],
+                      pass_color=rgbd_times["pass_color"],
                       associate_rgbd=rgbd_times["associate"])
     del rgbd_passes
     rgbd = {}
@@ -4815,7 +4878,9 @@ def main() -> int:
     names = ("fused_integrate", "splat_zbuf", "splat_zbuf_color",
              "fused_integrate_bilinear", "frame_color_words", "icp_update",
              "solve6", "icp_associate", "icp_linearize",
-             "icp_linearize_color", "preprocess", "alloc_candidates",
+             "icp_linearize_color", "icp_associate_linearize",
+             "icp_associate_linearize_color", "preprocess",
+             "alloc_candidates",
              "hash_insert", "hash_delete", "ray_bounds", "raymarch")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
@@ -4897,23 +4962,31 @@ def main() -> int:
         "sweeps": graph["solve6"]["sweeps"],
         "svd_ms": graph["solve6"]["svd_ms"],
         "launches_by_path": by_path["solve6"]})
-    # the tracker's passes (one association an outer iteration, one
-    # linearization an inner one); no TPU kernel: the XLA passes of
-    # voxelhashing_tpu/tracking.py (_associate :125, _whitening :183,
-    # _planarity :210, _linearize :242, _build_system_color :358)
+    # the tracker's passes: on a single device one fused launch an outer
+    # iteration (the association and the linearization), on the sharded
+    # path one association an outer iteration and one linearization an
+    # inner one; no TPU kernel: the XLA passes of voxelhashing_tpu/
+    # tracking.py (_associate :125, _whitening :183, _planarity :210,
+    # _linearize :242, _build_system_color :358)
     held, times = graph["held"], graph["pass_times"]
-    for name, kind, path, replaces, globals_, hkey in (
-            ("icp_associate", "associate", "step",
+    for name, kind, path, replaces, globals_, hkeys in (
+            ("icp_associate_linearize", "pass", "step",
              "voxelhashing_tpu/tracking.py:125",
-             ["icp_associate_kernel"], "assoc"),
-            ("icp_linearize", "linearize", "step",
-             "voxelhashing_tpu/tracking.py:242",
-             ["icp_linearize_kernel<false>"], "depth"),
-            ("icp_linearize_color", "linearize_color", "splat_rgbd",
+             ["icp_pass_kernel<true, true, false>"], ("assoc", "depth")),
+            ("icp_associate_linearize_color", "pass_color", "splat_rgbd",
              "voxelhashing_tpu/tracking.py:358",
-             ["icp_linearize_kernel<true>"], "color")):
+             ["icp_pass_kernel<true, true, true>"], ("assoc", "color")),
+            ("icp_associate", "associate", "sharded",
+             "voxelhashing_tpu/tracking.py:125",
+             ["icp_pass_kernel<true, false, false>"], ("assoc",)),
+            ("icp_linearize", "linearize", "sharded",
+             "voxelhashing_tpu/tracking.py:242",
+             ["icp_pass_kernel<false, true, false>"], ("depth",)),
+            ("icp_linearize_color", "linearize_color", "sharded_splat_rgbd",
+             "voxelhashing_tpu/tracking.py:358",
+             ["icp_pass_kernel<false, true, true>"], ("color",))):
         t = times[kind]
-        errs = [h[hkey] for h in held.values() if hkey in h]
+        errs = [h[k] for h in held.values() for k in hkeys if k in h]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "voxelhashing_tpu_torch/csrc/icp_linearize.cu",
@@ -4923,13 +4996,25 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_share": t["bound_share"], "library_ms": None,
             "empty_node_ms": t["empty_ms"], "frame_ms": t["frame_ms"],
-            "per_frame": t["per_frame"],
+            "per_frame": t["per_frame"], "gemm_ms": t["gemm_ms"],
             "excess": max(e[1] for e in errs),
-            "levels": [{k: p[k] for k in ("pixels", "ms", "wrapper_ms",
-                                           "plain_ms", "bound_ms",
-                                           "accepted")}
+            "levels": [{k: p[k] for k in ("pixels", "grid", "ms",
+                                           "wrapper_ms", "plain_ms",
+                                           "bound_ms", "accepted",
+                                           "gemm_ms")}
                        for p in t["levels"]],
             "kernels": globals_, "launches_by_path": by_path[name]})
+    per_update = {
+        path: {k: round(18 * by_path[k][path]
+                        / max(by_path["icp_update"][path], 1), 3)
+               for k in ("icp_associate_linearize",
+                         "icp_associate_linearize_color", "icp_associate",
+                         "icp_linearize", "icp_linearize_color")}
+        for path in by_path["icp_update"] if by_path["icp_update"][path]}
+    print(f"icp pass launches per 18 ICP updates (a tracked frame of the "
+          f"default tracker), by path (fused, fused with color, "
+          f"association, linearization, linearization with color): "
+          f"{per_update}")
     # the front kernels (one preprocess a preprocessed frame, one
     # candidates launch an integrated frame); no TPU kernel: the XLA
     # preprocess of voxelhashing_tpu/ops/image.py:217-245 (with
@@ -5060,6 +5145,9 @@ def main() -> int:
           f"graph_scan_fps={graph['scan']['fps']:.3f} "
           f"front_nodes={graph['a']['graphs']['front'][0]} "
           f"icp_update_ms={graph['icp_update']['ms']:.4f} "
+          f"icp_pass_ms={times['pass']['ms']:.4f} "
+          f"icp_pass_frame_ms={times['pass']['frame_ms']:.4f} "
+          f"icp_pass_color_ms={times['pass_color']['ms']:.4f} "
           f"icp_associate_ms={times['associate']['ms']:.4f} "
           f"icp_linearize_ms={times['linearize']['ms']:.4f} "
           f"icp_linearize_color_ms={times['linearize_color']['ms']:.4f} "

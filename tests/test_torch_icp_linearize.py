@@ -17,9 +17,12 @@ the photometric system) within 1e-5 of the sum of its terms' absolute
 values (``icp_linearize.scale_assoc`` / ``scale_linearize``: the two
 libraries sum the pixels in other orders, and a sum that cancels, such as
 b, is held to its terms and not to its own size), the counts equal. The
-kernels
-against these plain versions on the card:
-``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` phase 10 (b).
+fused wrapper (``associate_linearize``) on the CPU is the plain pair bit
+for bit, and so is ``tracking.track`` through it; the numpy model of the
+kernels' order of summation (``icp_sum_order.summed_in_kernel_order``)
+stays within ``icp_linearize.disagreements``' bound. The kernels against
+these plain versions on the card: ``tests/test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` phase 10 (b).
 """
 
 import dataclasses
@@ -37,6 +40,8 @@ from voxelhashing_tpu_torch import tracking as ttr
 from voxelhashing_tpu_torch.convert import config_from
 from voxelhashing_tpu_torch.ops import icp_linearize as il
 from voxelhashing_tpu_torch.ops import image as timg
+
+import icp_sum_order
 
 CAM = CameraConfig(width=80, height=60, fx=65.0, fy=65.0, cx=39.5, cy=29.5)
 LEVELS = 3
@@ -327,6 +332,30 @@ def test_bound_counts_by_hand():
         51 * 4000 + 81 * 4800 + 25 * 3500, 60 * 4000 + 60 * 3500)
 
 
+def test_fused_bound_counts_by_hand():
+    """The fused launch's ``bytes_moved`` and ``operations`` at the 80x60
+    level: each input read once (points and normals 24 B a pixel, the
+    model maps 24 B, delta 64 B, under RGB-D the two intensity maps 4 B a
+    pixel each), each output written once (the correspondences 29 B a
+    pixel, the association's 5 + 9 sums, the systems, mean, inv_std, the
+    counts and the flag); the operations are both passes'."""
+    n, n_md = 80 * 60, 80 * 60
+    assert il.bytes_moved("pass", n, n_md, scatter=True, planar=True) == \
+        24 * 4800 + 24 * 4800 + 64 + 29 * 4800 + 4 * 14 \
+        + 4 * 48 + 4 + 1
+    assert il.bytes_moved("pass", n, n_md) == \
+        24 * 4800 + 24 * 4800 + 64 + 29 * 4800 + 4 * 5 + 4 * 48 + 4
+    assert il.bytes_moved("pass_color", n, n_md) == \
+        24 * 4800 + 24 * 4800 + 64 + 29 * 4800 + 4 * 5 + 8 * 4800 \
+        + 4 * 92 + 8
+    assert il.operations("pass", 4800, 4000, 3000) == (
+        92 * 4800 + 6 * 4000 + 3 * 3000 + 51 * 4000,
+        2 * (5 * 4000 + 6 * 3000) + 60 * 4000)
+    assert il.operations("pass_color", 4800, 4000, 0, 3500) == (
+        92 * 4800 + 6 * 4000 + 51 * 4000 + 81 * 4800 + 25 * 3500,
+        2 * 5 * 4000 + 60 * 4000 + 60 * 3500)
+
+
 def test_wrappers_refuse_other_devices_and_bad_maps():
     cam, maps, delta = LEVEL_CASES[2]
     meta = torch.device("meta")
@@ -344,3 +373,148 @@ def test_wrappers_refuse_other_devices_and_bad_maps():
         il.prepare_associate(_t(delta), il.Level(
             lv.in_pts, lv.in_nrm, lv.md_pts, lv.md_nrm, small),
             scatter=False, **THRES)
+
+
+def _pass_tensors(assoc, lin):
+    out = list(assoc.q + assoc.nq) + [assoc.wgt, assoc.ok] \
+        + list(assoc.moments) + [assoc.s, lin.mean, lin.inv_std, lin.planar]
+    for sys_ in (lin.depth, lin.color):
+        out += list(sys_) if sys_ is not None else [None]
+    return out
+
+
+@pytest.mark.parametrize("scatter,sigma", [(True, None), (False, SIGMA)],
+                         ids=["depth", "rgbd"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_wrapper_is_the_plain_pair_on_the_cpu(case, scatter, sigma):
+    """``associate_linearize`` on CPU tensors returns
+    ``associate_reference`` then ``linearize_reference`` on its own sums,
+    bit for bit, depth-only with the scatter and with the photometric
+    rows."""
+    _, cam, maps, delta = case
+    lv = _torch_level(cam, maps)
+    got = il.associate_linearize(_t(delta), lv, **THRES, scatter=scatter,
+                                 planar_thres=PLANAR_THRES,
+                                 color_sigma=sigma)
+    a = il.associate_reference(_t(delta), lv, **THRES, scatter=scatter)
+    lin = il.linearize_reference(_t(delta), lv, a, a.moments, a.s,
+                                 PLANAR_THRES, sigma)
+    for g, w in zip(_pass_tensors(*got), _pass_tensors(a, lin)):
+        assert il.same_bits(g, w)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_wrapper_matches_jax(case):
+    """The fused wrapper's association and systems against JAX's
+    ``_associate`` / ``_whitening`` / ``_planarity`` / ``_linearize`` /
+    ``_build_system_color`` on the same inputs, at the file's
+    tolerances."""
+    _, cam, maps, delta = case
+    in_soa_j, (qj, nqj, wj, okj) = _jax_assoc(cam, maps, delta)
+    lv = _torch_level(cam, maps)
+    a, lin = il.associate_linearize(_t(delta), lv, **THRES, scatter=True,
+                                    planar_thres=PLANAR_THRES,
+                                    color_sigma=SIGMA)
+    np.testing.assert_array_equal(a.ok.numpy(), np.asarray(okj))
+    for got, want in zip(a.q + a.nq, qj + nqj):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(a.wgt.numpy(), np.asarray(wj), rtol=0,
+                               atol=1e-6)
+    m_scale, s_scale = il.scale_assoc(lv, a, True)
+    moments_j, mean_j, inv_std_j = _j_whitening(qj, okj)
+    _close_sums(a.moments[:2], moments_j[:2], m_scale, "moments")
+    _equal_count(a.moments[2], moments_j[2])
+    np.testing.assert_allclose(lin.mean.numpy(), np.asarray(mean_j),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(lin.inv_std), float(inv_std_j),
+                               rtol=1e-5)
+    s_j, planar_j, i2_j = _j_planarity(in_soa_j, wj)
+    _close_sums((a.s,), s_j, (s_scale,), "scatter")
+    i2 = il.planarity_epilogue(a.s, PLANAR_THRES)[1]
+    if abs(float(i2_j) - PLANAR_THRES) > 1e-4:
+        assert bool(lin.planar) == bool(planar_j)
+    np.testing.assert_allclose(float(i2), float(i2_j), rtol=0, atol=1e-5)
+    mean = jnp.asarray(lin.mean.numpy())
+    inv_std = jnp.float32(float(lin.inv_std))
+    sys_j = _J_LINEARIZE(jnp.asarray(delta), in_soa_j, qj, nqj, wj, okj,
+                         mean, inv_std)
+    sc_d, sc_c = il.scale_linearize(_t(delta), lv, a, lin, SIGMA)
+    _close_sums(lin.depth[:4], sys_j[:4], sc_d, "depth system")
+    _equal_count(lin.depth[4], sys_j[4])
+    ii, mi = jnp.asarray(maps[2]), jnp.asarray(maps[5])
+    gx, gy = jtr.intensity_gradients(mi)
+    col_j = _J_COLOR(jnp.asarray(delta), jnp.asarray(maps[0]), ii, mi, gx,
+                     gy, cam=cam, dist_sigma=SIGMA, mean=mean,
+                     inv_std=inv_std)
+    _close_sums(lin.color[:4], col_j[:4], sc_c, "photometric system")
+    _equal_count(lin.color[4], col_j[4])
+
+
+@pytest.mark.parametrize("rgbd", [False, True], ids=["depth", "rgbd"])
+def test_track_on_the_cpu_is_the_split_pairs(rgbd):
+    """``tracking.track`` on the CPU through the fused wrapper (a single
+    device) gives the split pair's result (an identity ``reduce_fn``, the
+    parent's path) bit for bit, every field."""
+    from voxelhashing_tpu_torch.config import TrackerConfig
+    cam, maps, _ = LEVEL_CASES[0]
+    ip, inn, ii, mp, mn, mi = (_t(a) for a in maps)
+    cfg = TrackerConfig(levels=2, max_outer_iter=(3, 2),
+                        max_inner_iter=(2, 1))
+    kw = dict(input_intensity=ii, model_intensity=mi) if rgbd else {}
+    args = (ip, inn, mp, mn, torch.eye(4), config_from(cam), cfg)
+    fused = ttr.track(*args, **kw)
+    split = ttr.track(*args, **kw, reduce_fn=lambda sums: sums)
+    for x, y in zip(fused, split):
+        assert il.same_bits(x, y)
+
+
+@pytest.mark.parametrize("grid", [1, 2, 264])
+def test_partial_rows_do_not_overlap(grid):
+    """The fused launch writes its linearization rows while other CTAs may
+    still read the association's: ``partial_rows`` gives the two row sets
+    disjoint regions of the level's buffer, each as long as its form
+    needs (11 doubles a CTA; 60, the photometric rows included)."""
+    rows = torch.arange(grid * (il.ASSOC_SUMS + 2 * il.SYS_SUMS),
+                        dtype=torch.float64)
+    a, lin = il.partial_rows(rows, grid)
+    assert a.numel() == grid * il.ASSOC_SUMS
+    assert lin.numel() == grid * 2 * il.SYS_SUMS
+    assert a.data_ptr() + a.numel() * 8 <= lin.data_ptr()
+    assert not set(a.tolist()) & set(lin.tolist())
+
+
+@pytest.mark.parametrize("max_grid", [1, 2, 264])
+@pytest.mark.parametrize("scatter,sigma", [(True, None), (False, SIGMA)],
+                         ids=["depth", "rgbd"])
+def test_kernel_order_model_stays_within_the_bound(max_grid, scatter,
+                                                   sigma):
+    """The numpy model of the kernels' order of summation (grid-stride
+    rows a thread, the warps' transpose-reduce, the warps in order, the
+    last CTA's chunked trees) on the edge bank and the 80x60 level, with
+    1, 2 or up to 264 CTAs (threads with several pixels, one CTA, the
+    card's grid), within ``disagreements``' bound of the plain sums, the
+    counts equal; and exact on sums of small integers."""
+    entries = [(cam, maps, delta) for _, cam, maps, delta in CASES]
+    for cam, maps, delta in entries:
+        lv = _torch_level(cam, maps)
+        a = il.associate_reference(_t(delta), lv, **THRES, scatter=scatter)
+        lin = il.linearize_reference(_t(delta), lv, a, a.moments, a.s,
+                                     PLANAR_THRES, sigma)
+        grid = min(-(-lv.n // il.THREADS), max_grid)
+        moments, s, depth, color = icp_sum_order.model_sums(
+            _t(delta), lv, a, lin.mean, lin.inv_std, scatter, sigma, grid)
+        m_scale, s_scale = il.scale_assoc(lv, a, scatter)
+        got = moments + ((s,) if scatter else ())
+        ref = a.moments + ((a.s,) if scatter else ())
+        scale = m_scale + ((s_scale,) if scatter else ())
+        assert il.disagreements(got, ref, scale, lv.n) == []
+        sc_d, sc_c = il.scale_linearize(_t(delta), lv, a, lin, sigma)
+        assert il.disagreements(depth, lin.depth, sc_d, lv.n) == []
+        if sigma is not None:
+            assert il.disagreements(color, lin.color, sc_c, lv.n) == []
+    rng = np.random.default_rng(0)
+    terms = rng.integers(-50, 50, (70000, 60)).astype(np.float64)
+    for grid in (1, 3, 264):
+        np.testing.assert_array_equal(
+            icp_sum_order.summed_in_kernel_order(terms, grid),
+            terms.sum(axis=0))

@@ -13,7 +13,9 @@ bound on x and cond, the flags, counts and residuals equal, delta within
 tracker's pass kernels, whose association, mean and inv_std are
 bit-equal and whose sums are held by ``icp_linearize.disagreements``
 ((1.01 n + 3) 2^-24 of the sum of the terms' absolute values; an f64
-sum in a fixed order against cuBLAS's f32 product), counts equal.
+sum in a fixed order against cuBLAS's f32 product), counts equal; their
+fused launch equals the split pair, and their depth sums the numpy model
+of their order (``icp_sum_order.summed_in_kernel_order``), bit for bit.
 ``engine.make_step``'s graphs on the card are bit-equal to the eager step
 and read the host twice a tracked frame. The file imports only the port,
 so it runs where the JAX package cannot.
@@ -38,6 +40,8 @@ from voxelhashing_tpu_torch.ops.splat_zbuf import (splat_color_plain,
                                                    splat_zbuf,
                                                    splat_zbuf_color,
                                                    splat_zbuf_plain)
+
+import icp_sum_order
 
 CAM = CameraConfig(width=128, height=96, fx=104.0, fy=104.0, cx=63.5,
                    cy=47.5)
@@ -662,37 +666,171 @@ def _hold_icp_pass(delta, lv, scatter, sigma):
 
 @pytest.mark.cuda
 def test_icp_pass_kernels_match_plain_on_the_edge_bank(cuda):
-    """The association and linearization kernels against their plain
-    versions on ``icp_linearize.edge_bank`` (NaN pixels, pz == 0,
-    projections off every border, counts of 0, a 1x1 level, a row shard,
-    strided maps), depth-only with the scatter and with the photometric
-    rows; two runs give the same bits."""
+    """The pass kernels against their plain versions on
+    ``icp_linearize.edge_bank`` (NaN pixels, pz == 0, projections off
+    every border, counts of 0, a 1x1 level, a row shard, strided maps),
+    depth-only with the scatter and with the photometric rows, the fused
+    launch against the split pair bit for bit (``check_pass``); two runs
+    of each form give the same bits."""
     from voxelhashing_tpu_torch.ops import icp_linearize as il
     th = il.EDGE_THRES
+    args = (th["dist_thres"], th["normal_thres"], th["depth_min"],
+            th["depth_max"], True)
     for e in il.edge_bank():
         lv = il.edge_level(e, cuda)
         delta = torch.from_numpy(e["delta"]).to(cuda)
         _hold_icp_pass(delta, lv, True, None)
         _hold_icp_pass(delta, lv, False, th["color_sigma"])
-        runs = []
-        for _ in range(2):
-            a = il.associate(delta, lv, th["dist_thres"], th["normal_thres"],
-                             th["depth_min"], th["depth_max"], True)
-            lin = il.linearize(delta, lv, a, a.moments, a.s,
-                               th["planar_thres"], th["color_sigma"])
-            runs.append([t.clone() for t in a.moments + (a.s,) + lin.depth
-                         + lin.color + (lin.mean, lin.inv_std, lin.planar)])
-        for x, y in zip(*runs):
-            assert torch.equal(x, y)
+        for fused in (False, True):
+            runs = []
+            for _ in range(2):
+                if fused:
+                    a, lin = il.associate_linearize(
+                        delta, lv, *args, th["planar_thres"],
+                        th["color_sigma"])
+                else:
+                    a = il.associate(delta, lv, *args)
+                    lin = il.linearize(delta, lv, a, a.moments, a.s,
+                                       th["planar_thres"], th["color_sigma"])
+                runs.append([t.clone() for t in a.moments + (a.s,)
+                             + lin.depth + lin.color
+                             + (lin.mean, lin.inv_std, lin.planar)])
+            for x, y in zip(*runs):
+                assert torch.equal(x, y)
+
+
+def _plane_level(device, h, w, seed):
+    """A seeded h x w level (``icp_linearize._edge_maps``: a tilted noisy
+    plane, its normals and a texture) against a second one, with a small
+    seeded motion."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    rng = np.random.default_rng(seed)
+    cam = CameraConfig(width=w, height=h, fx=w * 0.9, fy=w * 0.9,
+                       cx=(w - 1) / 2.0, cy=(h - 1) / 2.0)
+    md = il._edge_maps(rng, h, w, cam)
+    inp = il._edge_maps(rng, h, w, cam)
+    delta = np.eye(4, dtype=np.float32)
+    delta[:3, 3] = rng.normal(0.0, 0.003, 3)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    lv = il.Level(t(inp[0]), t(inp[1]), t(md[0]), t(md[1]), cam, t(inp[2]),
+                  t(md[2]))
+    return lv, t(delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [False, True])
+def test_icp_pass_sums_follow_the_numpy_model(cuda, color):
+    """The kernels' sums are ``icp_sum_order.summed_in_kernel_order``'s, at
+    a 320x240 level (threads with two pixels on 132 SMs) and on the edge
+    bank: the association's sums and the depth system bit for bit (the
+    model sums the plain versions' f32 terms, which the kernels form bit
+    for bit), the photometric system within ``disagreements`` (its
+    transform is cuBLAS's on the plain side)."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    sigma = th["color_sigma"] if color else None
+    levels = [_plane_level(cuda, 240, 320, 7)] + [
+        (il.edge_level(e, cuda), torch.from_numpy(e["delta"]).to(cuda))
+        for e in il.edge_bank()]
+    for lv, delta in levels:
+        scatter = not color
+        a, lin = il.associate_linearize(
+            delta, lv, th["dist_thres"], th["normal_thres"], th["depth_min"],
+            th["depth_max"], scatter, th["planar_thres"], sigma)
+        moments, s, depth, col = icp_sum_order.model_sums(
+            delta, lv, a, lin.mean, lin.inv_std, scatter, sigma, lv.grid)
+        got = a.moments + ((a.s,) if scatter else ()) + lin.depth
+        want = moments + ((s,) if scatter else ()) + depth
+        for g, m in zip(got, want):
+            assert il.same_bits(g.cpu(), m.reshape(g.shape).to(g.dtype)), \
+                (lv.n, lv.grid, g, m)
+        if color:
+            _, sc_c = il.scale_linearize(delta, lv, a, lin, sigma)
+            assert il.disagreements(lin.color, col, sc_c, lv.n) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [False, True])
+def test_icp_fused_pass_survives_graph_replays(cuda, color):
+    """A CUDA graph holding the fused launch (cooperative, with its
+    generation word and counters in the level's buffers), replayed twice,
+    gives the eager launch's outputs bit for bit, and so does an eager
+    launch after the replays."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    lv, delta = _plane_level(cuda, 240, 320, 8)
+    args = (delta, lv, th["dist_thres"], th["normal_thres"],
+            th["depth_min"], th["depth_max"], not color, th["planar_thres"],
+            th["color_sigma"] if color else None)
+    eager = il.pass_outputs(*il.associate_linearize(*args))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        il.associate_linearize(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = (il.associate_linearize.launches,
+              il.associate_linearize.color_launches)
+    with torch.cuda.graph(graph):
+        out = il.associate_linearize(*args)
+    assert (il.associate_linearize.launches,
+            il.associate_linearize.color_launches) == (
+        before[0] + (not color), before[1] + color)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = il.pass_outputs(*out)
+        assert [k for k, _ in replayed] == [k for k, _ in eager]
+        for (k, x), (_, y) in zip(replayed, eager):
+            assert il.same_bits(x, y), k
+    after = il.pass_outputs(*il.associate_linearize(*args))
+    for (k, x), (_, y) in zip(after, eager):
+        assert il.same_bits(x, y), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", [False, True])
+def test_icp_fused_pass_refuses_aliased_rows(cuda, color):
+    """The fused launch's linearization rows are written while slower CTAs
+    still read the association's, so a launch whose two partial-row
+    regions overlap is refused (and counts no launch); the level's own
+    regions are disjoint and launch."""
+    from voxelhashing_tpu_torch.ops import icp_linearize as il
+    th = il.EDGE_THRES
+    lv, delta = _plane_level(cuda, 240, 320, 9)
+    args, _ = il.prepare_associate_linearize(
+        delta, lv, th["dist_thres"], th["normal_thres"], th["depth_min"],
+        th["depth_max"], not color, th["planar_thres"],
+        th["color_sigma"] if color else None)
+    a, lin = args[0], args[1]
+    rows = lv.grid * il.ASSOC_SUMS * 8
+    assert lin.partials >= a.partials + rows or \
+        a.partials >= lin.partials + lv.grid * 2 * il.SYS_SUMS * 8
+    own = lin.partials
+    before = (il.associate_linearize.launches,
+              il.associate_linearize.color_launches)
+    for alias in (a.partials, a.partials + rows - 8):
+        lin.partials = alias
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            il.launch(args)
+    assert (il.associate_linearize.launches,
+            il.associate_linearize.color_launches) == before
+    lin.partials = own
+    il.launch(args)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rgbd", [False, True])
 def test_track_runs_the_pass_kernels(cuda, rgbd):
-    """``tracking.track`` on the card: one association launch an outer
-    iteration and one linearization an inner one (with the photometric
-    rows under RGB-D), no plain pass on the card, each iteration held to
-    the plain versions, and the pose within 1e-4 of the CPU's."""
+    """``tracking.track`` on the card: one fused pass launch an outer
+    iteration and none of the split pair on a single device (with the
+    photometric rows under RGB-D), the split pair under ``reduce_fn``
+    with the same pose bits, no plain pass on the card, each iteration
+    held to the plain versions, and the pose within 1e-4 of the CPU's."""
     from voxelhashing_tpu_torch import tracking
     from voxelhashing_tpu_torch.config import FilterConfig, TrackerConfig
     from voxelhashing_tpu_torch.ops import icp_linearize as il
@@ -708,18 +846,28 @@ def test_track_runs_the_pass_kernels(cuda, rgbd):
                         max_inner_iter=(1, 1))
     kw = (dict(input_intensity=maps[1][2], model_intensity=maps[0][2])
           if rgbd else {})
-    before = (il.associate.launches, il.linearize.launches,
-              il.linearize.color_launches, il.associate_plain.cuda_calls,
-              il.linearize_plain.cuda_calls,
-              il.color_system_plain.cuda_calls)
-    res = tracking.track(maps[1][0], maps[1][1], maps[0][0], maps[0][1],
-                         torch.eye(4, device=cuda), CAM, cfg, **kw)
-    after = (il.associate.launches, il.linearize.launches,
-             il.linearize.color_launches, il.associate_plain.cuda_calls,
-             il.linearize_plain.cuda_calls,
-             il.color_system_plain.cuda_calls)
+
+    def counts():
+        return (il.associate.launches, il.linearize.launches,
+                il.linearize.color_launches, il.associate_linearize.launches,
+                il.associate_linearize.color_launches,
+                il.associate_plain.cuda_calls, il.linearize_plain.cuda_calls,
+                il.color_system_plain.cuda_calls)
+
+    inputs = (maps[1][0], maps[1][1], maps[0][0], maps[0][1],
+              torch.eye(4, device=cuda), CAM, cfg)
+    before = counts()
+    res = tracking.track(*inputs, **kw)
+    after = counts()
     assert [a - b for a, b in zip(after, before)] == \
-        [10, 0 if rgbd else 10, 10 if rgbd else 0, 0, 0, 0]
+        [0, 0, 0, 0 if rgbd else 10, 10 if rgbd else 0, 0, 0, 0]
+    before = counts()
+    split = tracking.track(*inputs, **kw, reduce_fn=lambda sums: sums)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == \
+        [10, 0 if rgbd else 10, 10 if rgbd else 0, 0, 0, 0, 0, 0]
+    for x, y in zip(res, split):
+        assert il.same_bits(x, y)
     cpu = tracking.track(*(t.cpu() for t in (maps[1][0], maps[1][1],
                                              maps[0][0], maps[0][1])),
                          torch.eye(4), CAM, cfg,

@@ -54,6 +54,11 @@ one:
   device twice a call), the step gate, the de-whitened pose update and
   the tracker's carry written in place (XLA on the TPU); ``ops/solve6.py``
   runs its solve batched, for the checks;
+* the tracker's passes (``ops/icp_linearize.py``,
+  ``csrc/icp_linearize.cu``): on a single device one launch an ICP
+  iteration (the association, a grid barrier, the linearization), on
+  the sharded path the association and the linearization apart, with
+  the cross-rank reduction between them (XLA on the TPU);
 * the march renderer's tile bounds and per-ray march (``ops/raymarch.py``,
   ``csrc/raymarch.cu``), one launch each a render on a single device
   (XLA on the TPU).

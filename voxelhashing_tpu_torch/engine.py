@@ -405,6 +405,8 @@ def _launch_counters():
             (il.associate, "launches"),
             (il.linearize, "launches"),
             (il.linearize, "color_launches"),
+            (il.associate_linearize, "launches"),
+            (il.associate_linearize, "color_launches"),
             (s6.solve6, "launches"))
 
 

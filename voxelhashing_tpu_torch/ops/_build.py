@@ -51,11 +51,7 @@ _SIGNATURES = {
         "vh_splat_zbuf_color_grid": [],
     },
     "icp_linearize": {
-        "vh_icp_associate": [_P] * 3 + [_LL] * 2 + [_I] * 2 + [_P] * 2
-        + [_LL] * 2 + [_I] * 4 + [_F] * 9 + [_I] + [_P] * 6,
-        "vh_icp_linearize": [_P] * 2 + [_LL] * 2 + [_I] * 2 + [_P] * 6
-        + [_F, _I, _P] + [_LL] * 2 + [_P] + [_LL] * 2 + [_I] * 4 + [_F] * 5
-        + [_P] * 6,
+        "vh_icp_pass": [_P, _I, _P, _I, _I, _P],
         "vh_icp_linearize_grid": [],
     },
     "preprocess": {

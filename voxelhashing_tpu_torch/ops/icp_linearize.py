@@ -7,37 +7,47 @@ No TPU kernel: the JAX tracker runs these passes as XLA
 ``_whitening``, ``:210`` ``_planarity``, ``:242`` ``_linearize``, ``:358``
 ``_build_system_color``). The plain versions here are those functions op
 for op (the CPU path, and the reference on the card); ``tracking`` keeps
-their old names. On CUDA tensors one ICP iteration is two launches:
+their old names. On CUDA tensors the passes are one kernel template,
+``icp_pass_kernel<kAssoc, kLin, kColor>``, in three forms:
 
-- :func:`associate` (``icp_associate_kernel``): the projective
+- :func:`associate_linearize` (both in one launch): the single-device
+  step's ICP iteration, one launch; its outputs are the split pair's bit
+  for bit;
+- :func:`associate` (the association alone): the projective
   correspondences (q, n_q, the weight and the accept flag, bit-equal to
   :func:`associate_plain`) and the sums of the whitening moments and of
   the planarity scatter;
-- :func:`linearize` (``icp_linearize_kernel<kColor>``): the whitening and
+- :func:`linearize` (the linearization alone): the whitening and
   planarity epilogues from the (reduced) sums, as the plain version
   computes them, and the sums of the depth system and, with intensities,
-  of the photometric system.
+  of the photometric system. The multi-device step runs the split pair
+  and reduces the moments and the scatter across ranks (``reduce_fn``)
+  between the two, as on the plain path; an inner iteration after the
+  first linearizes again on the same correspondences.
 
-Each kernel finishes its sums in its last block, in a fixed order, in
-f64 rounded once to f32: the same bits from run to run, not the plain
-version's (a cuBLAS f32 product), which :func:`disagreements` holds them
-to. Between the two, the multi-device step reduces the moments and the
-scatter across ranks (``reduce_fn``), as on the plain path.
+Every form sums in f64 in one fixed order on a persistent grid that
+depends on the level and the card alone (:func:`pass_grid`;
+``tests/icp_sum_order.py`` models it in numpy) and rounds once to
+f32: the same bits from run to run, not the plain version's (a cuBLAS f32
+product), which :func:`disagreements` holds them to.
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions for CPU tensors; any other device raises. There is no fallback.
 A :class:`Level` holds one pyramid level's maps and, made once a level,
-the kernels' buffers (the correspondences, the block partials and the
-last-block counter, whose zero fill is one launch a level); inside a CUDA
-graph capture they come from the graph's pool, and an iteration
-allocates only its small outputs. Each launch adds one to
-``associate.launches``, ``linearize.launches`` or
-``linearize.color_launches``; the plain versions count their calls on CUDA
-tensors (``cuda_calls``).
+the kernels' buffers (the correspondences, the partial rows, the arrival
+counters and the fused form's grid barrier word, whose zero fill is one
+launch a level); inside a CUDA graph capture they come from the graph's
+pool, and an iteration allocates only its small outputs. Each launch adds
+one to ``associate.launches``, ``linearize.launches``,
+``linearize.color_launches``, ``associate_linearize.launches`` or
+``associate_linearize.color_launches``; the plain versions count their
+calls on CUDA tensors (``cuda_calls``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -48,7 +58,9 @@ from . import _build
 from .. import geometry as geom
 from ..config import CameraConfig
 
-THREADS = 128               # threads a CTA, one a pixel (csrc)
+THREADS = 256               # threads a CTA (csrc)
+CHUNK = 16                  # partial rows a last-CTA thread adds at once
+ASSOC_SUMS = 11             # sum q (3), sum |q|^2, count, the scatter (6)
 SYS_SUMS = 30               # a system's: A (21), m[6,:6] (6), res, w, count
 # the kernels' output layouts (csrc/icp_linearize.cu)
 ASSOC_OUT = 14              # sum_q (3), sum_qq, cnt, s [3,3]
@@ -356,6 +368,7 @@ class Level:
         self.n = in_pts.shape[0] * in_pts.shape[1]
         self._plain = None
         self._work = None
+        self.grid = None
 
     @property
     def color(self) -> bool:
@@ -373,19 +386,89 @@ class Level:
         return self._plain
 
     def work(self):
-        """The kernels' buffers, made once: correspondences f32 [7,P]
-        (q, n_q, weight), accept flags bool [P], f64 block partials and the
-        last-block counter (int32, zero between launches)."""
+        """The kernels' buffers, made once, and the level's grid
+        (:func:`pass_grid`, the same for every form): correspondences f32
+        [7,P] (q, n_q, weight), accept flags bool [P], the association's
+        and the linearization's f64 partial rows (one a CTA each; views of
+        one buffer that do not overlap, since the fused form writes its
+        linearization rows while other CTAs may still read the
+        association's) and the association's and the linearization's
+        arrival counters and the fused form's grid barrier word (int32
+        [4], zero filled here and never again by the host)."""
         if self._work is None:
             dev = self.in_pts.device
-            grid = -(-self.n // THREADS)
+            self.grid = pass_grid(self.n, dev)
+            rows = torch.empty((self.grid * (ASSOC_SUMS + 2 * SYS_SUMS),),
+                               dtype=torch.float64, device=dev)
             self._work = (
                 torch.empty((7, self.n), dtype=torch.float32, device=dev),
                 torch.empty((self.n,), dtype=torch.bool, device=dev),
-                torch.empty((grid * 2 * SYS_SUMS,), dtype=torch.float64,
-                            device=dev),
-                torch.zeros((1,), dtype=torch.int32, device=dev))
+                *partial_rows(rows, self.grid),
+                torch.zeros((4,), dtype=torch.int32, device=dev))
         return self._work
+
+
+def partial_rows(rows, grid: int):
+    """(the association's rows f64 [grid * ASSOC_SUMS], the
+    linearization's f64 [grid * 2 * SYS_SUMS]): disjoint views of ``rows``,
+    one after the other."""
+    split = grid * ASSOC_SUMS
+    return rows[:split], rows[split:split + grid * 2 * SYS_SUMS]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_grid(index: int) -> int:
+    with torch.cuda.device(index):
+        grid = _build.library("icp_linearize").vh_icp_linearize_grid()
+    if grid < 1:
+        raise RuntimeError(f"icp_linearize: the occupancy query failed "
+                           f"({grid})")
+    return grid
+
+
+def pass_grid(n: int, device) -> int:
+    """The CTAs of every pass launch at a level of ``n`` pixels on
+    ``device``: one a 256 pixels, at most as many as the card holds at once
+    of the most demanding form (``vh_icp_linearize_grid``). It depends on n
+    and the card alone, so every form sums the same rows in the same
+    order."""
+    return min(-(-n // THREADS), _max_grid(device.index))
+
+
+class _Map(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p), ("s0", ctypes.c_longlong),
+                ("s1", ctypes.c_longlong), ("h", ctypes.c_int),
+                ("w", ctypes.c_int)]
+
+
+class _Cam(ctypes.Structure):
+    _fields_ = [("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("fx", ctypes.c_float), ("fy", ctypes.c_float),
+                ("cx", ctypes.c_float), ("cy", ctypes.c_float)]
+
+
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+
+
+class AssocArgs(ctypes.Structure):
+    """``AssocArgs`` of ``csrc/icp_linearize.cu``, field for field."""
+    _fields_ = [("delta", _P), ("in_pts", _Map), ("in_nrm", _Map),
+                ("md_pts", _Map), ("md_nrm", _Map), ("cam", _Cam),
+                ("dist_thres", _F), ("dist2_thres", _F),
+                ("normal_thres", _F), ("depth_min", _F),
+                ("depth_range", _F), ("scatter", _I), ("corr", _P),
+                ("ok", _P), ("partials", _P), ("counter", _P), ("barrier", _P),
+                ("sums", _P), ("n", _I)]
+
+
+class LinArgs(ctypes.Structure):
+    """``LinArgs`` of ``csrc/icp_linearize.cu``, field for field."""
+    _fields_ = [("delta", _P), ("in_pts", _Map), ("corr", _P), ("ok", _P),
+                ("sum_q", _P), ("sum_qq", _P), ("cnt", _P), ("s", _P),
+                ("planar_thres", _F), ("color", _I), ("in_int", _Map),
+                ("md_int", _Map), ("cam", _Cam), ("color_sigma", _F),
+                ("partials", _P), ("counter", _P), ("out", _P),
+                ("counts", _P), ("planar", _P), ("n", _I)]
 
 
 def _device(t):
@@ -405,6 +488,15 @@ def _map_args(m, h, w, what, channels=3):
                          f"a contiguous last dimension, got {m.dtype} "
                          f"{tuple(m.shape)} {m.stride()}")
     return m.stride(0), m.stride(1)
+
+
+def _map(m, strides):
+    return _Map(m.data_ptr(), strides[0], strides[1], m.shape[0],
+                m.shape[1])
+
+
+def _cam(cam: CameraConfig):
+    return _Cam(cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy)
 
 
 def _check_level(lv: Level, delta):
@@ -437,70 +529,26 @@ def _check_level(lv: Level, delta):
     return in_s, md_s
 
 
-def prepare_associate(delta, lv: Level, dist_thres: float,
-                      normal_thres: float, depth_min: float,
-                      depth_max: float, scatter: bool):
-    """Check the inputs, allocate the sums; returns (launch arguments,
-    :class:`Association`)."""
+def _assoc_args(delta, lv: Level, dist_thres: float, normal_thres: float,
+                depth_min: float, depth_max: float, scatter: bool):
+    """(AssocArgs, :class:`Association`): the inputs checked, the sums
+    allocated."""
     in_s, md_s = _check_level(lv, delta)
-    h, w = lv.in_pts.shape[:2]
-    hm, wm = lv.md_pts.shape[:2]
-    corr, ok, partials, counter = lv.work()
+    corr, ok, partials, _, counters = lv.work()
     sums = torch.empty((ASSOC_OUT,), dtype=torch.float32, device=delta.device)
-    cam = lv.cam
-    p = _build.ptr
-    args = (p(delta), p(lv.in_pts), p(lv.in_nrm), *in_s, h, w, p(lv.md_pts),
-            p(lv.md_nrm), *md_s, hm, wm, cam.width, cam.height,
-            float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
-            float(dist_thres), float(dist_thres * dist_thres),
-            float(normal_thres), float(depth_min),
-            float(depth_max - depth_min), int(bool(scatter)), p(corr), p(ok),
-            p(partials), p(counter), p(sums), delta.device)
+    cnt = counters.data_ptr()
+    a = AssocArgs(
+        delta.data_ptr(), _map(lv.in_pts, in_s), _map(lv.in_nrm, in_s),
+        _map(lv.md_pts, md_s), _map(lv.md_nrm, md_s), _cam(lv.cam),
+        dist_thres, dist_thres * dist_thres, normal_thres, depth_min,
+        depth_max - depth_min, int(bool(scatter)), corr.data_ptr(),
+        ok.data_ptr(), partials.data_ptr(), cnt, cnt + 8, sums.data_ptr(),
+        lv.n)
     out = Association(q=(corr[0], corr[1], corr[2]),
                       nq=(corr[3], corr[4], corr[5]), wgt=corr[6], ok=ok,
                       moments=(sums[0:3], sums[3], sums[4]),
                       s=sums[5:14].view(3, 3) if scatter else None)
-    return args, out
-
-
-def launch_associate(args) -> None:
-    """Launch the association kernel on prepared arguments, on the current
-    stream (the only place that does; counts the launch)."""
-    *kernel_args, device = args
-    _build.check(_build.library("icp_linearize").vh_icp_associate(
-        *kernel_args, _build.stream_ptr(device)), "icp_linearize")
-    associate.launches += 1
-
-
-def associate_reference(delta, lv: Level, dist_thres: float,
-                        normal_thres: float, depth_min: float,
-                        depth_max: float, scatter: bool) -> Association:
-    """:func:`associate` by the plain versions, on any device."""
-    in_soa, tgt8, _, _ = lv.plain()
-    q, nq, wgt, ok = associate_plain(delta, in_soa, tgt8, lv.cam,
-                                     dist_thres, normal_thres, depth_min,
-                                     depth_max)
-    return Association(q, nq, wgt, ok, moments_plain(q, ok),
-                       scatter_plain(in_soa, wgt) if scatter else None)
-
-
-def associate(delta, lv: Level, dist_thres: float, normal_thres: float,
-              depth_min: float, depth_max: float,
-              scatter: bool) -> Association:
-    """The correspondences at ``delta`` and their partial sums: the
-    whitening moments and, with ``scatter``, the planarity scatter (both
-    for ``reduce_sys``). The kernel on CUDA tensors, the plain versions on
-    CPU tensors."""
-    if _device(delta).type == "cpu":
-        return associate_reference(delta, lv, dist_thres, normal_thres,
-                                   depth_min, depth_max, scatter)
-    args, out = prepare_associate(delta, lv, dist_thres, normal_thres,
-                                  depth_min, depth_max, scatter)
-    launch_associate(args)
-    return out
-
-
-associate.launches = 0
+    return a, out
 
 
 def _vec(t, n, what):
@@ -508,13 +556,13 @@ def _vec(t, n, what):
         raise ValueError(f"icp_linearize: {what} must be {n} contiguous f32")
 
 
-def prepare_linearize(delta, lv: Level, assoc: Association, moments, s,
-                      planar_thres: float, color_sigma: Optional[float]):
-    """Check the inputs, allocate the outputs; returns (launch arguments,
-    :class:`Linearization`)."""
+def _lin_args(delta, lv: Level, assoc: Association, moments, s,
+              planar_thres: float, color_sigma: Optional[float]):
+    """(LinArgs, :class:`Linearization`): the inputs checked, the outputs
+    allocated."""
     in_s, _ = _check_level(lv, delta)
     h, w = lv.in_pts.shape[:2]
-    corr, ok, partials, counter = lv.work()
+    corr, ok, _, partials, counters = lv.work()
     if assoc.wgt.data_ptr() != corr[6].data_ptr() \
             or assoc.ok.data_ptr() != ok.data_ptr():
         raise ValueError("icp_linearize: the association must be the "
@@ -534,27 +582,28 @@ def prepare_linearize(delta, lv: Level, assoc: Association, moments, s,
            + (() if s is None else (s,))):
         raise ValueError("icp_linearize: every tensor on delta's device")
     cam = lv.cam
+    in_int = md_int = _Map()
     if color:
-        ii_s = _map_args(lv.in_int, h, w, "the input intensity", 1)
+        in_int = _map(lv.in_int, _map_args(lv.in_int, h, w,
+                                           "the input intensity", 1))
         hm, wm = lv.md_int.shape
-        mi_s = _map_args(lv.md_int, hm, wm, "the model intensity", 1)
+        md_int = _map(lv.md_int, _map_args(lv.md_int, hm, wm,
+                                           "the model intensity", 1))
         if hm < cam.height or wm < cam.width:
             raise ValueError("icp_linearize: the model intensity is "
                              "smaller than the level's camera")
-    else:
-        ii_s, mi_s, hm, wm = (0, 0), (0, 0), 0, 0
     out = torch.empty((LIN_OUT,), dtype=torch.float32, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
     planar = None if s is None else torch.empty((), dtype=torch.bool,
                                                 device=dev)
-    p, pn = _build.ptr, _build.ptr_or_null
-    args = (p(delta), p(lv.in_pts), *in_s, h, w, p(corr), p(ok), p(sum_q),
-            p(sum_qq), p(cnt), pn(s), float(planar_thres), int(color),
-            pn(lv.in_int if color else None), *ii_s,
-            pn(lv.md_int if color else None), *mi_s, hm, wm, cam.width,
-            cam.height, float(cam.fx), float(cam.fy), float(cam.cx),
-            float(cam.cy), float(color_sigma if color else 0.0), p(partials),
-            p(counter), p(out), p(counts), pn(planar), color, dev)
+    lin = LinArgs(
+        delta.data_ptr(), _map(lv.in_pts, in_s), corr.data_ptr(),
+        ok.data_ptr(), sum_q.data_ptr(), sum_qq.data_ptr(), cnt.data_ptr(),
+        None if s is None else s.data_ptr(), planar_thres, int(color),
+        in_int, md_int, _cam(cam), color_sigma if color else 0.0,
+        partials.data_ptr(), counters.data_ptr() + 4, out.data_ptr(),
+        counts.data_ptr(), None if planar is None else planar.data_ptr(),
+        lv.n)
 
     def system(o, count):
         return (o[0:36].view(6, 6), o[36:42], o[42], o[43], count)
@@ -564,19 +613,76 @@ def prepare_linearize(delta, lv: Level, assoc: Association, moments, s,
         color=system(out[SYS_OUT:2 * SYS_OUT], counts[1]) if color else None,
         mean=out[2 * SYS_OUT:2 * SYS_OUT + 3], inv_std=out[2 * SYS_OUT + 3],
         planar=planar)
-    return args, res
+    return lin, res
 
 
-def launch_linearize(args) -> None:
-    """Launch the linearization kernel on prepared arguments, on the
-    current stream (the only place that does; counts the launch)."""
-    *kernel_args, color, device = args
-    _build.check(_build.library("icp_linearize").vh_icp_linearize(
-        *kernel_args, _build.stream_ptr(device)), "icp_linearize")
-    if color:
-        linearize.color_launches += 1
-    else:
-        linearize.launches += 1
+def launch(args) -> None:
+    """Launch a prepared pass (``prepare_*``'s first value) on the current
+    stream: the only place that launches the pass kernels; counts the
+    launch in its wrapper's count."""
+    a, lin, grid, kind, device = args
+    _build.check(_build.library("icp_linearize").vh_icp_pass(
+        None if a is None else ctypes.byref(a), ctypes.sizeof(AssocArgs),
+        None if lin is None else ctypes.byref(lin), ctypes.sizeof(LinArgs),
+        grid, _build.stream_ptr(device)), "icp_linearize")
+    owner, attr = {"associate": (associate, "launches"),
+                   "linearize": (linearize, "launches"),
+                   "linearize_color": (linearize, "color_launches"),
+                   "pass": (associate_linearize, "launches"),
+                   "pass_color": (associate_linearize, "color_launches"),
+                   }[kind]
+    setattr(owner, attr, getattr(owner, attr) + 1)
+
+
+def prepare_associate(delta, lv: Level, dist_thres: float,
+                      normal_thres: float, depth_min: float,
+                      depth_max: float, scatter: bool):
+    """Check the inputs, allocate the sums; returns (launch arguments,
+    :class:`Association`)."""
+    a, out = _assoc_args(delta, lv, dist_thres, normal_thres, depth_min,
+                         depth_max, scatter)
+    return (a, None, lv.grid, "associate", delta.device), out
+
+
+def associate_reference(delta, lv: Level, dist_thres: float,
+                        normal_thres: float, depth_min: float,
+                        depth_max: float, scatter: bool) -> Association:
+    """:func:`associate` by the plain versions, on any device."""
+    in_soa, tgt8, _, _ = lv.plain()
+    q, nq, wgt, ok = associate_plain(delta, in_soa, tgt8, lv.cam,
+                                     dist_thres, normal_thres, depth_min,
+                                     depth_max)
+    return Association(q, nq, wgt, ok, moments_plain(q, ok),
+                       scatter_plain(in_soa, wgt) if scatter else None)
+
+
+def associate(delta, lv: Level, dist_thres: float, normal_thres: float,
+              depth_min: float, depth_max: float,
+              scatter: bool) -> Association:
+    """The correspondences at ``delta`` and their partial sums: the
+    whitening moments and, with ``scatter``, the planarity scatter (both
+    for ``reduce_sys``). The association kernel on CUDA tensors, the plain
+    versions on CPU tensors."""
+    if _device(delta).type == "cpu":
+        return associate_reference(delta, lv, dist_thres, normal_thres,
+                                   depth_min, depth_max, scatter)
+    args, out = prepare_associate(delta, lv, dist_thres, normal_thres,
+                                  depth_min, depth_max, scatter)
+    launch(args)
+    return out
+
+
+associate.launches = 0
+
+
+def prepare_linearize(delta, lv: Level, assoc: Association, moments, s,
+                      planar_thres: float, color_sigma: Optional[float]):
+    """Check the inputs, allocate the outputs; returns (launch arguments,
+    :class:`Linearization`)."""
+    lin, out = _lin_args(delta, lv, assoc, moments, s, planar_thres,
+                         color_sigma)
+    kind = "linearize_color" if color_sigma is not None else "linearize"
+    return (None, lin, lv.grid, kind, delta.device), out
 
 
 def linearize_reference(delta, lv: Level, assoc: Association, moments, s,
@@ -603,19 +709,59 @@ def linearize(delta, lv: Level, assoc: Association, moments, s,
     planarity flag from the (reduced) scatter ``s`` (None: the gate is
     off), and the normal equations about ``delta`` against the fixed
     correspondences ``assoc``: the depth system and, with ``color_sigma``,
-    the photometric one (the level's intensities). The kernel on CUDA
-    tensors, the plain versions on CPU tensors."""
+    the photometric one (the level's intensities). The linearization
+    kernel on CUDA tensors, the plain versions on CPU tensors."""
     if _device(delta).type == "cpu":
         return linearize_reference(delta, lv, assoc, moments, s,
                                    planar_thres, color_sigma)
     args, out = prepare_linearize(delta, lv, assoc, moments, s, planar_thres,
                                   color_sigma)
-    launch_linearize(args)
+    launch(args)
     return out
 
 
 linearize.launches = 0
 linearize.color_launches = 0
+
+
+def prepare_associate_linearize(delta, lv: Level, dist_thres: float,
+                                normal_thres: float, depth_min: float,
+                                depth_max: float, scatter: bool,
+                                planar_thres: float,
+                                color_sigma: Optional[float]):
+    """Check the inputs, allocate the outputs of both passes; returns
+    (launch arguments, (:class:`Association`, :class:`Linearization`))."""
+    a, assoc = _assoc_args(delta, lv, dist_thres, normal_thres, depth_min,
+                           depth_max, scatter)
+    lin, out = _lin_args(delta, lv, assoc, assoc.moments, assoc.s,
+                         planar_thres, color_sigma)
+    kind = "pass_color" if color_sigma is not None else "pass"
+    return (a, lin, lv.grid, kind, delta.device), (assoc, out)
+
+
+def associate_linearize(delta, lv: Level, dist_thres: float,
+                        normal_thres: float, depth_min: float,
+                        depth_max: float, scatter: bool, planar_thres: float,
+                        color_sigma: Optional[float] = None):
+    """:func:`associate` and then :func:`linearize` on its own
+    (unreduced) moments and scatter, the single-device step's iteration:
+    (:class:`Association`, :class:`Linearization`). On CUDA tensors one
+    launch of the fused kernel, whose outputs are the split pair's bit for
+    bit; on CPU tensors the plain versions, one after the other."""
+    if _device(delta).type == "cpu":
+        assoc = associate_reference(delta, lv, dist_thres, normal_thres,
+                                    depth_min, depth_max, scatter)
+        return assoc, linearize_reference(delta, lv, assoc, assoc.moments,
+                                          assoc.s, planar_thres, color_sigma)
+    args, out = prepare_associate_linearize(
+        delta, lv, dist_thres, normal_thres, depth_min, depth_max, scatter,
+        planar_thres, color_sigma)
+    launch(args)
+    return out
+
+
+associate_linearize.launches = 0
+associate_linearize.color_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -647,8 +793,16 @@ def bytes_moved(kind: str, n_in: int, n_md: int, scatter: bool = False,
     normals, the model maps, delta; the correspondences (7 f32 and a flag
     a pixel) and the sums), "linearize" (the input points, the
     correspondences, delta, the moments and the scatter; the systems,
-    mean, inv_std and the flag) or "linearize_color" (and the two
-    intensity maps)."""
+    mean, inv_std and the flag), "linearize_color" (and the two intensity
+    maps), or "pass" / "pass_color", the fused launch: the association's
+    bytes and the linearization's, less what the launch reads of its own
+    making or again (the correspondences, the input points, delta, the
+    moments and the scatter)."""
+    if kind in ("pass", "pass_color"):
+        lin = "linearize_color" if kind == "pass_color" else "linearize"
+        return (bytes_moved("associate", n_in, n_md, scatter)
+                + bytes_moved(lin, n_in, n_md, scatter, planar)
+                - (29 * n_in + 12 * n_in + 64 + 20 + (36 if planar else 0)))
     if kind == "associate":
         return (24 * n_in + 24 * n_md + 64 + 29 * n_in
                 + 4 * (5 + (9 if scatter else 0)))
@@ -664,7 +818,13 @@ def operations(kind: str, n_in: int, n_ok: int, n_use: int = 0,
                n_ok_color: int = 0):
     """(f32, f64) operations of one launch on ``n_in`` pixels with
     ``n_ok`` accepted (``n_use`` of them weighted into the scatter,
-    ``n_ok_color`` accepted by the photometric test)."""
+    ``n_ok_color`` accepted by the photometric test); "pass" and
+    "pass_color" are the association's and the linearization's."""
+    if kind in ("pass", "pass_color"):
+        lin = "linearize_color" if kind == "pass_color" else "linearize"
+        a = operations("associate", n_in, n_ok, n_use)
+        b = operations(lin, n_in, n_ok, 0, n_ok_color)
+        return a[0] + b[0], a[1] + b[1]
     if kind == "associate":
         return (ASSOC_OPS * n_in + ASSOC_OK_OPS * n_ok
                 + ASSOC_SCATTER_OPS * n_use,
@@ -767,20 +927,44 @@ def disagreements(got, ref, scale, n_terms: int):
     return bad
 
 
+def pass_outputs(assoc: Association, lin: Linearization):
+    """Every output of one iteration's passes, by name (copies)."""
+    named = [("q", x) for x in assoc.q] + [("nq", x) for x in assoc.nq] + [
+        ("wgt", assoc.wgt), ("ok", assoc.ok), ("sum_q", assoc.moments[0]),
+        ("sum_qq", assoc.moments[1]), ("cnt", assoc.moments[2]),
+        ("s", assoc.s), ("mean", lin.mean), ("inv_std", lin.inv_std),
+        ("planar", lin.planar)]
+    for key, sys_ in (("depth", lin.depth), ("color", lin.color)):
+        if sys_ is not None:
+            named += [(f"{key}[{k}]", x) for k, x in enumerate(sys_)]
+    return [(k, x.clone()) for k, x in named if x is not None]
+
+
+def same_bits(a, b) -> bool:
+    """The same tensors bit for bit (f32 by their bits, so NaN equals the
+    same NaN), or both None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        return b.dtype == torch.float32 and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def check_pass(delta, lv: Level, args, planar_thres: float,
                color_sigma: Optional[float]):
     """One ICP iteration through the kernels and through the plain
-    versions, on the card: the association (q, n_q, the weight and the
-    flag bit for bit; the moments and the scatter within
-    :func:`disagreements`), then the linearization on the kernel's
+    versions, on the card: the split pair's association (q, n_q, the
+    weight and the flag bit for bit; the moments and the scatter within
+    :func:`disagreements`), then its linearization on the kernel's
     association and sums (mean and inv_std bit for bit, the planarity
     flag equal unless I2 lies within 1e-6 of its threshold, the systems
-    within :func:`disagreements`, counts equal). ``args``: associate's
-    (dist_thres, normal_thres, depth_min, depth_max, scatter). Returns
-    (failures, {"assoc"/"depth"/"color": (max |d|, excess)})."""
-    def bits(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
+    within :func:`disagreements`, counts equal); then the fused launch
+    (:func:`associate_linearize`) against the split pair, every output
+    bit for bit (so it holds against the plain versions as the pair
+    does). ``args``: associate's (dist_thres, normal_thres, depth_min,
+    depth_max, scatter). Returns (failures, {"assoc"/"depth"/"color":
+    (max |d|, excess)})."""
     def err(a, b):
         return max(float((x.double() - y.double()).abs().max())
                    for x, y in zip(a, b))
@@ -790,8 +974,9 @@ def check_pass(delta, lv: Level, args, planar_thres: float,
     ref = associate_reference(delta, lv, *args)
     torch.cuda.synchronize()
     bad = []
-    if not (all(bits(x, y) for x, y in zip(got.q + got.nq + (got.wgt,),
-                                          ref.q + ref.nq + (ref.wgt,)))
+    if not (all(same_bits(x, y)
+                for x, y in zip(got.q + got.nq + (got.wgt,),
+                                ref.q + ref.nq + (ref.wgt,)))
             and torch.equal(got.ok, ref.ok)):
         bad.append("association not bit-equal")
     m_scale, s_scale = scale_assoc(lv, ref, scatter)
@@ -807,7 +992,8 @@ def check_pass(delta, lv: Level, args, planar_thres: float,
     lref = linearize_reference(delta, lv, got, got.moments, got.s,
                                planar_thres, color_sigma)
     torch.cuda.synchronize()
-    if not (bits(lin.mean, lref.mean) and bits(lin.inv_std, lref.inv_std)):
+    if not (same_bits(lin.mean, lref.mean)
+            and same_bits(lin.inv_std, lref.inv_std)):
         bad.append(f"whitening {lin.mean.tolist()} {float(lin.inv_std)} "
                    f"against {lref.mean.tolist()} {float(lref.inv_std)}")
     if scatter:
@@ -825,6 +1011,13 @@ def check_pass(delta, lv: Level, args, planar_thres: float,
         if d:
             bad.append(f"{key} system {d}")
         out[key] = (err(g[:4], r[:4]), excess(g, r, sc))
+    split = pass_outputs(got, lin)
+    fused = pass_outputs(*associate_linearize(delta, lv, *args,
+                                              planar_thres, color_sigma))
+    torch.cuda.synchronize()
+    diff = [k for (k, x), (_, y) in zip(split, fused) if not same_bits(x, y)]
+    if diff or len(split) != len(fused):
+        bad.append(f"the fused launch differs from the split pair in {diff}")
     return bad, out
 
 

@@ -8,13 +8,15 @@ intensities (RGB-D tracking) photometric rows join each system, built in
 the same whitened parametrization, and the planarity gate and probe are
 off.
 
-Each outer iteration's passes are ``ops/icp_linearize``: on CUDA two
-kernels, the association with the sums of the whitening moments and the
-planarity scatter, then the whitening and planarity epilogues with the
-sums of the normal equations (and the photometric rows), each summed in a
-fixed order in f64; on the CPU the plain torch passes (the normal
-equations one [8,P] x [P,8] f32 product; TF32 is off in this package),
-which keep their names here (``_associate``, ``_whitening``,
+Each outer iteration's passes are ``ops/icp_linearize``: on CUDA the
+association with the sums of the whitening moments and the planarity
+scatter, then the whitening and planarity epilogues with the sums of the
+normal equations (and the photometric rows), summed in a fixed order in
+f64; on a single device the first inner iteration's pair is one launch
+(``associate_linearize``), under ``reduce_fn`` and for later inner
+iterations the split kernels. On the CPU the plain torch passes (the
+normal equations one [8,P] x [P,8] f32 product; TF32 is off in this
+package), which keep their names here (``_associate``, ``_whitening``,
 ``_planarity``, ``_linearize``, ``_build_system_color``).
 
 The JAX tracker skips a converged level's outer iterations with
@@ -24,8 +26,8 @@ without reading the device. Each inner iteration's tail (the 6x6 solve,
 the step gate, the pose update and the carry) is ``ops/icp_update``: one
 kernel on CUDA that writes the carry's buffers in place, the plain torch
 tail around ``torch.linalg.svd`` on the CPU; so tracking reads nothing on
-the host and can be captured in a CUDA graph, three launches an
-iteration.
+the host and can be captured in a CUDA graph: two launches an iteration
+on a single device, three under ``reduce_fn``.
 
 ``reduce_fn`` (the multi-device step, ``parallel/sharded.py``) reduces
 each tuple of partial sums across ranks at JAX's points: the whitening
@@ -161,17 +163,25 @@ def track(input_points, input_normals, model_points, model_normals,
         gate = Gate(cfg.residual_early_out[level],
                     cfg.angle_trans_thres[level],
                     cfg.dist_trans_thres[level], cfg.cond_thres)
+        sigma = color_sigma if use_rgbd else None
+        assoc_args = (cfg.dist_thres[level], cfg.normal_thres[level],
+                      cam.depth_min, cam.depth_max, planarity_on)
         for outer in range(cfg.max_outer_iter[level]):
             delta = state.delta         # each update writes it in place
-            assoc = icp.associate(delta, lv, cfg.dist_thres[level],
-                                  cfg.normal_thres[level], cam.depth_min,
-                                  cam.depth_max, planarity_on)
-            moments = reduce_sys(assoc.moments)
-            s = reduce_sys((assoc.s,))[0] if planarity_on else None
+            lin = None
+            if reduce_fn is None:
+                # one device: both passes in one launch
+                assoc, lin = icp.associate_linearize(
+                    delta, lv, *assoc_args, cfg.normal_aniso_thres, sigma)
+                moments, s = assoc.moments, assoc.s
+            else:
+                assoc = icp.associate(delta, lv, *assoc_args)
+                moments = reduce_sys(assoc.moments)
+                s = reduce_sys((assoc.s,))[0] if planarity_on else None
             for inner in range(n_inner):
-                lin = icp.linearize(delta, lv, assoc, moments, s,
-                                    cfg.normal_aniso_thres,
-                                    color_sigma if use_rgbd else None)
+                if inner > 0 or lin is None:
+                    lin = icp.linearize(delta, lv, assoc, moments, s,
+                                        cfg.normal_aniso_thres, sigma)
                 sys_d, color = lin.depth, None
                 if use_rgbd:
                     # the photometric rows join before the reduction: each
