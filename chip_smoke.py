@@ -1367,6 +1367,7 @@ def time_hash(insert, delete, label, gpu_line):
         ht.launch_allocate(args[0])
         torch.cuda.synchronize()
         work = ht.work_counts(a[6], outs[5])
+        live, staged, chunks = ht.stage_counts(a[0], a[6], a[7])
         both = _bare_ms(lambda: (restore(), ht.launch_allocate(args[0])))
         copies = _bare_ms(restore)
         out["hash_insert"] = {
@@ -1374,7 +1375,8 @@ def time_hash(insert, delete, label, gpu_line):
             "wrapper_ms": _median_ms(lambda: ht.allocate(*a)),
             "plain_ms": _median_ms(lambda: _plain_insert(a)),
             "bytes": ht.bytes_moved(work), "operations": ht.operations(work),
-            "work": tuple(work), "rounds": a[8]}
+            "work": tuple(work), "rounds": a[8],
+            "stage": {"live": live, "staged": staged, "chunks": chunks}}
     if delete is not None:
         a = delete["args"]
         dev = a[0].device
@@ -1401,8 +1403,13 @@ def time_hash(insert, delete, label, gpu_line):
         r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["operations"])
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["empty_ms"] = empty
-        extra = (f" (a round of {r['rounds']}, less its table restore "
-                 f"{r['copy_ms']:.4f} ms)" if key == "hash_insert" else "")
+        extra = ""
+        if key == "hash_insert":
+            st = r["stage"]
+            extra = (f" (a round of {r['rounds']}, less its table restore "
+                     f"{r['copy_ms']:.4f} ms; {st['live']} live keys, "
+                     f"{st['staged']} staged: {st['chunks']} live "
+                     f"chunk(s) of {ht.ALLOC_THREADS} a round)")
         print(f"{key} timing ({label}): bare {r['ms']:.4f} ms{extra} "
               f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
               f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
@@ -2504,6 +2511,9 @@ def time_march(map_state, call, label, gpu_line):
         "work": {"active_rows": n_active, "tile_writes": writes,
                  "tiles": bounds[0].numel()}}
     work = rm.work_counts(map_state, pose, cam, cfg, rc, bounds)
+    # one thread a ray (the march's first design) on the same map, for
+    # its chain
+    thread = rm.work_counts(map_state, pose, cam, cfg, rc, bounds, lanes=1)
     rays = work.rays
     out["raymarch"] = {
         "ms": _bare_ms(lambda: rm.launch(m_args)),
@@ -2515,7 +2525,11 @@ def time_march(map_state, call, label, gpu_line):
         "work": work._asdict(),
         "samples_per_ray": (work.samples + 4 * work.crossed) / rays,
         "lookups_per_ray": work.lookups / rays,
-        "plain_lookups_per_ray": 8 * (rc.num_samples + 4)}
+        "plain_lookups_per_ray": 8 * (rc.num_samples + 4),
+        "lanes": rm.MARCH_LANES, "issued_per_ray": work.issued / rays,
+        "chain": work.chain,
+        "thread_issued_per_ray": thread.issued / rays,
+        "thread_chain": thread.chain}
     empty = _bare_ms(lambda: iu.launch_empty(pose.device))
     torch.cuda.synchronize()
     _set_counts(saved)
@@ -2528,7 +2542,12 @@ def time_march(map_state, call, label, gpu_line):
             extra = (f"; {r['samples_per_ray']:.3f} samples and "
                      f"{r['lookups_per_ray']:.3f} block lookups a ray "
                      f"(the plain version: {rc.num_samples + 4} samples "
-                     f"and {r['plain_lookups_per_ray']} corner lookups)")
+                     f"and {r['plain_lookups_per_ray']} corner lookups); "
+                     f"{r['lanes']} lanes a ray: {r['issued_per_ray']:.3f} "
+                     f"samples issued a ray, chain {r['chain']} dependent "
+                     f"sample steps in the longest warp (one thread a ray "
+                     f"on this map: {r['thread_issued_per_ray']:.3f} and "
+                     f"{r['thread_chain']})")
         print(f"{key} timing ({label}): bare {r['ms']:.4f} ms "
               f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
               f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
@@ -5060,6 +5079,8 @@ def main() -> int:
         t = hashed[name]
         keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_share", "bytes", "operations", "work")
+        if name == "hash_insert":
+            keys += ("stage",)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"voxelhashing_tpu_torch/csrc/{source}.cu",
@@ -5079,9 +5100,10 @@ def main() -> int:
     # :455, march_core :509, trilinear_sample_soa :83, sdf_gradient :119)
     # and blockmap.py (lookup :156, gather_voxels_soa :520)
     marched = rgbd["march"]["march"]
+    rm_lanes = marched["raymarch"]["lanes"]
     for name, replaces, globals_ in (
             ("raymarch", "voxelhashing_tpu/raycast.py:509",
-             ["raymarch_kernel<false>"]),
+             [f"raymarch_kernel<false, {rm_lanes}>"]),
             ("ray_bounds", "voxelhashing_tpu/raycast.py:148",
              ["ray_bounds_kernel"])):
         t = marched[name]
@@ -5099,9 +5121,10 @@ def main() -> int:
                  "per_frame": by_path[name]["march_rgbd"] / N_FRAMES,
                  "kernels": globals_, "launches_by_path": by_path[name]}
         if name == "raymarch":
-            entry.update({k: t[k] for k in ("samples_per_ray",
-                                            "lookups_per_ray",
-                                            "plain_lookups_per_ray")})
+            entry.update({k: t[k] for k in (
+                "samples_per_ray", "lookups_per_ray",
+                "plain_lookups_per_ray", "lanes", "issued_per_ray", "chain",
+                "thread_issued_per_ray", "thread_chain")})
         kernels.append(entry)
     split = rgbd["march"]["device"]["split"]
     print(f"summary: fps={fps:.3f} host_syncs_per_frame={syncs} "

@@ -165,12 +165,16 @@ def _probes_until(table, keys, r0, r1, h):
 
 
 def _model_allocate(st, keys, cfg, rounds):
-    """``csrc/hash_alloc.cu`` in numpy, launch by launch: each CTA's
-    pre-drop and ordered compaction, the stage list from the CTAs'
-    segments, claims by stage index into a claim array kept at INT32_MAX,
-    the resident check, the insert list by rank and the insert rounds,
-    which end when nothing is pending. Returns the map's new fields, the
-    count and each round's counts of the edges it reached."""
+    """``csrc/hash_alloc.cu`` in numpy, launch by launch: each CTA probes
+    its keys on the table as the launch found it (the pre-drop, and each
+    live key's flags: open after probes 0-1, found by the deep probes,
+    its probe-0 slot free) and compacts them in order; the last CTA's
+    loops walk only the live chunks of the stage list; claims by stage
+    index into a claim array kept at INT32_MAX; the resident check from
+    the flags, the
+    insert list by rank and the insert rounds (round 0 on the probe-0
+    flag), which end when nothing is pending. Returns the map's new
+    fields, the count and each round's counts of the edges it reached."""
     tk, tv, bk = (st.table_key.copy(), st.table_val.copy(),
                   st.block_key.copy())
     fs, n_free = st.free_stack, int(st.n_free)
@@ -181,50 +185,47 @@ def _model_allocate(st, keys, cfg, rounds):
     pre = min(2, cfg.max_probes)
     ins = min(cfg.insert_probes, cfg.max_probes)
     claim = np.full(h, ht.INT32_MAX, np.int64)
-    idx = np.arange(scap)
     stats = []
     for ri in range(rounds):
-        found, _ = _probes_until(tk, keys, 0, pre, h)
+        # the grid: every round of a key at once, on the table as found
+        tk0 = tk.copy()
+        found, term = _probes_until(tk, keys, 0, pre, h)
+        deep, _ = _probes_until(tk, keys, 2, cfg.max_probes, h)
+        free0 = np.isin(tk[ht.probe_slots(keys, 0, h)],
+                        (INVALID_KEY, ht.TOMBSTONE))
         live = (keys != INVALID_KEY) & ~found
-        segs = [keys[c:c + T][live[c:c + T]] for c in range(0, max(k, 1), T)]
-        stage = np.full(scap, INVALID_KEY, np.int32)
-        listed = np.concatenate(segs)[:scap]
-        stage[:listed.size] = listed
-        valid = stage != INVALID_KEY
+        order = np.concatenate([np.flatnonzero(live[c:c + T]) + c
+                                for c in range(0, max(k, 1), T)])[:scap]
+        n_stage = order.size
+        stage, idx = keys[order], np.arange(n_stage)
+        f_open, f_deep, f_free0 = ~term[order], deep[order], free0[order]
+
+        def contest(slots, who):
+            np.minimum.at(claim, slots, who)
+            won = claim[slots] == who
+            claim[slots] = ht.INT32_MAX
+            return won
+
         s0 = ht.probe_slots(stage, ri, h)
-        np.minimum.at(claim, s0[valid], idx[valid])
-        rep = valid & (claim[s0] == idx)
-        claim[s0[valid]] = ht.INT32_MAX
-        keys_r = np.where(rep, stage, INVALID_KEY)
-        found, dead = _probes_until(tk, keys_r, 0, pre, h)
-        open_ = ~dead
+        rep = contest(s0, idx)
+        open_ = rep & f_open
         lrank = np.cumsum(open_) - 1
-        fresh = rep & ~found
-        deep = 0
-        for e in np.flatnonzero(open_):
-            if lrank[e] >= rcap:
-                fresh[e] = False
-                continue
-            for r in range(2, cfg.max_probes):
-                t = tk[ht.probe_slots(stage[e:e + 1], r, h)[0]]
-                deep += r >= 3
-                if t == stage[e]:
-                    fresh[e] = False
-                    break
-                if t == INVALID_KEY:
-                    break
+        fresh = rep & ~(open_ & ((lrank >= rcap) | f_deep))
         pending = fresh & (np.cumsum(fresh) - 1 < icap)
         base, mx, wins, short = 0, -1, 0, False
         for r in range(ins):
             if not pending.any():
                 break
             s = ht.probe_slots(stage, r, h)
-            t = tk[s]
-            pending &= ~(t == stage)
-            contend = pending & ((t == INVALID_KEY) | (t == ht.TOMBSTONE))
-            np.minimum.at(claim, s[contend], idx[contend])
-            win = contend & (claim[s] == idx)
-            claim[s[contend]] = ht.INT32_MAX
+            if r == 0:                   # as the grid read it
+                empty = f_free0
+            else:
+                t = tk[s]
+                pending &= ~(t == stage)
+                empty = (t == INVALID_KEY) | (t == ht.TOMBSTONE)
+            contend = pending & empty
+            win = np.zeros(n_stage, bool)
+            win[contend] = contest(s[contend], idx[contend])
             rank = np.cumsum(win) - 1 + base
             can = win & (rank < n_free)
             ps = fs[np.clip(n_free - 1 - rank, 0, n_pool - 1)]
@@ -240,10 +241,15 @@ def _model_allocate(st, keys, cfg, rounds):
         n_free -= base
         upto = max(upto, mx + 1)
         total += base
-        stats.append({"live": int(live.sum()), "staged": int(valid.sum()),
+        # open keys within rcap whose deep probes reach round 3
+        _, dead2 = _probes_until(tk0, stage, 2, min(3, cfg.max_probes), h)
+        reach3 = open_ & (lrank < rcap) & ~dead2 & (cfg.max_probes > 3)
+        stats.append({"live": int(live.sum()), "staged": n_stage,
+                      "chunks": -(-n_stage // T),
                       "rep": int(rep.sum()), "open": int(open_.sum()),
-                      "deep": deep, "fresh": int(fresh.sum()),
-                      "wins": wins, "short": short})
+                      "deep": int(reach3.sum()),
+                      "fresh": int(fresh.sum()), "wins": wins,
+                      "short": short})
     assert (claim == ht.INT32_MAX).all()
     return {"table_key": tk, "table_val": tv, "block_key": bk,
             "n_free": n_free, "dense_upto": upto}, total, stats
@@ -286,7 +292,7 @@ _EDGES = {
     and s[0]["wins"] > 0,
     "tombstones": lambda s: s[0]["fresh"] > 0,
     "over_caps": lambda s: s[0]["live"] > 8192 and s[0]["open"] > 2048
-    and s[0]["fresh"] > 4096 and s[0]["deep"] > 0,
+    and s[0]["fresh"] > 4096 and s[0]["deep"] > 0 and s[0]["chunks"] == 8,
     "pool_short": lambda s: s[0]["short"],
     "probes_3_1": lambda s: s[0]["fresh"] > s[0]["wins"] > 0,
     "probes_12_6": lambda s: s[0]["deep"] > 0 and s[0]["wins"] > 0,
@@ -298,7 +304,8 @@ _EDGES = {
 def test_kernel_model_matches_plain(case):
     """The kernels' order, modelled in numpy, equals the plain version bit
     for bit on each edge call, and the call reaches its edge (keys past
-    each cap, contended claims, a short pool, deep chains, free rows)."""
+    each cap, contended claims, a short pool, deep chains, free rows, live
+    keys over several chunks)."""
     e = _bank()[case]
     kind, cfg, a, b = e["op"]
     st = jbm.MapState(*_set_up(case))
@@ -306,9 +313,9 @@ def test_kernel_model_matches_plain(case):
         return
     ts = convert.map_state_from_numpy(st, device="cpu")
     if kind == "allocate":
-        got, n, stats = _model_allocate(st, a, cfg, b)
         ref, n_ref = tbm.allocate_plain(ts, torch.from_numpy(a), cfg,
                                         rounds=b)
+        got, n, stats = _model_allocate(st, a, cfg, b)
         assert n == int(n_ref)
         assert _EDGES.get(case, lambda s: True)(stats), (case, stats)
     else:

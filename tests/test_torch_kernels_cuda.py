@@ -86,6 +86,11 @@ def _bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
+def _int_bits(t):
+    """``t``'s bits as integers (NaNs compare equal by their bits)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else _bits(t)
+
+
 def test_wrappers_refuse_other_devices():
     """A tensor on neither the CPU nor CUDA is refused, never computed by
     the plain version."""
@@ -124,6 +129,19 @@ def test_bilinear_caps_variant_source():
     assert "__launch_bounds__(kRowThreads, kBilinear ? 9 : 1)" in capped
     assert capped.replace("kRowThreads, kBilinear ? 9 : 1",
                           "kRowThreads") == src
+
+
+def test_kernel_probes_edits_apply():
+    """Every edit ``kernel_probes`` makes finds its place once in the
+    march's and the insert's sources, and each build differs from the
+    source as it is (but "as is")."""
+    from voxelhashing_tpu_torch import kernel_probes as kp
+    march = (_build.CSRC / "raymarch.cu").read_text()
+    insert = (_build.CSRC / "hash_alloc.cu").read_text()
+    for name, edits, _ in kp.MARCH_EDITS:
+        assert (kp._edit(march, edits) == march) == (name == "as is"), name
+    assert kp.march_clocked(march).count("clock64()") == 4
+    assert kp.insert_clocked(insert).count("clock64()") == 6
 
 
 def test_prime_runs_every_occupancy_query(monkeypatch):
@@ -967,10 +985,16 @@ def test_hash_kernels_bit_equal_on_the_edge_bank(cuda):
     ``blockmap.allocate_plain`` and ``delete_blocks_plain`` on every
     ``hash_table.edge_bank`` call, from one state on the card: every field
     of the map (the pool rows too) and the count bit for bit, one insert
-    launch a round, one delete launch a call; an empty key list raises."""
+    launch a round, one delete launch a call; an empty key list raises.
+    "over_caps" stages live keys over eight chunks."""
     from voxelhashing_tpu_torch.ops import hash_table as ht
     for e in ht.edge_bank():
         kind, cfg, a, b = e["op"]
+        if e["case"] == "over_caps":
+            st = ht.edge_state(e, "cpu")
+            _, staged, chunks = ht.stage_counts(st.table_key,
+                                                torch.from_numpy(a), cfg)
+            assert chunks == -(-staged // ht.ALLOC_THREADS) == 8
         st = ht.edge_state(e, cuda)
         keys = torch.from_numpy(a).to(cuda)
         if a.size == 0:
@@ -1102,6 +1126,63 @@ def test_raymarch_kernels_bit_equal_on_a_fused_map(cuda, use_gradients):
     for f in ("depth", "points", "normals", "color"):
         assert torch.equal(getattr(ok, f).view(torch.int32),
                            getattr(ref, f).view(torch.int32)), f
+
+
+@pytest.mark.cuda
+def test_march_and_insert_kernels_replay_in_a_graph(cuda):
+    """The march (with gradients, on a fused map from the next pose) and a
+    round of the insert (on the "over_caps" edge call; the graph restores
+    the table clones before it) captured in one CUDA graph and replayed
+    twice: each replay bit-equal to the eager launches, one launch of each
+    counted at the capture."""
+    from voxelhashing_tpu_torch.config import RaycastConfig
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    state, _, _, pose, aidx, n = _scene_state(cuda)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    rc = RaycastConfig(mode="march", use_gradients=True)
+    bounds = rm.ray_bounds(state.block_key, aidx, mask,
+                           geom.invert_rigid(pose), CAM, CFG, rc)
+    m_args, hits = rm.prepare_march(state, pose, CAM, CFG, rc, bounds)
+    e = next(x for x in ht.edge_bank() if x["case"] == "over_caps")
+    _, hcfg, keys, _ = e["op"]
+    st = ht.edge_state(e, cuda)
+    a_args, outs = ht.prepare_allocate(
+        st.table_key, st.table_val, st.block_key, st.free_stack, st.n_free,
+        st.dense_upto, torch.from_numpy(keys).to(cuda), hcfg, rounds=1)
+
+    def run():
+        for dst, src in zip(outs[:3], (st.table_key, st.table_val,
+                                        st.block_key)):
+            dst.copy_(src)
+        rm.launch(m_args)
+        ht.launch_allocate(a_args[0])
+
+    run()
+    torch.cuda.synchronize()
+    eager = [t.clone() for t in hits if t is not None] + \
+        [t.clone() for t in outs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (rm.march.launches, ht.allocate.launches)
+    with torch.cuda.graph(graph):
+        run()
+    assert (rm.march.launches, ht.allocate.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for t in list(hits) + list(outs):
+        if t is not None:
+            t.zero_()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [t for t in hits if t is not None] + list(outs)
+        assert all(torch.equal(_int_bits(x), _int_bits(y))
+                   for x, y in zip(got, eager))
+    assert int(outs[5]) > 0
 
 
 @pytest.mark.cuda

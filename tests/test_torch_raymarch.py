@@ -31,7 +31,7 @@ from voxelhashing_tpu_torch import raycast as tray
 from voxelhashing_tpu_torch.config import (CameraConfig, MapConfig,
                                            RaycastConfig)
 from voxelhashing_tpu_torch.geometry import INVALID_KEY
-from voxelhashing_tpu_torch.ops import raymarch as rm
+from voxelhashing_tpu_torch.ops import _build, raymarch as rm
 from voxelhashing_tpu_torch.ops.hash_table import probe_slots
 
 F = np.float32
@@ -150,17 +150,24 @@ def test_march_plain_matches_jax_on_the_edge_bank(case, use_gradients):
 # ---------------------------------------------------------------------------
 
 class _Model:
-    """``raymarch_kernel`` one ray at a time in numpy f32 scalars, with the
-    last block's lookup cached; counts what it does and which edges it
-    met."""
+    """``raymarch_kernel`` one ray at a time in numpy f32 scalars, at
+    ``lanes`` lanes a ray: windows of ``lanes`` consecutive samples, each
+    sample's distinct blocks resolved once for its 8 corners, the first
+    crossing found per window (a pair across two windows from the last
+    window's last sample), the three secant steps, and the hit with the
+    gradient's six samples, the first ``lanes`` of them in one step.
+    ``lanes`` 1 is one thread a ray. Counts what it does (the samples it
+    issues, each ray's dependent steps; and, on the samples the plain
+    algorithm needs in their serial order, the lookups a last-block cache
+    misses: the bound's basis) and which edges it met."""
 
     def __init__(self, st, cam: CameraConfig, cfg: MapConfig,
-                 rc: RaycastConfig, bounds):
+                 rc: RaycastConfig, bounds, lanes: int):
         self.sdf = st.sdf.float().numpy().reshape(-1)
         self.w = st.weight.float().numpy().reshape(-1)
         self.col = st.color.numpy().reshape(-1)
         self.tk, self.tv = st.table_key.numpy(), st.table_val.numpy()
-        self.cam, self.cfg, self.rc = cam, cfg, rc
+        self.cam, self.cfg, self.rc, self.lanes = cam, cfg, rc, lanes
         self.bounds = None if bounds is None else [b.numpy().reshape(-1)
                                                    for b in bounds]
         d = rc.derived(cfg)
@@ -169,7 +176,8 @@ class _Model:
         self.thres_dist = F(d["thres_dist"])
         self.probes = {}
         self.n = dict(samples=0, lookups=0, probe_rounds=0, crossed=0,
-                      found=0)
+                      found=0, issued=0, resolves=0)
+        self.steps = []
         self.edges = set()
 
     def _probe(self, key):
@@ -188,7 +196,8 @@ class _Model:
             self.probes[key] = (found, row, r + 1, tomb and found)
         return self.probes[key]
 
-    def sample(self, p, cache, with_color=False):
+    def sample(self, p, with_color=False):
+        """(sdf, valid, color, the corners' block keys in corner order)."""
         vs = F(self.cfg.voxel_size)
         q = [c / vs for c in p]
         b = [int(np.floor(c)) for c in q]
@@ -196,28 +205,37 @@ class _Model:
         g = [F(1.0) - f[a] for a in range(3)]
         wb = self.cfg.world_blocks
         half = wb // 2
-        s, valid, col = F(0.0), True, [F(0.0)] * 3
+        # per axis the blocks of the corners at offset 0 and 1
+        k = [[((b[a] + o) >> 3) + half for o in (0, 1)] for a in range(3)]
+        split = sum(1 << a for a in range(3) if k[a][0] != k[a][1])
+        if split:
+            self.edges.add("block_split")
+        if split == 7:
+            self.edges.add("eight_blocks")
+        block = {}
+        for d in range(8):
+            if d & ~split:
+                continue
+            kd = [k[a][(d >> a) & 1] for a in range(3)]
+            key = ((kd[2] * wb + kd[1]) * wb + kd[0]
+                   if all(0 <= x < wb for x in kd) else INVALID_KEY)
+            found, row = False, 0
+            if key == INVALID_KEY:
+                self.edges.add("out_of_world")
+            else:
+                found, row, _, tomb = self._probe(key)
+                self.n["resolves"] += 1
+                if tomb:
+                    self.edges.add("tombstone_chain")
+                if not found:
+                    self.edges.add("unallocated")
+            block[d] = (key, found, row)
+        s, valid, col, keys = F(0.0), True, [F(0.0)] * 3, []
         for c in range(8):
             o = (c & 1, (c >> 1) & 1, (c >> 2) & 1)
             v = [b[a] + o[a] for a in range(3)]
-            k = [(x >> 3) + half for x in v]
-            key = ((k[2] * wb + k[1]) * wb + k[0]
-                   if all(0 <= x < wb for x in k) else INVALID_KEY)
-            if key == INVALID_KEY:
-                self.edges.add("out_of_world")
-            if key != cache[0]:
-                cache[0] = key
-                cache[1] = (False, 0)
-                if key != INVALID_KEY:
-                    found, row, rounds, tomb = self._probe(key)
-                    self.n["lookups"] += 1
-                    self.n["probe_rounds"] += rounds
-                    cache[1] = (found, row)
-                    if tomb:
-                        self.edges.add("tombstone_chain")
-                    if not found:
-                        self.edges.add("unallocated")
-            found, row = cache[1]
+            key, found, row = block[c & split]
+            keys.append(key)
             sd = w = F(0.0)
             pk = 0
             if found:
@@ -231,10 +249,22 @@ class _Model:
             if with_color:
                 col = [col[i] + tw * F((pk >> sh) & 0xFF)
                        for i, sh in enumerate((16, 8, 0))]
-        return s, valid, [c / F(255.0) for c in col]
+        return s, valid, [c / F(255.0) for c in col], keys
+
+    def _serial_lookups(self, needed):
+        """The lookups a last-block cache misses on the needed samples'
+        corners in their serial order, and their probe rounds."""
+        last = -1
+        for keys in needed:
+            for key in keys:
+                if key != last:
+                    last = key
+                    if key != INVALID_KEY:
+                        self.n["lookups"] += 1
+                        self.n["probe_rounds"] += self._probe(key)[2]
 
     def ray(self, pose, row, col_px):
-        cam, rc, cfg = self.cam, self.rc, self.cfg
+        cam, rc, cfg, w_l = self.cam, self.rc, self.cfg, self.lanes
         r = pose
         xn = (F(col_px) - F(cam.cx)) / F(cam.fx)
         yn = (F(row) - F(cam.cy)) / F(cam.fy)
@@ -253,32 +283,57 @@ class _Model:
         dt = band / F(rc.num_samples - 1)
         dt = self.ray_inc if dt < self.ray_inc else dt
         limit = t_max + dt
-        cache = [-1, (False, 0)]
+        n_s = rc.num_samples
 
         def at(t):
             return [o[a] + d[a] * t for a in range(3)]
 
-        prev = None
+        steps, needed = 0, []
+        prev = (F(0.0), F(0.0), False)
         crossed = None
-        for s in range(rc.num_samples):
-            ts = t_min + F(s) * dt
-            if not ts <= limit:
-                break
-            self.n["samples"] += 1
-            sd, ok, _ = self.sample(at(ts), cache)
-            if ok and sd == F(0.0):
-                self.edges.add("sdf_zero")
-            if prev is not None:
-                pt, ps, pok = prev
+        for base in range(0, n_s, w_l):
+            win = []
+            for lane in range(w_l):
+                s = base + lane
+                ts = t_min + F(s) * dt
+                inn = s < n_s and ts <= limit
+                sd, ok, keys = F(0.0), False, None
+                if inn:
+                    sd, ok, _, keys = self.sample(at(ts))
+                    self.n["issued"] += 1
+                    if ok and sd == F(0.0):
+                        self.edges.add("sdf_zero")
+                win.append((ts, sd, ok, inn, keys))
+            steps += any(x[3] for x in win)
+            cross = None
+            for lane, (ts, sd, ok, inn, keys) in enumerate(win):
+                pt, ps, pok = prev if lane == 0 else win[lane - 1][:3]
                 if pok and ok and ps > F(0.0) and sd < F(0.0):
                     if ps - sd < self.thr:
-                        crossed = (pt, ps, sd, s - 1)
+                        cross = lane
                         break
                     self.edges.add("jump_rejected")
-            prev = (ts, sd, ok)
+            last = len(win) if cross is None else cross + 1
+            needed += [x[4] for x in win[:last] if x[3]]
+            if cross is not None:
+                if cross == 0 and base > 0:
+                    self.edges.add("pair_across_windows")
+                if cross < w_l - 1 and win[cross + 1][3]:
+                    self.edges.add("wasted_samples")
+                pt, ps, _ = prev if cross == 0 else win[cross - 1][:3]
+                crossed = (pt, ps, win[cross][1], base + cross - 1)
+                break
+            if not all(x[3] for x in win):
+                if w_l > 1 and win[0][3]:
+                    self.edges.add("band_ends_in_window")
+                break
+            prev = win[-1][:3]
+        self.n["samples"] += len(needed)
         out = dict(t=F(np.nan), found=False, p=[F(np.nan)] * 3,
                    c=[F(0.0)] * 3, g=[F(np.nan)] * 3, gok=False)
         if crossed is None:
+            self._serial_lookups(needed)
+            self.steps.append(steps)
             return out
         b_t0, b_s0, b_s1, first = crossed
         self.n["crossed"] += 1
@@ -296,7 +351,8 @@ class _Model:
             return F(0.5)
         for _ in range(3):
             tm = b_t0 + alpha_of(b_s0, b_s1) * (b_t1 - b_t0)
-            sm, ok, _ = self.sample(at(tm), cache)
+            sm, ok, _, keys = self.sample(at(tm))
+            needed.append(keys)
             if not ok:
                 self.edges.add("secant_invalid")
             if ok and sm == F(0.0):
@@ -305,24 +361,41 @@ class _Model:
                 b_t1, b_s1 = tm, sm
             if ok and sm >= F(0.0):
                 b_t0, b_s0 = tm, sm
+        self.n["issued"] += 3
         t_hit = b_t0 + alpha_of(b_s0, b_s1) * (b_t1 - b_t0)
         h = at(t_hit)
-        s_hit, ok, c = self.sample(h, cache, with_color=True)
-        if not (ok and np.abs(s_hit) < self.thres_dist):
-            return out
-        self.n["found"] += 1
-        out.update(t=t_hit, found=True, p=h, c=c)
+        # the hit and the gradient's samples at h + e and h - e
+        pts = [h]
         if rc.use_gradients:
-            g, gok = [], True
             for ax in range(3):
                 e = [F(cfg.voxel_size) if k == ax else F(0.0)
                      for k in range(3)]
-                sp, vp, _ = self.sample([h[k] + e[k] for k in range(3)],
-                                        cache)
-                sm, vm, _ = self.sample([h[k] - e[k] for k in range(3)],
-                                        cache)
-                g.append((sp - sm) * F(0.5))
-                gok = gok and vp and vm
+                pts.append([h[k] + e[k] for k in range(3)])
+                pts.append([h[k] - e[k] for k in range(3)])
+        first_step = min(w_l, len(pts))
+        got = [self.sample(q, with_color=j == 0)
+               for j, q in enumerate(pts[:first_step])]
+        s_hit, ok, c, keys = got[0]
+        needed.append(keys)
+        found = ok and np.abs(s_hit) < self.thres_dist
+        self.n["issued"] += first_step
+        steps += 4
+        if found and len(pts) > first_step:
+            got += [self.sample(q) for q in pts[first_step:]]
+            self.n["issued"] += len(pts) - first_step
+            steps += -(-(len(pts) - first_step) // w_l)
+        self.steps.append(steps)
+        if not found:
+            self._serial_lookups(needed)
+            return out
+        needed += [x[3] for x in got[1:]]
+        self._serial_lookups(needed)
+        self.n["found"] += 1
+        out.update(t=t_hit, found=True, p=h, c=c)
+        if rc.use_gradients:
+            g = [(got[1 + 2 * ax][0] - got[2 + 2 * ax][0]) * F(0.5)
+                 for ax in range(3)]
+            gok = all(x[1] for x in got[1:])
             out.update(g=g, gok=gok)
         return out
 
@@ -330,6 +403,10 @@ class _Model:
         cam = self.cam
         rays = [self.ray(pose, r, c) for r in range(cam.height)
                 for c in range(cam.width)]
+        warp = rm.warp_of(cam, self.lanes).numpy()
+        per_warp = np.zeros(warp.max() + 1, np.int64)
+        np.maximum.at(per_warp, warp, np.array(self.steps, np.int64))
+        self.n["chain"] = int(per_warp.max())
         return rm.MarchHits(
             t_hit=np.array([x["t"] for x in rays], F),
             found=np.array([x["found"] for x in rays]),
@@ -340,37 +417,45 @@ class _Model:
 
 
 @functools.lru_cache(maxsize=None)
-def _modelled(case):
+def _modelled(case, lanes=rm.MARCH_LANES):
     """(model, its hits, march_plain's hits) with gradients on."""
     e, (st, pose, aidx, mask), _ = _case(case)
     rc = dataclasses.replace(e["rc"], use_gradients=True)
     bounds = _bounds(e, st, pose, aidx, mask, rc)
-    model = _Model(st, e["cam"], e["cfg"], rc, bounds)
+    model = _Model(st, e["cam"], e["cfg"], rc, bounds, lanes)
     with np.errstate(all="ignore"):
         got = model.run(pose.numpy())
     ref = rm.march_plain(st, pose, e["cam"], e["cfg"], rc, bounds)
     return model, got, ref, (st, pose, e, rc, bounds)
 
 
+@pytest.mark.parametrize("lanes", [1, rm.MARCH_LANES])
 @pytest.mark.parametrize("case", rm.EDGE_CASES)
-def test_kernel_model_matches_march_plain(case):
-    """The kernel's loop (a stop past the band and at the first crossing,
-    the last block cached) gives ``march_plain``'s hits bit for bit, and
-    ``work_counts`` counts what it did."""
-    model, got, ref, (st, pose, e, rc, bounds) = _modelled(case)
+def test_kernel_model_matches_march_plain(case, lanes):
+    """The kernel's loop at 1 lane a ray and at ``MARCH_LANES`` (windows
+    that stop past the band and at the first crossing, every sample's
+    blocks resolved together) gives ``march_plain``'s hits bit for bit,
+    and ``work_counts`` counts what it did: the bound's basis (the
+    samples the plain algorithm needs, their cache-missed lookups and
+    probe rounds) and the kernel's issued samples and chain."""
+    model, got, ref, (st, pose, e, rc, bounds) = _modelled(case, lanes)
     for f in rm.MarchHits._fields:
         a, b = getattr(got, f), getattr(ref, f).numpy()
         assert a.shape == b.shape, f
         if a.dtype == np.float32:
             a, b = a.view(np.int32), b.view(np.int32)
         np.testing.assert_array_equal(a, b, err_msg=f)
-    work = rm.work_counts(st, pose, e["cam"], e["cfg"], rc, bounds)
+    work = rm.work_counts(st, pose, e["cam"], e["cfg"], rc, bounds,
+                          lanes=lanes)
     n = model.n
     assert (work.samples + 4 * work.crossed + 6 * work.found
             == n["samples"] + 4 * n["crossed"] + 6 * n["found"])
     assert (work.crossed, work.found) == (n["crossed"], n["found"])
     assert work.lookups == n["lookups"]
     assert work.probe_rounds == n["probe_rounds"]
+    assert (work.issued, work.chain) == (n["issued"], n["chain"])
+    if lanes == 1:
+        assert n["issued"] == n["samples"] + 4 * n["crossed"] + 6 * n["found"]
 
 
 def test_edge_bank_covers_its_cases():
@@ -379,7 +464,9 @@ def test_edge_bank_covers_its_cases():
         edges |= _modelled(case)[0].edges
     assert edges >= {"first_pair", "last_pair", "sdf_zero", "jump_rejected",
                      "unallocated", "out_of_world", "tombstone_chain",
-                     "tiny_denom", "secant_invalid"}, edges
+                     "tiny_denom", "secant_invalid", "block_split",
+                     "eight_blocks", "pair_across_windows",
+                     "wasted_samples", "band_ends_in_window"}, edges
     # the central ray of "jump" meets a jump of exactly the f32 threshold
     # (1.0; 1.000000005 in f64) first, and crosses only at the last pair
     model, got, _, (_, _, e, _, _) = _modelled("jump")
@@ -396,7 +483,16 @@ def test_work_counts_and_bound_by_hand():
     45 and the hit at 44.5 (s = 0): 5 + 4 samples, 6 lookups of 5 keys
     (the secants go back to block 5), one round each, 56 distinct voxels
     (8 a sample at 16, 24, 32, 40, 48; 16 more at z 44-47), 8 with color,
-    5 rows, 5 slots."""
+    5 rows, 5 slots. The kernel: at 8 lanes one window of all 8 samples
+    (3 wasted past the crossing), the secants and the hit: 12 issued in
+    5 steps; at 4 lanes two windows, the pair across them: 12 in 6; at
+    one lane a ray 9 in 9. The layout ``warp_of`` models is the kernel's
+    (``csrc/raymarch.cu``'s constants)."""
+    src = (_build.CSRC / "raymarch.cu").read_text()
+    for name, value in (("kMarchThreads", rm.MARCH_THREADS),
+                        ("kMarchLanes", rm.MARCH_LANES),
+                        ("kMarchTileX", rm.MARCH_TILE_X)):
+        assert f"constexpr int {name} = {value};" in src, name
     cam = CameraConfig(width=1, height=1, fx=1.0, fy=1.0, cx=0.0, cy=0.0,
                        depth_min=0.25, depth_max=1.125)
     cfg = MapConfig(voxel_size=0.015625, truncation=0.0625,
@@ -415,11 +511,14 @@ def test_work_counts_and_bound_by_hand():
     st, pose, _, _ = rm.edge_inputs({"map": m, "cfg": cfg, "active": None,
                                      "pose": np.eye(4, dtype=np.float32)},
                                     "cpu")
-    w = rm.work_counts(st, pose, cam, cfg, rc)
+    w = rm.work_counts(st, pose, cam, cfg, rc, lanes=8)
     assert w == rm.MarchWork(rays=1, samples=5, crossed=1, found=1,
                              lookups=6, probe_rounds=6, slots=5, rows=5,
                              voxels=56, color_voxels=8, tiles=0,
-                             gradients=False)
+                             gradients=False, issued=12, chain=5)
+    for lanes, issued, chain in ((4, 12, 6), (1, 9, 9)):
+        assert rm.work_counts(st, pose, cam, cfg, rc, lanes=lanes) == \
+            w._replace(issued=issued, chain=chain)
     assert rm.bytes_moved(w) == 4 * 5 + 4 * 5 + 4 * 56 + 4 * 8 + 64 + 29
     assert rm.operations(w) == (rm.RAY_OPS + rm.SAMPLE_OPS * 9
                                 + rm.COLOR_OPS + rm.LOOKUP_OPS * 6

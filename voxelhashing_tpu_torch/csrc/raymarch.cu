@@ -1,6 +1,6 @@
 // The march renderer, hand-written for Hopper (sm_90a): the per-tile ray
 // bounds (ray_bounds_kernel, one launch after a fill) and the march itself
-// (raymarch_kernel<kGradients>, one launch a render), in place of the
+// (raymarch_kernel<kGradients, kLanes>, one launch a render), in place of the
 // ~150 small torch launches of the bounds and the [48, P] sample pass of
 // the plain march (~29.5M hash lookups a 320x240 frame at 48 samples).
 //
@@ -28,36 +28,51 @@
 // last turns the images into floats and widens every tile by the global
 // bounds where a block overflowed.
 //
-// raymarch_kernel: one thread a ray (a CTA a 16 x 16 pixel tile) forms its
-// interval from its tile's bounds (less and plus the truncation, clamped to
-// the camera's range) as render_march does, and its step as march_core
-// does, then walks the samples in order: it stops at the first sample past
-// the band (ts only grows, and a sample past it is never valid) and at the
-// first pair that passes the crossing test (the plain argmax over int8 also
-// picks the first), so the samples between the surface and the band's end
-// are never taken. Then the three secant steps, the sample with color at
-// the hit and, under kGradients, the six central-difference samples of
-// sdf_gradient (unnormalized; the epilogue that normalizes them, and
-// transforms the points, is the plain version's, raycast.march_epilogue,
-// shared by both). Rays with no kept hit write NaN points and 0 colors,
-// as the plain version after its masks.
+// raymarch_kernel<kGradients, kLanes>: kLanes = kMarchLanes = 4 lanes
+// walk one ray (a CTA of 256 threads a tile 8 rays wide; 8 lanes measured
+// slower on the main path, see PERF.md). A ray forms its interval from its tile's bounds (less and
+// plus the truncation, clamped to the camera's range) as render_march
+// does, and its step as march_core does, then takes its samples in
+// windows of kLanes, lane l sample base + l: the first crossing is the
+// lowest lane whose pair (its own sample and lane l - 1's, or for lane 0
+// the last window's last) passes the crossing test (the plain argmax over
+// int8 also picks the first), and the ray stops at the window that
+// crosses or that holds a sample past the band (ts only grows, and a
+// sample past it is never valid). Samples past the crossing inside that
+// window are taken and change no output. Then the three secant steps,
+// each sample's 8 corners shared by the ray's lanes, and the hit's
+// samples across the lanes at once: the hit with color and, under
+// kGradients, the six central-difference samples of sdf_gradient (the
+// first kLanes at once, the rest for a kept hit; unnormalized: the
+// epilogue that normalizes them, and transforms the points, is the plain
+// version's, raycast.march_epilogue, shared by both). Rays with no kept
+// hit write NaN points and 0 colors, as the plain version after its masks.
+// Every lane of a warp takes part in every step (a ray that is done
+// idles), so each warp-wide shuffle and __syncwarp is met by all 32 lanes.
 //
 // Each trilinear sample follows trilinear_sample_soa's operation order: an
 // IEEE division by the voxel size, the floor and the saturating int cast
 // torch's CUDA cast compiles to, the fractions, the 8 corner weights
 // multiplied left to right and summed from 0 in _CORNER_LIST order, the
 // color unpacked, weighted, summed and divided by 255; valid where all 8
-// weights are > 0. A corner's block is found with lookup's probe (at most
-// max_probes rounds, a stop at INVALID_KEY, past tombstones; a key out of
-// the world's range is INVALID_KEY). The last block's (key, row) stays in
-// registers: at 4 mm voxels most of a sample's 8 corners share one block,
-// and a lookup is a pure function of the table, so the cache changes no
-// result. bf16 sdf and weight widen to f32 exactly, as torch's .to(f32).
+// weights are > 0. A sample's 8 corners lie in at most 2 blocks an axis
+// (block b >> 3 against (b + 1) >> 3); its first block is looked up by its
+// own lane, the others through the warp's list in shared memory, one lane
+// a block (lookup's probe: at most max_probes rounds, a stop at
+// INVALID_KEY, past tombstones; a key out of the world's range is
+// INVALID_KEY; a round's key and value loaded together), then the 8
+// corners' voxels are loaded together. A lookup is a pure function of
+// the table, so the order of the lookups changes no result. bf16 sdf and
+// weight widen to f32 exactly, as torch's .to(f32).
 //
-// Bound: latency, not bytes or operations: each sample is a chain of
-// dependent loads (the probe, then the voxels, then the next sample's
-// position depends on neither, but the crossing test on both), and a warp
-// runs until its longest ray ends.
+// Bound: latency under load, not bytes or operations: 0.080 ms bare at
+// phase 6's frame-11 render on an H100 at 700 W, 6.9% of its operations
+// bound. A window is a chain of dependent steps (the block lookups, then
+// the voxels, then the crossing test across the lanes) that takes ~5.7K
+// cycles a warp there, with 32 warps an SM in flight; the windows are
+// ~77% of the time. Halving the voxel reads moved it 2%, a cap of 4 CTAs
+// an SM not at all, 8 lanes a ray, 6 CTAs an SM and a 512-thread CTA made
+// it slower (python -m voxelhashing_tpu_torch.kernel_probes; PERF.md).
 //
 // Built with -fmad=false (ops/_build.py): every float expression rounds as
 // the plain version's separate torch ops; the thresholds arrive as the f32
@@ -74,7 +89,11 @@ constexpr int kBoundsThreads = 256;
 constexpr int kMaxSharedTiles = 6144;  // two int arrays in 48 KB
 constexpr int kSpan = 4;               // raycast._SPAN
 constexpr int kIdentity = 0x7F800000;  // image(+inf) == ~image(-inf)
-constexpr int kTile = 16;              // the march's CTA: 16 x 16 rays
+constexpr int kMarchThreads = 256;     // the march's CTA
+constexpr int kMarchLanes = 4;         // lanes a ray (ops/raymarch.py)
+constexpr int kMarchTileX = 8;         // its rays: 8 wide, 256 / kLanes / 8 tall
+constexpr int kWarpBlocks = 32 * 8;    // a warp's block lookups a sample
+constexpr unsigned kFull = 0xffffffffu;
 
 // Order-preserving int image of a float (an involution).
 __device__ __forceinline__ int image(float f) {
@@ -251,80 +270,158 @@ struct MarchArgs {
   bool* grad_ok;            // [P]
 };
 
-// The last block looked up: its key (-1: none yet), whether the table
-// holds it, and its pool row.
-struct BlockCache {
-  int key = -1;
-  bool found = false;
-  int row = 0;
-};
-
-__device__ __forceinline__ void lookup(const MarchArgs& a, int key,
-                                       BlockCache& cache) {
-  if (key == cache.key) return;
-  cache.key = key;
-  cache.found = false;
-  if (key == kInvalidKey) return;
-  const vh::Hashes h = vh::hashes_of(key);
-  for (int r = 0; r < a.max_probes; ++r) {
-    const int slot = vh::slot_of(h, r, a.table_mask);
-    const int tk = __ldg(a.table_key + slot);
-    if (tk == key) {
-      cache.found = true;
-      cache.row = __ldg(a.table_val + slot);
-      return;
-    }
-    if (tk == kInvalidKey) return;
-  }
+// vh::slot_of(vh::hashes_of(key), r, mask), the second hash only past
+// round 0 (where most lookups end).
+__device__ __forceinline__ int probe_slot(int key, int r, uint32_t mask) {
+  uint32_t h = vh::mix32((uint32_t)key);
+  if (r > 0) h += (uint32_t)r * (vh::mix32((uint32_t)key ^ vh::kGolden) | 1u);
+  return (int)(h & mask);
 }
 
-// trilinear_sample_soa at one point: sdf, valid and (kColor) the color in
-// [0, 1].
-template <bool kColor>
-__device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
-                                           float py, float pz,
-                                           BlockCache& cache, bool& valid,
-                                           float (&col)[3]) {
+// The pool row of one block (-1 where the table does not hold the key, or
+// the key is INVALID_KEY): lookup's probe, from round r0 on.
+__device__ __forceinline__ int resolve_one(const MarchArgs& a, int key,
+                                           int r0 = 0) {
+  if (key == kInvalidKey) return -1;
+  for (int r = r0; r < a.max_probes; ++r) {
+    const int slot = probe_slot(key, r, a.table_mask);
+    const int tk = __ldg(a.table_key + slot);
+    const int tv = __ldg(a.table_val + slot);
+    if (tk == key) return tv;
+    if (tk == kInvalidKey) return -1;
+  }
+  return -1;
+}
+
+// The key of the block at (offset) block coordinates (gx, gy, gz), or
+// INVALID_KEY out of the world's range.
+__device__ __forceinline__ int block_key(int gx, int gy, int gz, int wb) {
+  const bool in_range = gx >= 0 && gx < wb && gy >= 0 && gy < wb &&
+                        gz >= 0 && gz < wb;
+  return in_range ? (gz * wb + gy) * wb + gx : kInvalidKey;
+}
+
+// The exclusive prefix of v over the warp's lanes; `total` gets the sum.
+__device__ __forceinline__ int warp_prefix(int v, int lane, int& total) {
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += u;
+  }
+  total = __shfl_sync(kFull, inc, 31);
+  return inc - v;
+}
+
+// trilinear_sample_soa at one point a lane: sdf, valid and (with_color)
+// the color in [0, 1]; every lane of the warp calls it (`active` false:
+// no sample, valid false). A point's 8 corners lie in at most 2 blocks an
+// axis (block b >> 3 against (b + 1) >> 3). The warp lists the blocks its
+// points need in s_blk (kWarpBlocks ints), one lane looks each up
+// (lookup's probe), then every lane reads its 8 corners' voxels, all the
+// loads issued together, and sums them in _CORNER_LIST order. A lookup is
+// a pure function of the table, so looking a block up once for all its
+// corners changes no result.
+__device__ __forceinline__ float trilinear_warp(const MarchArgs& a,
+                                                int* s_blk, bool active,
+                                                float px, float py, float pz,
+                                                bool with_color, bool& valid,
+                                                float (&col)[3]) {
+  const int lane = threadIdx.x & 31;
   const float qx = px / a.voxel_size, qy = py / a.voxel_size,
               qz = pz / a.voxel_size;
   const int bx = (int)floorf(qx), by = (int)floorf(qy), bz = (int)floorf(qz);
   const float fx = qx - (float)bx, fy = qy - (float)by, fz = qz - (float)bz;
   const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
   const int wb = a.world_blocks, half = wb / 2;
-  float s = 0.0f;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  valid = true;
+  // int32 corner coordinates wrap as torch's do
+  const int vx1 = (int)((unsigned)bx + 1u), vy1 = (int)((unsigned)by + 1u),
+            vz1 = (int)((unsigned)bz + 1u);
+  const int kx0 = (bx >> 3) + half, kx1 = (vx1 >> 3) + half;
+  const int ky0 = (by >> 3) + half, ky1 = (vy1 >> 3) + half;
+  const int kz0 = (bz >> 3) + half, kz1 = (vz1 >> 3) + half;
+  // corner c's block is d = c & split (x bit 0 of d, y bit 1, z bit 2); a
+  // block is wanted where it lies in the world's range
+  const uint32_t split = (kx1 != kx0 ? 1u : 0u) | (ky1 != ky0 ? 2u : 0u) |
+                         (kz1 != kz0 ? 4u : 0u);
+  const uint32_t mx = (kx0 >= 0 && kx0 < wb ? 0x55u : 0u) |
+                      ((split & 1u) && kx1 >= 0 && kx1 < wb ? 0xAAu : 0u);
+  const uint32_t my = (ky0 >= 0 && ky0 < wb ? 0x33u : 0u) |
+                      ((split & 2u) && ky1 >= 0 && ky1 < wb ? 0xCCu : 0u);
+  const uint32_t mz = (kz0 >= 0 && kz0 < wb ? 0x0Fu : 0u) |
+                      ((split & 4u) && kz1 >= 0 && kz1 < wb ? 0xF0u : 0u);
+  const uint32_t want = active ? (mx & my & mz) : 0u;
+  // block 0 (every corner's where no axis splits): this lane's own lookup,
+  // its first probe issued before the warp's list is made
+  const int key0 = (want & 1u) ? block_key(kx0, ky0, kz0, wb) : kInvalidKey;
+  int tk0 = kInvalidKey, tv0 = 0;
+  if (key0 != kInvalidKey) {
+    const int slot = probe_slot(key0, 0, a.table_mask);
+    tk0 = __ldg(a.table_key + slot);
+    tv0 = __ldg(a.table_val + slot);
+  }
+  // the other blocks: the warp's list, this lane's at base.., in the order
+  // of d, each looked up by one lane
+  const uint32_t extra = want & ~1u;
+  int total;
+  const int base = warp_prefix(__popc(extra), lane, total);
+  {
+    uint32_t m = extra;
+    int i = base;
+    while (m != 0u) {
+      const int d = __ffs(m) - 1;
+      m &= m - 1u;
+      s_blk[i++] = block_key((d & 1) ? kx1 : kx0, (d & 2) ? ky1 : ky0,
+                             (d & 4) ? kz1 : kz0, wb);
+    }
+  }
+  __syncwarp();
+  for (int t = lane; t < total; t += 32) s_blk[t] = resolve_one(a, s_blk[t]);
+  int row0 = -1;
+  if (key0 != kInvalidKey && tk0 != kInvalidKey)
+    row0 = tk0 == key0 ? tv0 : resolve_one(a, key0, 1);
+  __syncwarp();
+  const int lx[2] = {bx & 7, vx1 & 7}, ly[2] = {by & 7, vy1 & 7},
+            lz[2] = {bz & 7, vz1 & 7};
+  uint32_t sd_bits[8], w_bits[8];
+  int packed[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int ox = c & 1, oy = (c >> 1) & 1, oz = (c >> 2) & 1;
-    // int32 corner coordinates wrap as torch's do
-    const int vx = (int)((unsigned)bx + (unsigned)ox);
-    const int vy = (int)((unsigned)by + (unsigned)oy);
-    const int vz = (int)((unsigned)bz + (unsigned)oz);
-    const int gxk = (vx >> 3) + half, gyk = (vy >> 3) + half,
-              gzk = (vz >> 3) + half;
-    const bool in_range = gxk >= 0 && gxk < wb && gyk >= 0 && gyk < wb &&
-                          gzk >= 0 && gzk < wb;
-    lookup(a, in_range ? (gzk * wb + gyk) * wb + gxk : kInvalidKey, cache);
-    float sd = 0.0f, w = 0.0f;
-    int packed = 0;
-    if (cache.found) {
-      const long long lin = (long long)cache.row * 512 +
-                            (((vz & 7) * 8 + (vy & 7)) * 8 + (vx & 7));
-      sd = vh::bf16_bits_to_float(__ldg(a.sdf + lin));
-      w = vh::bf16_bits_to_float(__ldg(a.weight + lin));
-      if (kColor) packed = __ldg(a.color + lin);
+    const uint32_t d = (uint32_t)c & split;
+    const int r = d == 0u ? row0
+                  : ((extra >> d) & 1u)
+                      ? s_blk[base + __popc(extra & ((1u << d) - 1u))]
+                      : -1;
+    sd_bits[c] = w_bits[c] = 0u;
+    packed[c] = 0;
+    if (r >= 0) {
+      const long long lin = (long long)r * 512 +
+                            ((lz[oz] * 8 + ly[oy]) * 8 + lx[ox]);
+      sd_bits[c] = __ldg(a.sdf + lin);
+      w_bits[c] = __ldg(a.weight + lin);
+      if (with_color) packed[c] = __ldg(a.color + lin);
     }
+  }
+  __syncwarp();           // s_blk is free for the warp's next sample
+  float s = 0.0f;
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  valid = active;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int ox = c & 1, oy = (c >> 1) & 1, oz = (c >> 2) & 1;
+    const float sd = vh::bf16_bits_to_float(sd_bits[c]);
+    const float w = vh::bf16_bits_to_float(w_bits[c]);
     valid = valid && w > 0.0f;
     const float tw = ((ox ? fx : gx) * (oy ? fy : gy)) * (oz ? fz : gz);
     s = s + tw * sd;
-    if (kColor) {
-      cr = cr + tw * (float)((packed >> 16) & 0xFF);
-      cg = cg + tw * (float)((packed >> 8) & 0xFF);
-      cb = cb + tw * (float)(packed & 0xFF);
+    if (with_color) {
+      cr = cr + tw * (float)((packed[c] >> 16) & 0xFF);
+      cg = cg + tw * (float)((packed[c] >> 8) & 0xFF);
+      cb = cb + tw * (float)(packed[c] & 0xFF);
     }
   }
-  if (kColor) {
+  if (with_color) {
     col[0] = cr / 255.0f;
     col[1] = cg / 255.0f;
     col[2] = cb / 255.0f;
@@ -332,12 +429,91 @@ __device__ __forceinline__ float trilinear(const MarchArgs& a, float px,
   return s;
 }
 
-template <bool kGradients>
-__global__ void __launch_bounds__(kTile* kTile)
+// trilinear_sample_soa's sdf and validity at one point a ray, the
+// point's 8 corners shared among the ray's kLanes lanes (corner c on lane
+// c % kLanes): each lane looks up and reads its corners' voxels, then
+// every lane sums the 8 weighted terms in _CORNER_LIST order. Every lane
+// of the warp calls it, a ray's lanes with the same point (`active` false:
+// no sample, valid false).
+template <int kLanes>
+__device__ __forceinline__ float trilinear_lanes(const MarchArgs& a,
+                                                 bool active, float px,
+                                                 float py, float pz,
+                                                 int lane, bool& valid) {
+  constexpr int kPer = 8 / kLanes;      // corners a lane
+  const float qx = px / a.voxel_size, qy = py / a.voxel_size,
+              qz = pz / a.voxel_size;
+  const int bx = (int)floorf(qx), by = (int)floorf(qy), bz = (int)floorf(qz);
+  const float fx = qx - (float)bx, fy = qy - (float)by, fz = qz - (float)bz;
+  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  const int wb = a.world_blocks, half = wb / 2;
+  // this lane's corners: their keys, their first probes issued together
+  int key[kPer], tk[kPer], tv[kPer], lin[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = k * kLanes + lane;
+    const int vx = (int)((unsigned)bx + (unsigned)(c & 1));
+    const int vy = (int)((unsigned)by + (unsigned)((c >> 1) & 1));
+    const int vz = (int)((unsigned)bz + (unsigned)((c >> 2) & 1));
+    key[k] = active ? block_key((vx >> 3) + half, (vy >> 3) + half,
+                                (vz >> 3) + half, wb)
+                    : kInvalidKey;
+    lin[k] = ((vz & 7) * 8 + (vy & 7)) * 8 + (vx & 7);
+    tk[k] = kInvalidKey;
+    tv[k] = 0;
+    if (key[k] != kInvalidKey) {
+      const int slot = probe_slot(key[k], 0, a.table_mask);
+      tk[k] = __ldg(a.table_key + slot);
+      tv[k] = __ldg(a.table_val + slot);
+    }
+  }
+  float term[kPer];
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = k * kLanes + lane;
+    const int ox = c & 1, oy = (c >> 1) & 1, oz = (c >> 2) & 1;
+    int r = -1;
+    if (key[k] != kInvalidKey && tk[k] != kInvalidKey)
+      r = tk[k] == key[k] ? tv[k] : resolve_one(a, key[k], 1);
+    float sd = 0.0f, w = 0.0f;
+    if (r >= 0) {
+      sd = vh::bf16_bits_to_float(__ldg(a.sdf + (long long)r * 512 + lin[k]));
+      w = vh::bf16_bits_to_float(
+          __ldg(a.weight + (long long)r * 512 + lin[k]));
+    }
+    ok = ok && w > 0.0f;
+    const float tw = ((ox ? fx : gx) * (oy ? fy : gy)) * (oz ? fz : gz);
+    term[k] = tw * sd;
+  }
+  const int first = (threadIdx.x & 31) & ~(kLanes - 1);
+  const unsigned bad = (__ballot_sync(kFull, !ok) >> first) &
+                       ((1u << kLanes) - 1u);
+  valid = active && bad == 0u;
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    s = s + __shfl_sync(kFull, term[c / kLanes], c % kLanes, kLanes);
+  return s;
+}
+
+// kLanes lanes walk one ray (a CTA kMarchThreads / kLanes rays, a tile
+// kMarchTileX wide); see the header.
+template <bool kGradients, int kLanes>
+__global__ void __launch_bounds__(kMarchThreads)
     raymarch_kernel(MarchArgs a) {
-  const int col_px = blockIdx.x * kTile + threadIdx.x;
-  const int row_px = blockIdx.y * kTile + threadIdx.y;
-  if (col_px >= a.width || row_px >= a.height) return;
+  constexpr int kTileY = kMarchThreads / kLanes / kMarchTileX;
+  constexpr unsigned kRayMask = (1u << kLanes) - 1u;
+  __shared__ int s_blocks[kMarchThreads / 32][kWarpBlocks];
+  int* s_blk = s_blocks[threadIdx.x >> 5];
+  const int lane = threadIdx.x % kLanes;
+  const int ray = threadIdx.x / kLanes;
+  const int first = (threadIdx.x & 31) & ~(kLanes - 1);
+  // a ray off the image (a partial tile) stays with its warp, idle
+  const bool on = blockIdx.x * kMarchTileX + ray % kMarchTileX < a.width &&
+                  blockIdx.y * kTileY + ray / kMarchTileX < a.height;
+  const int col_px = on ? blockIdx.x * kMarchTileX + ray % kMarchTileX : 0;
+  const int row_px = on ? blockIdx.y * kTileY + ray / kMarchTileX : 0;
   const int p = row_px * a.width + col_px;
   float pose[12];
 #pragma unroll
@@ -361,64 +537,131 @@ __global__ void __launch_bounds__(kTile* kTile)
   const float dz = pose[8] * xn + pose[9] * yn + pose[10];
   const float ox = pose[3], oy = pose[7], oz = pose[11];
 
-  BlockCache cache;
+  // windows of kLanes consecutive samples, lane l taking sample base + l,
+  // until the ray's window that crosses or leaves the band (every lane of
+  // the warp goes on while one of its rays does); the pair (k - 1, k) is
+  // lane l - 1's and lane l's, or for lane 0 the last window's last
   float unused[3];
-  bool crossed = false;
+  bool done = !on, crossed = false;
   float b_t0 = 0.0f, b_s0 = 0.0f, b_s1 = 0.0f;
   float prev_t = 0.0f, prev_s = 0.0f;
-  bool prev_ok = false;
-  for (int s = 0; s < a.num_samples; ++s) {
+  int prev_ok = 0;
+  for (int base = 0; __any_sync(kFull, !done); base += kLanes) {
+    const int s = base + lane;
     const float ts = t_min + (float)s * dt;
-    if (!(ts <= limit)) break;          // past the band: so is every later
+    // past the band (ts only grows, and a sample past it is never valid)
+    const bool in = !done && s < a.num_samples && ts <= limit;
     bool ok;
-    const float sd = trilinear<false>(a, ox + dx * ts, oy + dy * ts,
-                                      oz + dz * ts, cache, ok, unused);
-    if (prev_ok && ok && prev_s > 0.0f && sd < 0.0f &&
-        prev_s - sd < a.thres_sample_dist) {
-      crossed = true;
-      b_t0 = prev_t;
-      b_s0 = prev_s;
-      b_s1 = sd;
-      break;
+    const float sd = trilinear_warp(a, s_blk, in, ox + dx * ts, oy + dy * ts,
+                                    oz + dz * ts, false, ok, unused);
+    float pt = __shfl_up_sync(kFull, ts, 1, kLanes);
+    float ps = __shfl_up_sync(kFull, sd, 1, kLanes);
+    int pok = __shfl_up_sync(kFull, (int)ok, 1, kLanes);
+    if (lane == 0) {
+      pt = prev_t;
+      ps = prev_s;
+      pok = prev_ok;
     }
-    prev_t = ts;
-    prev_s = sd;
-    prev_ok = ok;
+    const bool cross = pok && ok && ps > 0.0f && sd < 0.0f &&
+                       ps - sd < a.thres_sample_dist;
+    const unsigned cm = (__ballot_sync(kFull, cross) >> first) & kRayMask;
+    const unsigned out = (__ballot_sync(kFull, !in) >> first) & kRayMask;
+    // the first crossing (the plain argmax's pick), and the window's last
+    const int f = cm != 0u ? __ffs(cm) - 1 : 0;
+    const float c_t0 = __shfl_sync(kFull, pt, f, kLanes);
+    const float c_s0 = __shfl_sync(kFull, ps, f, kLanes);
+    const float c_s1 = __shfl_sync(kFull, sd, f, kLanes);
+    const float l_t = __shfl_sync(kFull, ts, kLanes - 1, kLanes);
+    const float l_s = __shfl_sync(kFull, sd, kLanes - 1, kLanes);
+    const int l_ok = __shfl_sync(kFull, (int)ok, kLanes - 1, kLanes);
+    if (!done) {
+      if (cm != 0u) {
+        b_t0 = c_t0;
+        b_s0 = c_s0;
+        b_s1 = c_s1;
+        crossed = done = true;
+      } else if (out != 0u) {
+        done = true;
+      } else {
+        prev_t = l_t;
+        prev_s = l_s;
+        prev_ok = l_ok;
+      }
+    }
   }
 
-  bool found = false;
-  float t_hit = 0.0f, hx = 0.0f, hy = 0.0f, hz = 0.0f;
-  float col[3] = {0.0f, 0.0f, 0.0f};
-  if (crossed) {
-    float b_t1 = b_t0 + dt;
-    for (int k = 0; k < 3; ++k) {
-      const float denom = b_s0 - b_s1;
-      const float alpha = fabsf(denom) > a.tiny ? b_s0 / denom : 0.5f;
-      const float tm = b_t0 + alpha * (b_t1 - b_t0);
-      bool ok;
-      const float sm = trilinear<false>(a, ox + dx * tm, oy + dy * tm,
-                                        oz + dz * tm, cache, ok, unused);
-      if (ok && sm < 0.0f) {
-        b_t1 = tm;
-        b_s1 = sm;
-      }
-      if (ok && sm >= 0.0f) {
-        b_t0 = tm;
-        b_s0 = sm;
-      }
-    }
+  // the three secant steps, each sample's corners across the ray's lanes
+  // (every lane of the warp takes part, a ray without a crossing idle:
+  // each warp-wide shuffle is met by all 32 lanes at the same point)
+  const float nan = __int_as_float(0x7FC00000);
+  float b_t1 = b_t0 + dt;
+  for (int k = 0; k < 3; ++k) {
     const float denom = b_s0 - b_s1;
     const float alpha = fabsf(denom) > a.tiny ? b_s0 / denom : 0.5f;
-    t_hit = b_t0 + alpha * (b_t1 - b_t0);
-    hx = ox + dx * t_hit;
-    hy = oy + dy * t_hit;
-    hz = oz + dz * t_hit;
+    const float tm = b_t0 + alpha * (b_t1 - b_t0);
     bool ok;
-    const float s_hit = trilinear<true>(a, hx, hy, hz, cache, ok, col);
-    found = ok && fabsf(s_hit) < a.thres_dist;
+    const float sm = trilinear_lanes<kLanes>(
+        a, crossed, ox + dx * tm, oy + dy * tm, oz + dz * tm, lane, ok);
+    if (ok && sm < 0.0f) {
+      b_t1 = tm;
+      b_s1 = sm;
+    }
+    if (ok && sm >= 0.0f) {
+      b_t0 = tm;
+      b_s0 = sm;
+    }
+  }
+  const float denom = b_s0 - b_s1;
+  const float alpha = fabsf(denom) > a.tiny ? b_s0 / denom : 0.5f;
+  const float t_hit = b_t0 + alpha * (b_t1 - b_t0);
+  const float hx = ox + dx * t_hit, hy = oy + dy * t_hit,
+              hz = oz + dz * t_hit;
+
+  // the hit's samples across the lanes (every lane of the warp takes
+  // part): j = 0 the hit with its color and (kGradients) 1-6
+  // sdf_gradient's at p + e and p - e, e = voxel_size on one axis; the
+  // first kLanes at once, the rest only for a kept hit
+  constexpr int kHit = kGradients ? 7 : 1;
+  constexpr int kSteps = (kHit + kLanes - 1) / kLanes;
+  const float h[3] = {hx, hy, hz};
+  float col[3] = {0.0f, 0.0f, 0.0f};
+  float gs[6];
+  bool found = false, gok = true;
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+    if (st > 0) {
+      if (!__any_sync(kFull, found)) break;
+    }
+    const int j = st * kLanes + lane;
+    const int ax = (j - 1) >> 1;
+    const bool plus = ((j - 1) & 1) == 0;
+    float q[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float e = (j >= 1 && k == ax) ? a.voxel_size : 0.0f;
+      q[k] = j == 0 ? h[k] : (plus ? h[k] + e : h[k] - e);
+    }
+    const bool take = (st == 0 ? crossed : found) && j < kHit;
+    bool ok;
+    const float v = trilinear_warp(a, s_blk, take, q[0], q[1], q[2], j == 0,
+                                   ok, col);
+    if (st == 0) {
+      const float s_hit = __shfl_sync(kFull, v, 0, kLanes);
+      const int ok_hit = __shfl_sync(kFull, (int)ok, 0, kLanes);
+      found = crossed && ok_hit && fabsf(s_hit) < a.thres_dist;
+    }
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) {
+      const int jj = st * kLanes + k;
+      if (jj >= 1 && jj < kHit) {
+        gs[jj - 1] = __shfl_sync(kFull, v, k, kLanes);
+        const int ok_k = __shfl_sync(kFull, (int)ok, k, kLanes);
+        gok = gok && ok_k;
+      }
+    }
   }
 
-  const float nan = __int_as_float(0x7FC00000);
+  if (!on || lane != 0) return;
   a.found[p] = found;
   a.t_hit[p] = found ? t_hit : nan;
   a.p_hit[3 * p] = found ? hx : nan;
@@ -427,51 +670,41 @@ __global__ void __launch_bounds__(kTile* kTile)
 #pragma unroll
   for (int k = 0; k < 3; ++k) a.color_out[3 * p + k] = found ? col[k] : 0.0f;
   if (kGradients) {
-    // sdf_gradient's samples at p + e and p - e, e = voxel_size on one axis
-    float g[3] = {nan, nan, nan};
-    bool g_ok = false;
-    if (found) {
-      const float h[3] = {hx, hy, hz};
-      g_ok = true;
 #pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        float pp[3], pm[3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float e = k == ax ? a.voxel_size : 0.0f;
-          pp[k] = h[k] + e;
-          pm[k] = h[k] - e;
-        }
-        bool vp, vm;
-        const float sp = trilinear<false>(a, pp[0], pp[1], pp[2], cache, vp,
-                                          unused);
-        const float sm = trilinear<false>(a, pm[0], pm[1], pm[2], cache, vm,
-                                          unused);
-        g[ax] = (sp - sm) * 0.5f;
-        g_ok = g_ok && vp && vm;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) a.grad[3 * p + k] = g[k];
-    a.grad_ok[p] = g_ok;
+    for (int k = 0; k < 3; ++k)
+      a.grad[3 * p + k] = found ? (gs[2 * k] - gs[2 * k + 1]) * 0.5f : nan;
+    a.grad_ok[p] = found && gok;
   }
+}
+
+template <int kLanes>
+cudaError_t launch_march(const MarchArgs& a, bool gradients,
+                         cudaStream_t stream) {
+  constexpr int kTileY = kMarchThreads / kLanes / kMarchTileX;
+  const dim3 grid((a.width + kMarchTileX - 1) / kMarchTileX,
+                  (a.height + kTileY - 1) / kTileY);
+  if (gradients)
+    raymarch_kernel<true, kLanes><<<grid, kMarchThreads, 0, stream>>>(a);
+  else
+    raymarch_kernel<false, kLanes><<<grid, kMarchThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Loads both kernels' modules (run before a CUDA graph capture); returns
-// the march kernel's registers a thread, or -1.
+// the registers a thread of the march with gradients, or -1.
 extern "C" int vh_raymarch_grid() {
   cudaFuncAttributes attr;
   if (cudaFuncGetAttributes(&attr, ray_bounds_kernel) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, raymarch_kernel<true>) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, raymarch_kernel<false>) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, raymarch_kernel<false, kMarchLanes>) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, raymarch_kernel<true, kMarchLanes>) !=
+          cudaSuccess)
     return -1;
   return attr.numRegs;
 }
 
-// The tile bounds of ray_interval_splat (ops/raymarch.py checks the
-// shapes, fills acc with 0x7F800000 and makes the outputs).
 extern "C" int vh_ray_bounds(
     const void* block_key, const void* active_idx, const void* active_mask,
     int m, const void* view, int width, int height, int tile, int tiles_y,
@@ -563,11 +796,6 @@ extern "C" int vh_raymarch(
   a.color_out = (float*)color_out;
   a.grad = (float*)grad;
   a.grad_ok = (bool*)grad_ok;
-  const dim3 block(kTile, kTile);
-  const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
-  if (grad != nullptr)
-    raymarch_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  else
-    raymarch_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch_march<kMarchLanes>(a, grad != nullptr,
+                                        (cudaStream_t)stream);
 }

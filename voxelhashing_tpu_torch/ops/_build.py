@@ -65,7 +65,7 @@ _SIGNATURES = {
         "vh_alloc_candidates_grid": [],
     },
     "hash_alloc": {
-        "vh_hash_alloc": [_P] + [_I] * 10 + [_P] * 9 + [_I] + [_P] * 5,
+        "vh_hash_alloc": [_P] + [_I] * 10 + [_P] * 9 + [_I] + [_P] * 6,
         "vh_hash_alloc_grid": [],
     },
     "hash_delete": {

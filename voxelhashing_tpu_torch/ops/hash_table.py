@@ -87,6 +87,26 @@ def reserve(device, table_size: int):
     return got
 
 
+def stage_counts(table_key, keys, cfg: MapConfig):
+    """(live keys, staged keys, live chunks of ``ALLOC_THREADS``) of an
+    insert round on ``table_key``: the valid keys not found within two
+    probes, the first ``alloc_stage_cap`` of them, and the chunks the last
+    CTA's loops walk."""
+    from .. import blockmap
+    k = keys.to(torch.int32).reshape(-1)
+    found = torch.zeros(k.shape, dtype=torch.bool, device=k.device)
+    term = k == INVALID_KEY
+    for r in range(min(2, cfg.max_probes)):
+        tk = table_key[blockmap._probe_slot(k, r, cfg.table_size)]
+        hit = (tk == k) & ~term
+        found |= hit
+        term |= hit | (tk == INVALID_KEY)
+    live = int(((k != INVALID_KEY) & ~found).sum())
+    scap = min(cfg.alloc_stage_cap, k.numel())
+    staged = min(live, scap)
+    return live, staged, -(-staged // ALLOC_THREADS)
+
+
 def _check(t, dtype, shape, what, dev):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != dev \
             or not t.is_contiguous():
@@ -137,6 +157,8 @@ def prepare_allocate(table_key, table_val, block_key, free_stack, n_free,
     n_ctas = -(-k // ALLOC_THREADS)
     seg = torch.empty((n_ctas * ALLOC_THREADS,), dtype=torch.int32,
                       device=dev)
+    seg_flag = torch.empty((n_ctas * ALLOC_THREADS,), dtype=torch.uint8,
+                           device=dev)
     seg_count = torch.empty((n_ctas,), dtype=torch.int32, device=dev)
     tk, tv, bk = table_key.clone(), table_val.clone(), block_key.clone()
     nf_out = torch.empty((), dtype=torch.int32, device=dev)
@@ -151,9 +173,10 @@ def prepare_allocate(table_key, table_val, block_key, free_stack, n_free,
             cfg.max_probes, min(cfg.insert_probes, cfg.max_probes), h,
             n_pool, p(tk), p(tv), p(bk), p(free_stack), p(n_free),
             p(dense_upto), p(nf_out), p(du_out), p(total), int(ri == 0),
-            p(claim), p(seg), p(seg_count), _build.ptr(counters[:1]),
+            p(claim), p(seg), p(seg_flag), p(seg_count),
+            _build.ptr(counters[:1]),
             # kept alive while the arguments are
-            (keys, seg, seg_count, claim, counters), dev))
+            (keys, seg, seg_flag, seg_count, claim, counters), dev))
     return args, (tk, tv, bk, nf_out, du_out, total)
 
 

@@ -16,8 +16,10 @@ with the map's hash sampler. ``raycast.ray_interval_splat`` and
 On CUDA tensors :func:`ray_bounds` is one fill and one launch (in place of
 ~150 small torch launches) and :func:`march` one launch a render (in place
 of the [num_samples, P] sample pass, ~29.5M hash lookups a 320x240 frame
-at 48 samples, and its secant steps): one thread a ray that stops past its
-band and at its first crossing. Both are bit-equal to their plain versions:
+at 48 samples, and its secant steps): ``MARCH_LANES`` lanes a ray that
+take its samples in windows and stop at the window past its band or
+holding its first crossing, a warp's block lookups listed and shared.
+Both are bit-equal to their plain versions:
 the bounds, and the march's :class:`MarchHits` (t_hit, found, p_hit,
 color and, with gradients, the raw gradient and its validity), which
 ``raycast.march_epilogue`` turns into the predicted frame for either. On
@@ -50,6 +52,9 @@ SPAN = 4                  # tiles a block may span per axis, else it widens all
 NEAR_Z = 1e-3             # a block's z min must pass it to be scattered
 IDENTITY = 0x7F800000     # csrc: every accumulator's start, image(+inf)
 TOMBSTONE = 0x7FFFFFFE    # blockmap.TOMBSTONE
+MARCH_LANES = 4           # csrc/raymarch.cu: kMarchLanes, lanes a ray
+MARCH_THREADS = 256       # csrc/raymarch.cu: kMarchThreads, a CTA
+MARCH_TILE_X = 8          # csrc/raymarch.cu: kMarchTileX, a CTA's rays wide
 
 
 class MarchHits(NamedTuple):
@@ -374,6 +379,8 @@ class MarchWork(NamedTuple):
     color_voxels: int    # distinct voxels whose color was read
     tiles: int           # tiles of the bounds read (0 without bounds)
     gradients: bool
+    issued: int          # samples the kernel takes, wasted ones included
+    chain: int           # the most dependent sample steps of any warp
 
 
 # f32/int operations, hand-counted from the plain version's ops: a ray's
@@ -478,14 +485,54 @@ def _corner_keys(px, py, pz, cfg: MapConfig):
     return torch.stack(keys), torch.stack(local)
 
 
+def warp_of(cam: CameraConfig, lanes: int):
+    """The warp of each ray (flat [P], row-major pixels, int64) in the
+    march kernel's layout at ``lanes`` lanes a ray: a CTA of
+    ``MARCH_THREADS`` threads walks a tile ``MARCH_TILE_X`` rays wide,
+    ray r of the tile (row-major) on lanes r * lanes .. r * lanes + lanes
+    - 1. ``lanes`` 1 is one thread a ray on 16 x 16 tiles (the march's
+    first design)."""
+    tx = 16 if lanes == 1 else MARCH_TILE_X
+    ty = MARCH_THREADS // lanes // tx
+    y = torch.arange(cam.height)[:, None]
+    x = torch.arange(cam.width)[None, :]
+    cta = (y // ty) * -(-cam.width // tx) + x // tx
+    within = (y % ty) * tx + x % tx
+    return (cta * (MARCH_THREADS // 32) + within // (32 // lanes)).reshape(-1)
+
+
+def ray_steps(n_in, crossed, first, found, lanes: int, gradients: bool):
+    """(samples issued, dependent sample steps) of each ray at ``lanes``
+    lanes a ray, from its in-band samples ``n_in``, whether it crossed,
+    the crossing's first sample and whether its hit was kept (int64 [P]
+    and bool [P] tensors). Windows of ``lanes`` samples until the one
+    that crosses or leaves the band; three secant steps; then the hit and
+    the gradient's six samples, the first ``lanes`` of them at once and
+    the rest only for a kept hit."""
+    w = lanes
+    windows = torch.div(first + 1, w, rounding_mode="floor") + 1
+    main = torch.where(crossed, torch.minimum(n_in, windows * w), n_in)
+    n_hit = 7 if gradients else 1
+    first_step = min(w, n_hit)
+    c, f = crossed.to(torch.int64), (found & crossed).to(torch.int64)
+    issued = main + 3 * c + first_step * c + (n_hit - first_step) * f
+    steps = (torch.div(main + w - 1, w, rounding_mode="floor") + 4 * c
+             + (-(-n_hit // w) - 1) * f)
+    return issued, steps
+
+
 def work_counts(state, pose, cam: CameraConfig, cfg: MapConfig,
-                rc: RaycastConfig, bounds=None) -> MarchWork:
-    """What the march kernel does on these inputs, from the plain
-    version's samples on the map's device: the samples it takes (each ray
-    in band, up to its first crossing's second sample, then the secant,
-    hit and gradient samples), the lookups its last-block cache misses
-    (the corners in the kernel's order), their probe rounds, and the
-    distinct slots, rows and voxels they read."""
+                rc: RaycastConfig, bounds=None,
+                lanes: int = MARCH_LANES) -> MarchWork:
+    """What the march does on these inputs, from the plain version's
+    samples on the map's device. The bound's basis, whatever implements
+    it: the samples the plain algorithm needs (each ray in band, up to its
+    first crossing's second sample, then the secant, hit and gradient
+    samples), the lookups a last-block cache misses on them in the
+    corners' order, their probe rounds, and the distinct slots, rows and
+    voxels they read. The kernel at ``lanes`` lanes a ray
+    (:func:`ray_steps`, :func:`warp_of`): the samples it issues, and the
+    most dependent sample steps of any of its warps."""
     from .. import raycast
     t_min, t_max = ray_interval(bounds, pose.device, cam, cfg, rc)
     rec = []
@@ -565,6 +612,12 @@ def work_counts(state, pose, cam: CameraConfig, cfg: MapConfig,
                                cfg)
     read = valid & hit
     lin = row.to(torch.int64) * 512 + local
+    n_in = in_band.sum(dim=0)
+    issued, steps = ray_steps(n_in, crossed, first, found, lanes,
+                              bool(rc.use_gradients))
+    warp = warp_of(cam, lanes).to(dev)
+    per_warp = torch.zeros(int(warp.max()) + 1, dtype=torch.int64,
+                           device=dev).scatter_reduce_(0, warp, steps, "amax")
     return MarchWork(
         rays=int(t_min.numel()), samples=int(taken_main.sum()),
         crossed=int(crossed.sum()), found=int(found.sum()),
@@ -574,7 +627,8 @@ def work_counts(state, pose, cam: CameraConfig, cfg: MapConfig,
         voxels=int(torch.unique(lin[read]).numel()),
         color_voxels=int(torch.unique(lin[read & color]).numel()),
         tiles=0 if bounds is None else int(bounds[0].numel()),
-        gradients=bool(rc.use_gradients))
+        gradients=bool(rc.use_gradients), issued=int(issued.sum()),
+        chain=int(per_warp.max()))
 
 
 # ---------------------------------------------------------------------------

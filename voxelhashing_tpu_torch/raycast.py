@@ -17,8 +17,9 @@ Two renderers, chosen by ``RaycastConfig.mode``:
   active blocks (:func:`ray_interval_splat`), up to ``num_samples``
   trilinear TSDF samples per ray, the first + to - crossing, three secant
   steps. On a CUDA map with no process group both run as hand-written
-  kernels (``ops/raymarch.py``: the bounds, then one thread a ray that
-  stops past the band and at the first crossing); on the CPU, and for the
+  kernels (``ops/raymarch.py``: the bounds, then a few lanes a ray that
+  take its samples in windows and stop past the band or at the first
+  crossing); on the CPU, and for the
   sharded and dense marches, the batched plain version (:func:`march_hits`:
   all samples of every ray in one [S, P] pass). Both end in one shared
   epilogue (:func:`march_epilogue`).
