@@ -22,8 +22,12 @@ and then:
    (``ops/alloc_candidates``), against their plain versions on every frame
    (the candidates on each call as the step made it, with the phase as a
    device int32 scalar, and in pixel mode): bit for bit, the keys position
-   for position; on their edge banks; and times them at frame 11 (bare,
-   an empty kernel's node, wrapper, plain, bytes, operations, bound);
+   for position; on their edge banks, which reach every instantiation
+   (it raises on one the wrappers did not launch); checks the
+   preprocess's clamped reciprocal division against the IEEE division on
+   every float (``phase_division_check``); and times them at frame 11
+   (bare, an empty kernel's node, wrapper, plain, bytes, operations,
+   bound, CTAs, the preprocess's MUFU floor);
    then (``phase_hash``) holds the map's hash kernels, the insert
    (``blockmap.allocate``) and the delete (``blockmap.delete_blocks``,
    ``ops/hash_table``), against their plain versions, bit for bit in every
@@ -254,6 +258,15 @@ def _smi() -> str:
         raise RuntimeError(f"nvidia-smi gave no name and power limit: "
                            f"{res.stdout!r}")
     return line
+
+
+def _sm_clock_mhz() -> int:
+    """The card's top SM clock (MHz); raises when nvidia-smi cannot say."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return int(res.stdout.strip().splitlines()[0])
 
 
 def _config():
@@ -996,8 +1009,9 @@ def phase_front_edge_banks(device):
         d, c = pp.edge_frame(e, device)
         err = hold_preprocess(d, c, e["cam"], e["flt"],
                               f"edge preprocess, {e['case']}")
+        kernel = pp.KERNELS[pp.kernel_index(e["flt"])]
         print(f"edge preprocess, {e['case']} ({e['cam'].width}x"
-              f"{e['cam'].height}): bit-equal, max_abs_err {err}")
+              f"{e['cam'].height}, {kernel}): bit-equal, max_abs_err {err}")
     for e in ac.edge_bank():
         base = {"depth": torch.from_numpy(e["depth"]).to(device),
                 "pose": torch.from_numpy(e["pose"]).to(device),
@@ -1015,9 +1029,54 @@ def phase_front_edge_banks(device):
                     if phase is not None:
                         hold_candidates(call, lbl, device_phase=True)
                         n += 1
+        staged = ("staged" if e["tile"] <= ac.STAGE_TILE
+                  else "from global memory")
         print(f"edge candidates, {e['case']} ({e['cam'].width}x"
-              f"{e['cam'].height}): {n} calls position for position, "
-              f"{keys} valid keys")
+              f"{e['cam'].height}, tile {e['tile']} {staged}, "
+              f"{e['cfg'].alloc_steps} steps, folds "
+              f"{e['cfg'].alloc_fold_tile}/{e['cfg'].alloc_fold}): {n} calls "
+              f"position for position, {keys} valid keys")
+
+
+def phase_division_check(cfg, device):
+    """The preprocess kernel's division of each tap's x = diff^2 by c = 2
+    sigma_r^2 (``range_weight`` in ``csrc/preprocess.cu``: x clamped into
+    ``preprocess.division_clamp``, then ``div_rn_recip``) against the IEEE
+    division on the card over every f32 x in [0, +inf] (2,139,095,041
+    values), at each c that the config and the edge bank take: raises on
+    any x where the tap's weight differs from expf(-(x / c)), where
+    div_rn_recip differs from x / c on its range, or where expf(-x) is not
+    1 for x <= 2^-26 or not 0 for x >= 128 (the clamp's two claims)."""
+    import numpy as np
+    import torch
+    from voxelhashing_tpu_torch.ops import _build
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    flts = [cfg.filter] + [e["flt"] for e in pp.edge_bank()]
+    cs = sorted({float(np.float32(pp.two_sr2(f))) for f in flts
+                 if f.depth_filter})
+    lib = _build.library("preprocess")
+    what = ("weights differ", "quotients differ in its range",
+            "expf(-x) not 1 at x <= 2^-26", "expf(-x) not 0 at x >= 128")
+    for c in cs:
+        out = torch.zeros(4, dtype=torch.int64, device=device)
+        y = float(np.float32(1.0) / np.float32(c))
+        flt = next(f for f in flts if f.depth_filter
+                   and float(np.float32(pp.two_sr2(f))) == c)
+        lo, hi = pp.division_clamp(flt)
+        t0 = time.perf_counter()
+        _build.check(lib.vh_preprocess_check_division(
+            c, y, lo, hi, _build.ptr(out), _build.stream_ptr(device)),
+            "preprocess")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = [int(v) for v in out.cpu().numpy()]
+        print(f"division at c = {c!r} (y = {y!r}, clamp [{lo!r}, {hi!r}]): "
+              f"every f32 x in [0, +inf] on the card in {secs:.3f} s: "
+              + ", ".join(f"{k} {w}" for k, w in zip(n, what)))
+        if any(n):
+            raise RuntimeError(f"the preprocess's division fails on the "
+                               f"card at c = {c}: {dict(zip(what, n))}")
+    return cs
 
 
 def time_front(cfg, depth, color, call, label, gpu_line):
@@ -1038,6 +1097,7 @@ def time_front(cfg, depth, color, call, label, gpu_line):
     saved = _counts()
     out = {}
     args, frame = pp.prepare(depth, color, cam, flt)
+    launched = {"preprocess": args}
     pp.launch(args)
     torch.cuda.synchronize()
     with_int = frame.intensity is not None
@@ -1056,6 +1116,7 @@ def time_front(cfg, depth, color, call, label, gpu_line):
               "model_depth": call["model_depth"]}
         a = (call["depth"], call["pose"], call["cam"], call["cfg"])
         c_args, keys = ac.prepare(*a, **kw)
+        launched[key] = c_args
         ac.launch(c_args)
         torch.cuda.synchronize()
         work = ac.work_counts(*a, **kw)
@@ -1070,6 +1131,23 @@ def time_front(cfg, depth, color, call, label, gpu_line):
     empty = _bare_ms(lambda: iu.launch_empty(depth.device))
     torch.cuda.synchronize()
     _set_counts(saved)
+    sms = torch.cuda.get_device_properties(depth.device).multi_processor_count
+    # the CTAs and the instantiation as the timed launches passed them
+    for key, mod in (("preprocess", pp), ("alloc_candidates", ac),
+                     ("alloc_candidates_pixel", ac)):
+        a_ = launched[key]
+        gx, gy = a_[mod.ARG_GRID:mod.ARG_GRID + 2]
+        out[key]["ctas"] = gx * gy
+        out[key]["kernels"] = [mod.KERNELS[a_[mod.ARG_KERNEL]]]
+        print(f"{key} ({label}): {gx} x {gy} = {gx * gy} CTAs on {sms} SMs, "
+              f"{out[key]['kernels'][0]}")
+    # the preprocess's MUFU floor: libdevice expf's ex2, one a valid tap
+    # (the division has none), 16 an SM a clock at the card's top SM clock
+    mhz = _sm_clock_mhz()
+    taps = out["preprocess"]["work"][0]
+    print(f"preprocess MUFU floor ({label}): {taps} valid taps, one ex2 "
+          f"each, 16 an SM a clock on {sms} SMs at {mhz} MHz: "
+          f"{1000.0 * taps / (16 * sms * mhz * 1e6):.6f} ms")
     for key, r in out.items():
         r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["operations"])
         r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -1089,9 +1167,23 @@ def phase_front(cfg, depth, color, calls, gpu_line):
     """The front kernels on phase 1's frames: held on every frame and on
     the edge banks, and timed at frame 11. Returns the timings with the
     max abs error."""
+    from voxelhashing_tpu_torch.ops import alloc_candidates as ac
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    # the instantiations the wrappers launch while the kernels are held
+    tallies = (pp.preprocess_depth.by_kernel, ac.alloc_candidates.by_kernel)
+    for t in tallies:
+        t.clear()
     err, _ = _hold_front_frames(cfg, depth, color, calls,
                                 "front kernels (phase 1)")
     phase_front_edge_banks(depth.device)
+    reached = {k for t in tallies for k, n in t.items() if n}
+    every = set(pp.KERNELS) | set(ac.KERNELS)
+    print(f"front kernel instantiations launched and held on the card: "
+          f"{dict(sorted((k, n) for t in tallies for k, n in t.items()))}")
+    if reached != every:
+        raise RuntimeError(f"front instantiations not held: "
+                           f"{sorted(every - reached)}")
+    phase_division_check(cfg, depth.device)
     times = time_front(cfg, depth[11], color[11], calls[11],
                        "phase 1, frame 11", gpu_line)
     for r in times.values():
@@ -5040,12 +5132,11 @@ def main() -> int:
     # geometry.py:203 and :269) and the XLA candidates of
     # voxelhashing_tpu/integrate.py:177 (_dda_band_keys :39,
     # _dedup_and_fold :137)
-    for name, replaces, globals_ in (
-            ("preprocess", "voxelhashing_tpu/ops/image.py:217",
-             ["preprocess_kernel<4>"]),
-            ("alloc_candidates", "voxelhashing_tpu/integrate.py:177",
-             ["alloc_candidates_kernel<2>"])):
+    for name, replaces in (
+            ("preprocess", "voxelhashing_tpu/ops/image.py:217"),
+            ("alloc_candidates", "voxelhashing_tpu/integrate.py:177")):
         t, ls = front[name], scan["front"][name]
+        globals_ = t["kernels"]
         entry = {"name": name, "route": "cuda",
                  "source": f"voxelhashing_tpu_torch/csrc/{name}.cu",
                  "replaces": replaces, "launches": by_path[name]["step"],
@@ -5059,13 +5150,13 @@ def main() -> int:
                  "large_scan": {k: ls[k] for k in (
                      "ms", "wrapper_ms", "plain_ms", "bound_ms",
                      "bound_by", "bound_share", "bytes", "operations")},
-                 "kernels": globals_, "launches_by_path": by_path[name]}
+                 "kernels": globals_, "ctas": t["ctas"],
+                 "launches_by_path": by_path[name]}
         if name == "alloc_candidates":
             entry["pixel_mode"] = {
-                "kernels": ["alloc_candidates_kernel<1>"],
-                **{k: front["alloc_candidates_pixel"][k]
-                   for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
-                             "bound_by")}}
+                k: front["alloc_candidates_pixel"][k]
+                for k in ("kernels", "ctas", "ms", "wrapper_ms", "plain_ms",
+                          "bound_ms", "bound_by")}
         kernels.append(entry)
     # the map's hash writes (one insert launch a round of allocation, one
     # delete a GC call or a stream-out); no TPU kernel: the XLA allocate of

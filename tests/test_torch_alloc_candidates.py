@@ -197,3 +197,102 @@ def test_layout_and_bound_counts():
     px = ac.work_counts(*args, 1)
     assert not px[4] and px[3] == TCFG.alloc_steps * depth.size
     assert px[1] <= int(np.isfinite(depth).sum())
+
+
+def _footprint_pool(pv, tile, phase, order_rng=None):
+    """Tile mode's band depths as the kernel pools them (``csrc``
+    ``alloc_candidates_kernel``, phases 1-2): each CTA stages its footprint
+    (``pv``, the depth where a pixel counts, NaN where not and off the
+    frame), and each ray of a column and of its halo reduces the tile at the
+    phase from it with fminf / fmaxf (NaN skipped), the pixels in a random
+    order when ``order_rng`` is given. Returns (lo, hi) [rows, cols] and
+    the footprint pixels read, one bool array [fh, fw] a CTA."""
+    h, w = pv.shape
+    rows, cols = h // tile, w // tile
+    (r_, c_), (fh, fw) = ac.BLOCK[2], ac.footprint(tile)
+    py, px = phase % tile, (phase // tile) % tile
+    lo = np.full((rows, cols), np.nan, np.float32)
+    hi = np.full((rows, cols), np.nan, np.float32)
+    reads = []
+    gy, gx = ac.cta_grid(rows, cols, True)
+    ii, jj = np.meshgrid(np.arange(fh), np.arange(fw), indexing="ij")
+    hr, hc = np.meshgrid(np.arange(r_ + 1), np.arange(c_ + 1), indexing="ij")
+    ti, tj = np.meshgrid(np.arange(tile), np.arange(tile), indexing="ij")
+    # the footprint's rows and columns each halo column's tile reads
+    wi = (hr * tile + py)[:, :, None, None] + ti
+    wj = (hc * tile + px)[:, :, None, None] + tj
+    assert wi.max() < fh and wj.max() < fw
+    for by in range(gy):
+        for bx in range(gx):
+            r0, c0 = by * r_ - 1, bx * c_ - 1
+            y, x = r0 * tile + ii, c0 * tile + jj
+            on = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            fp = np.where(on, pv[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)],
+                          np.float32(np.nan)).astype(np.float32)
+            row, col = r0 + hr, c0 + hc
+            grid = (row >= 0) & (row < rows) & (col >= 0) & (col < cols)
+            read = np.zeros((fh, fw), bool)
+            read[wi[grid], wj[grid]] = True
+            win = fp[wi, wj].reshape(r_ + 1, c_ + 1, -1)
+            if order_rng is not None:
+                perm = np.argsort(order_rng.random(win.shape), axis=-1)
+                win = np.take_along_axis(win, perm, axis=-1)
+            a = np.fmin.reduce(win, axis=-1, initial=np.float32(np.inf))
+            b = np.fmax.reduce(win, axis=-1, initial=np.float32(-np.inf))
+            for out, val in ((lo, a), (hi, b)):
+                got = out[row[grid], col[grid]]
+                # a column's rays, computed again as a neighbour's halo,
+                # give the same bits
+                assert np.all(np.isnan(got)
+                              | (got.view(np.int32)
+                                 == val[grid].view(np.int32)))
+                out[row[grid], col[grid]] = val[grid]
+            reads.append(read)
+    return lo, hi, reads
+
+
+@pytest.mark.parametrize("tile", [*range(2, 17), ac.STAGE_TILE])
+def test_footprint_covers_the_pooled_pixels(tile):
+    """The staged footprint of tile mode, modelled in numpy: at every phase
+    0..tile^2-1, each column's tile at the phase lies inside its CTA's
+    footprint and pools exactly the pixels ``_tile_rays`` pools (its min
+    and max equal, on depths that differ at every pixel, with the pixels
+    that wrap and the invalid ones sitting out); over the phases the reads
+    cover the whole footprint of an interior CTA; and the min and max do
+    not depend on the order of the pixels. The key grid (9 x 11 columns) is
+    not a multiple of a CTA's 4 x 8. Tiles 2-16 and 30, the largest whose
+    footprint the kernel stages."""
+    h, w = 9 * tile, 11 * tile
+    rng = np.random.default_rng(tile)
+    depth = (1.0 + rng.permutation(h * w).reshape(h, w) * 1e-4).astype(
+        np.float32)
+    depth[rng.random((h, w)) < 0.2] = np.nan
+    cam = dataclasses.replace(TCAM, width=w, height=h, cx=w / 2.0,
+                              cy=h / 2.0)
+    pv = np.where(np.isfinite(depth) & (depth > 0)
+                  & (depth < TCFG.max_integration_distance), depth,
+                  np.float32(np.nan)).astype(np.float32)
+    union = None
+    for phase in range(tile * tile):
+        lo, hi, reads = _footprint_pool(pv, tile, phase)
+        union = reads[0] if union is None else union | reads[0]
+        dmin, dmax, any_v, _, _ = ac._tile_rays(torch.from_numpy(depth),
+                                                cam, TCFG, tile, phase)
+        any_v = any_v.numpy().reshape(lo.shape)
+        assert np.array_equal(np.isfinite(lo), any_v)
+        np.testing.assert_array_equal(
+            np.where(any_v, lo, 1.0), dmin.numpy().reshape(lo.shape))
+        np.testing.assert_array_equal(
+            np.where(any_v, hi, 1.0), dmax.numpy().reshape(lo.shape))
+    # CTA (0, 0) reads the whole footprint but its west and north halo
+    # rows and columns (off the grid); an interior CTA would read it all
+    fh, fw = ac.footprint(tile)
+    assert union[tile:, tile:].all() and not union[:tile, :].any()
+    assert not union[:, :tile].any() and union.shape == (fh, fw)
+    # the pool's bits in another order of the pixels, at two phases
+    for phase in (0, tile * tile - 1):
+        lo, hi, _ = _footprint_pool(pv, tile, phase)
+        lo2, hi2, _ = _footprint_pool(pv, tile, phase,
+                                      np.random.default_rng(phase))
+        assert np.array_equal(lo.view(np.int32), lo2.view(np.int32))
+        assert np.array_equal(hi.view(np.int32), hi2.view(np.int32))

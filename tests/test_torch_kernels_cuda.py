@@ -133,8 +133,8 @@ def test_bilinear_caps_variant_source():
 
 def test_kernel_probes_edits_apply():
     """Every edit ``kernel_probes`` makes finds its place once in the
-    march's and the insert's sources, and each build differs from the
-    source as it is (but "as is")."""
+    march's, the insert's and the two front kernels' sources, and each
+    build differs from the source as it is (but "as is")."""
     from voxelhashing_tpu_torch import kernel_probes as kp
     march = (_build.CSRC / "raymarch.cu").read_text()
     insert = (_build.CSRC / "hash_alloc.cu").read_text()
@@ -142,6 +142,16 @@ def test_kernel_probes_edits_apply():
         assert (kp._edit(march, edits) == march) == (name == "as is"), name
     assert kp.march_clocked(march).count("clock64()") == 4
     assert kp.insert_clocked(insert).count("clock64()") == 6
+    pre = (_build.CSRC / "preprocess.cu").read_text()
+    cand = (_build.CSRC / "alloc_candidates.cu").read_text()
+    for name, edits, _, _ in kp.PREPROCESS_EDITS:
+        assert (kp._edit(pre, edits) == pre) == (name == "as is"), name
+    for name, edits, _, launch in kp.CANDIDATE_EDITS:
+        # a move made in the launch alone keeps the source
+        assert (kp._edit(cand, edits) == cand) == (not edits), name
+        assert bool(edits or launch) == (name != "as is"), name
+    assert kp.front_clocked(pre, "preprocess").count("clock64()") == 5
+    assert kp.front_clocked(cand, "candidates").count("clock64()") == 5
 
 
 def test_prime_runs_every_occupancy_query(monkeypatch):
@@ -1215,3 +1225,24 @@ def test_march_step_launches_the_raymarch_kernels(cuda):
         assert got == [6, 6, 0, 0], (run, got)
         if step is not None:
             step.close()
+
+
+@pytest.mark.cuda
+def test_preprocess_reciprocal_division_on_every_float(cuda):
+    """The preprocess kernel's division by c = 2 sigma_r^2 (each tap's x
+    clamped into ``division_clamp``, then through y = RN(1/c):
+    ``range_weight``) against the IEEE division on the card, over every
+    f32 x in [0, +inf] at the default sigma_r and the edge bank's: no x
+    whose weight differs, no quotient that differs on its range, and
+    expf(-x) is 1 for every x <= 2^-26 and 0 for every x >= 128."""
+    from voxelhashing_tpu_torch.ops import preprocess as pp
+    from voxelhashing_tpu_torch.config import FilterConfig
+    lib = _build.library("preprocess")
+    for sigma_r in (0.1, 0.05, 1.0):
+        flt = FilterConfig(depth_sigma_r=sigma_r)
+        c = np.float32(pp.two_sr2(flt))
+        out = torch.zeros(4, dtype=torch.int64, device=cuda)
+        _build.check(lib.vh_preprocess_check_division(
+            float(c), float(np.float32(1.0) / c), *pp.division_clamp(flt),
+            _build.ptr(out), _build.stream_ptr(cuda)), "preprocess")
+        assert out.cpu().tolist() == [0, 0, 0, 0], sigma_r

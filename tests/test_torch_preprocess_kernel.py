@@ -200,3 +200,94 @@ def test_bound_counts():
     assert n_valid <= n_pairs <= 81 * n_valid
     assert n_points == int(torch.isfinite(out.depth).sum()) <= n_valid
     assert 0 < n_normals <= n_points and n_int == depth.numel()
+
+
+@pytest.mark.parametrize("hw,sms", [((240, 320), 132), ((480, 640), 132),
+                                    ((33, 40), 132), ((47, 53), 132),
+                                    ((13, 17), 132), ((60, 80), 8),
+                                    ((1, 1), 132)])
+def test_tile_grid_tiles_every_pixel_once(hw, sms):
+    """The launch's grid (``tile_grid``): the CTAs' pixel ranges (the
+    kernel's floor(b w / g) splits) cover the frame once, no tile is wider
+    or taller than the kernel's shared memory holds, a filtered tile (the
+    tile and its halo) fits the CTA's threads, and the CTAs are at most a
+    multiple of the SMs; 320x240 on 132 SMs is 12 x 11 CTAs, one an SM."""
+    h, w = hw
+    gx, gy = pp.tile_grid(h, w, sms)
+    xs = [bx * w // gx for bx in range(gx + 1)]
+    ys = [by * h // gy for by in range(gy + 1)]
+    assert xs[0] == 0 and xs[-1] == w and ys[0] == 0 and ys[-1] == h
+    tw = max(b - a for a, b in zip(xs, xs[1:]))
+    th = max(b - a for a, b in zip(ys, ys[1:]))
+    assert min(b - a for a, b in zip(xs, xs[1:])) >= max(1, tw - 1)
+    assert tw <= pp.MAX_TILE[0] and th <= pp.MAX_TILE[1]
+    assert (tw + 2) * (th + 2) <= pp.FILTER_THREADS
+    k = -(-gx * gy // sms)
+    assert gx * gy <= k * sms and gx <= w and gy <= h
+    if (h, w) == (240, 320):
+        assert (gx, gy) == (12, 11) and (tw, th) == (27, 22)
+
+
+def _rn32(s, e):
+    """f32 round to nearest of the exact s + e (s f64, e its error)."""
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)
+    nb = np.nextafter(r, np.where(d > 0, np.float32(np.inf),
+                                  np.float32(-np.inf))).astype(np.float32)
+    half = np.abs(nb.astype(np.float64) - r.astype(np.float64)) * 0.5
+    tie = (np.abs(d) == half) & (d != 0) & (e != 0) & (np.sign(e)
+                                                       == np.sign(d))
+    return np.where(tie, nb, r)
+
+
+def _fma32(a, b, c):
+    """f32 fma: the product exact in f64, the sum with its error (two-sum)
+    rounded once."""
+    p = a.astype(np.float64) * np.float64(b)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    return _rn32(s, (p - (s - bb)) + (c64 - bb))
+
+
+def _div_rn_recip(x, c, y):
+    """``csrc/preprocess.cu``'s div_rn_recip in exact f32 arithmetic."""
+    q0 = (x.astype(np.float64) * np.float64(y)).astype(np.float32)
+    q1 = _fma32(_fma32(-q0, c, x), y, q0)
+    return _fma32(_fma32(-q1, c, x), y, q1)
+
+
+@pytest.mark.parametrize("sigma_r", [0.1, 0.05, 0.01, 0.7, 1.0, 3.0])
+def test_recip_division_is_the_ieee_quotient_on_its_range(sigma_r):
+    """The kernel's division by c = 2 sigma_r^2 through y = RN(1/c), two
+    fma corrections (the second by Markstein's theorem), modelled in exact
+    f32 arithmetic on numpy: bit-equal to the IEEE quotient x / c on 300K
+    x drawn over the clamp ``division_clamp`` gives and at its ends (the
+    default sigma_r 0.1 and the edge bank's 0.05 and 1 among them; the
+    card checks every x). The clamp's ends are exact floats with x / c at
+    most 2^-26 at the low end (where expf(-q) is 1) and at least 2^26 at
+    the high end (where it is 0); a sigma_r whose c leaves [2^-70, 2^100]
+    raises, and without the filter the clamp is (0, 0)."""
+    flt = FilterConfig(depth_sigma_r=sigma_r)
+    c = np.float32(pp.two_sr2(flt))
+    y = np.float32(1.0) / c
+    rng = np.random.default_rng(11)
+    lo, hi = pp.division_clamp(flt)
+    lo_b, hi_b = np.float32(lo), np.float32(hi)
+    assert float(lo_b) == lo and float(hi_b) == hi
+    assert lo / float(c) <= 2.0 ** -26 and hi / float(c) >= 2.0 ** 26
+    bits = rng.integers(lo_b.view(np.int32), hi_b.view(np.int32),
+                        300_000).astype(np.int32)
+    ends = np.concatenate([lo_b.view(np.int32) + np.arange(64),
+                           hi_b.view(np.int32) - np.arange(64)])
+    x = np.concatenate([bits.view(np.float32),
+                        ends.astype(np.int32).view(np.float32)]).astype(
+                            np.float32)
+    got = _div_rn_recip(x, c, y)
+    ref = x / c
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert pp.division_clamp(dataclasses.replace(
+        flt, depth_filter=False)) == (0.0, 0.0)
+    for bad in (1e-22, 1e16):
+        with pytest.raises(ValueError, match="sigma_r"):
+            pp.division_clamp(FilterConfig(depth_sigma_r=bad))

@@ -1,24 +1,34 @@
-"""The march's and the hash insert's variants and clock stamps, on one card.
+"""The march's, the hash insert's and the two front kernels' variants and
+clock stamps, on one card.
 
     python -m voxelhashing_tpu_torch.kernel_probes [--parent DIR]
 
 Builds ``csrc/raymarch.cu`` as it is and with one edit each
 (:data:`MARCH_EDITS`: the windows alone, no weight reads, 8 lanes a ray,
-register caps, a 512-thread CTA, clock64 stamps by phase) and
+register caps, a 512-thread CTA, clock64 stamps by phase),
 ``csrc/hash_alloc.cu`` as it is and with clock64 stamps at the last CTA's
-phases; with ``--parent DIR`` (another checkout of this repository) that
-checkout's two sources too. At ``chip_smoke.py``'s phase-6 map (frame 10)
-and frame 11's render, each march build is held against the plain
-version where its edit keeps the result, and timed: 100 back-to-back
-launches between CUDA events, the best of three, with and without
-gradients. At phase 1's insert calls of frames 0 and 11, each insert
-build is held bit for bit against the call's outputs and timed the same
-way (the table clones restored before each launch; the restores alone
-timed and taken off). The stamped builds print a warp's cycles by phase
-(the march; lane 0 of each warp, averaged) and the last CTA's cycles by
-phase (the insert), with the grid phase in ns. A launch that does not end
-within 20 s stops the run. Needs one CUDA card and nvcc; the builds go to
-``build/voxelhashing_tpu_torch/kernel_probes/``.
+phases, ``csrc/preprocess.cu`` and ``csrc/alloc_candidates.cu`` as they
+are, with one design move undone each (:data:`PREPROCESS_EDITS`,
+:data:`CANDIDATE_EDITS`) and with clock64 stamps by phase; with ``--parent
+DIR`` (another checkout of this repository) that checkout's four sources
+too. At ``chip_smoke.py``'s phase-6 map (frame 10) and frame 11's render,
+each march build is held against the plain version where its edit keeps
+the result, and timed: 100 back-to-back launches between CUDA events, the
+best of three, with and without gradients. At phase 1's insert calls of
+frames 0 and 11, each insert build is held bit for bit against the call's
+outputs and timed the same way (the table clones restored before each
+launch; the restores alone timed and taken off). At phase 1's frame 11,
+each preprocess build and each candidates build (tile mode as the step
+calls it, and pixel mode) is held bit for bit against the plain version
+where its edit keeps the result, and timed as the best of three replays
+of one CUDA graph of 100 launches (shorter than a ctypes launch on the
+host, these kernels would time the host otherwise). The stamped
+builds print a warp's cycles by phase (the march; lane 0 of each warp,
+averaged), the last CTA's cycles by phase (the insert), with the grid
+phase in ns, and a CTA's cycles by phase (the front kernels; thread 0 of
+each CTA, the mean and the slowest CTA's total). A launch that does not
+end within 20 s stops the run. Needs one CUDA card and nvcc; the builds go
+to ``build/voxelhashing_tpu_torch/kernel_probes/``.
 """
 
 from __future__ import annotations
@@ -58,6 +68,56 @@ MARCH_EDITS = (
                        "__launch_bounds__(kMarchThreads, 6)"),), True),
     ("512-thread CTA", (("constexpr int kMarchThreads = 256;",
                          "constexpr int kMarchThreads = 512;"),), True),
+)
+# the front kernels' moves, each undone by an edit: (name, [(old, new),
+# ...], whether the result holds, the preprocess grid ("tiles": the
+# wrapper's tile_grid, or (gx, gy)))
+_WEIGHT = ("range_weight(diff * diff, a.two_sr2,\n"
+           "                                         a.inv_two_sr2, a.x_lo, "
+           "a.x_hi)")
+_CLAMPED = "expf(-div_rn_recip(fminf(fmaxf(x, lo), hi), c, y))"
+PREPROCESS_EDITS = (
+    ("as is", (), True, "tiles"),
+    ("IEEE division", ((_WEIGHT, "expf(-(diff * diff) / a.two_sr2)"),), True,
+     "tiles"),
+    ("the division unclamped",
+     ((_CLAMPED, "expf(-div_rn_recip(x, c, y))"),), True, "tiles"),
+    ("16x16 tiles, 324 threads (300 CTAs)",
+     (("constexpr int kThreads = 704;", "constexpr int kThreads = 324;"),),
+     True, (20, 15)),
+    ("no taps for the centres the gate drops",
+     (("    filt[k] = a.filter ? bilateral<kR>(a, c, side, r) : c[0];",
+       "    filt[k] = !a.filter ? c[0] : isfinite(c[0])\n"
+       "        ? bilateral<kR>(a, c, side, r) : nan_bits();"),),
+     True, "tiles"),
+    ("two pixels a thread (352 threads)",
+     (("constexpr int kThreads = 704;", "constexpr int kThreads = 352;"),),
+     True, "tiles"),
+)
+# (name, [(old, new), ...], whether the result holds, what the launch
+# changes: "block" a tile-mode CTA's (rows, cols), "stage" 0 to pool from
+# global memory)
+CANDIDATE_EDITS = (
+    ("as is", (), True, {}),
+    ("the general step loop for 8 steps",
+     (("case 0: launch<2, kDefaultSteps>", "case 0: launch<2, 0>"),
+      ("case 2: launch<1, kDefaultSteps>", "case 2: launch<1, 0>")), True,
+     {}),
+    ("4 x 16 columns a CTA (75 CTAs in tile mode)",
+     (("static constexpr int kCols = kRays == 2 ? 8 : 16;",
+       "static constexpr int kCols = 16;"),
+      ("kRays == 2 ? 128 :", "kRays == 2 ? 192 :")), True,
+     {"block": (4, 16)}),
+    ("footprint loads one at a time",
+     (("constexpr int kStageUnroll = 8;", "constexpr int kStageUnroll = 1;"),),
+     True, {}),
+    ("the footprint not staged (tiles from global memory)", (), True,
+     {"stage": 0}),
+    ("keys laid out [column][ray][step] (bank conflicts)",
+     (("  return (ray * steps + step) * halo + column;",
+       "  return (column * rays + ray) * steps + step;"),), True, {}),
+    ("256 threads a CTA in tile mode",
+     (("kRays == 2 ? 128 :", "kRays == 2 ? 256 :"),), True, {}),
 )
 _CLOCK_FNS = (
     '__device__ unsigned long long g_cyc[8];\n'
@@ -131,6 +191,62 @@ def insert_clocked(src):
     ))
 
 
+def front_clocked(src, kind):
+    """A front kernel with thread 0's clock at its phases summed over the
+    CTAs into g_cyc[0..3] (the preprocess: staging, filter, epilogue; the
+    candidates: footprint, pool and DDA, kb dedup, west/north dedup and
+    fold), the CTAs in g_cyc[4] and the slowest CTA's total in g_cyc[5]."""
+    stamp = "  if (threadIdx.x == 0) t_{0} = clock64();\n"
+    acc = ("  if (threadIdx.x == 0) {{\n"
+           "    atomicAdd(g_cyc, (unsigned long long)(t_1 - t_0));\n"
+           "    atomicAdd(g_cyc + 1, (unsigned long long)(t_2 - t_1));\n"
+           "    atomicAdd(g_cyc + 2, (unsigned long long)(t_3 - t_2));\n"
+           "    atomicAdd(g_cyc + 3, (unsigned long long)(t_4 - t_3));\n"
+           "    atomicAdd(g_cyc + 4, 1ull);\n"
+           "    atomicMax(g_cyc + 5, (unsigned long long)(t_4 - t_0));\n"
+           "  }}\n")
+    decl = "  long long t_0 = clock64(), t_1 = 0, t_2 = 0, t_3 = 0, t_4 = 0;\n"
+    if kind == "preprocess":
+        return _edit(src, (
+            ("constexpr unsigned kNanBits = 0x7FC00000u;   // torch.nan\n",
+             "constexpr unsigned kNanBits = 0x7FC00000u;   // torch.nan\n"
+             + _CLOCK_FNS),
+            ("  const int tid = threadIdx.x;\n  // this CTA's",
+             decl + "  const int tid = threadIdx.x;\n  // this CTA's"),
+            ("  // filt(i, j): the filtered depth",
+             stamp.format(1) + "  // filt(i, j): the filtered depth"),
+            ("  // the output pixels\n",
+             stamp.format(2) + "  // the output pixels\n"),
+            ("a.wb * c[2 * a.c_s2];\n    }\n  }\n}",
+             "a.wb * c[2 * a.c_s2];\n    }\n  }\n  __syncthreads();\n"
+             + stamp.format(3) + stamp.format(4) + acc + "}"),
+        ))
+    return _edit(src, (
+        ("constexpr int kInvalidKey = 0x7FFFFFFF;\n",
+         "constexpr int kInvalidKey = 0x7FFFFFFF;\n" + _CLOCK_FNS),
+        ("  const int tid = threadIdx.x;\n  const int s_n",
+         decl + "  const int tid = threadIdx.x;\n  const int s_n"),
+        ("  // 2. one ray a thread", stamp.format(1) + "  // 2. one ray a thread"),
+        ("  // 3. tile mode: drop", stamp.format(2) + "  // 3. tile mode: drop"),
+        ("  // 4. one output column a thread",
+         stamp.format(3) + "  // 4. one output column a thread"),
+        ("    for (; j < a.fold; ++j) out[(long long)j * n] = kInvalidKey;\n}",
+         "    for (; j < a.fold; ++j) out[(long long)j * n] = kInvalidKey;\n"
+         + stamp.format(4) + acc + "}"),
+    ))
+
+
+# each kind's library, entry point and the argument positions a parent
+# checkout's older entry point lacks
+_ENTRY = {"march": ("raymarch", "vh_raymarch"),
+          "insert": ("hash_alloc", "vh_hash_alloc"),
+          "preprocess": ("preprocess", "vh_preprocess"),
+          "candidates": ("alloc_candidates", "vh_alloc_candidates")}
+# inv_two_sr2, x_lo, x_hi, kernel, gx, gy
+_PARENT_PREPROCESS_DROPS = (14, 15, 16, 17, 30, 31)
+_PARENT_CANDIDATE_DROPS = (29, 30, 31, 32)    # kernel, gx, gy, stage
+
+
 def _build_all(sources):
     """{name: (kind, source text)} → {name: (kind, library, its entry
     point, whether it takes the insert's seg_flag)}, all compiled side by
@@ -155,13 +271,21 @@ def _build_all(sources):
         regs = sorted(set(re.findall(r"Used (\d+) registers", report)))
         print(f"{kind}, {name}: registers {', '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(path))
-        fn = lib.vh_raymarch if kind == "march" else lib.vh_hash_alloc
-        sig = list(_build._SIGNATURES["raymarch" if kind == "march"
-                                      else "hash_alloc"][
-            "vh_raymarch" if kind == "march" else "vh_hash_alloc"])
-        flags = kind == "march" or "seg_flag" in sources[name][1]
+        lib_name, fn_name = _ENTRY[kind]
+        fn = getattr(lib, fn_name)
+        sig = list(_build._SIGNATURES[lib_name][fn_name])
+        flags = kind != "insert" or "seg_flag" in sources[name][1]
         if not flags:
             sig = sig[:23] + sig[24:]       # a checkout without seg_flag
+        if kind == "preprocess" and "inv_two_sr2" not in sources[name][1]:
+            sig = [t for i, t in enumerate(sig)
+                   if i not in _PARENT_PREPROCESS_DROPS]
+            flags = False                   # the parent's entry point
+        if kind == "candidates" and "int kernel, int gx" not in \
+                sources[name][1]:
+            sig = [t for i, t in enumerate(sig)
+                   if i not in _PARENT_CANDIDATE_DROPS]
+            flags = False                   # the parent's entry point
         fn.argtypes, fn.restype = sig, ctypes.c_int
         libs[name] = (kind, lib, fn, flags)
     return libs
@@ -194,6 +318,35 @@ def _best_ms(fn, n=100, reps=3):
         e1.record()
         torch.cuda.synchronize()
         ms = e0.elapsed_time(e1) / n
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def _graph_ms(fn, n=100, reps=3):
+    """The best of ``reps`` replays of one CUDA graph of ``n`` calls of
+    ``fn`` (which launches on the current stream) between CUDA events, over
+    ``n``: the device's time, where a kernel is shorter than the host's
+    ctypes launch."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    best = None
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / n
         best = ms if best is None else min(best, ms)
     return best
 
@@ -314,30 +467,150 @@ def _probe_insert(smoke, libs, gpu):
                   f"{line}; on {gpu}", flush=True)
 
 
+def _clock_line(lib, what):
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.vh_cyc(ctypes.byref(buf))
+    c = [int(x) for x in buf]
+    n = max(c[4], 1)
+    return (f"; cycles a CTA (thread 0, mean of {c[4]}): "
+            + ", ".join(f"{w} {c[k] / n:.0f}" for k, w in enumerate(what))
+            + f"; the slowest CTA {c[5]}")
+
+
+def _probe_front(smoke, libs, gpu):
+    from . import engine
+    from .ops import alloc_candidates as ac, preprocess as pp
+    device = torch.device("cuda", 0)
+    cfg = smoke._config()
+    _, depth, color = smoke._frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    with smoke._recorded_candidates() as calls:
+        for i in range(12):
+            state, _ = engine.step(state, depth[i], color[i], cfg)
+    torch.cuda.synchronize()
+    del state
+    stream = _build.stream_ptr(device)
+    cam, flt = cfg.camera, cfg.filter
+    ref = pp.preprocess_plain(depth[11], color[11], cam, flt)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grids = {f"preprocess {n}": grid for n, _, _, grid in PREPROCESS_EDITS}
+    holds = {f"preprocess {n}" for n, _, keeps, _ in PREPROCESS_EDITS
+             if keeps} | {"parent preprocess", "clock64 preprocess"}
+    for name, (kind, lib, fn, new_entry) in libs.items():
+        if kind != "preprocess":
+            continue
+        args, out = pp.prepare(depth[11], color[11], cam, flt)
+        ka = list(args[:-2])
+        grid = grids.get(name, "tiles")
+        g = pp.ARG_GRID
+        if new_entry and grid != "tiles":
+            ka[g:g + 2] = grid
+        elif not new_entry:
+            ka = [a for i, a in enumerate(ka)
+                  if i not in _PARENT_PREPROCESS_DROPS]
+        dog = _Watchdog(f"the preprocess, {name}")
+        clocked = name.startswith("clock64")
+        if clocked:
+            lib.vh_cyc_zero()
+        _build.check(fn(*ka, stream), "preprocess")
+        torch.cuda.synchronize()
+        line = _clock_line(lib, ("staging", "filter", "epilogue")) \
+            if clocked else ""
+        ms = _graph_ms(lambda: fn(*ka, _build.stream_ptr(device)))
+        dog.stop()
+        same = all(smoke._bits_equal(getattr(out, f), getattr(ref, f))
+                   for f in ("depth", "points", "normals", "intensity"))
+        held = ("bit-equal " + str(same) if name in holds
+                else f"result not held (edited; bit-equal {same})")
+        shape = (f"grid {tuple(ka[g:g + 2])}" if new_entry
+                 else "grid 20 x 15 (16x16 tiles)")
+        print(f"preprocess, frame 11, {name}: {ms:.4f} ms, {shape} on {sms} "
+              f"SMs, {held}{line}; on {gpu}", flush=True)
+    call = calls[11]
+    for tile in (call["tile"], 1):
+        kw = {"tile": tile, "phase": call["phase"],
+              "model_depth": call["model_depth"]}
+        a = (call["depth"], call["pose"], call["cam"], call["cfg"])
+        cref = ac.alloc_candidates_plain(*a, **kw)
+        launch = {f"candidates {n}": o for n, _, _, o in CANDIDATE_EDITS}
+        for name, (kind, lib, fn, new_entry) in libs.items():
+            if kind != "candidates":
+                continue
+            args, keys = ac.prepare(*a, **kw)
+            ka = list(args[:-2])
+            o = launch.get(name, {})
+            if not new_entry:
+                ka = [x for i, x in enumerate(ka)
+                      if i not in _PARENT_CANDIDATE_DROPS]
+            elif tile > 1:
+                if "block" in o:
+                    rows, cols = ka[11:13]
+                    r_, c_ = o["block"]
+                    ka[ac.ARG_GRID:ac.ARG_GRID + 2] = (-(-cols // c_),
+                                                       -(-rows // r_))
+                ka[ac.ARG_STAGE] = o.get("stage", ka[ac.ARG_STAGE])
+            dog = _Watchdog(f"the candidates, {name}")
+            clocked = name.startswith("clock64")
+            if clocked:
+                lib.vh_cyc_zero()
+            _build.check(fn(*ka, stream), "alloc_candidates")
+            torch.cuda.synchronize()
+            line = _clock_line(lib, ("footprint", "pool and DDA",
+                                     "kb dedup", "west/north and fold")) \
+                if clocked else ""
+            ms = _graph_ms(lambda: fn(*ka, _build.stream_ptr(device)))
+            dog.stop()
+            print(f"candidates, frame 11, {'tile' if tile > 1 else 'pixel'}"
+                  f" mode, {name}: {ms:.4f} ms, position for position "
+                  f"{torch.equal(keys, cref)}{line}; on {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="another checkout whose two kernels run beside")
+                    help="another checkout whose kernels run beside")
+    ap.add_argument("--front-only", action="store_true",
+                    help="only the preprocess and the candidates")
     args = ap.parse_args(argv)
     march = (_build.CSRC / "raymarch.cu").read_text()
     insert = (_build.CSRC / "hash_alloc.cu").read_text()
-    sources = {name: ("march", _edit(march, edits))
-               for name, edits, _ in MARCH_EDITS}
-    sources["clock64 stamps"] = ("march", march_clocked(march))
-    sources["insert as is"] = ("insert", insert)
-    sources["clock64 insert"] = ("insert", insert_clocked(insert))
+    sources = {}
+    if not args.front_only:
+        sources = {name: ("march", _edit(march, edits))
+                   for name, edits, _ in MARCH_EDITS}
+        sources["clock64 stamps"] = ("march", march_clocked(march))
+        sources["insert as is"] = ("insert", insert)
+        sources["clock64 insert"] = ("insert", insert_clocked(insert))
+    pre = (_build.CSRC / "preprocess.cu").read_text()
+    cand = (_build.CSRC / "alloc_candidates.cu").read_text()
+    for name, edits, _, _ in PREPROCESS_EDITS:
+        sources[f"preprocess {name}"] = ("preprocess", _edit(pre, edits))
+    sources["clock64 preprocess"] = ("preprocess",
+                                     front_clocked(pre, "preprocess"))
+    for name, edits, _, _ in CANDIDATE_EDITS:
+        sources[f"candidates {name}"] = ("candidates", _edit(cand, edits))
+    sources["clock64 candidates"] = ("candidates",
+                                     front_clocked(cand, "candidates"))
     if args.parent is not None:
         csrc = args.parent / "voxelhashing_tpu_torch" / "csrc"
-        sources["parent"] = ("march", (csrc / "raymarch.cu").read_text())
-        parent = (csrc / "hash_alloc.cu").read_text()
-        sources["parent insert"] = ("insert", parent)
-        sources["clock64 parent insert"] = ("insert", insert_clocked(parent))
+        if not args.front_only:
+            sources["parent"] = ("march", (csrc / "raymarch.cu").read_text())
+            parent = (csrc / "hash_alloc.cu").read_text()
+            sources["parent insert"] = ("insert", parent)
+            sources["clock64 parent insert"] = ("insert",
+                                                insert_clocked(parent))
+        sources["parent preprocess"] = ("preprocess",
+                                        (csrc / "preprocess.cu").read_text())
+        sources["parent candidates"] = (
+            "candidates", (csrc / "alloc_candidates.cu").read_text())
     _build.build()
     libs = _build_all(sources)
     smoke = ab_step._smoke()
     gpu = smoke._smi()
-    _probe_march(smoke, libs, gpu)
-    _probe_insert(smoke, libs, gpu)
+    if not args.front_only:
+        _probe_march(smoke, libs, gpu)
+        _probe_insert(smoke, libs, gpu)
+    _probe_front(smoke, libs, gpu)
     return 0
 
 

@@ -56,12 +56,14 @@ _SIGNATURES = {
     },
     "preprocess": {
         "vh_preprocess": [_P, _LL, _LL, _I, _I, _P] + [_LL] * 3 + [_F] * 2
-        + [_I] * 2 + [_F, _P] + [_F] * 7 + [_P] * 5,
+        + [_I] * 2 + [_F] * 4 + [_I, _P] + [_F] * 7 + [_P] * 4 + [_I] * 2
+        + [_P],
         "vh_preprocess_grid": [],
+        "vh_preprocess_check_division": [_F] * 4 + [_P, _P],
     },
     "alloc_candidates": {
         "vh_alloc_candidates": [_P, _LL, _LL, _I, _I, _P, _LL, _LL, _P, _P]
-        + [_I] * 8 + [_F] * 10 + [_I, _P, _P],
+        + [_I] * 8 + [_F] * 10 + [_I] * 5 + [_P, _P],
         "vh_alloc_candidates_grid": [],
     },
     "hash_alloc": {

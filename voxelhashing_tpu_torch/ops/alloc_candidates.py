@@ -15,18 +15,27 @@ launches), whose flat int32 keys equal the plain version's position for
 position (``blockmap.allocate`` assigns pool slots by prefix rank, so the
 order is part of the map). The tile phase reaches the kernel as a host int
 or, under ``engine.make_step``, by pointer to the device int32 scalar, so
-a captured graph reads each frame's. On a CPU tensor the wrapper runs the
-plain version; any other device raises. There is no fallback.
+a captured graph reads each frame's. The wrapper decides the launch: the
+instantiation (:data:`KERNELS`, :func:`kernel_index`), the grid
+(:func:`cta_grid`) and whether tile mode stages its footprint in shared
+memory (tiles up to :data:`STAGE_TILE`; a larger tile pools from global
+memory); the kernel's entry point checks that the choice fits its source.
+On a CPU tensor the wrapper runs the plain version; any other device
+raises. There is no fallback.
 
 :func:`prepare` checks the inputs and makes the output, :func:`launch`
 issues the kernel on the current stream (the only place that does; it
-adds one to ``alloc_candidates.launches``). The plain version counts its
+adds one to ``alloc_candidates.launches``, and to
+``alloc_candidates.by_kernel`` under the instantiation it passed). The
+plain version counts its
 calls on CUDA tensors (``alloc_candidates_plain.cuda_calls``). The least
 time of a launch is the larger of :func:`bytes_moved` over the memory rate
 and :func:`operations` over the f32 rate.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -37,6 +46,15 @@ from ..config import CameraConfig, MapConfig, SDF_BLOCK_SIZE
 from ..geometry import INVALID_KEY
 
 MAX_STEPS = 16                      # csrc: alloc_steps up to 16
+DEFAULT_STEPS = 8                   # csrc kDefaultSteps: a template
+BLOCK = {2: (4, 8), 1: (4, 16)}     # csrc Geo: a CTA's (rows, cols) by rays
+# the largest tile whose footprint (and the keys of 16 steps) fits the
+# 227 KB of shared memory an H100 CTA may opt in to: 214,084 + 5,808 B
+STAGE_TILE = 30
+# vh_alloc_candidates's instantiations, by the index the wrapper passes
+KERNELS = ("alloc_candidates_kernel<2, 8>", "alloc_candidates_kernel<2, 0>",
+           "alloc_candidates_kernel<1, 8>", "alloc_candidates_kernel<1, 0>")
+ARG_KERNEL, ARG_GRID, ARG_STAGE = 29, 30, 32    # in the launch arguments
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +295,28 @@ def layout(depth, cfg: MapConfig, tile: int):
                                                 else total), compact
 
 
+def footprint(tile: int):
+    """(rows, cols) of the pixels a tile-mode CTA stages (csrc
+    ``footprint``): every pixel that some phase pools for its columns and
+    their west/north halo. Staged for tiles up to :data:`STAGE_TILE`."""
+    r, c = BLOCK[2]
+    return (r + 1) * tile + tile - 1, (c + 1) * tile + tile - 1
+
+
+def cta_grid(rows: int, cols: int, tiled: bool):
+    """(CTAs down, CTAs across) of a launch over a rows x cols key grid:
+    :data:`BLOCK`'s columns a CTA."""
+    r, c = BLOCK[2 if tiled else 1]
+    return -(-rows // r), -(-cols // c)
+
+
+def kernel_index(tiled: bool, cfg: MapConfig) -> int:
+    """The instantiation a frame launches (its index in :data:`KERNELS`):
+    ``alloc_candidates_kernel<2, .>`` in tile mode, ``<1, .>`` in pixel
+    mode; ``8`` for the default 8 steps a ray, ``0`` for any other count."""
+    return (0 if tiled else 2) + (cfg.alloc_steps != DEFAULT_STEPS)
+
+
 def _device(t):
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
@@ -335,7 +375,9 @@ def prepare(depth, pose, cam: CameraConfig, cfg: MapConfig, tile: int = 1,
             float(cfg.max_integration_distance), float(cfg.truncation),
             float(cfg.truncation_scale), float(cfg.block_size_world),
             float(0.5 * cfg.voxel_size), float(cfg.voxel_size),
-            int(cfg.world_blocks), p(keys), pose, dev)
+            int(cfg.world_blocks), kernel_index(tiled, cfg),
+            *cta_grid(rows, cols, tiled)[::-1],
+            int(tiled and tile <= STAGE_TILE), p(keys), pose, dev)
     return args, keys
 
 
@@ -346,6 +388,7 @@ def launch(args) -> None:
     _build.check(_build.library("alloc_candidates").vh_alloc_candidates(
         *kernel_args, _build.stream_ptr(device)), "alloc_candidates")
     alloc_candidates.launches += 1
+    alloc_candidates.by_kernel[KERNELS[kernel_args[ARG_KERNEL]]] += 1
 
 
 def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
@@ -362,6 +405,7 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
 
 
 alloc_candidates.launches = 0
+alloc_candidates.by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +474,8 @@ def work_counts(depth, pose, cam: CameraConfig, cfg: MapConfig, tile: int,
 # ---------------------------------------------------------------------------
 
 EDGE_CASES = ("edge_values", "world_box", "all_invalid", "no_tile_divides",
-              "axis_aligned")
+              "axis_aligned", "tile_2", "tile_8", "steps_1", "steps_16",
+              "fold_small", "odd_grid", "tile_30", "tile_32")
 
 
 def edge_bank(seed: int = 7):
@@ -443,23 +488,42 @@ def edge_bank(seed: int = 7):
     negative, exactly ``max_integration_distance`` and beyond it
     ("edge_values"); a world box of 16 blocks a side (rays leave it,
     "world_box"); every pixel invalid ("all_invalid"); a 30x22 frame that
-    no tile of 4 divides (the pixel fallback, "no_tile_divides"); and an
+    no tile of 4 divides (the pixel fallback, "no_tile_divides"); an
     identity pose with the principal point on a pixel and on a tile
     centre, so that rays run along the z axis and the x and y axes' steps
-    are 0 ("axis_aligned")."""
+    are 0 ("axis_aligned"); tiles of 2 and 8 at every phase class
+    ("tile_2", "tile_8"); one and sixteen DDA steps a ray (the kernel's
+    general instantiation, "steps_1", "steps_16"); folds of 2 slots a
+    tile and 1 a pixel, fewer than a column's surviving keys
+    ("fold_small"); a 44x28 frame whose 11x7 key grid (tile 4) and
+    44x28 pixel grid no CTA's columns divide ("odd_grid"); and tiles of 30,
+    the largest whose footprint tile mode stages ("tile_30", 90x60), and
+    of 32, whose tiles it pools from global memory ("tile_32", 96x64)."""
     rng = np.random.default_rng(seed)
     out = []
     for case in EDGE_CASES:
-        w, h = (30, 22) if case == "no_tile_divides" else (32, 24)
+        w, h = {"no_tile_divides": (30, 22), "odd_grid": (44, 28),
+                "tile_30": (90, 60), "tile_32": (96, 64)}.get(case, (32, 24))
         # cx 13.5: a tile centre of tile 4 at phase 0 (col 3); cy 12.0: a
         # pixel row, and a tile centre at phase 2 (row 2 + 0.5, ... 12.0)
         cx, cy = ((13.5, 12.0) if case == "axis_aligned"
                   else ((w - 1) / 2.0, (h - 1) / 2.0))
         cam = CameraConfig(width=w, height=h, fx=w * 0.9, fy=w * 0.9,
                            cx=cx, cy=cy)
+        steps = {"steps_1": 1, "steps_16": 16}.get(case, 8)
+        folds = (2, 1) if case == "fold_small" else (8, 4)
         cfg = MapConfig(voxel_size=0.02, truncation=0.06,
                         truncation_scale=0.01,
-                        world_blocks=16 if case == "world_box" else 1024)
+                        world_blocks=16 if case == "world_box" else 1024,
+                        alloc_steps=steps, alloc_fold_tile=folds[0],
+                        alloc_fold=folds[1])
+        tile = {"tile_2": 2, "tile_8": 8, "tile_30": 30,
+                "tile_32": 32}.get(case, 4)
+        phases = {"tile_2": (None, 0, 1, 2, 3, 6),
+                  "tile_8": (None, 0, 9, 23, 63, 64),
+                  "tile_30": (None, 0, 31, 467, 899),
+                  "tile_32": (None, 0, 33, 529, 1023)}.get(
+                      case, (None, 0, 2, 5, 15))
         v, u = np.meshgrid(np.arange(h, dtype=np.float64),
                            np.arange(w, dtype=np.float64), indexing="ij")
         depth = (1.2 + 0.6 * u / w + 0.4 * v / h
@@ -468,7 +532,7 @@ def edge_bank(seed: int = 7):
         depth = depth.astype(np.float32)
         model = depth + rng.normal(0.0, 0.04, (h, w)).astype(np.float32)
         model[rng.random((h, w)) < 0.1] = np.nan
-        if case in ("edge_values", "world_box", "no_tile_divides"):
+        if case not in ("all_invalid", "axis_aligned"):
             flat = depth.reshape(-1)
             pick = rng.permutation(flat.size)
             maxd = cfg.max_integration_distance
@@ -489,7 +553,7 @@ def edge_bank(seed: int = 7):
             rx = np.array([[1, 0, 0], [0, c[2], -s[2]], [0, s[2], c[2]]])
             pose[:3, :3] = rz @ ry @ rx
             pose[:3, 3] = rng.normal(0.0, 0.3, 3)
-        out.append({"case": case, "cam": cam, "cfg": cfg, "tile": 4,
+        out.append({"case": case, "cam": cam, "cfg": cfg, "tile": tile,
                     "depth": depth, "model_depth": model, "pose": pose,
-                    "phases": (None, 0, 2, 5, 15)})
+                    "phases": phases})
     return out

@@ -12,15 +12,22 @@ keeps its name and reaches :func:`preprocess_depth`.
 On a CUDA tensor :func:`preprocess_depth` is one launch of
 ``preprocess_kernel`` a frame (in place of ~1,850 small torch launches),
 bit-equal to the plain version: the filtered depth, the points, the
-normals and, when the frame has color, its intensity. The color filter
-(``FilterConfig.color_filter``, off by default) is not in the kernel: with
-it on, the filtered color and its intensity are computed after the launch
-by the plain torch code. On a CPU tensor the wrapper runs the plain
+normals and, when the frame has color, its intensity. The wrapper decides
+the launch: its grid tiles the frame evenly over the card's SMs
+(:func:`tile_grid`), its instantiation (:data:`KERNELS`,
+:func:`kernel_index`) comes from the filter's radius, and the filter
+divides by 2 sigma_r^2 through its reciprocal, each tap's diff^2 clamped
+into the range where that is exact (:func:`division_clamp`). The color
+filter (``FilterConfig.color_filter``, off by default) is not in the
+kernel: with it on, the filtered color and its intensity are computed
+after the launch by the plain torch code. On a CPU tensor the wrapper runs the plain
 version; any other device raises. There is no fallback.
 
 :func:`prepare` checks the inputs and makes the outputs, :func:`launch`
 issues the kernel on the current stream (the only place that does; it
-adds one to ``preprocess_depth.launches``). The plain version counts its
+adds one to ``preprocess_depth.launches``, and to
+``preprocess_depth.by_kernel`` under the instantiation it passed). The
+plain version counts its
 calls on CUDA tensors (``preprocess_plain.cuda_calls``). The least time of
 a launch is the larger of :func:`bytes_moved` over the memory rate and
 :func:`operations` over the f32 rate.
@@ -28,7 +35,10 @@ a launch is the larger of :func:`bytes_moved` over the memory rate and
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -40,7 +50,14 @@ from ..config import CameraConfig, FilterConfig
 from . import image
 
 MAX_RADIUS = 8                      # csrc: a filter window up to 17x17
+FILTER_THREADS = 704                # csrc kThreads: a CTA's threads
+MAX_TILE = (64, 48)                 # csrc kMaxTileX, kMaxTileY
 INTENSITY_WEIGHTS = (0.299, 0.587, 0.114)
+# vh_preprocess's instantiations, by the index the wrapper passes
+KERNELS = ("preprocess_kernel<4>", "preprocess_kernel<0>")
+# c = 2 sigma_r^2 for which the clamped reciprocal division is exact
+DIVISOR_RANGE = (2.0 ** -70, 2.0 ** 100)
+ARG_KERNEL, ARG_GRID = 17, 30       # their positions in the launch args
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +125,68 @@ def spatial_weights(flt: FilterConfig) -> np.ndarray:
                     dtype=np.float32)
 
 
+def two_sr2(flt: FilterConfig) -> float:
+    """The range weight's divisor 2 sigma_r^2 as the plain filter takes
+    it (a Python float; the kernel gets its f32)."""
+    return 2.0 * flt.depth_sigma_r * flt.depth_sigma_r
+
+
+def division_clamp(flt: FilterConfig):
+    """(x_lo, x_hi): the kernel clamps each tap's x = diff^2 into
+    [max(2^-96, 2^-100 c), min(2^126, 2^120 c)] for c = f32(2 sigma_r^2)
+    before it divides through y = RN(1/c) (``div_rn_recip`` in
+    ``csrc/preprocess.cu``, RN(x / c) there); below it the weight is 1,
+    above it 0, as the IEEE division's. Both bounds are exact f32 for c in
+    :data:`DIVISOR_RANGE`; any other sigma_r raises. (0, 0) without the
+    filter."""
+    if not flt.depth_filter:
+        return 0.0, 0.0
+    c = float(np.float32(two_sr2(flt)))
+    if not DIVISOR_RANGE[0] <= c <= DIVISOR_RANGE[1]:
+        raise ValueError(f"preprocess: the kernel divides by 2 sigma_r^2 in "
+                         f"[2^-70, 2^100], got {c} (sigma_r "
+                         f"{flt.depth_sigma_r})")
+    return max(2.0 ** -96, 2.0 ** -100 * c), min(2.0 ** 126, 2.0 ** 120 * c)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_grid(h: int, w: int, sms: int, threads: int = FILTER_THREADS):
+    """(gx, gy): the launch's CTAs across and down. CTA (bx, by) owns the
+    output pixels [bx w // gx, (bx + 1) w // gx) x [by h // gy, (by + 1) h
+    // gy). The grid is k x ``sms`` CTAs at most, for the least k whose
+    tiles fit (a filtered tile, the tile and its one-pixel halo, of at most
+    ``threads`` pixels, a tile at most :data:`MAX_TILE`), with the
+    smallest filtered tile over the splits of those CTAs (ties: more
+    CTAs). 320x240 on 132 SMs: 12 x 11 tiles of 26-27 x 21-22 pixels."""
+    k = 1
+    while True:
+        n = k * sms
+        best = None
+        for gx in range(1, min(w, n) + 1):
+            gy = min(h, n // gx)
+            tw, th = -(-w // gx), -(-h // gy)
+            if tw > MAX_TILE[0] or th > MAX_TILE[1]:
+                continue
+            key = ((tw + 2) * (th + 2), -gx * gy)
+            if best is None or key < best[0]:
+                best = (key, gx, gy)
+        if best is not None and best[0][0] <= threads:
+            return best[1], best[2]
+        k += 1
+
+
+def kernel_index(flt: FilterConfig) -> int:
+    """The instantiation a frame of this filter launches (its index in
+    :data:`KERNELS`): ``preprocess_kernel<4>``, its 81 taps unrolled, for
+    the default 9x9 window, ``<0>`` for any other radius or no filter."""
+    return 0 if flt.depth_filter and filter_radius(flt) == 4 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _device(t):
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
@@ -151,14 +230,18 @@ def prepare(depth_raw, color_raw, cam: CameraConfig, flt: FilterConfig):
     p, pn = _build.ptr, _build.ptr_or_null
     c = color_raw if with_int else None
     cs = color_raw.stride() if with_int else (0, 0, 0)
+    c32 = np.float32(two_sr2(flt))
+    grid = tile_grid(h, w, _sms(dev.index)) if dev.type == "cuda" else (1, 1)
     args = (p(depth_raw), *depth_raw.stride(), h, w, pn(c), *cs,
             float(cam.depth_min), float(cam.depth_max),
-            int(bool(flt.depth_filter)), radius,
-            float(2.0 * flt.depth_sigma_r * flt.depth_sigma_r),
-            ctypes.cast(host_w, ctypes.c_void_p), float(cam.fx),
+            int(bool(flt.depth_filter)), radius, float(c32),
+            float(np.float32(1.0) / c32), *division_clamp(flt),
+            kernel_index(flt), ctypes.cast(host_w, ctypes.c_void_p),
+            float(cam.fx),
             float(cam.fy), float(cam.cx), float(cam.cy),
             *(float(x) for x in INTENSITY_WEIGHTS), p(out.depth),
-            p(out.points), p(out.normals), pn(out.intensity), host_w, dev)
+            p(out.points), p(out.normals), pn(out.intensity), *grid, host_w,
+            dev)
     return args, out
 
 
@@ -169,6 +252,7 @@ def launch(args) -> None:
     _build.check(_build.library("preprocess").vh_preprocess(
         *kernel_args, _build.stream_ptr(device)), "preprocess")
     preprocess_depth.launches += 1
+    preprocess_depth.by_kernel[KERNELS[kernel_args[ARG_KERNEL]]] += 1
 
 
 def preprocess_depth(depth_raw, color_raw, cam: CameraConfig,
@@ -185,6 +269,7 @@ def preprocess_depth(depth_raw, color_raw, cam: CameraConfig,
 
 
 preprocess_depth.launches = 0
+preprocess_depth.by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -244,24 +329,32 @@ def work_counts(depth_raw, cam: CameraConfig, flt: FilterConfig,
 # ---------------------------------------------------------------------------
 
 EDGE_CASES = ("edge_values", "all_invalid", "odd", "no_filter",
-              "depth_only", "wide_window")
+              "depth_only", "wide_window", "uneven", "radius_3", "radius_5",
+              "wide_gate", "wide_gate_radius_3")
 
 
 def edge_bank(seed: int = 5):
     """Seeded frames with the cases the kernel gets wrong first, each a
     dict of numpy arrays (depth [h,w], color [h,w,3] or None), its ``cam``
-    and ``flt`` and its ``case``: a 40x33 frame (no tile divides it) of a
-    tilted, noisy plane with NaN, +-inf, 0, negative, below ``depth_min``,
-    exactly ``depth_min`` and ``depth_max``, above ``depth_max`` and
-    isolated valid pixels ("edge_values"); every pixel invalid
-    ("all_invalid"); an odd 17x13 frame, smaller than one tile
-    ("odd"); the edge-value frame with the filter off ("no_filter") and
-    with no color ("depth_only"); and a 17x17 window (sigma_d 4, the
-    kernel's widest) with sigma_r 0.05 ("wide_window")."""
+    and ``flt`` and its ``case``: a 40x33 frame of a tilted, noisy plane
+    with NaN, +-inf, 0, negative, below ``depth_min``, exactly
+    ``depth_min`` and ``depth_max``, above ``depth_max`` and isolated valid
+    pixels ("edge_values"); every pixel invalid ("all_invalid"); an odd
+    17x13 frame, smaller than one tile ("odd"); the edge-value frame with
+    the filter off ("no_filter") and with no color ("depth_only"); a 17x17
+    window (sigma_d 4, the kernel's widest) with sigma_r 0.05
+    ("wide_window"); a 53x47 frame, whose tiles no grid of the card splits
+    evenly in either direction ("uneven"); the windows on either side of
+    the unrolled 9x9 (radius 3 and 5: "radius_3", "radius_5"); and a gate
+    from 0 to 1e30 with depths of 0, 1e-30, 1e-20 and 1e20 (taps whose
+    diff^2 underflows, is subnormal or overflows: the division's clamp at
+    both ends, at radius 4 and 3, with sigma_r 1 so that no weight is
+    subnormal, which XLA on the CPU would flush: "wide_gate",
+    "wide_gate_radius_3")."""
     rng = np.random.default_rng(seed)
     out = []
     for case in EDGE_CASES:
-        w, h = (17, 13) if case == "odd" else (40, 33)
+        w, h = {"odd": (17, 13), "uneven": (53, 47)}.get(case, (40, 33))
         cam = CameraConfig(width=w, height=h, fx=w * 0.9, fy=w * 0.9,
                            cx=(w - 1) / 2.0, cy=(h - 1) / 2.0)
         v, u = np.meshgrid(np.arange(h, dtype=np.float64),
@@ -277,11 +370,16 @@ def edge_bank(seed: int = 5):
             vals = [np.nan, np.inf, -np.inf, 0.0, -0.0, -1.0, 0.3,
                     cam.depth_min, cam.depth_max, cam.depth_max + 0.5,
                     np.float32(cam.depth_min) - np.float32(1e-6)]
+            if case.startswith("wide_gate"):
+                vals += [1e-30, 1e-20, 1e20, 0.0]
             for k, val in enumerate(vals):
                 flat[pick[8 * k:8 * k + 8]] = val
             depth[5:12, 20:30] = np.nan                  # a hole
             depth[6, 25] = 2.0                           # an island in it
             color[0, :, 1] = np.nan                      # a NaN channel
+        if case.startswith("wide_gate"):
+            depth[20:23, 2:6] = np.float32([1e-30, 2e-30, 1e-20, 3e-20])
+            cam = dataclasses.replace(cam, depth_min=0.0, depth_max=1e30)
         if case == "all_invalid":
             depth[:] = np.nan
             depth[::3, ::2] = 0.0
@@ -290,6 +388,14 @@ def edge_bank(seed: int = 5):
             flt = FilterConfig(depth_filter=False)
         elif case == "wide_window":
             flt = FilterConfig(depth_sigma_d=4.0, depth_sigma_r=0.05)
+        elif case == "radius_3":
+            flt = FilterConfig(depth_sigma_d=1.5)
+        elif case == "wide_gate":
+            flt = FilterConfig(depth_sigma_r=1.0)
+        elif case == "wide_gate_radius_3":
+            flt = FilterConfig(depth_sigma_d=1.5, depth_sigma_r=1.0)
+        elif case == "radius_5":
+            flt = FilterConfig(depth_sigma_d=2.5)
         out.append({"case": case, "cam": cam, "flt": flt, "depth": depth,
                     "color": None if case == "depth_only" else color})
     return out
