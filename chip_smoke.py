@@ -29,14 +29,19 @@ and then:
    (bare, an empty kernel's node, wrapper, plain, bytes, operations,
    bound, CTAs, the preprocess's MUFU floor);
    then (``phase_hash``) holds the map's hash kernels, the insert
-   (``blockmap.allocate``) and the delete (``blockmap.delete_blocks``,
+   (``blockmap.allocate``), GC's free pass (``integrate.garbage_collect``,
+   ``hash_delete_kernel<true>``) and the list delete
+   (``blockmap.delete_blocks``, ``hash_delete_kernel<false>``;
    ``ops/hash_table``), against their plain versions, bit for bit in every
-   output, on every call phase 1 made (an insert and a GC delete a frame,
-   recorded with the rows a delete names gathered before and after it;
-   the plain delete runs on a zeroed scratch pool), on
-   ``hash_table.edge_bank`` and on the whole map after frame 10 (a
-   1,024-row delete: every field and the pools equal, a per-row checksum
-   unchanged off the freed rows), and times them at frame 11;
+   output, on every call phase 1 made (an insert and a GC a frame,
+   recorded with a checksum of every active row before and after a GC,
+   the rows a delete names gathered before and after it; the plain
+   versions run on a zeroed scratch pool), on ``hash_table.edge_bank``
+   and ``gc_bank`` and on the whole map after frame 10 (a 1,024-row
+   delete: every field and the pools equal, a per-row checksum unchanged
+   off the freed rows; GC past its cap, 1,500 rows culled: every field and
+   the whole pools equal), and times them at frame 11 (the list delete on
+   that GC call's short list);
 2. holds kernel A (fused integrate) against its plain PyTorch version on
    clones of the state after frame 10 and frame 11's inputs: rows, surface
    flags and GC stats must be bit-equal (the kernels are built with
@@ -65,8 +70,10 @@ and then:
    frames' unprofiled wall time); in that profile each stage runs in a
    ``record_function`` range closed after a synchronize, which splits the
    device time and the device ops by stage (the front stages' ops are the
-   front graph's nodes by stage); phase 6 splits the march + RGB-D
-   step's device time the same way;
+   front graph's nodes by stage), with the gc stage's device ms and ops
+   on a line of their own; holds the hash kernels on every call of the
+   second run (every GC among them) as phase 1's are held; phase 6 splits
+   the march + RGB-D step's device time the same way;
 5. runs the large scan (``scripts/bench_large_scan.py``'s scan point at
    the reference scan's 800,000-block pool, 1 cm voxels) four times, with
    ``streaming.AsyncStreamingManager`` (S) and with streaming off (U), in
@@ -81,9 +88,9 @@ and then:
    state just after the first stream-in, and times them there as in 2-3;
    holds the front kernels on every frame of the first streamed run (in
    pixel mode on every 12th) and times them at frame 48; holds the hash
-   kernels on every call of that run (the step's inserts and GC deletes,
-   the stream-out deletes and the stream-in inserts) and times them at
-   frame 48 and at the first stream-in and stream-out;
+   kernels on every call of that run (the step's inserts and GCs, the
+   stream-out deletes and the stream-in inserts) and times them at frame
+   48 and at the first stream-in and stream-out;
    reports each run's frames/s on the outward leg (eviction) and on the
    return leg (stream-in), and the host syncs of one frame;
 6. runs 20 frames of phase 1's scene and configuration with RGB-D
@@ -105,9 +112,11 @@ and then:
    and active lists as the step made them (recorded around
    ``raycast.render_march``), and on ``raymarch.edge_bank``, with and
    without gradients: the tile bounds, every field of the hits and the
-   rendered frame bit for bit; and times them at frame 11's render (bare,
-   an empty kernel's node, wrapper, plain, bytes, operations, bound;
-   samples and block lookups a ray);
+   rendered frame bit for bit, and the bounds on a grid of 1-pixel tiles
+   (76,800, past the kernel's shared-memory path); and times them at
+   frame 11's render (bare, an empty kernel's node, wrapper, plain, bytes,
+   operations, bound; samples and block lookups a ray; a bounds call is
+   one device op, its kernel, with no fill);
 7. runs the SLAM layer at phase 1's width (``phase_slam``): an out-and-back
    trajectory (``_loop_poses``: 30 frames out along ``make_trajectory``'s
    motion and 30 back over the same poses) on the bench scene with 2 mm
@@ -141,7 +150,9 @@ and then:
    < 10 mm, kernels A and B on every frame of every rank; the host syncs
    of frame 11 replayed on the state after frame 10; kernels A and B held
    bit for bit against their plain versions on rank 0's shard after frame
-   10; ``gather_map`` with clean invariants holding every rank's blocks;
+   10; every rank's hash calls of the run (an insert and a GC a frame)
+   held against the plain versions as phase 1's are; ``gather_map`` with
+   clean invariants holding every rank's blocks;
    (b) ``make_sharded_render`` at the last pose against the single-device
    march of the merged map (coverage XOR < 0.5%, depth < 1e-4 m, color <
    2/255); (d) ``ShardedStreamingManager``: ``stream_out_all`` then
@@ -174,7 +185,9 @@ and then:
    ``make_step(donate=True)`` and twice through the eager step, in
    lockstep from one start: the eager runs must agree with each other
    and the graphs with them on every frame (poses, valid flags, every map
-   field and diagnostic bit for bit), two host syncs in tracked frame 11,
+   field and diagnostic bit for bit; the second eager run's hash calls,
+   every GC among them, held against the plain versions as phase 1's
+   are), two host syncs in tracked frame 11,
    the pool's tensors kept from frame 1 on with no pool bytes copied in,
    and kernels A and B, 18 associations, 18 linearizations and 18 ICP
    updates (``icp_update``, no ``solve6``) on every tracked frame; reports frames/s of both, each graph's nodes (the
@@ -1195,22 +1208,44 @@ def phase_front(cfg, depth, color, calls, gpu_line):
 # The map's hash writes: the insert and the delete kernels
 # ---------------------------------------------------------------------------
 
-def _hash_launches(n_integrated, rounds=1, gc=True):
+def _hash_launches(n_integrated, rounds=1, gc=True, stream_outs=0):
     """The hash kernels' launches in ``n_integrated`` integrated frames:
-    one insert launch a round of allocation, one delete (GC) a frame."""
+    one insert launch a round of allocation, one GC launch
+    (``hash_delete_kernel<true>``) a frame, one list delete
+    (``hash_delete_kernel<false>``) a stream-out."""
     return {"hash_insert": n_integrated * rounds,
-            "hash_delete": n_integrated if gc else 0}
+            "hash_gc": n_integrated if gc else 0,
+            "hash_delete": stream_outs}
+
+
+def _row_sums(pools, rows, chunk=4096):
+    """A checksum of each pool row in ``rows`` (int64 [len(rows)]): the
+    sdf, weight and color words times fixed odd multipliers, summed; 0 for
+    a zeroed row. On the device, no host read; ``chunk`` rows at a time,
+    so that the temporaries stay small."""
+    import torch
+    mult = torch.arange(1, 2 * 512, 2, dtype=torch.int64,
+                        device=rows.device)
+    out = torch.zeros(rows.shape, dtype=torch.int64, device=rows.device)
+    for j in range(0, rows.numel(), chunk):
+        for k, p in enumerate(pools):
+            r = p[rows[j:j + chunk]]
+            r = r.view(torch.int16) if r.dtype == torch.bfloat16 else r
+            out[j:j + chunk] += (r.to(torch.int64) * (mult + 1024 * k)).sum(1)
+    return out
 
 
 @contextlib.contextmanager
 def _recorded_hash_calls(calls):
-    """Record every hash insert and delete made through ``blockmap`` inside
-    the block into ``calls`` (dicts), with the call's outputs. Inputs and
-    outputs by reference: nothing writes them again, but ``surf`` (which
-    kernel A updates in place) is cloned, and the pool rows a delete names
-    are gathered just before and just after it (the delete zeroes them in
-    place; no host read). A checkout before the hash kernels records
-    nothing."""
+    """Record every hash insert, GC and delete made through ``blockmap``
+    inside the block into ``calls`` (dicts), with the call's outputs.
+    Inputs and outputs by reference: nothing writes them again, but
+    ``surf`` (which kernel A updates in place) is cloned, and so are GC's
+    active list and stats; the pool rows a delete names are gathered just
+    before and just after it, and a checksum of every active row is taken
+    just before and just after a GC (both zero rows in place; no host
+    read). A checkout before the hash kernels records nothing; one before
+    the GC entry records its GC calls as deletes."""
     from voxelhashing_tpu_torch import blockmap
     real = getattr(blockmap, "_hash", None)
     if real is None:
@@ -1227,6 +1262,21 @@ def _recorded_hash_calls(calls):
             calls.append({"kind": "insert", "args": (tk, tv, bk, fs, nf, du,
                                                      keys, cfg, rounds),
                           "out": out})
+            return out
+
+        @staticmethod
+        def garbage_collect(tk, bk, surf, fs, nf, nt, sdf, weight, color,
+                            idx, mask, min_sdf, max_w, cfg):
+            rows = idx.long()
+            before = _row_sums((sdf, weight, color), rows)
+            args = (tk, bk, surf.clone(), fs, nf, nt, idx.clone(),
+                    mask.clone(), min_sdf.clone(), max_w.clone(), cfg)
+            out = real.garbage_collect(tk, bk, surf, fs, nf, nt, sdf,
+                                       weight, color, idx, mask, min_sdf,
+                                       max_w, cfg)
+            calls.append({"kind": "gc", "args": args, "before": before,
+                          "after": _row_sums((sdf, weight, color), rows),
+                          "out": out[:2] + (out[2].clone(),) + out[3:]})
             return out
 
         @staticmethod
@@ -1281,6 +1331,16 @@ def _plain_delete(args, pools):
             st.n_tombstones)
 
 
+def _plain_gc(args, pools):
+    from voxelhashing_tpu_torch import blockmap, integrate
+    tk, bk, surf, fs, nf, nt, idx, mask, min_sdf, max_w, cfg = args
+    st = integrate.garbage_collect_plain(blockmap.MapState(
+        tk, None, bk, *pools, surf, fs, nf, nt, None), idx, mask, cfg,
+        cached_stats=(min_sdf, max_w))
+    return (st.table_key, st.block_key, st.surf, st.free_stack, st.n_free,
+            st.n_tombstones)
+
+
 INSERT_FIELDS = ("table_key", "table_val", "block_key", "n_free",
                  "dense_upto", "count")
 DELETE_FIELDS = ("table_key", "block_key", "surf", "free_stack", "n_free",
@@ -1288,11 +1348,15 @@ DELETE_FIELDS = ("table_key", "block_key", "surf", "free_stack", "n_free",
 
 
 def hold_hash_calls(calls, label):
-    """Both hash kernels against their plain versions on recorded calls
+    """The hash kernels against their plain versions on recorded calls
     (``_recorded_hash_calls``): every output bit for bit; for a delete, the
     plain version runs on a zeroed scratch pool holding the named rows as
     they were before the call, and the named rows after it must equal the
-    kernel's. Returns the counts held."""
+    kernel's; for a GC (``garbage_collect_plain`` on the recorded stats,
+    on a zeroed scratch pool), every active row's checksum after the call
+    is 0 where the plain version freed the row and as before elsewhere
+    (the kernel writes only rows its active list names, so these are the
+    only rows of the pools it can change). Returns the counts held."""
     import torch
     saved = _counts()
     pools, held = None, collections.Counter()
@@ -1302,6 +1366,21 @@ def hold_hash_calls(calls, label):
             held["insert"] += 1
             held["keys"] += int((c["args"][6] != 0x7FFFFFFF).sum())
             held["inserted"] += int(c["out"][5])
+        elif c["kind"] == "gc":
+            if pools is None:
+                pools = _scratch_pool(c["args"][-1], c["args"][0].device)
+            ref, names = _plain_gc(c["args"], pools), DELETE_FIELDS
+            rows = c["args"][6].long()
+            freed = (c["args"][1][rows] != 0x7FFFFFFF) \
+                & (ref[1][rows] == 0x7FFFFFFF)
+            want = torch.where(freed, 0, c["before"])
+            if not torch.equal(want, c["after"]):
+                raise RuntimeError(
+                    f"{label}, call {i}: the GC kernel's pool rows differ "
+                    f"from its plain version's in "
+                    f"{int((want != c['after']).sum())} active rows")
+            held["gc"] += 1
+            held["gc_freed"] += int(ref[4] - c["args"][4])
         else:
             if pools is None:
                 pools = _scratch_pool(c["args"][-1], c["args"][0].device)
@@ -1333,8 +1412,10 @@ def hold_hash_calls(calls, label):
     _set_counts(saved)
     print(f"{label}: hash kernels bit-equal to their plain versions on "
           f"{held['insert']} insert calls ({held['keys']} valid keys, "
-          f"{held['inserted']} blocks allocated) and {held['delete']} delete "
-          f"calls ({held['freed']} rows freed)")
+          f"{held['inserted']} blocks allocated), {held['gc']} GC calls "
+          f"({held['gc_freed']} rows freed, every active row's pool rows "
+          f"held) and {held['delete']} delete calls ({held['freed']} rows "
+          f"freed)")
     return dict(held)
 
 
@@ -1430,21 +1511,21 @@ def check_hash_snapshot(cfg, map_state, gpu_line):
         raise RuntimeError("hash delete on the phase-1 map disagrees")
 
 
-def time_hash(insert, delete, label, gpu_line):
+def time_hash(insert, delete, label, gpu_line, gc=None):
     """Each hash kernel's times on a recorded call: bare (``_bare_ms``; the
     insert reads and writes its table, so each of its launches is preceded
     by a copy that restores it, timed alone and taken off), an empty
     kernel's node, the wrapper (clones included) and the plain version
     (``_median_ms``); the bytes and operations of the call
     (``hash_table.work_counts`` on the insert's first round,
-    ``delete_work_counts``) and the bound they give. The delete runs on a
-    scratch pool. Returns {"hash_insert", "hash_delete"} (either None
-    without its call)."""
+    ``delete_work_counts``, ``gc_work_counts``) and the bound they give.
+    The delete and GC run on a scratch pool. Returns {"hash_insert",
+    "hash_delete", "hash_gc"} (each None without its call)."""
     import torch
     from voxelhashing_tpu_torch.ops import hash_table as ht
     from voxelhashing_tpu_torch.ops import icp_update as iu
     saved = _counts()
-    out = {"hash_insert": None, "hash_delete": None}
+    out = {"hash_insert": None, "hash_delete": None, "hash_gc": None}
     dev = None
     if insert is not None:
         a = insert["args"]
@@ -1485,6 +1566,28 @@ def time_hash(insert, delete, label, gpu_line):
             "bytes": ht.bytes_moved(work), "operations": ht.operations(work),
             "work": tuple(work)}
         del pools
+    if gc is not None:
+        a = gc["args"]
+        dev = a[0].device
+        pools = _scratch_pool(a[-1], dev)
+        tk, bk, surf, fs, nf, nt, idx, mask, ms, mw, cfg = a
+        args, _ = ht.prepare_gc(tk, bk, surf, fs, nf, nt, *pools, idx, mask,
+                                ms, mw, cfg)
+        work = ht.gc_work_counts(bk, idx, mask, ms, mw, cfg)
+        nodes = _graph_node_count(lambda: ht.garbage_collect(
+            tk, bk, surf, fs, nf, nt, *pools, idx, mask, ms, mw, cfg))
+        if nodes != 5:
+            raise RuntimeError(f"a GC call captured {nodes} graph nodes, "
+                               f"expected its four clones and one kernel")
+        out["hash_gc"] = {
+            "graph_nodes": nodes,
+            "ms": _bare_ms(lambda: ht.launch_gc(args)),
+            "wrapper_ms": _median_ms(lambda: ht.garbage_collect(
+                tk, bk, surf, fs, nf, nt, *pools, idx, mask, ms, mw, cfg)),
+            "plain_ms": _median_ms(lambda: _plain_gc(a, pools)),
+            "bytes": ht.bytes_moved(work), "operations": ht.operations(work),
+            "work": tuple(work)}
+        del pools
     empty = (_bare_ms(lambda: iu.launch_empty(dev)) if dev is not None
              else None)
     torch.cuda.synchronize()
@@ -1496,6 +1599,10 @@ def time_hash(insert, delete, label, gpu_line):
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["empty_ms"] = empty
         extra = ""
+        if key == "hash_gc":
+            extra = (f" (a whole call captured into a CUDA graph: "
+                     f"{r['graph_nodes']} nodes, the four clones and the "
+                     f"kernel)")
         if key == "hash_insert":
             st = r["stage"]
             extra = (f" (a round of {r['rounds']}, less its table restore "
@@ -1513,32 +1620,130 @@ def time_hash(insert, delete, label, gpu_line):
     return out
 
 
+def phase_gc_bank(device):
+    """The GC entry against ``garbage_collect_plain`` on every
+    ``hash_table.gc_bank`` call, from one state on the card: every map
+    field and the whole pools bit for bit, one launch a call, its ticket
+    and status words back at 0."""
+    import torch
+    from voxelhashing_tpu_torch import integrate
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    saved = _counts()
+    for e in ht.gc_bank():
+        st, idx, mask, ms, mw = ht.gc_inputs(e, device)
+        n0 = ht.garbage_collect.launches
+        got = integrate.garbage_collect(_clone(st), idx, mask, e["cfg"],
+                                        cached_stats=(ms, mw))
+        ref = integrate.garbage_collect_plain(_clone(st), idx, mask,
+                                              e["cfg"], cached_stats=(ms, mw))
+        torch.cuda.synchronize()
+        launched = ht.garbage_collect.launches - n0
+        res = ht.reserve(device, e["cfg"])
+        bad = [f for f in type(st)._fields
+               if not _bits_equal(getattr(got, f), getattr(ref, f))]
+        print(f"edge GC, {e['case']} ({idx.numel()} active rows, "
+              f"{-(-idx.numel() // ht.GC_ROWS)} CTAs): {launched} launch, "
+              f"freed {int(ref.n_free - st.n_free)}, fields that differ "
+              f"{bad}")
+        if bad or launched != 1 or bool(res.status.any()) \
+                or bool(res.ticket.any()):
+            raise RuntimeError(f"edge GC, {e['case']}: {bad}, launches "
+                               f"{launched}, status words or ticket left")
+    _set_counts(saved)
+
+
+def check_gc_cap(cfg, map_state, gpu_line):
+    """GC past its cap on the phase-1 map (after frame 10): an active list
+    of every allocated row (up to the active cap), stats made to cull 1,500
+    of them (the rest kept), on two clones, the GC entry and
+    ``garbage_collect_plain``: every field bit for bit, the whole pools
+    equal, and ``gc_delete_cap`` rows freed."""
+    import torch
+    from voxelhashing_tpu_torch import integrate
+    from voxelhashing_tpu_torch.geometry import INVALID_KEY
+    mp, dev = cfg.map, map_state.block_key.device
+    rows = torch.nonzero(map_state.block_key != INVALID_KEY).flatten()
+    idx = rows[:mp.max_active_blocks].to(torch.int32)
+    m = idx.numel()
+    mask = torch.ones(m, dtype=torch.bool, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    cull = torch.randperm(m, generator=g)[:1500].to(dev)
+    ms = torch.zeros(m, dtype=torch.float32, device=dev)
+    mw = torch.ones(m, dtype=torch.float32, device=dev)
+    ms[cull[:750]] = 1.0
+    mw[cull[750:]] = 0.0
+    saved = _counts()
+    sk, sp = _clone(map_state), _clone(map_state)
+    sk = integrate.garbage_collect(sk, idx, mask, mp, cached_stats=(ms, mw))
+    sp = integrate.garbage_collect_plain(sp, idx, mask, mp,
+                                         cached_stats=(ms, mw))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    bad = [f for f in type(sk)._fields
+           if not _bits_equal(getattr(sk, f), getattr(sp, f))]
+    freed = int(sp.n_free - map_state.n_free)
+    print(f"hash GC past its cap (phase 1 map, {m} active rows, 1500 "
+          f"culled, cap {mp.gc_delete_cap}): fields that differ from the "
+          f"plain version (the whole pools included) {bad}, rows freed "
+          f"{freed}; on {gpu_line}")
+    if bad or freed != min(mp.gc_delete_cap, m):
+        raise RuntimeError("hash GC past its cap disagrees")
+
+
 def phase_hash(cfg, map_state, calls, gpu_line):
     """The hash kernels on phase 1: held on every recorded call (an insert
-    and a GC delete a frame), on the edge bank and on the whole phase-1 map
-    after frame 10, and timed on frame 11's calls. Returns the timings
-    with the calls held."""
+    and a GC a frame), on the edge bank, the GC bank, on the whole phase-1
+    map after frame 10 and past GC's cap there, and timed on frame 11's
+    calls (the list delete on the GC call's short list, as the plain GC
+    builds it). Returns the timings with the calls held."""
     inserts = [c for c in calls if c["kind"] == "insert"]
+    gcs = [c for c in calls if c["kind"] == "gc"]
     deletes = [c for c in calls if c["kind"] == "delete"]
-    if len(inserts) != N_FRAMES or len(deletes) != N_FRAMES:
-        raise RuntimeError(f"phase 1 recorded {len(inserts)} inserts and "
-                           f"{len(deletes)} deletes, expected {N_FRAMES} "
-                           f"of each")
+    if len(inserts) != N_FRAMES or len(gcs) != N_FRAMES or deletes:
+        raise RuntimeError(f"phase 1 recorded {len(inserts)} inserts, "
+                           f"{len(gcs)} GC calls and {len(deletes)} list "
+                           f"deletes, expected {N_FRAMES}, {N_FRAMES} and 0")
     held = hold_hash_calls(calls, "hash kernels (phase 1)")
-    phase_hash_edge_bank(map_state.block_key.device)
+    device = map_state.block_key.device
+    phase_hash_edge_bank(device)
+    phase_gc_bank(device)
     check_hash_snapshot(cfg, map_state, gpu_line)
-    times = time_hash(inserts[11], deletes[11], "phase 1, frame 11",
-                      gpu_line)
+    check_gc_cap(cfg, map_state, gpu_line)
+    times = time_hash(inserts[11], _gc_short_list(gcs[11]),
+                      "phase 1, frame 11", gpu_line, gc=gcs[11])
     for r in times.values():
         r["max_abs_err"] = 0.0
         r["held"] = held
     return times
 
 
+def _gc_short_list(call):
+    """A recorded GC call as the list delete the plain GC makes of it: its
+    ``gc_delete_cap`` short list and mask, for timing the list entry on
+    GC's work."""
+    import torch
+    from voxelhashing_tpu_torch import blockmap
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    tk, bk, surf, fs, nf, nt, idx, mask, ms, mw, cfg = call["args"]
+    t = ht.gc_threshold(cfg)
+    cull = mask & ((ms >= t) | (mw == 0.0))
+    dcap = min(cfg.gc_delete_cap, idx.numel())
+    rank = blockmap._rank(cull)
+    keep = cull & (rank < dcap)
+    short = blockmap.put(torch.zeros((dcap,), dtype=torch.int32,
+                                     device=idx.device), rank, idx, keep)
+    n = torch.clamp(blockmap._isum(cull), max=dcap)
+    return {"args": (tk, bk, surf, fs, nf, nt, short,
+                     torch.arange(dcap, device=idx.device) < n, cfg)}
+
+
 def phase_stages(cfg, depth, color, device, gpu_line):
     """Phase 4: per-stage time of ``engine.step`` and the device's busy
-    share. Returns {stage: ms/frame}, with the device's kernel ms and ops
-    per frame under "device_ms" and "device_ops"."""
+    share; the hash kernels held on every call of its 20 frames (the
+    recording's own work lands in the gc and alloc stages of the
+    per-stage table, not in the device split, which replays frames
+    17-19 unrecorded). Returns {stage: ms/frame}, with the device's
+    kernel ms and ops per frame under "device_ms" and "device_ops"."""
     import torch
     from voxelhashing_tpu_torch import engine
 
@@ -1546,6 +1751,7 @@ def phase_stages(cfg, depth, color, device, gpu_line):
     state = engine.create(cfg, device=device)
     per_stage = collections.defaultdict(float)
     n_timed, before = 0, None
+    hash_calls = []
     for i in range(N_FRAMES):
         events = []
 
@@ -1555,7 +1761,8 @@ def phase_stages(cfg, depth, color, device, gpu_line):
             events.append((stage, ev))
 
         mark("start")
-        state, _ = engine.step(state, depth[i], color[i], cfg, mark=mark)
+        with _recorded_hash_calls(hash_calls):
+            state, _ = engine.step(state, depth[i], color[i], cfg, mark=mark)
         torch.cuda.synchronize()
         if i >= 3:
             n_timed += 1
@@ -1572,8 +1779,21 @@ def phase_stages(cfg, depth, color, device, gpu_line):
         print(f"  {stage:10s} {ms:9.3f} ms {share:6.1f}%")
     print(f"  {'total':10s} {total / n_timed:9.3f} ms")
 
+    held = hold_hash_calls(hash_calls, "hash kernels (phase 4)")
+    if held.get("gc", 0) != N_FRAMES:
+        raise RuntimeError(f"phase 4: {held.get('gc', 0)} GC calls held, "
+                           f"expected {N_FRAMES}")
+    del hash_calls
     dev = _device_stages(cfg, before, depth, color, frames,
                          "depth only", gpu_line)
+    gc_ms, gc_ops = dev["split"]["gc"]
+    print(f"gc stage (phase 4, depth only): {gc_ms:.4f} device ms and "
+          f"{gc_ops:.1f} device ops a frame (torch.profiler, frames "
+          f"{frames[0]}-{frames[-1]}), apart from integrate "
+          f"({dev['split']['integrate'][0]:.4f} ms, "
+          f"{dev['split']['integrate'][1]:.1f} ops) and maintain "
+          f"({dev['split']['maintain'][0]:.4f} ms, "
+          f"{dev['split']['maintain'][1]:.1f} ops); on {gpu_line}")
     return {**{stage: per_stage[stage] / n_timed for stage in engine.STAGES},
             "device_ms": dev["device_ms"], "device_ops": dev["device_ops"],
             "device_split": dev["split"]}
@@ -1782,7 +2002,8 @@ def _scan_run(cfg, poses, depth, color, device, mgr, gpu_line, label,
              if name in ("preprocess", "alloc_candidates")
              and hasattr(fn, attr)]
     hashk = [(name, fn, attr) for name, fn, attr in _counters()
-             if name in ("hash_insert", "hash_delete") and hasattr(fn, attr)]
+             if name in ("hash_insert", "hash_delete", "hash_gc")
+             and hasattr(fn, attr)]
     for _, fn, attr in front + hashk:
         setattr(fn, attr, 0)
     fused_integrate.launches = 0
@@ -1869,26 +2090,28 @@ def _sorted_tris(tris):
 
 def _hold_scan_hash(calls, gpu_line):
     """The hash kernels on the first streamed scan run's recorded calls:
-    held on every call, then timed at frame 48's insert and GC delete and
-    at the first stream-in insert and the first stream-out delete that
-    frees rows. Returns (the counts held, the timings)."""
+    held on every call, then timed at frame 48's insert and GC and at the
+    first stream-in insert and the first stream-out delete that frees
+    rows. Returns (the counts held, the timings)."""
     import torch
     held = hold_hash_calls(calls, "hash kernels (large scan, streamed)")
     step_ins = [c for c in calls if c["kind"] == "insert"
                 and c["args"][8] == 1]
     stream_ins = [c for c in calls if c["kind"] == "insert"
                   and c["args"][8] > 1]
-    gc = [c for c in calls if c["kind"] == "delete"
-          and c["args"][6].numel() != 4096]
+    gc = [c for c in calls if c["kind"] == "gc"]
     out_del = [c for c in calls if c["kind"] == "delete"
                and c["args"][6].numel() == 4096
                and bool(torch.any(c["args"][7]))]
-    if len(step_ins) != LS_OUT + LS_BACK or not stream_ins or not out_del:
+    if len(step_ins) != LS_OUT + LS_BACK or len(gc) != LS_OUT + LS_BACK \
+            or not stream_ins or not out_del:
         raise RuntimeError(f"large scan: {len(step_ins)} step inserts, "
-                           f"{len(stream_ins)} stream-in inserts, "
-                           f"{len(out_del)} stream-out deletes that free rows")
-    times = time_hash(step_ins[LS_SYNC_FRAME], gc[LS_SYNC_FRAME],
-                      f"large scan, frame {LS_SYNC_FRAME}", gpu_line)
+                           f"{len(gc)} GC calls, {len(stream_ins)} stream-in "
+                           f"inserts, {len(out_del)} stream-out deletes that "
+                           f"free rows")
+    times = time_hash(step_ins[LS_SYNC_FRAME], None,
+                      f"large scan, frame {LS_SYNC_FRAME}", gpu_line,
+                      gc=gc[LS_SYNC_FRAME])
     stream = time_hash(stream_ins[0], out_del[0],
                        "large scan, the first stream-in and stream-out",
                        gpu_line)
@@ -1943,11 +2166,12 @@ def phase_large_scan(device, gpu_line):
                 raise RuntimeError(f"large scan {label}: launches "
                                    f"{r['launches']}, expected {n_frames} "
                                    f"of each kernel")
-            # an insert and a GC delete a frame; streamed, a stream-out
-            # delete a frame and the stream-in inserts
+            # an insert and a GC a frame; streamed, a stream-out delete a
+            # frame and the stream-in inserts
             h = r["hash"]
             print(f"large scan {label}: hash kernel launches {h}")
-            if h and (h["hash_delete"] != n_frames * (2 if streamed else 1)
+            if h and (h["hash_delete"] != (n_frames if streamed else 0)
+                      or h.get("hash_gc", n_frames) != n_frames
                       or h["hash_insert"] < n_frames
                       or (not streamed and h["hash_insert"] != n_frames)):
                 raise RuntimeError(f"large scan {label}: hash launches {h}")
@@ -2250,6 +2474,9 @@ def _counters():
              "launches"),
             ("hash_insert", getattr(ht, "allocate", None), "launches"),
             ("hash_delete", getattr(ht, "delete_blocks", None), "launches"),
+            ("hash_gc", getattr(ht, "garbage_collect", None), "launches"),
+            ("plain garbage_collect on CUDA",
+             getattr(integ, "garbage_collect_plain", None), "cuda_calls"),
             ("plain allocate on CUDA", getattr(bm, "allocate_plain", None),
              "cuda_calls"),
             ("plain delete_blocks on CUDA",
@@ -2548,6 +2775,36 @@ def hold_march(map_state, call, label, use_gradients):
     return int(hk.found.sum()), max(_max_abs(x, y) for x, y in pairs)
 
 
+def hold_wide_bounds(map_state, call):
+    """The bounds kernel on a grid past its shared-memory path (1-pixel
+    tiles: 76,800 tiles at 320x240, over ``kMaxSharedTiles``) at one
+    recorded render, against ``ray_bounds_plain`` bit for bit, its
+    accumulators back at their identity. Returns the max abs error."""
+    import dataclasses
+    import torch
+    from voxelhashing_tpu_torch import geometry as geom
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    cam, cfg = call["cam"], call["cfg"]
+    rc = dataclasses.replace(call["rc"], splat_tile=1)
+    ty, tx = rm.tiles(cam, rc)
+    view = geom.invert_rigid(call["pose"])
+    args = (map_state.block_key, call["active_idx"], call["active_mask"],
+            view, cam, cfg, rc)
+    saved = _counts()
+    got, ref = rm.ray_bounds(*args), rm.ray_bounds_plain(*args)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    same = all(_bits_equal(x, y) for x, y in zip(got, ref))
+    restored = bool((rm.reserve(map_state.block_key.device, ty * tx)
+                     == rm.IDENTITY).all())
+    print(f"ray bounds, {ty} x {tx} = {ty * tx} tiles (past the shared "
+          f"path's 6144): bit-equal {same}, accumulators restored "
+          f"{restored}")
+    if not (same and restored and ty * tx > 6144):
+        raise RuntimeError("the bounds kernel on a wide grid disagrees")
+    return max(_max_abs(x, y) for x, y in zip(got, ref))
+
+
 def phase_march_edge_bank(device):
     """Both march kernels held bit for bit on ``raymarch.edge_bank``, with
     gradients and without. Returns the max abs error (0 when bit-equal)."""
@@ -2569,11 +2826,12 @@ def phase_march_edge_bank(device):
 
 def time_march(map_state, call, label, gpu_line):
     """Both march kernels' times on one recorded render: bare (``launch``
-    on prepared arguments, ``_bare_ms``; the bounds' fill included), an
-    empty kernel's node timed alike, the wrapper and the plain version
-    (``_median_ms``); the bytes they must move and the operations they
-    must do on this call's data (``raymarch.work_counts``,
-    ``bounds_work``) and the bound they give. Returns {"raymarch",
+    on prepared arguments, ``_bare_ms``), an empty kernel's node timed
+    alike, the wrapper and the plain version (``_median_ms``); the bytes
+    they must move and the operations they must do on this call's data
+    (``raymarch.work_counts``, ``bounds_work``) and the bound they give;
+    the nodes of one bounds call through its wrapper captured into a CUDA
+    graph (the kernel alone, no fill). Returns {"raymarch",
     "ray_bounds"}."""
     import torch
     from voxelhashing_tpu_torch import geometry as geom
@@ -2591,7 +2849,12 @@ def time_march(map_state, call, label, gpu_line):
     rm.launch(m_args)
     torch.cuda.synchronize()
     n_active, writes = rm.bounds_work(bk, aidx, mask, view, cam, cfg, rc)
-    out["ray_bounds"] = {
+    n_ops = _graph_node_count(lambda: rm.ray_bounds(bk, aidx, mask, view,
+                                                    cam, cfg, rc))
+    if n_ops != 1:
+        raise RuntimeError(f"a bounds call captured {n_ops} graph nodes, "
+                           f"expected its one kernel and no fill")
+    out["ray_bounds"] = {"graph_nodes": n_ops,
         "ms": _bare_ms(lambda: rm.launch(b_args)),
         "wrapper_ms": _median_ms(lambda: rm.ray_bounds(bk, aidx, mask, view,
                                                        cam, cfg, rc)),
@@ -2640,6 +2903,9 @@ def time_march(map_state, call, label, gpu_line):
                      f"sample steps in the longest warp (one thread a ray "
                      f"on this map: {r['thread_issued_per_ray']:.3f} and "
                      f"{r['thread_chain']})")
+        else:
+            extra = (f"; a call captured into a CUDA graph is "
+                     f"{r['graph_nodes']} node, no fill")
         print(f"{key} timing ({label}): bare {r['ms']:.4f} ms "
               f"({BARE_LAUNCHES} launches in one CUDA graph), an empty "
               f"kernel's node {empty:.4f} ms; wrapper {r['wrapper_ms']:.4f} "
@@ -2666,7 +2932,7 @@ def phase_march(map_state, calls, gpu_line):
           f"frame-10 map, with and without gradients ({min(hits)}-"
           f"{max(hits)} hits a render)")
     err = max(phase_march_edge_bank(map_state.sdf.device),
-              *(h[1] for h in held))
+              *(h[1] for h in held), hold_wide_bounds(map_state, calls[11]))
     out = time_march(map_state, calls[11], "phase 6, frame 11's render",
                      gpu_line)
     for r in out.values():
@@ -3096,10 +3362,13 @@ def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
     _zero_counts()
     counted = collectives.all_reduce
     counted.calls, counted.seconds = 0, 0.0
+    hash_calls = []
     for i in range(n_frames):
         c0, s0 = counted.calls, counted.seconds
         ev[i][0].record()
-        state, pose = step(state, depth[i], color[i])
+        with (_recorded_hash_calls(hash_calls) if hold
+              else contextlib.nullcontext()):
+            state, pose = step(state, depth[i], color[i])
         ev[i][1].record()
         reduces.append(counted.calls - c0)
         reduce_s.append(counted.seconds - s0)
@@ -3126,6 +3395,16 @@ def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
                     f"own them ({n_foreign})")
     torch.cuda.synchronize()
     counts = _counts()
+    if hold:
+        # every rank's hash calls against the plain versions (GC on the
+        # rank's shard, every frame)
+        held = hold_hash_calls(hash_calls, f"hash kernels ({label}, rank "
+                                           f"{me})")
+        if held.get("gc", 0) != n_frames:
+            raise RuntimeError(f"{label}, rank {me}: {held.get('gc', 0)} "
+                               f"GC calls held, expected {n_frames}")
+        _set_counts(counts)
+    del hash_calls
     ate = evaluation.ate_rmse([p.cpu().numpy() for p in est], poses,
                               align=False)
     timed = range(2, n_frames)
@@ -3540,6 +3819,24 @@ def _clone_dense(st):
                        tracking_lost=st.tracking_lost.clone())
 
 
+def _graph_node_count(fn):
+    """The nodes of a CUDA graph that captures one call of ``fn`` (which
+    launches on the current stream and allocates only from the graph's
+    pool); its launch counts are restored."""
+    import torch
+    from voxelhashing_tpu_torch import engine
+    saved = _counts()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    return engine._graph_nodes(graph)
+
+
 def _device_ops(fn):
     """(device ops, their device time in ms) of one call of ``fn``
     (torch.profiler)."""
@@ -3950,6 +4247,7 @@ def _graph_vs_eager(device, gpu_line):
     e1, e2, g = (engine.create(cfg, device=device) for _ in range(3))
     step = engine.make_step(cfg, donate=True)
     ev_e, ev_g, per_frame, updates, passes = [], [], [], [], []
+    hash_calls = []
     ptrs, det_diff, graph_diff, sites = None, [], [], None
     torch.cuda.synchronize()
     _zero_counts()
@@ -3961,7 +4259,7 @@ def _graph_vs_eager(device, gpu_line):
                else contextlib.nullcontext())
         ctx2 = (_recorded_passes(passes) if i == GRAPH_SYNC_FRAME
                 else contextlib.nullcontext())
-        with ctx, ctx2:
+        with ctx, ctx2, _recorded_hash_calls(hash_calls):
             e2, d2 = engine.step(e2, depth[i], color[i], cfg)
         c0 = _counts()
         ctx = (_sync_sites() if i == GRAPH_SYNC_FRAME
@@ -3984,6 +4282,14 @@ def _graph_vs_eager(device, gpu_line):
                         for x, y in zip(d1, dg))):
             graph_diff.append(i)
     torch.cuda.synchronize()
+    # the eager step's GC (and insert) calls against the plain versions:
+    # the graphs equal that step frame for frame
+    held = hold_hash_calls(hash_calls, "hash kernels (phase 10 (a), the "
+                                       "second eager run)")
+    if held.get("gc", 0) != N_FRAMES:
+        raise RuntimeError(f"phase 10 (a): {held.get('gc', 0)} GC calls "
+                           f"held, expected {N_FRAMES}")
+    del hash_calls
     timed = range(2, N_FRAMES)
     steady = [i for i in timed if i != cfg.map.gc_starve_interval]
     out = {"fps_eager": _fps(ev_e, timed), "fps_graph": _fps(ev_g, timed),
@@ -4643,7 +4949,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
     names = ("preprocess", "alloc_candidates", "fused_integrate",
              "splat_zbuf", "icp_update", "icp_associate_linearize",
              "icp_associate", "icp_linearize", "solve6", "hash_insert",
-             "hash_delete")
+             "hash_gc", "hash_delete")
     counts = {k: sum(f[k] for f in a["per_frame"]) for k in a["per_frame"][0]}
     every = {k: [f[k] for f in a["per_frame"]] for k in names}
     print(f"graph (a): {N_FRAMES} frames of make_step(donate=True) against "
@@ -4762,6 +5068,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
             or _launches_off(scan["counts"], _march_launches(0, 0)) \
             or scan["counts"]["hash_insert"] < LS_OUT \
             or scan["counts"]["hash_delete"] < LS_OUT \
+            or scan["counts"]["hash_gc"] != LS_OUT \
             or scan["counts"]["solve6"]:
         fails.append(f"large scan: {scan}")
     if not mnt["compactions"] or mnt["diff"] or not mnt["pool_bytes"]:
@@ -4973,7 +5280,7 @@ def main() -> int:
     del calls
     hashed = phase_hash(cfg, snap.map, hash_calls, gpu_line)
     del hash_calls
-    phase_stages(cfg, depth, color, device, gpu_line)
+    stages = phase_stages(cfg, depth, color, device, gpu_line)
     del snap, est, depth, color
     scan = phase_large_scan(device, gpu_line)
     rgbd = {mode: phase_rgbd(mode, device, gpu_line)
@@ -4992,7 +5299,8 @@ def main() -> int:
              "icp_linearize_color", "icp_associate_linearize",
              "icp_associate_linearize_color", "preprocess",
              "alloc_candidates",
-             "hash_insert", "hash_delete", "ray_bounds", "raymarch")
+             "hash_insert", "hash_gc", "hash_delete", "ray_bounds",
+             "raymarch")
     by_path = {name: {"step": launches.get(name, 0),
                       **{f"{mode}_rgbd": r["counts"][name]
                          for mode, r in rgbd.items()},
@@ -5159,32 +5467,50 @@ def main() -> int:
                           "bound_ms", "bound_by")}
         kernels.append(entry)
     # the map's hash writes (one insert launch a round of allocation, one
-    # delete a GC call or a stream-out); no TPU kernel: the XLA allocate of
-    # voxelhashing_tpu/blockmap.py:187 (_allocate_unique :264, _insert_new
-    # :343) and its delete_blocks :564
-    for name, source, replaces, globals_, extra in (
+    # GC launch an integrated frame, one list delete a stream-out); no TPU
+    # kernel: the XLA allocate of voxelhashing_tpu/blockmap.py:187
+    # (_allocate_unique :264, _insert_new :343), its delete_blocks :564
+    # and the GC of voxelhashing_tpu/integrate.py:532 that calls it. The
+    # list delete is timed at phase 1's frame 11 on the GC call's short
+    # list and at the scan's first stream-out; its launches are the
+    # streamed scan run's stream-outs (GC no longer launches it)
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "bytes", "operations", "work")
+    for name, source, replaces, globals_ in (
             ("hash_insert", "hash_alloc", "voxelhashing_tpu/blockmap.py:187",
-             ["hash_alloc_kernel"], "stream_in"),
+             ["hash_alloc_kernel"]),
+            ("hash_gc", "hash_delete", "voxelhashing_tpu/integrate.py:532",
+             ["hash_delete_kernel<true>"]),
             ("hash_delete", "hash_delete", "voxelhashing_tpu/blockmap.py:564",
-             ["hash_delete_kernel"], "stream_out")):
+             ["hash_delete_kernel<false>"])):
         t = hashed[name]
-        keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_share", "bytes", "operations", "work")
-        if name == "hash_insert":
-            keys += ("stage",)
-        kernels.append({
+        streamed = scan["launches"]["streamed"]
+        entry = {
             "name": name, "route": "cuda",
             "source": f"voxelhashing_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": by_path[name]["step"],
-            "max_abs_err": 0.0, **{k: t[k] for k in keys},
+            "replaces": replaces,
+            "launches": (streamed[name] if name == "hash_delete"
+                         else by_path[name]["step"]),
+            "max_abs_err": 0.0,
+            **{k: t[k] for k in keys + (("stage",) if name == "hash_insert"
+                                        else ())},
             "library_ms": None, "empty_node_ms": t["empty_ms"],
             "per_frame": by_path[name]["step"] / N_FRAMES,
             "held": {"phase1": t["held"], "large_scan": scan["hash"]["held"]},
-            "large_scan": {k: scan["hash"]["step"][name][k] for k in keys},
-            extra: {k: scan["hash"]["stream"][name][k] for k in keys},
             "large_scan_launches": {k: v[name]
                                     for k, v in scan["launches"].items()},
-            "kernels": globals_, "launches_by_path": by_path[name]})
+            "kernels": globals_, "launches_by_path": by_path[name]}
+        if name != "hash_delete":
+            entry["large_scan"] = {k: scan["hash"]["step"][name][k]
+                                   for k in keys}
+        if name != "hash_gc":
+            entry["stream_in" if name == "hash_insert" else "stream_out"] = {
+                k: scan["hash"]["stream"][name][k] for k in keys}
+        if name == "hash_gc":
+            entry["gc_stage"] = {"device_ms": stages["device_split"]["gc"][0],
+                                 "device_ops":
+                                     stages["device_split"]["gc"][1]}
+        kernels.append(entry)
     # the march renderer (one bounds launch and one march launch a
     # rendered frame with the march); no TPU kernel: the XLA march of
     # voxelhashing_tpu/raycast.py (ray_interval_splat :148, render_march
@@ -5210,6 +5536,8 @@ def main() -> int:
                  "bytes": t["bytes"], "operations": t["operations"],
                  "work": t["work"],
                  "per_frame": by_path[name]["march_rgbd"] / N_FRAMES,
+                 **({"graph_nodes": t["graph_nodes"]}
+                    if name == "ray_bounds" else {}),
                  "kernels": globals_, "launches_by_path": by_path[name]}
         if name == "raymarch":
             entry.update({k: t[k] for k in (
@@ -5271,6 +5599,9 @@ def main() -> int:
           f"alloc_candidates_ms={front['alloc_candidates']['ms']:.4f} "
           f"hash_insert_ms={hashed['hash_insert']['ms']:.4f} "
           f"hash_delete_ms={hashed['hash_delete']['ms']:.4f} "
+          f"hash_gc_ms={hashed['hash_gc']['ms']:.4f} "
+          f"gc_stage_device_ms={stages['device_split']['gc'][0]:.4f} "
+          f"gc_stage_device_ops={stages['device_split']['gc'][1]:.1f} "
           f"graph_wall_s={graph['wall_s']:.1f}; on {gpu_line}")
     print(f"card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))

@@ -336,6 +336,170 @@ def test_kernel_model_matches_plain(case):
                                       getattr(ref, f).numpy(), err_msg=f)
 
 
+@functools.lru_cache(maxsize=None)
+def _gc_bank():
+    return {e["case"]: e for e in ht.gc_bank()}
+
+
+_FLAG_A, _FLAG_P, _COUNT = 1 << 62, 2 << 62, (1 << 31) - 1
+
+
+def _model_gc(st, idx, mask, min_sdf, max_w, cfg, rng, rows):
+    """``csrc/hash_delete.cu``'s GC entry in numpy: CTAs of ``rows`` rows
+    (the kernel's ``GC_ROWS``, or fewer: more CTAs) in ticket order, each
+    counting its culled and freed rows; each CTA's look-back over 32
+    predecessors at a time, whose status words it finds as they may stand
+    (each with at least its own counts, a random third with their prefix,
+    none for the last CTA, CTA 0 always with its prefix), summed as the
+    card sums them (two 31-bit counts in one 64-bit word); a CTA whose
+    culled count before it is below dcap keeps its culled rows of rank <
+    dcap, pushes the freed ones at n_free + the freed rows before them
+    and tombstones their slots; the CTA that holds the cut (or the last)
+    writes the counters; each kept row is zeroed once, by its owner or by
+    one of the CTAs after it (``GC_SPREAD`` in all). Returns the new
+    fields and the model's counts."""
+    m = idx.size
+    grid = -(-m // rows)
+    t = np.float32(ht.gc_threshold(cfg))
+    with np.errstate(invalid="ignore"):
+        cull = mask & ((min_sdf >= t) | (max_w == 0.0))
+    ok = (idx >= 0) & (idx < cfg.num_blocks)
+    freed = cull & ok & (st.block_key[np.where(ok, idx, 0)] != INVALID_KEY)
+    dcap = min(cfg.gc_delete_cap, m)
+    c = [int(cull[b * rows:(b + 1) * rows].sum()) for b in range(grid)]
+    f = [int(freed[b * rows:(b + 1) * rows].sum()) for b in range(grid)]
+    inc_c, inc_f = np.cumsum(c), np.cumsum(f)
+    tk, bk = st.table_key.copy(), st.block_key.copy()
+    surf, fs = st.surf.copy(), st.free_stack.copy()
+    n_free, writers = int(st.n_free), []
+    stats = {"windows": 0, "cut_inside": False, "kept": 0}
+    ctas = []                           # (below, f_before, own slots)
+    for b in range(grid):
+        # the last CTA finds only its predecessors' own counts (as when
+        # every CTA published at once): it looks back to CTA 0
+        words = [_FLAG_P | (int(inc_c[k]) << 31) | int(inc_f[k])
+                 if k == 0 or (b < grid - 1 and rng.random() < 1 / 3)
+                 else _FLAG_A | (c[k] << 31) | f[k] for k in range(b)]
+        total, j, windows = 0, b - 1, 0
+        while b > 0:
+            win = [words[j - ln] if j - ln >= 0 else _FLAG_P
+                   for ln in range(32)]
+            pre = [w >> 62 == 2 for w in win]
+            stop = pre.index(True) if any(pre) else 31
+            total += sum(w & ~(3 << 62) for w in win[:stop + 1])
+            windows += 1
+            if any(pre):
+                break
+            j -= 32
+        stats["windows"] = max(stats["windows"], windows)
+        c_before, f_before = (total >> 31) & _COUNT, total & _COUNT
+        assert (c_before, f_before) == (int(inc_c[b]) - c[b],
+                                        int(inc_f[b]) - f[b])
+        if c_before >= dcap:
+            ctas.append((False, f_before, range(0)))
+            continue
+        lc = lf = 0
+        for e in range(b * rows, min((b + 1) * rows, m)):
+            if freed[e] and c_before + lc < dcap:
+                key = st.block_key[idx[e]]
+                for r in range(cfg.max_probes):
+                    slot = ht.probe_slots(np.array([key]), r,
+                                          cfg.table_size)[0]
+                    if st.table_key[slot] == key:
+                        tk[slot] = ht.TOMBSTONE
+                        break
+                bk[idx[e]], surf[idx[e]] = INVALID_KEY, False
+                fs[n_free + f_before + lf] = idx[e]
+                lf += 1
+            lc += bool(cull[e])
+        stats["kept"] += lf
+        ctas.append((True, f_before, range(f_before, f_before + lf)))
+        if c_before + c[b] >= dcap or b == grid - 1:
+            writers.append(f_before + lf)
+            stats["cut_inside"] = c_before < dcap < c_before + c[b]
+    assert len(writers) == 1
+    n = writers[0]
+    assert n == stats["kept"]
+    # the zeroing: owner j's kept row t by CTA j + t % S_j, S_j =
+    # min(GC_SPREAD, G - j); CTA z reads the done words of the CTAs
+    # z - GC_SPREAD + 1 .. z - 1 only, so each row's zeroer must lie
+    # within that window of its owner
+    zeroed = np.zeros(n, np.int64)
+    by = np.zeros(grid, np.int64)
+    for owner, (_, _, own) in enumerate(ctas):
+        spread = min(ht.GC_SPREAD, grid - owner)
+        for t, k in enumerate(own):
+            z = owner + t % spread
+            assert owner <= z < grid and z - owner < ht.GC_SPREAD
+            zeroed[k] += 1
+            by[z] += 1
+    assert (zeroed == 1).all()
+    stats["most_zeroed"] = int(by.max(initial=0))
+    stats.update(culled=int(cull.sum()), dcap=dcap, grid=grid)
+    return {"table_key": tk, "block_key": bk, "surf": surf,
+            "free_stack": fs, "n_free": n_free + n,
+            "n_tombstones": int(st.n_tombstones) + n}, stats
+
+
+@pytest.mark.parametrize("rows", [ht.GC_ROWS, 256])
+@pytest.mark.parametrize("case", ht.GC_CASES)
+def test_gc_kernel_model_matches_plain(case, rows):
+    """The GC entry's order (the per-CTA counts, the look-back, the cap,
+    each CTA's pushes and the rows' zeroing spread over each owner and the
+    CTAs after it, each row once), modelled in numpy with the kernel's
+    CTAs and with
+    256-row ones (46 CTAs: a look-back over more than one window), equals
+    ``integrate.garbage_collect_plain`` bit for bit on each GC bank call,
+    and the call reaches its edge."""
+    from voxelhashing_tpu_torch import integrate as tint
+    e = _gc_bank()[case]
+    ts, idx, mask, ms, mw = ht.gc_inputs(e, "cpu")
+    st = type(ts)(*(t.view(torch.int16).numpy() if t.dtype == torch.bfloat16
+                    else t.numpy() for t in ts))
+    got, stats = _model_gc(st, e["active_idx"], e["active_mask"],
+                           e["min_sdf"], e["max_w"], e["cfg"],
+                           np.random.default_rng(len(case)), rows)
+    ref = tint.garbage_collect_plain(ts, idx, mask, e["cfg"],
+                                     cached_stats=(ms, mw))
+    for f, v in got.items():
+        np.testing.assert_array_equal(np.asarray(v), getattr(ref, f).numpy(),
+                                      err_msg=f)
+    freed = int(ref.n_free) - int(ts.n_free)
+    if case != "gc_short_list" and rows == 256:
+        assert stats["grid"] > 33 and stats["windows"] >= 2
+    if case == "gc_nothing":
+        assert stats["culled"] == freed == 0
+    if case == "gc_exact_cap":
+        assert stats["culled"] == stats["dcap"] == freed
+    if case == "gc_over_cap":
+        assert stats["culled"] > stats["dcap"] == freed
+        assert stats["cut_inside"]
+    if freed >= 2 * stats["grid"] and stats["grid"] > 1:
+        # the kept rows' zeroing is spread: no CTA zeroes them all
+        assert stats["most_zeroed"] < freed
+    if case == "gc_free_rows":
+        assert 0 < freed < stats["culled"] < stats["dcap"]
+    if case == "gc_short_list":
+        assert stats["dcap"] == idx.numel() < e["cfg"].gc_delete_cap
+        assert 0 < freed < stats["culled"]
+    t = np.float32(ht.gc_threshold(e["cfg"]))
+    hit = e["active_mask"] & (e["min_sdf"] == t) & (e["max_w"] > 0)
+    below = e["active_mask"] & (e["min_sdf"] == np.nextafter(t, F0)) \
+        & (e["max_w"] > 0)
+    if case == "gc_threshold_ulps":
+        kept = ref.block_key.numpy()[e["active_idx"]] != INVALID_KEY
+        assert hit.sum() > 0 and not kept[hit].any()
+        assert below.sum() > 0 and kept[below].all()
+    if case == "gc_negative_zero":
+        nz = e["active_mask"] & (e["max_w"] == 0) & np.signbit(e["max_w"]) \
+            & (e["min_sdf"] < t)
+        kept = ref.block_key.numpy()[e["active_idx"]] != INVALID_KEY
+        assert nz.sum() > 0 and not kept[nz].any()
+
+
+F0 = np.float32(0)
+
+
 # ---------------------------------------------------------------------------
 # The wrapper, its bound and its source
 # ---------------------------------------------------------------------------
@@ -359,6 +523,31 @@ def test_wrappers_refuse_other_devices():
         tbm.allocate(st, keys, cfg)
     with pytest.raises(ValueError, match="no kernel"):
         tbm.delete_blocks(st, keys, mask, cfg)
+
+
+def test_gc_wrapper_refuses_what_the_kernel_cannot_take():
+    """The GC entry's checks, before anything is launched: stats of
+    another type or length, an empty active list, a cap below 1."""
+    cfg = ht.SMALL
+    st = tbm.create(cfg, "cpu")
+    idx = torch.zeros(8, dtype=torch.int32)
+    mask = torch.ones(8, dtype=torch.bool)
+    stats = torch.zeros(8, dtype=torch.float32)
+
+    def call(idx=idx, mask=mask, ms=stats, mw=stats, cfg=cfg):
+        ht.prepare_gc(st.table_key, st.block_key, st.surf, st.free_stack,
+                      st.n_free, st.n_tombstones, st.sdf, st.weight,
+                      st.color, idx, mask, ms, mw, cfg)
+
+    with pytest.raises(ValueError, match="min_sdf"):
+        call(ms=stats.double())
+    with pytest.raises(ValueError, match="max_w"):
+        call(mw=stats[:4])
+    with pytest.raises(ValueError, match="empty active list"):
+        call(idx=idx[:0], mask=mask[:0], ms=stats[:0], mw=stats[:0])
+    with pytest.raises(ValueError, match="gc_delete_cap"):
+        call(cfg=dataclasses.replace(cfg, gc_delete_cap=0))
+    assert ht.garbage_collect.launches == 0
 
 
 def test_cpu_path_launches_nothing():
@@ -399,6 +588,26 @@ def test_operations_hand_count():
     assert ht.HASH_OPS == 23 and ht.INSERT_OPS == 10
     assert ht.operations(ht.InsertWork(5, 4, 3)) == 23 * 4 + 10 * 3
     assert ht.operations(ht.DeleteWork(8, 2)) == 2 * 8 + 25 * 2
+
+
+def test_gc_work_and_bound_by_hand():
+    """GC: 9 B an active row (mask, two stats), 8 B a culled row (index and
+    pool key), 4,113 B a freed row, 16 B of counters; 4 operations an
+    active row, 2 a culled one, 25 a freed one. The counts on a list: the
+    culled rows past the cap and the culled free rows are not freed."""
+    assert ht.bytes_moved(ht.GcWork(32768, 40, 30)) == \
+        9 * 32768 + 8 * 40 + 4113 * 30 + 16
+    assert ht.operations(ht.GcWork(10, 4, 2)) == 4 * 10 + 2 * 4 + 25 * 2
+    cfg = dataclasses.replace(ht.SMALL, gc_delete_cap=3)
+    t = np.float32(ht.gc_threshold(cfg))
+    bk = torch.tensor([5, INVALID_KEY, 7, 9, 11, 13], dtype=torch.int32)
+    idx = torch.tensor([0, 1, 2, 3, 4, 5], dtype=torch.int32)
+    mask = torch.tensor([True, True, True, True, True, False])
+    ms = torch.tensor([t, 2 * t, 0, t, 0, 2 * t], dtype=torch.float32)
+    mw = torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.float32)
+    # culled: rows 0-3 (row 5 is masked); the cap keeps 0-2; row 1 is free
+    assert ht.gc_work_counts(bk, idx, mask, ms, mw, cfg) == \
+        ht.GcWork(6, 4, 2)
 
 
 def test_work_counts_on_a_map():

@@ -13,6 +13,7 @@ XLA function's operations).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from voxelhashing_tpu.config import CameraConfig, MapConfig
 from voxelhashing_tpu.io.synthetic import Scene, make_trajectory, render_depth
 from voxelhashing_tpu_torch import blockmap as tbm, convert
 from voxelhashing_tpu_torch import integrate as tint
+from voxelhashing_tpu_torch.ops import hash_table as ht
 from voxelhashing_tpu_torch.ops.fused_integrate import fused_integrate
 
 CAM = CameraConfig(width=128, height=96, fx=104.0, fy=104.0, cx=63.5,
@@ -295,3 +297,68 @@ def test_bilinear_integrate_bit_equal_to_xla(setup_state, color_case):
                               jnp.asarray(pose), CAM, CFG, active_idx=aidx,
                               active_mask=mask)
         assert (np.asarray(near.color) != got["color"]).sum() > 1000
+
+
+@functools.lru_cache(maxsize=None)
+def _gc_bank():
+    return {e["case"]: e for e in ht.gc_bank()}
+
+
+def _map_fields_equal(ts, js, what):
+    for f in ("table_key", "table_val", "block_key", "free_stack", "n_free",
+              "n_tombstones", "dense_upto", "surf"):
+        np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                      np.asarray(getattr(js, f)),
+                                      err_msg=f"{what} {f}")
+    for f in ("sdf", "weight"):
+        np.testing.assert_array_equal(
+            getattr(ts, f).view(torch.int16).numpy(),
+            np.asarray(getattr(js, f)).view(np.int16), err_msg=f"{what} {f}")
+    np.testing.assert_array_equal(ts.color.numpy().view(np.uint32),
+                                  np.asarray(js.color),
+                                  err_msg=f"{what} color")
+
+
+@pytest.mark.parametrize("case", ht.GC_CASES)
+def test_garbage_collect_plain_matches_jax_on_the_gc_bank(case):
+    """GC with cached stats on ``hash_table.gc_bank``: the plain version and
+    the dispatching ``garbage_collect`` (the plain version on CPU tensors,
+    no launch) against JAX's jitted ``garbage_collect``, every field and
+    the pool rows bit for bit (nothing culled, exactly and over the cap,
+    culled free rows, a list shorter than the cap, the f32 threshold and
+    one ulp either side, NaN, infinite and -0.0 stats)."""
+    import jax
+    e = _gc_bank()[case]
+    cfg = e["cfg"]
+    jc = MapConfig(**dataclasses.asdict(cfg))
+    ts, idx, mask, ms, mw = ht.gc_inputs(e, "cpu")
+    snap = convert.map_state_to_numpy(ts)
+    js = jbm.MapState(**{k: jnp.asarray(v) for k, v in snap.items()})
+    ref = jax.jit(lambda s, i, m, a, b: jint.garbage_collect(
+        s, i, m, jc, cached_stats=(a, b)))(
+            js, jnp.asarray(e["active_idx"]), jnp.asarray(e["active_mask"]),
+            jnp.asarray(e["min_sdf"]), jnp.asarray(e["max_w"]))
+    n0 = (ht.garbage_collect.launches, ht.delete_blocks.launches,
+          tint.garbage_collect_plain.cuda_calls)
+    for fn in (tint.garbage_collect_plain, tint.garbage_collect):
+        st = convert.map_state_from_numpy(jbm.MapState(**snap), device="cpu")
+        got = fn(st, idx, mask, cfg, cached_stats=(ms, mw))
+        _map_fields_equal(got, ref, f"{case}, {fn.__name__}")
+    assert (ht.garbage_collect.launches, ht.delete_blocks.launches,
+            tint.garbage_collect_plain.cuda_calls) == n0
+    freed = int(ref.n_free) - int(snap["n_free"])
+    assert (freed == 0) == (case == "gc_nothing")
+
+
+def test_garbage_collect_refuses_other_devices():
+    """A map on neither the CPU nor CUDA is refused by the GC entry's
+    wrapper, never run by the plain version."""
+    e = _gc_bank()["gc_short_list"]
+    meta = torch.device("meta")
+    st = tbm.create(e["cfg"], meta)
+    idx = torch.zeros(8, dtype=torch.int32, device=meta)
+    stats = torch.zeros(8, dtype=torch.float32, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        tint.garbage_collect(st, idx, idx > 0, e["cfg"],
+                             cached_stats=(stats, stats))
+    assert ht.garbage_collect.launches == 0

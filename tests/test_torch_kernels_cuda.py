@@ -133,8 +133,9 @@ def test_bilinear_caps_variant_source():
 
 def test_kernel_probes_edits_apply():
     """Every edit ``kernel_probes`` makes finds its place once in the
-    march's, the insert's and the two front kernels' sources, and each
-    build differs from the source as it is (but "as is")."""
+    march's (and the tile bounds'), the insert's, GC's and the two front
+    kernels' sources, and each build differs from the source as it is (but
+    "as is")."""
     from voxelhashing_tpu_torch import kernel_probes as kp
     march = (_build.CSRC / "raymarch.cu").read_text()
     insert = (_build.CSRC / "hash_alloc.cu").read_text()
@@ -152,6 +153,15 @@ def test_kernel_probes_edits_apply():
         assert bool(edits or launch) == (name != "as is"), name
     assert kp.front_clocked(pre, "preprocess").count("clock64()") == 5
     assert kp.front_clocked(cand, "candidates").count("clock64()") == 5
+    delete = (_build.CSRC / "hash_delete.cu").read_text()
+    for name, edits, _, launch in kp.BOUNDS_EDITS:
+        # the fill is undone in the launch alone and keeps the source
+        assert (kp._edit(march, edits) == march) == (not edits), name
+        assert bool(edits or launch) == (name != "as is"), name
+    for name, edits, _ in kp.GC_EDITS:
+        assert (kp._edit(delete, edits) == delete) == (name == "as is"), name
+    assert kp.bounds_clocked(march).count("clock64()") == 6
+    assert kp.gc_clocked(delete).count("clock64()") == 7
 
 
 def test_prime_runs_every_occupancy_query(monkeypatch):
@@ -169,6 +179,41 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
     assert len(called) == 10
+
+
+def _c_entry_points():
+    """{name: [ctypes type, ...]} of every ``extern "C"`` function of
+    ``csrc/*.cu`` from its declaration (a pointer, int, float or long
+    long a parameter)."""
+    import ctypes
+    import re
+    kinds = (("*", ctypes.c_void_p), ("long long", ctypes.c_longlong),
+             ("float", ctypes.c_float), ("int", ctypes.c_int))
+    out = {}
+    for src in _build.sources():
+        text = src.read_text()
+        macros = {m: body.replace("\\\n", " ") for m, body in re.findall(
+            r"#define (VH_\w+_ARGS)((?:.*\\\n)*.*)", text)}
+        for name, params in re.findall(
+                r'extern "C" int (vh_\w+)\(([^)]*)\)', text):
+            params = macros.get(params.strip(), params)
+            types = []
+            for param in filter(None, (q.strip() for q in params.split(","))):
+                types.append(next(t for k, t in kinds if k in param))
+            out[name] = types
+    return out
+
+
+def test_signatures_match_the_c_entry_points():
+    """Every entry point ``_build`` binds takes the argument types its C
+    declaration names, in order (a missing or misread one makes ctypes
+    refuse the call, or cut a pointer, only on the card)."""
+    decl = _c_entry_points()
+    bound = {fn: types for fns in _build._SIGNATURES.values()
+             for fn, types in fns.items()}
+    assert {"vh_hash_gc", "vh_hash_delete", "vh_ray_bounds"} <= set(bound)
+    for fn, types in bound.items():
+        assert decl[fn] == list(types), fn
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -1030,10 +1075,82 @@ def test_hash_kernels_bit_equal_on_the_edge_bank(cuda):
 
 
 @pytest.mark.cuda
+def test_gc_kernel_bit_equal_on_the_gc_bank(cuda):
+    """``hash_delete_kernel<true>`` (GC's free pass, one launch) against
+    ``integrate.garbage_collect_plain`` on every ``hash_table.gc_bank``
+    call, with the stats as two tensors and as kernel A's strided
+    columns, and on a starve frame's re-read stats, from one state on the
+    card: every field of the map and the whole pools bit for bit; its
+    status words and ticket back at 0 after each launch."""
+    from voxelhashing_tpu_torch.ops import hash_table as ht
+    for e in ht.gc_bank():
+        st, idx, mask, ms, mw = ht.gc_inputs(e, cuda)
+        n0 = (ht.garbage_collect.launches, ht.delete_blocks.launches)
+        got = integ.garbage_collect(_clone(st), idx, mask, e["cfg"],
+                                    cached_stats=(ms, mw))
+        ref = integ.garbage_collect_plain(_clone(st), idx, mask, e["cfg"],
+                                          cached_stats=(ms, mw))
+        torch.cuda.synchronize()
+        assert (ht.garbage_collect.launches,
+                ht.delete_blocks.launches) == (n0[0] + 1, n0[1]), e["case"]
+        assert not _map_fields_equal(got, ref), (e["case"],
+                                                 _map_fields_equal(got, ref))
+        res = ht.reserve(cuda, e["cfg"])
+        assert not res.status.any() and not res.ticket.any(), e["case"]
+        # the stats as kernel A gives them: the columns of one [M, 2]
+        pair = torch.stack([ms, mw], 1)
+        got = integ.garbage_collect(_clone(st), idx, mask, e["cfg"],
+                                    cached_stats=(pair[:, 0], pair[:, 1]))
+        assert not _map_fields_equal(got, ref), e["case"]
+        if e["case"] == "gc_over_cap":   # the stats re-read from the rows
+            got = integ.garbage_collect(_clone(st), idx, mask, e["cfg"])
+            ref = integ.garbage_collect_plain(_clone(st), idx, mask,
+                                              e["cfg"])
+            assert not _map_fields_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_ray_bounds_kernel_one_launch_and_its_accumulators(cuda):
+    """``ray_bounds_kernel`` bit-equal to ``ray_bounds_plain`` on the edge
+    bank's bounded cases and on a grid past the shared-memory path (1-pixel
+    tiles: 12,288 tiles), one launch a call with no fill, the persistent
+    accumulators back at their identity after each launch."""
+    from voxelhashing_tpu_torch.ops import raymarch as rm
+    from voxelhashing_tpu_torch.config import RaycastConfig
+    cases = [(e, rm.edge_inputs(e, cuda)) for e in rm.edge_bank()
+             if e["active"] is not None]
+    state, _, _, pose, aidx, n = _scene_state(cuda)
+    mask = torch.arange(aidx.shape[0], device=cuda) < n
+    for tile in (16, 1):
+        cases.append(({"case": f"scene, tile {tile}", "cam": CAM,
+                       "cfg": CFG, "rc": RaycastConfig(mode="march",
+                                                       splat_tile=tile)},
+                      (state, pose, aidx, mask)))
+    for e, (st, pose, aidx, mask) in cases:
+        view = geom.invert_rigid(pose)
+        n0 = rm.ray_bounds.launches
+        got = rm.ray_bounds(st.block_key, aidx, mask, view, e["cam"],
+                            e["cfg"], e["rc"])
+        ref = rm.ray_bounds_plain(st.block_key, aidx, mask, view, e["cam"],
+                                  e["cfg"], e["rc"])
+        torch.cuda.synchronize()
+        assert rm.ray_bounds.launches == n0 + 1
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                e["case"]
+        ty, tx = rm.tiles(e["cam"], e["rc"])
+        acc = rm.reserve(cuda, ty * tx)
+        assert bool((acc == rm.IDENTITY).all()), e["case"]
+    assert max(ty * tx for ty, tx in [rm.tiles(CAM, RaycastConfig(
+        mode="march", splat_tile=1))]) > 6144
+
+
+@pytest.mark.cuda
 def test_step_and_make_step_launch_the_hash_kernels(cuda):
     """``engine.step`` and ``engine.make_step`` on the card: one insert and
-    one delete launch an integrated frame (GC on), the same counts through
-    the graphs, and no plain version on the card."""
+    one GC launch (``hash_delete_kernel<true>``) an integrated frame (GC
+    on), no list delete, the same counts through the graphs, and no plain
+    version on the card."""
     from voxelhashing_tpu_torch import engine
     from voxelhashing_tpu_torch.ops import hash_table as ht
     cfg = _step_config()
@@ -1042,9 +1159,11 @@ def test_step_and_make_step_launch_the_hash_kernels(cuda):
                            device=cuda) for i, p in enumerate(poses)]
 
     def counts():
-        return (ht.allocate.launches, ht.delete_blocks.launches,
+        return (ht.allocate.launches, ht.garbage_collect.launches,
+                ht.delete_blocks.launches,
                 blockmap.allocate_plain.cuda_calls,
-                blockmap.delete_blocks_plain.cuda_calls)
+                blockmap.delete_blocks_plain.cuda_calls,
+                integ.garbage_collect_plain.cuda_calls)
 
     for run in ("eager", "graphed"):
         state = engine.create(cfg, initial_pose=poses[0], device=cuda)
@@ -1054,7 +1173,8 @@ def test_step_and_make_step_launch_the_hash_kernels(cuda):
             state, _ = (step(state, d, c) if step is not None
                         else engine.step(state, d, c, cfg))
         torch.cuda.synchronize()
-        assert [x - y for x, y in zip(counts(), c0)] == [6, 6, 0, 0], run
+        assert [x - y for x, y in zip(counts(), c0)] == [6, 6, 0, 0, 0,
+                                                         0], run
         if step is not None:
             step.close()
 

@@ -37,7 +37,7 @@ from voxelhashing_tpu_torch.ops.hash_table import probe_slots
 F = np.float32
 BOUNDED = [e for e in rm.EDGE_CASES
            if e in ("tilted_plane", "overflow_behind", "overflow_near",
-                    "no_active")]
+                    "no_active", "crowded_tile", "near_plane")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,6 +94,11 @@ def test_ray_bounds_plain_matches_jax_on_the_edge_bank(case):
         assert (t_max > 0).all()
     if case == "no_active":
         assert np.isposinf(t_min).all() and np.isneginf(t_max).all()
+    if case == "crowded_tile":           # every block on the first tile
+        assert np.isfinite(t_min[0, 0]) and np.isposinf(t_min[0, 1:]).all()
+    if case == "near_plane":             # a block's z range crosses 1e-3
+        assert (t_min == F(e["cam"].depth_min)).all()
+        assert (t_max >= F(0.11)).all()
 
 
 def _close(out_t, out_j):
@@ -456,6 +461,120 @@ def test_kernel_model_matches_march_plain(case, lanes):
     assert (work.issued, work.chain) == (n["issued"], n["chain"])
     if lanes == 1:
         assert n["issued"] == n["samples"] + 4 * n["crossed"] + 6 * n["found"]
+
+
+def _image(f):
+    i = np.asarray(f, np.float32).view(np.int32)
+    return np.where(i >= 0, i, i ^ np.int32(0x7FFFFFFF))
+
+
+def _from_image(i):
+    i = np.asarray(i, np.int32)
+    return np.where(i >= 0, i, i ^ np.int32(0x7FFFFFFF)).view(np.float32)
+
+
+def _model_bounds(e, st, pose, aidx, mask, rows=1, shared=True,
+                  matched=False):
+    """``ray_bounds_kernel`` in numpy: CTAs of 256 threads, ``rows`` active
+    rows a thread; each row's atomic min of its images into every tile of
+    its box (or, ``matched``, the order ``kernel_probes`` measures beside
+    it: each warp walks its rows' boxes in step, row-major, the lanes on
+    one tile reduced to one atomic); the overflow reduced over the warp;
+    the CTA's touched box flushed into the global accumulators
+    (``shared``; else every atomic is global); the last CTA's floats and
+    widening. Returns (t_min, t_max, counts)."""
+    cam, cfg, rc = e["cam"], e["cfg"], e["rc"]
+    r = rm.row_bounds(st.block_key, aidx, mask, geom.invert_rigid(pose),
+                      cam, cfg, rc)
+    r = rm.RowBounds(*(t.numpy() for t in r))
+    ty, tx = rm.tiles(cam, rc)
+    n, m = ty * tx, aidx.shape[0]
+    ident = np.int32(rm.IDENTITY)
+    lo, hi = _image(r.z_min), ~_image(r.z_max)
+    zc = np.where(r.z_min < F(cam.depth_min), F(cam.depth_min), r.z_min)
+    g = np.full(3, ident)
+    acc = np.full(2 * n, ident)
+    counts = {"row_tiles": 0, "atomics": 0, "flushed": 0, "steps": 0}
+    per_cta = 256 * rows
+    for cta in range(max(1, -(-m // per_cta))):
+        s = np.full(2 * n, ident) if shared else acc
+        box = None
+        for w0 in range(cta * per_cta, (cta + 1) * per_cta, 32):
+            lanes = np.arange(w0, min(w0 + 32, m))
+            if lanes.size == 0:
+                continue
+            sc = r.scatter[lanes]
+            wd = (r.t1x - r.t0x + 1)[lanes]
+            cnt = np.where(sc, wd * (r.t1y - r.t0y + 1)[lanes], 0)
+            counts["row_tiles"] += int(cnt.sum())
+            for k in range(int(cnt.max(initial=0))):
+                counts["steps"] += 1
+                on = k < cnt
+                t = ((r.t0y[lanes] + k // wd) * tx + r.t0x[lanes]
+                     + k % wd)
+                groups = ([on & (t == tile) for tile in np.unique(t[on])]
+                          if matched else
+                          [on & (lanes == j) for j in lanes[on]])
+                for grp in groups:
+                    tile = t[grp][0]
+                    s[tile] = min(s[tile], lo[lanes][grp].min())
+                    s[n + tile] = min(s[n + tile], hi[lanes][grp].min())
+                    counts["atomics"] += 1
+            if sc.any():
+                b = (r.t0y[lanes][sc].min(), r.t0x[lanes][sc].min(),
+                     r.t1y[lanes][sc].max(), r.t1x[lanes][sc].max())
+                box = b if box is None else (
+                    min(box[0], b[0]), min(box[1], b[1]),
+                    max(box[2], b[2]), max(box[3], b[3]))
+            ov = r.overflow[lanes]
+            if ov.any():
+                g[0] = min(g[0], _image(zc[lanes][ov]).min())
+                g[1] = min(g[1], hi[lanes][ov].min())
+                g[2] = 0
+        if shared and box is not None:
+            for y in range(box[0], box[2] + 1):
+                for x in range(box[1], box[3] + 1):
+                    for t in (y * tx + x, n + y * tx + x):
+                        if s[t] != ident:
+                            acc[t] = min(acc[t], s[t])
+                            counts["flushed"] += 1
+    t_min, t_max = _from_image(acc[:n]), _from_image(~acc[n:])
+    if g[2] != ident:
+        g_min, g_max = _from_image(g[0]), _from_image(~g[1])
+        t_min = np.where(np.isnan(t_min) | (t_min < g_min), t_min, g_min)
+        t_max = np.where(np.isnan(t_max) | (t_max > g_max), t_max, g_max)
+    return t_min.reshape(ty, tx), t_max.reshape(ty, tx), counts
+
+
+@pytest.mark.parametrize("matched", [False, True])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("case", BOUNDED)
+def test_bounds_kernel_model_matches_plain(case, rows, matched):
+    """The bounds kernel's order (shared atomics, the touched-box flush,
+    the last CTA), modelled in numpy at one and two rows a thread, through
+    shared and global memory, one atomic a row and tile (the kernel) or a
+    warp's lanes on one tile matched first (measured beside it), equals
+    ``ray_bounds_plain`` bit for bit; matched, a warp on one tile makes
+    one atomic a step."""
+    e, (st, pose, aidx, mask), _ = _case(case)
+    view = geom.invert_rigid(pose)
+    ref = rm.ray_bounds_plain(st.block_key, aidx, mask, view, e["cam"],
+                              e["cfg"], e["rc"])
+    for shared in (True, False):
+        t_min, t_max, counts = _model_bounds(e, st, pose, aidx, mask, rows,
+                                             shared, matched)
+        for a, b in ((t_min, ref[0]), (t_max, ref[1])):
+            np.testing.assert_array_equal(a.view(np.int32),
+                                          b.numpy().view(np.int32))
+    if not matched:
+        assert counts["atomics"] == counts["row_tiles"]
+        return
+    assert counts["atomics"] <= counts["row_tiles"]
+    if case == "crowded_tile":           # 128 rows, 4 warps, one tile
+        assert counts["row_tiles"] == 128
+        assert counts["atomics"] == counts["steps"] == 4
+    if case == "tilted_plane":           # neighbours share their tiles
+        assert counts["atomics"] < counts["row_tiles"] / 2
 
 
 def test_edge_bank_covers_its_cases():

@@ -25,10 +25,12 @@ afterwards as if unchanged (clone it first).
 The TPU tier conds (the small/full insert lane, the half/full compactify
 scan) are dropped: the full width gives identical results by construction.
 
-On a CUDA state :func:`allocate` and :func:`delete_blocks` run the
-hand-written hash kernels (``ops/hash_table.py``), bit-equal to
-:func:`allocate_plain` and :func:`delete_blocks_plain`, which are the CPU
-path and the reference on the card.
+On a CUDA state :func:`allocate`, :func:`delete_blocks` and
+:func:`free_culled` (GC's free pass, ``integrate.garbage_collect``) run
+the hand-written hash kernels (``ops/hash_table.py``), bit-equal to
+:func:`allocate_plain`, :func:`delete_blocks_plain` and
+``integrate.garbage_collect_plain``, which are the CPU path and the
+reference on the card.
 """
 
 from __future__ import annotations
@@ -546,6 +548,21 @@ def delete_blocks(state: MapState, pool_indices, delete_mask,
         state.table_key, state.block_key, state.surf, state.free_stack,
         state.n_free, state.n_tombstones, state.sdf, state.weight,
         state.color, pool_indices, delete_mask, cfg)
+    return state._replace(table_key=tk, block_key=bk, surf=surf,
+                          free_stack=free_stack, n_free=n_free,
+                          n_tombstones=n_tomb)
+
+
+def free_culled(state: MapState, active_idx, active_mask, min_sdf, max_w,
+                cfg: MapConfig) -> MapState:
+    """GC's free pass (see ``integrate.garbage_collect_plain``): on a CUDA
+    state one launch of the hash delete kernel's GC entry
+    (``ops/hash_table.py``), on a CPU state the plain version. The voxels
+    are zeroed in place."""
+    tk, bk, surf, free_stack, n_free, n_tomb = _hash.garbage_collect(
+        state.table_key, state.block_key, state.surf, state.free_stack,
+        state.n_free, state.n_tombstones, state.sdf, state.weight,
+        state.color, active_idx, active_mask, min_sdf, max_w, cfg)
     return state._replace(table_key=tk, block_key=bk, surf=surf,
                           free_stack=free_stack, n_free=n_free,
                           n_tombstones=n_tomb)

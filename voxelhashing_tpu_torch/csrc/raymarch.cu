@@ -1,5 +1,5 @@
 // The march renderer, hand-written for Hopper (sm_90a): the per-tile ray
-// bounds (ray_bounds_kernel, one launch after a fill) and the march itself
+// bounds (ray_bounds_kernel, one launch a render) and the march itself
 // (raymarch_kernel<kGradients, kLanes>, one launch a render), in place of the
 // ~150 small torch launches of the bounds and the [48, P] sample pass of
 // the plain march (~29.5M hash lookups a 320x240 frame at 48 samples).
@@ -13,20 +13,33 @@
 // one pass because a sequential per-ray loop is a dispatch-latency
 // disaster there. On the card a per-ray loop is the natural form.
 //
-// ray_bounds_kernel: one thread an active row projects its block's 8
-// corners (the view's rotation as cuBLAS's f32 product of three terms, two
-// fmas on the first product, then the translation), reduces the z range
-// and the screen box, and scatters the z min and max into the (ty, tx)
-// tile grid over a span of at most 4 x 4 tiles (or, when the block spans
-// more or crosses the near plane, into the global bounds that widen every
-// tile). A min or max is exact, so atomics on order-preserving integer
-// images of the floats (negative floats included: a block behind the
-// camera has a negative z max) give the plain scatter_reduce_ bit for bit;
-// a max is kept as the min of the image's complement, so one fill of
-// 0x7F800000 sets every accumulator. Each CTA reduces into shared memory
-// first (a frame has ~300 tiles and ~26K active rows); the CTA that arrives
-// last turns the images into floats and widens every tile by the global
-// bounds where a block overflowed.
+// ray_bounds_kernel: one thread an active row (its mask and index loaded
+// together, then its key) projects its block's 8 corners (the view's
+// rotation as cuBLAS's f32 product of three terms, two fmas on the first
+// product, then the translation), reduces the z range and the screen box,
+// and scatters the z min and max into the (ty, tx) tile grid over a span
+// of at most 4 x 4 tiles (or, when the block spans more or crosses the
+// near plane, into the global bounds that widen every tile). A min or max
+// is exact, so atomics on order-preserving integer images of the floats
+// (negative floats included: a block behind the camera has a negative z
+// max) give the plain scatter_reduce_ bit for bit; a max is kept as the
+// min of the image's complement, so one value, 0x7F800000, is every
+// accumulator's identity. Each CTA reduces into shared memory first (a
+// frame has ~300 tiles and ~26K active rows), one atomic a row and tile,
+// then flushes only the box of tiles its rows touched (reduced over each
+// warp and kept in shared memory) into the global accumulators. Those
+// persist per device and tile
+// count (ops/raymarch.reserve) and hold the identity between launches, so
+// a render is one launch with no fill: the CTA that arrives last turns the
+// images into floats, widens every tile by the global bounds where a block
+// overflowed, and restores every accumulator and the counter. Bound:
+// latency, 0.0055 ms bare at phase 6's frame-11 render on an H100 at 700 W
+// (1.8% of its operations bound): ~6K cycles a CTA (the load chain, the 16
+// IEEE divisions of the projection, the atomics, the flush), then the last
+// CTA's ~4K-cycle tail. Lanes reduced before the shared atomics (by
+// __match_any_sync, or by shuffles over runs of equal tiles) and two rows
+// a thread ran slower (python -m voxelhashing_tpu_torch.kernel_probes
+// --bounds-gc-only; PERF.md).
 //
 // raymarch_kernel<kGradients, kLanes>: kLanes = kMarchLanes = 4 lanes
 // walk one ray (a CTA of 256 threads a tile 8 rays wide; 8 lanes measured
@@ -86,9 +99,12 @@ namespace {
 using vh::kInvalidKey;
 
 constexpr int kBoundsThreads = 256;
+constexpr int kBoundsRows = 1;         // active rows a bounds thread
+constexpr int kTail = 4;               // tiles a thread of the last CTA loads
 constexpr int kMaxSharedTiles = 6144;  // two int arrays in 48 KB
 constexpr int kSpan = 4;               // raycast._SPAN
 constexpr int kIdentity = 0x7F800000;  // image(+inf) == ~image(-inf)
+constexpr int kNoTile = 0x7FFFFFFF;    // an empty tile box's bound
 constexpr int kMarchThreads = 256;     // the march's CTA
 constexpr int kMarchLanes = 4;         // lanes a ray (ops/raymarch.py)
 constexpr int kMarchTileX = 8;         // its rays: 8 wide, 256 / kLanes / 8 tall
@@ -137,93 +153,153 @@ struct BoundsArgs {
   const float* view;        // [4, 4] row-major, device
   int width, height, tile, tiles_y, tiles_x, world_blocks;
   float fx, fy, cx, cy, depth_min, voxel_size, block_size, near_z;
-  int* acc;                 // [2n + 4] int32, filled with kIdentity
+  int* acc;                 // [2n + 4] int32, kIdentity between launches
   float* t_min;             // [n]
   float* t_max;             // [n]
 };
 
+// One active row's bounds: its z range as accumulator images and its tile
+// box, and whether it scatters into the box or widens every tile.
+struct RowBounds {
+  int lo, hi;               // image(z_min), ~image(z_max)
+  int t0x, t1x, t0y, t1y;
+  bool scatter, overflow;
+  float z_min_clamped;      // clamp(z_min, depth_min), for the widening
+};
+
+__device__ __forceinline__ RowBounds row_bounds(const BoundsArgs& a,
+                                                int key) {
+  const int wb = a.world_blocks, half = wb / 2;
+  // geometry.unpack_block_key, block_to_world
+  const int bk[3] = {py_mod(key, wb) - half,
+                     py_mod(floor_div(key, wb), wb) - half,
+                     floor_div(key, wb * wb) - half};
+  float c0[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c0[k] = (float)(bk[k] * 8) * a.voxel_size;
+  float r[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r[k] = a.view[k];
+  float z_min = 0.f, z_max = 0.f, u_lo = 0.f, u_hi = 0.f, v_lo = 0.f,
+        v_hi = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float x = c0[0] + ((c & 1) ? a.block_size : 0.0f);
+    const float y = c0[1] + (((c >> 1) & 1) ? a.block_size : 0.0f);
+    const float z = c0[2] + (((c >> 2) & 1) ? a.block_size : 0.0f);
+    // transform_points: cuBLAS's dot of three, then + t
+    const float pz = fmaf(z, r[10], fmaf(y, r[9], x * r[8])) + r[11];
+    const float px = fmaf(z, r[2], fmaf(y, r[1], x * r[0])) + r[3];
+    const float py = fmaf(z, r[6], fmaf(y, r[5], x * r[4])) + r[7];
+    // camera_to_screen
+    const float u = px * a.fx / pz + a.cx;
+    const float v = py * a.fy / pz + a.cy;
+    if (c == 0) {
+      z_min = z_max = pz;
+      u_lo = u_hi = u;
+      v_lo = v_hi = v;
+    } else {
+      z_min = min_nan(z_min, pz);
+      z_max = max_nan(z_max, pz);
+      u_lo = min_nan(u_lo, u);
+      u_hi = max_nan(u_hi, u);
+      v_lo = min_nan(v_lo, v);
+      v_hi = max_nan(v_hi, v);
+    }
+  }
+  RowBounds o;
+  const bool near_ok = z_min > a.near_z;
+  const int u_min = (int)floorf(u_lo), u_max = (int)floorf(u_hi);
+  const int v_min = (int)floorf(v_lo), v_max = (int)floorf(v_hi);
+  o.t0x = min(max(floor_div(u_min, a.tile), 0), a.tiles_x - 1);
+  o.t1x = min(max(floor_div(u_max, a.tile), 0), a.tiles_x - 1);
+  o.t0y = min(max(floor_div(v_min, a.tile), 0), a.tiles_y - 1);
+  o.t1y = min(max(floor_div(v_max, a.tile), 0), a.tiles_y - 1);
+  const bool on_screen = u_max >= 0 && u_min < a.width && v_max >= 0 &&
+                         v_min < a.height;
+  const bool fits = (o.t1x - o.t0x < kSpan) && (o.t1y - o.t0y < kSpan);
+  o.scatter = on_screen && near_ok && fits;
+  o.overflow = on_screen && !(near_ok && fits);
+  o.lo = image(z_min);
+  o.hi = ~image(z_max);
+  o.z_min_clamped = clamp_min(z_min, a.depth_min);
+  return o;
+}
+
 __global__ void __launch_bounds__(kBoundsThreads)
     ray_bounds_kernel(BoundsArgs a) {
   extern __shared__ int s_acc[];       // [2n] when n <= kMaxSharedTiles
+  __shared__ int s_box[4];             // min y, min x, -max y, -max x
   __shared__ bool s_last;
   const int n = a.tiles_y * a.tiles_x;
   const bool shared = n <= kMaxSharedTiles;
+  const int lane = threadIdx.x & 31;
   int* tmin = shared ? s_acc : a.acc;
   int* tmax = shared ? s_acc + n : a.acc + n;
-  if (shared) {
+  if (shared)
     for (int j = threadIdx.x; j < 2 * n; j += blockDim.x) s_acc[j] = kIdentity;
-    __syncthreads();
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.m && a.active_mask[i]) {
-    const int key = a.block_key[a.active_idx[i]];
-    const int wb = a.world_blocks, half = wb / 2;
-    // geometry.unpack_block_key, block_to_world
-    const int bk[3] = {py_mod(key, wb) - half,
-                       py_mod(floor_div(key, wb), wb) - half,
-                       floor_div(key, wb * wb) - half};
-    float c0[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) c0[k] = (float)(bk[k] * 8) * a.voxel_size;
-    float r[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) r[k] = a.view[k];
-    float z_min = 0.f, z_max = 0.f, u_lo = 0.f, u_hi = 0.f, v_lo = 0.f,
-          v_hi = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float x = c0[0] + ((c & 1) ? a.block_size : 0.0f);
-      const float y = c0[1] + (((c >> 1) & 1) ? a.block_size : 0.0f);
-      const float z = c0[2] + (((c >> 2) & 1) ? a.block_size : 0.0f);
-      // transform_points: cuBLAS's dot of three, then + t
-      const float pz = fmaf(z, r[10], fmaf(y, r[9], x * r[8])) + r[11];
-      const float px = fmaf(z, r[2], fmaf(y, r[1], x * r[0])) + r[3];
-      const float py = fmaf(z, r[6], fmaf(y, r[5], x * r[4])) + r[7];
-      // camera_to_screen
-      const float u = px * a.fx / pz + a.cx;
-      const float v = py * a.fy / pz + a.cy;
-      if (c == 0) {
-        z_min = z_max = pz;
-        u_lo = u_hi = u;
-        v_lo = v_hi = v;
-      } else {
-        z_min = min_nan(z_min, pz);
-        z_max = max_nan(z_max, pz);
-        u_lo = min_nan(u_lo, u);
-        u_hi = max_nan(u_hi, u);
-        v_lo = min_nan(v_lo, v);
-        v_hi = max_nan(v_hi, v);
+  if (threadIdx.x < 4) s_box[threadIdx.x] = kNoTile;
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < kBoundsRows; ++r) {
+    const int i = (blockIdx.x * kBoundsRows + r) * blockDim.x + threadIdx.x;
+    // the mask and the index loaded together, then the key
+    bool on = false;
+    int p = 0;
+    if (i < a.m) {
+      on = a.active_mask[i];
+      p = a.active_idx[i];
+    }
+    RowBounds o = {};
+    if (on) o = row_bounds(a, a.block_key[p]);
+    // one shared atomic a row and tile (lanes reduced first by
+    // __match_any_sync, or by runs of equal tiles through shuffles, ran
+    // slower: PERF.md)
+    if (o.scatter)
+      for (int iy = o.t0y; iy <= o.t1y; ++iy)
+        for (int ix = o.t0x; ix <= o.t1x; ++ix) {
+          atomicMin(tmin + iy * a.tiles_x + ix, o.lo);
+          atomicMin(tmax + iy * a.tiles_x + ix, o.hi);
+        }
+    if (__any_sync(kFull, o.scatter)) {
+      const int y0 = __reduce_min_sync(kFull, o.scatter ? o.t0y : kNoTile);
+      const int x0 = __reduce_min_sync(kFull, o.scatter ? o.t0x : kNoTile);
+      const int y1 = __reduce_min_sync(kFull, o.scatter ? -o.t1y : kNoTile);
+      const int x1 = __reduce_min_sync(kFull, o.scatter ? -o.t1x : kNoTile);
+      if (lane == 0) {
+        atomicMin(s_box, y0);
+        atomicMin(s_box + 1, x0);
+        atomicMin(s_box + 2, y1);
+        atomicMin(s_box + 3, x1);
       }
     }
-    const bool near_ok = z_min > a.near_z;
-    const int u_min = (int)floorf(u_lo), u_max = (int)floorf(u_hi);
-    const int v_min = (int)floorf(v_lo), v_max = (int)floorf(v_hi);
-    const int t0x = min(max(floor_div(u_min, a.tile), 0), a.tiles_x - 1);
-    const int t1x = min(max(floor_div(u_max, a.tile), 0), a.tiles_x - 1);
-    const int t0y = min(max(floor_div(v_min, a.tile), 0), a.tiles_y - 1);
-    const int t1y = min(max(floor_div(v_max, a.tile), 0), a.tiles_y - 1);
-    const bool on_screen = u_max >= 0 && u_min < a.width && v_max >= 0 &&
-                           v_min < a.height;
-    const bool fits = (t1x - t0x < kSpan) && (t1y - t0y < kSpan);
-    if (on_screen && near_ok && fits) {
-      const int lo = image(z_min), hi = ~image(z_max);
-      for (int iy = t0y; iy <= t1y; ++iy)
-        for (int ix = t0x; ix <= t1x; ++ix) {
-          atomicMin(tmin + iy * a.tiles_x + ix, lo);
-          atomicMin(tmax + iy * a.tiles_x + ix, hi);
-        }
-    } else if (on_screen) {
-      atomicMin(a.acc + 2 * n, image(clamp_min(z_min, a.depth_min)));
-      atomicMin(a.acc + 2 * n + 1, ~image(z_max));
-      atomicMin(a.acc + 2 * n + 2, 0);
+    if (__any_sync(kFull, o.overflow)) {
+      const int g_lo = __reduce_min_sync(
+          kFull, o.overflow ? image(o.z_min_clamped) : kIdentity);
+      const int g_hi = __reduce_min_sync(kFull, o.overflow ? o.hi : kIdentity);
+      if (lane == 0) {
+        atomicMin(a.acc + 2 * n, g_lo);
+        atomicMin(a.acc + 2 * n + 1, g_hi);
+        atomicMin(a.acc + 2 * n + 2, 0);
+      }
     }
   }
   if (shared) {
+    // flush the tiles this CTA's rows touched
     __syncthreads();
-    for (int j = threadIdx.x; j < 2 * n; j += blockDim.x)
-      if (s_acc[j] != kIdentity) atomicMin(a.acc + j, s_acc[j]);
+    const int y0 = s_box[0], x0 = s_box[1];
+    if (y0 != kNoTile) {
+      const int bw = -s_box[3] - x0 + 1;
+      const int cells = (-s_box[2] - y0 + 1) * bw;
+      for (int j = threadIdx.x; j < cells; j += blockDim.x) {
+        const int t = (y0 + j / bw) * a.tiles_x + x0 + j % bw;
+        if (s_acc[t] != kIdentity) atomicMin(a.acc + t, s_acc[t]);
+        if (s_acc[n + t] != kIdentity) atomicMin(a.acc + n + t, s_acc[n + t]);
+      }
+    }
   }
-  // the CTA that arrives last finishes the grid
+  // the CTA that arrives last finishes the grid and restores the
+  // accumulators and the counter for the next launch
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
@@ -232,19 +308,34 @@ __global__ void __launch_bounds__(kBoundsThreads)
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const bool overflow = __ldcg(a.acc + 2 * n + 2) != kIdentity;
-  const float g_min = from_image(__ldcg(a.acc + 2 * n));
-  const float g_max = from_image(~__ldcg(a.acc + 2 * n + 1));
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float lo = from_image(__ldcg(a.acc + j));
-    float hi = from_image(~__ldcg(a.acc + n + j));
-    if (overflow) {
-      lo = min_nan(lo, g_min);
-      hi = max_nan(hi, g_max);
+  const int g_ov = __ldcg(a.acc + 2 * n + 2);
+  const int g_lo = __ldcg(a.acc + 2 * n), g_hi = __ldcg(a.acc + 2 * n + 1);
+  // kTail tiles a thread loaded before any is written: one round trip
+  for (int j0 = 0; j0 < n; j0 += kTail * kBoundsThreads) {
+    int lo[kTail], hi[kTail];
+#pragma unroll
+    for (int u = 0; u < kTail; ++u) {
+      const int j = j0 + u * kBoundsThreads + threadIdx.x;
+      lo[u] = j < n ? __ldcg(a.acc + j) : kIdentity;
+      hi[u] = j < n ? __ldcg(a.acc + n + j) : kIdentity;
     }
-    a.t_min[j] = lo;
-    a.t_max[j] = hi;
+#pragma unroll
+    for (int u = 0; u < kTail; ++u) {
+      const int j = j0 + u * kBoundsThreads + threadIdx.x;
+      if (j >= n) continue;
+      a.acc[j] = kIdentity;
+      a.acc[n + j] = kIdentity;
+      float t0 = from_image(lo[u]), t1 = from_image(~hi[u]);
+      if (g_ov != kIdentity) {
+        t0 = min_nan(t0, from_image(g_lo));
+        t1 = max_nan(t1, from_image(~g_hi));
+      }
+      a.t_min[j] = t0;
+      a.t_max[j] = t1;
+    }
   }
+  __syncthreads();
+  if (threadIdx.x < 4) a.acc[2 * n + threadIdx.x] = kIdentity;
 }
 
 struct MarchArgs {
@@ -738,7 +829,8 @@ extern "C" int vh_ray_bounds(
   a.t_max = (float*)t_max;
   const int n = tiles_y * tiles_x;
   const size_t smem = n <= kMaxSharedTiles ? 2 * n * sizeof(int) : 0;
-  const int grid = m > 0 ? (m + kBoundsThreads - 1) / kBoundsThreads : 1;
+  const int rows = kBoundsThreads * kBoundsRows;
+  const int grid = m > 0 ? (m + rows - 1) / rows : 1;
   ray_bounds_kernel<<<grid, kBoundsThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

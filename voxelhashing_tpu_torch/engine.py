@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -40,7 +41,7 @@ from .config import EngineConfig, resolve_device
 from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
 from . import streaming
 from .blockmap import MapState
-from .ops import _build, hash_table
+from .ops import _build, hash_table, raymarch
 from .ops.fused_integrate import fused_integrate
 from .ops.image import FrameInputs, color_to_intensity, preprocess
 from .raycast import RaycastResult
@@ -394,6 +395,7 @@ def _launch_counters():
             (ac.alloc_candidates, "launches"),
             (ht.allocate, "launches"),
             (ht.delete_blocks, "launches"),
+            (ht.garbage_collect, "launches"),
             (fa.fused_integrate, "launches"),
             (fa.fused_integrate, "bilinear_launches"),
             (fa.fused_integrate, "color_word_launches"),
@@ -666,7 +668,9 @@ class GraphStep:
 
     def _capture(self, key: str, fn) -> CountedGraph:
         dev = self._buf.pose.device
-        hash_table.reserve(dev, self.cfg.map.table_size)
+        hash_table.reserve(dev, self.cfg.map)
+        raymarch.reserve(dev, math.prod(raymarch.tiles(self.cfg.camera,
+                                                        self.cfg.raycast)))
         if self._stream is None:
             _build.prime()
             self._stream = torch.cuda.Stream(dev)

@@ -11,7 +11,9 @@
   CUDA kernel of ``ops/fused_integrate.py`` is held against; with
   ``MapConfig.bilinear_color`` the color sample is the validity-weighted
   bilinear one of ``_bilinear_color``.
-* ``starve`` / ``garbage_collect``: weight starvation and block culling.
+* ``starve`` / ``garbage_collect``: weight starvation and block culling
+  (one launch of the hash delete kernel's GC entry on the card, its plain
+  version ``garbage_collect_plain`` on the CPU).
 
 Pool rows are updated in place (see ``blockmap``).
 """
@@ -255,25 +257,46 @@ def starve(state: MapState, active_idx, active_mask) -> MapState:
     return state
 
 
+def gc_stats(state: MapState, active_idx):
+    """GC's per-row stats re-read from the rows: (min |sdf| over the
+    weighted voxels, inf where none; max weight), f32 [M]."""
+    aidx = active_idx.long()
+    sdf = state.sdf[aidx].to(torch.float32)
+    w = state.weight[aidx].to(torch.float32)
+    min_sdf = torch.amin(torch.where(w > 0.0, torch.abs(sdf), torch.inf),
+                         dim=-1)
+    return min_sdf, torch.amax(w, dim=-1)
+
+
 def garbage_collect(state: MapState, active_idx, active_mask,
                     cfg: MapConfig, cached_stats=None) -> MapState:
     """Cull active blocks whose min |sdf| over weighted voxels reaches the
-    far truncation or whose max weight is 0.
+    far truncation or whose max weight is 0, and free the first
+    ``min(gc_delete_cap, M)`` of them (see :func:`garbage_collect_plain`):
+    on a CUDA state one launch of the hash delete kernel's GC entry
+    (``blockmap.free_culled``, ``ops/hash_table.py``), on a CPU state the
+    plain version.
 
     ``cached_stats``: (min_abs_sdf, max_weight) over the CURRENT rows (the
-    integrate kernel emits them), which skips the row re-read. The free
-    pass runs masked over a ``gc_delete_cap`` short list; with nothing to
-    cull it changes nothing.
+    integrate kernel emits them), which skips the row re-read.
     """
-    if cached_stats is not None:
-        min_sdf, max_w = cached_stats
-    else:
-        aidx = active_idx.long()
-        sdf = state.sdf[aidx].to(torch.float32)
-        w = state.weight[aidx].to(torch.float32)
-        min_sdf = torch.amin(torch.where(w > 0.0, torch.abs(sdf),
-                                         torch.inf), dim=-1)
-        max_w = torch.amax(w, dim=-1)
+    min_sdf, max_w = (cached_stats if cached_stats is not None
+                      else gc_stats(state, active_idx))
+    return blockmap.free_culled(state, active_idx, active_mask, min_sdf,
+                                max_w, cfg)
+
+
+def garbage_collect_plain(state: MapState, active_idx, active_mask,
+                          cfg: MapConfig, cached_stats=None) -> MapState:
+    """GC's plain version (the CPU path; the reference on the card): the
+    cull flags, their prefix rank, the ``gc_delete_cap`` short list and
+    ``blockmap.delete_blocks_plain`` over it, as the JAX function does.
+    The free pass runs masked over the short list; with nothing to cull it
+    changes nothing."""
+    if state.table_key.device.type == "cuda":
+        garbage_collect_plain.cuda_calls += 1
+    min_sdf, max_w = (cached_stats if cached_stats is not None
+                      else gc_stats(state, active_idx))
     t = cfg.truncation_at(cfg.max_integration_distance)
     cull = active_mask & ((min_sdf >= t) | (max_w == 0.0))
     dcap = min(cfg.gc_delete_cap, active_idx.shape[0])
@@ -284,4 +307,7 @@ def garbage_collect(state: MapState, active_idx, active_mask,
         rank, active_idx, keep)
     n_cull = torch.clamp(blockmap._isum(cull), max=dcap)
     short_mask = torch.arange(dcap, device=cull.device) < n_cull
-    return blockmap.delete_blocks(state, short_idx, short_mask, cfg)
+    return blockmap.delete_blocks_plain(state, short_idx, short_mask, cfg)
+
+
+garbage_collect_plain.cuda_calls = 0

@@ -1,7 +1,22 @@
-"""The march's, the hash insert's and the two front kernels' variants and
-clock stamps, on one card.
+"""The march's, the hash insert's, the two front kernels', the tile
+bounds' and GC's variants and clock stamps, on one card.
 
     python -m voxelhashing_tpu_torch.kernel_probes [--parent DIR]
+    python -m voxelhashing_tpu_torch.kernel_probes --bounds-gc-only \
+        [--parent DIR]
+
+With ``--bounds-gc-only``: ``csrc/raymarch.cu``'s tile bounds as they are,
+with one design move undone each (:data:`BOUNDS_EDITS`: the fill before
+each launch, no warp aggregation, every tile flushed, the index loaded
+after the mask, two rows a thread) and with clock64 stamps by phase, at
+phase 6's frame-11 render; ``csrc/hash_delete.cu``'s GC entry as it is,
+with one move undone each (:data:`GC_EDITS`: blockIdx for the ticket, the
+slot probes after the look-back) and with stamps, and its list entry on
+the plain GC's short list, at phase 1's frame-11 GC (on a scratch pool);
+with ``--parent DIR`` that checkout's bounds and list delete too (its
+bounds with the fill its wrapper made). Each build is held bit for bit
+against the plain version and timed as the best of three replays of a
+CUDA graph of 100 launches.
 
 Builds ``csrc/raymarch.cu`` as it is and with one edit each
 (:data:`MARCH_EDITS`: the windows alone, no weight reads, 8 lanes a ray,
@@ -119,6 +134,100 @@ CANDIDATE_EDITS = (
     ("256 threads a CTA in tile mode",
      (("kRays == 2 ? 128 :", "kRays == 2 ? 256 :"),), True, {}),
 )
+# the bounds' moves, each undone: (name, [(old, new), ...], whether the
+# result holds, what the launch changes: "fill" the accumulators filled
+# before each launch, as the parent's wrapper did)
+_ATOMICS = ("    if (o.scatter)\n"
+            "      for (int iy = o.t0y; iy <= o.t1y; ++iy)\n"
+            "        for (int ix = o.t0x; ix <= o.t1x; ++ix) {\n"
+            "          atomicMin(tmin + iy * a.tiles_x + ix, o.lo);\n"
+            "          atomicMin(tmax + iy * a.tiles_x + ix, o.hi);\n"
+            "        }\n")
+# the warp walks its rows' boxes in step (row-major), a step's lanes on one
+# tile reduced before one atomic: by __match_any_sync, or by runs of equal
+# tiles through shuffles (pool-ordered neighbours share their tiles)
+_STEPS = ("    const int w = o.t1x - o.t0x + 1;\n"
+          "    const int cnt = o.scatter ? w * (o.t1y - o.t0y + 1) : 0;\n"
+          "    for (int k = 0; __any_sync(kFull, k < cnt); ++k) {\n"
+          "      const int t = k < cnt ? (o.t0y + k / w) * a.tiles_x + o.t0x"
+          " + k % w : -1;\n")
+_MATCHED = _STEPS + (
+    "      const unsigned peers = __match_any_sync(kFull, t);\n"
+    "      if (t >= 0) {\n"
+    "        const int lo = __reduce_min_sync(peers, o.lo);\n"
+    "        const int hi = __reduce_min_sync(peers, o.hi);\n"
+    "        if (lane == __ffs(peers) - 1) {\n"
+    "          atomicMin(tmin + t, lo);\n"
+    "          atomicMin(tmax + t, hi);\n"
+    "        }\n      }\n    }\n")
+_RUNS = _STEPS + (
+    "      const int up = __shfl_up_sync(kFull, t, 1);\n"
+    "      const unsigned heads =\n"
+    "          __ballot_sync(kFull, lane == 0 || up != t);\n"
+    "      const unsigned above = heads & ~((2u << lane) - 1u);\n"
+    "      const int next = above ? __ffs(above) - 1 : 32;\n"
+    "      int lo = o.lo, hi = o.hi;\n"
+    "      for (int d = 1; d < 32; d <<= 1) {\n"
+    "        const int l2 = __shfl_down_sync(kFull, lo, d);\n"
+    "        const int h2 = __shfl_down_sync(kFull, hi, d);\n"
+    "        if (lane + d < next) {\n"
+    "          lo = min(lo, l2);\n"
+    "          hi = min(hi, h2);\n"
+    "        }\n      }\n"
+    "      if (t >= 0 && ((heads >> lane) & 1u)) {\n"
+    "        atomicMin(tmin + t, lo);\n"
+    "        atomicMin(tmax + t, hi);\n"
+    "      }\n    }\n")
+BOUNDS_EDITS = (
+    ("as is", (), True, {}),
+    ("the fill before each launch (two nodes a render)", (), True,
+     {"fill": True}),
+    ("a step's lanes on one tile matched first (__match_any_sync)",
+     ((_ATOMICS, _MATCHED),), True, {}),
+    ("runs of equal tiles reduced by shuffles first",
+     ((_ATOMICS, _RUNS),), True, {}),
+    ("every tile flushed from every CTA",
+     (("  if (threadIdx.x < 4) s_box[threadIdx.x] = kNoTile;\n",
+       "  if (threadIdx.x < 4)\n    s_box[threadIdx.x] = threadIdx.x < 2 ? 0"
+       "\n        : threadIdx.x == 2 ? 1 - a.tiles_y : 1 - a.tiles_x;\n"),),
+     True, {}),
+    ("the index loaded after the mask",
+     (("      on = a.active_mask[i];\n      p = a.active_idx[i];\n",
+       "      on = a.active_mask[i];\n      if (on) p = a.active_idx[i];\n"),),
+     True, {}),
+    ("the last CTA's tiles loaded one at a time",
+     (("constexpr int kTail = 4;", "constexpr int kTail = 1;"),), True, {}),
+    ("two rows a thread (half the CTAs)",
+     (("constexpr int kBoundsRows = 1;", "constexpr int kBoundsRows = 2;"),),
+     True, {}),
+)
+# GC's moves, each undone: (name, [(old, new), ...], whether the result
+# holds)
+_ZERO = ("      zero_word(a, h == 0 ? s_row[t] : __ldcg(a.rows + s_first[h] "
+         "+ t),\n                tid % kRowWords);\n")
+GC_EDITS = (
+    ("as is", (), True),
+    ("blockIdx for the ticket (no ticket atomic)",
+     (("  if (tid == 0) s_b = (int)(atomicAdd(a.ticket, 1ull) & "
+       "0xffffffffull);\n", "  if (tid == 0) s_b = blockIdx.x;\n"),), True),
+    ("the slot probes after the look-back",
+     (("  const int slot = freed ? key_slot(a, p) : -1;\n"
+       "  s_row[tid] = -1;\n  __syncthreads();\n",
+       "  s_row[tid] = -1;\n  __syncthreads();\n"
+       "  const int slot = freed ? key_slot(a, p) : -1;\n"),), True),
+    ("each CTA zeroes its own rows (no spread)",
+     (("constexpr int kSpread = 4;", "constexpr int kSpread = 1;"),),
+     True),
+    ("rows spread over 16 CTAs",
+     (("constexpr int kSpread = 4;", "constexpr int kSpread = 16;"),),
+     True),
+    ("no row zeroing (the rest of the cost)",
+     ((_ZERO, "      ;\n"),), False),
+    ("256 rows a CTA", (("constexpr int kGcThreads = 1024;",
+                         "constexpr int kGcThreads = 256;"),), True),
+    ("512 rows a CTA", (("constexpr int kGcThreads = 1024;",
+                         "constexpr int kGcThreads = 512;"),), True),
+)
 _CLOCK_FNS = (
     '__device__ unsigned long long g_cyc[8];\n'
     '}  // namespace\n'
@@ -191,6 +300,97 @@ def insert_clocked(src):
     ))
 
 
+def _sink(value):
+    """A stamp's wait for ``value``: thread 0 stores it to volatile shared
+    memory first (the store waits for its load)."""
+    return (f"  if (threadIdx.x == 0) {{ g_sink = {value}; }}\n")
+
+
+def bounds_clocked(src):
+    """The bounds kernel with thread 0's clock at its phases summed over
+    the CTAs into g_cyc[0..3] (the load chain to the key, the projection,
+    the shared atomics, the flush), the CTAs in g_cyc[4], the slowest
+    CTA's total in g_cyc[5] and the last CTA's tail (the floats, the
+    widening and the restore) in g_cyc[6]."""
+    stamp = "  if (threadIdx.x == 0) t_{0} = clock64();\n"
+    return _edit(src, (
+        ("constexpr int kNoTile = 0x7FFFFFFF;    // an empty tile box's bound\n",
+         "constexpr int kNoTile = 0x7FFFFFFF;    // an empty tile box's bound\n"
+         + _CLOCK_FNS + "__shared__ volatile int g_sink;\n"),
+        ("  const int lane = threadIdx.x & 31;\n  int* tmin",
+         "  const int lane = threadIdx.x & 31;\n"
+         "  long long t_0 = clock64(), t_1 = 0, t_2 = 0, t_3 = 0, t_4 = 0;\n"
+         "  int* tmin"),
+        ("    RowBounds o = {};\n    if (on) o = row_bounds(a, a.block_key[p]);\n",
+         "    const int key_ = on ? a.block_key[p] : 0;\n" + _sink("key_")
+         + stamp.format(1) + "    RowBounds o = {};\n"
+         "    if (on) o = row_bounds(a, key_);\n" + _sink("o.lo")
+         + stamp.format(2)),
+        ("  if (shared) {\n    // flush the tiles",
+         stamp.format(3) + "  if (shared) {\n    // flush the tiles"),
+        ("  // the CTA that arrives last finishes the grid and restores the\n",
+         "  __syncthreads();\n" + stamp.format(4)
+         + "  if (threadIdx.x == 0) {\n"
+         "    atomicAdd(g_cyc, (unsigned long long)(t_1 - t_0));\n"
+         "    atomicAdd(g_cyc + 1, (unsigned long long)(t_2 - t_1));\n"
+         "    atomicAdd(g_cyc + 2, (unsigned long long)(t_3 - t_2));\n"
+         "    atomicAdd(g_cyc + 3, (unsigned long long)(t_4 - t_3));\n"
+         "    atomicAdd(g_cyc + 4, 1ull);\n"
+         "    atomicMax(g_cyc + 5, (unsigned long long)(t_4 - t_0));\n  }\n"
+         "  // the CTA that arrives last finishes the grid and restores the\n"),
+        ("  if (threadIdx.x < 4) a.acc[2 * n + threadIdx.x] = kIdentity;\n}",
+         "  if (threadIdx.x < 4) a.acc[2 * n + threadIdx.x] = kIdentity;\n"
+         "  if (threadIdx.x == 0) g_cyc[6] = clock64() - t_4;\n}"),
+    ))
+
+
+def gc_clocked(src):
+    """GC's free pass with thread 0's clock at its phases summed over the
+    CTAs into g_cyc[0..3] (the ticket, flags, keys and block scan; the
+    look-back; the row work: pushes, tombstones, rows zeroed; the arrival,
+    and in the last CTA the reset), the CTAs in g_cyc[4], the slowest
+    CTA's total in g_cyc[5], the longest look-back in g_cyc[6] and the
+    longest row work in g_cyc[7]."""
+    stamp = "  if (tid == 0) t_{0} = clock64();\n"
+    return _edit(src, (
+        ("constexpr unsigned long long kCount = (1ull << 31) - 1;\n",
+         "constexpr unsigned long long kCount = (1ull << 31) - 1;\n"
+         + _CLOCK_FNS),
+        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n\n"
+         "  if (tid == 0) s_b",
+         "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+         "  long long t_0 = clock64(), t_1 = 0, t_2 = 0, t_3 = 0, t_4 = 0;\n"
+         "  if (tid == 0) s_b"),
+        ("  if (b == 0) {\n    if (tid == 0) {",
+         stamp.format(1) + "  if (b == 0) {\n    if (tid == 0) {"),
+        ("  const int c_before = (int)((s_before >> 31) & kCount);\n",
+         stamp.format(2)
+         + "  const int c_before = (int)((s_before >> 31) & kCount);\n"),
+        ("  // the last CTA to arrive resets the ticket and the status words\n"
+         "  __syncthreads();\n",
+         "  // the last CTA to arrive resets the ticket and the status words\n"
+         "  __syncthreads();\n" + stamp.format(3)),
+        ("  if (tid == 0) *a.ticket = 0ull;\n}",
+         "  if (tid == 0) *a.ticket = 0ull;\n  __syncthreads();\n"
+         + stamp.format(4) + "  if (tid == 0) {\n"
+         "    atomicAdd(g_cyc + 3, (unsigned long long)(t_4 - t_3));\n"
+         "    atomicMax(g_cyc + 5, (unsigned long long)(t_4 - t_0));\n  }\n}"),
+        ("  __syncthreads();\n  if (!s_last) return;\n  for (int k = tid;",
+         "  __syncthreads();\n  if (tid == 0) {\n"
+         "    atomicAdd(g_cyc, (unsigned long long)(t_1 - t_0));\n"
+         "    atomicAdd(g_cyc + 1, (unsigned long long)(t_2 - t_1));\n"
+         "    atomicAdd(g_cyc + 2, (unsigned long long)(t_3 - t_2));\n"
+         "    atomicAdd(g_cyc + 4, 1ull);\n"
+         "    atomicMax(g_cyc + 6, (unsigned long long)(t_2 - t_1));\n"
+         "    atomicMax(g_cyc + 7, (unsigned long long)(t_3 - t_2));\n"
+         "    if (!s_last) {\n"
+         "      atomicAdd(g_cyc + 3, (unsigned long long)(clock64() - t_3));\n"
+         "      atomicMax(g_cyc + 5, (unsigned long long)(clock64() - t_0));\n"
+         "    }\n  }\n"
+         "  if (!s_last) return;\n  for (int k = tid;"),
+    ))
+
+
 def front_clocked(src, kind):
     """A front kernel with thread 0's clock at its phases summed over the
     CTAs into g_cyc[0..3] (the preprocess: staging, filter, epilogue; the
@@ -239,6 +439,9 @@ def front_clocked(src, kind):
 # each kind's library, entry point and the argument positions a parent
 # checkout's older entry point lacks
 _ENTRY = {"march": ("raymarch", "vh_raymarch"),
+          "bounds": ("raymarch", "vh_ray_bounds"),
+          "gc": ("hash_delete", "vh_hash_gc"),
+          "delete": ("hash_delete", "vh_hash_delete"),
           "insert": ("hash_alloc", "vh_hash_alloc"),
           "preprocess": ("preprocess", "vh_preprocess"),
           "candidates": ("alloc_candidates", "vh_alloc_candidates")}
@@ -392,7 +595,7 @@ def _probe_march(smoke, libs, gpu):
             dog = _Watchdog(f"the march, {name}")
             if name == "clock64 stamps":
                 lib.vh_cyc_zero()
-            _build.check(fn(*args[2], stream), "raymarch")
+            _build.check(fn(*args[1], stream), "raymarch")
             torch.cuda.synchronize()
             line = ""
             if name == "clock64 stamps":
@@ -402,7 +605,7 @@ def _probe_march(smoke, libs, gpu):
                 line = (f"; cycles a warp: windows {buf[0] / w:.0f}, "
                         f"secant {buf[1] / w:.0f}, hit {buf[2] / w:.0f} "
                         f"({w} warps)")
-            ms = _best_ms(lambda: fn(*args[2], stream))
+            ms = _best_ms(lambda: fn(*args[1], stream))
             dog.stop()
             held = ("bit-equal " + str(not smoke._hits_differ(hits, ref))
                     if name in holds else "result not held (edited)")
@@ -565,13 +768,129 @@ def _probe_front(smoke, libs, gpu):
                   f"{torch.equal(keys, cref)}{line}; on {gpu}", flush=True)
 
 
+def _probe_bounds(smoke, libs, gpu):
+    from . import geometry as geom
+    from .ops import raymarch as rm
+    device = torch.device("cuda", 0)
+    map_state, call = _march_inputs(smoke, device)
+    cam, cfg, rc = call["cam"], call["cfg"], call["rc"]
+    view = geom.invert_rigid(call["pose"])
+    bk, aidx, mask = map_state.block_key, call["active_idx"], \
+        call["active_mask"]
+    ref = rm.ray_bounds_plain(bk, aidx, mask, view, cam, cfg, rc)
+    ty, tx = rm.tiles(cam, rc)
+    acc = rm.reserve(device, ty * tx)
+    fills = {f"bounds {n}": o.get("fill", False)
+             for n, _, _, o in BOUNDS_EDITS}
+    for name, (kind, lib, fn, _) in libs.items():
+        if kind != "bounds":
+            continue
+        args, out = rm.prepare_bounds(bk, aidx, mask, view, cam, cfg, rc)
+        ka = args[1]
+        # the parent's kernel leaves its accumulators as it found them
+        # only after a fill
+        fill = fills.get(name, name.startswith("parent"))
+
+        def once():
+            if fill:
+                acc.fill_(rm.IDENTITY)
+            fn(*ka, _build.stream_ptr(device))
+
+        dog = _Watchdog(f"the bounds, {name}")
+        clocked = name.startswith("clock64")
+        if clocked:
+            lib.vh_cyc_zero()
+        acc.fill_(rm.IDENTITY)
+        _build.check(fn(*ka, _build.stream_ptr(device)), "raymarch")
+        torch.cuda.synchronize()
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(out, ref))
+        line = ""
+        if clocked:
+            buf = (ctypes.c_ulonglong * 8)()
+            lib.vh_cyc(ctypes.byref(buf))
+            line = _clock_line(lib, ("load chain", "projection",
+                                     "shared atomics", "flush"))
+            line += f"; the last CTA's tail {int(buf[6])}"
+        ms = _graph_ms(once)
+        dog.stop()
+        acc.fill_(rm.IDENTITY)
+        print(f"bounds, phase 6 frame 11 ({int(mask.sum())} active rows, "
+              f"{ty * tx} tiles), {name}: {ms:.4f} ms"
+              f"{' with the fill' if fill else ''}, bit-equal {same}{line}; "
+              f"on {gpu}", flush=True)
+    del map_state
+
+
+def _probe_gc(smoke, libs, gpu):
+    from . import engine
+    from .ops import hash_table as ht
+    device = torch.device("cuda", 0)
+    cfg = smoke._config()
+    _, depth, color = smoke._frames(cfg.camera, device)
+    state = engine.create(cfg, device=device)
+    calls = []
+    with smoke._recorded_hash_calls(calls):
+        for i in range(12):
+            state, _ = engine.step(state, depth[i], color[i], cfg)
+    torch.cuda.synchronize()
+    del state
+    call = [c for c in calls if c["kind"] == "gc"][11]
+    a = call["args"]
+    tk, bk, surf, fs, nf, nt, idx, mask, ms, mw, mcfg = a
+    pools = smoke._scratch_pool(mcfg, device)
+    ref = smoke._plain_gc(a, pools)
+    work = ht.gc_work_counts(bk, idx, mask, ms, mw, mcfg)
+    short = smoke._gc_short_list(call)["args"]
+    stream = _build.stream_ptr(device)
+    edited = {f"gc {n}" for n, _, keeps in GC_EDITS if not keeps}
+    for name, (kind, lib, fn, _) in libs.items():
+        if kind == "gc":
+            args, out = ht.prepare_gc(tk, bk, surf, fs, nf, nt, *pools, idx,
+                                      mask, ms, mw, mcfg)
+        elif kind == "delete":
+            args, out = ht.prepare_delete(*short[:6], *pools, *short[6:])
+        else:
+            continue
+        ka = list(args[:-2])
+        dog = _Watchdog(f"GC, {name}")
+        clocked = name.startswith("clock64")
+        if clocked:
+            lib.vh_cyc_zero()
+        _build.check(fn(*ka, stream), "hash_delete")
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(out, ref))
+        line = ""
+        if clocked:
+            buf = (ctypes.c_ulonglong * 8)()
+            lib.vh_cyc(ctypes.byref(buf))
+            line = (_clock_line(lib, ("ticket, flags and scan", "look-back",
+                                      "row work", "arrival and reset"))
+                    + f"; the longest look-back {int(buf[6])}, the longest "
+                      f"row work {int(buf[7])}")
+        t = _graph_ms(lambda: fn(*ka, _build.stream_ptr(device)))
+        dog.stop()
+        what = ("the GC entry" if kind == "gc"
+                else "the list entry on the plain GC's short list")
+        if name in edited:
+            what += "; edited, the result not held"
+        print(f"GC, phase 1 frame 11 ({idx.numel()} active rows, "
+              f"{work.n_culled} culled, {work.n_freed} freed), {name} "
+              f"({what}): {t:.4f} ms, outputs bit-equal to the plain GC "
+              f"{same}{line}; on {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose kernels run beside")
     ap.add_argument("--front-only", action="store_true",
                     help="only the preprocess and the candidates")
+    ap.add_argument("--bounds-gc-only", action="store_true",
+                    help="only the march's tile bounds and GC's free pass")
     args = ap.parse_args(argv)
+    if args.bounds_gc_only:
+        return _bounds_gc(args.parent)
     march = (_build.CSRC / "raymarch.cu").read_text()
     insert = (_build.CSRC / "hash_alloc.cu").read_text()
     sources = {}
@@ -611,6 +930,33 @@ def main(argv=None) -> int:
         _probe_march(smoke, libs, gpu)
         _probe_insert(smoke, libs, gpu)
     _probe_front(smoke, libs, gpu)
+    return 0
+
+
+def _bounds_gc(parent) -> int:
+    """The tile bounds' and GC's builds (:data:`BOUNDS_EDITS`,
+    :data:`GC_EDITS`, clock64 stamps), the parent checkout's beside them."""
+    march = (_build.CSRC / "raymarch.cu").read_text()
+    delete = (_build.CSRC / "hash_delete.cu").read_text()
+    sources = {f"bounds {name}": ("bounds", _edit(march, edits))
+               for name, edits, _, _ in BOUNDS_EDITS}
+    sources["clock64 bounds"] = ("bounds", bounds_clocked(march))
+    sources.update({f"gc {name}": ("gc", _edit(delete, edits))
+                    for name, edits, _ in GC_EDITS})
+    sources["clock64 gc"] = ("gc", gc_clocked(delete))
+    sources["list delete"] = ("delete", delete)
+    if parent is not None:
+        csrc = parent / "voxelhashing_tpu_torch" / "csrc"
+        sources["parent bounds"] = ("bounds",
+                                    (csrc / "raymarch.cu").read_text())
+        sources["parent delete"] = ("delete",
+                                    (csrc / "hash_delete.cu").read_text())
+    _build.build()
+    libs = _build_all(sources)
+    smoke = ab_step._smoke()
+    gpu = smoke._smi()
+    _probe_bounds(smoke, libs, gpu)
+    _probe_gc(smoke, libs, gpu)
     return 0
 
 

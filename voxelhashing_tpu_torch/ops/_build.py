@@ -72,6 +72,8 @@ _SIGNATURES = {
     },
     "hash_delete": {
         "vh_hash_delete": [_P] * 2 + [_I] + [_P] * 13 + [_I] * 3 + [_P] * 2,
+        "vh_hash_gc": [_P] * 4 + [_I] * 3 + [_F, _I] + [_P] * 13
+        + [_I] * 3 + [_P] * 2 + [_I, _P, _P],
         "vh_hash_delete_grid": [],
     },
     "raymarch": {

@@ -13,10 +13,11 @@ with the map's hash sampler. ``raycast.ray_interval_splat`` and
 ``raycast.render_march`` keep their names and reach :func:`ray_bounds` and
 :func:`march`.
 
-On CUDA tensors :func:`ray_bounds` is one fill and one launch (in place of
-~150 small torch launches) and :func:`march` one launch a render (in place
-of the [num_samples, P] sample pass, ~29.5M hash lookups a 320x240 frame
-at 48 samples, and its secant steps): ``MARCH_LANES`` lanes a ray that
+On CUDA tensors :func:`ray_bounds` is one launch (in place of ~150 small
+torch launches; its accumulators persist, :func:`reserve`) and
+:func:`march` one launch a render (in place of the [num_samples, P]
+sample pass, ~29.5M hash lookups a 320x240 frame at 48 samples, and its
+secant steps): ``MARCH_LANES`` lanes a ray that
 take its samples in windows and stop at the window past its band or
 holding its first crossing, a warp's block lookups listed and shared.
 Both are bit-equal to their plain versions:
@@ -56,6 +57,8 @@ MARCH_LANES = 4           # csrc/raymarch.cu: kMarchLanes, lanes a ray
 MARCH_THREADS = 256       # csrc/raymarch.cu: kMarchThreads, a CTA
 MARCH_TILE_X = 8          # csrc/raymarch.cu: kMarchTileX, a CTA's rays wide
 
+_ACCUMULATORS = {}        # (device, tile count) -> the bounds' accumulators
+
 
 class MarchHits(NamedTuple):
     """What a march finds along each ray (flat [P], row-major pixels),
@@ -83,20 +86,51 @@ def tiles(cam: CameraConfig, rc: RaycastConfig):
     return -(-cam.height // tile), -(-cam.width // tile)
 
 
+def reserve(device, n_tiles: int):
+    """The bounds kernel's persistent accumulators on ``device`` for a grid
+    of ``n_tiles`` tiles: int32 [2 n + 4] (the tiles' z min and max
+    images, the global widening and the last-CTA counter), ``IDENTITY``
+    between launches (each launch's last CTA restores them), made at the
+    first call. Raises inside a CUDA graph capture when they are not made
+    yet: a buffer made there would belong to the graph's pool. Two bounds
+    launches that share them must not run at once (one stream a
+    process)."""
+    device = torch.device(device)
+    key = (device, int(n_tiles))
+    acc = _ACCUMULATORS.get(key)
+    if acc is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "raymarch: reserve(device, n_tiles) before a CUDA graph "
+                "capture; the bounds' accumulators are not made yet")
+        acc = torch.full((2 * n_tiles + 4,), IDENTITY, dtype=torch.int32,
+                         device=device)
+        _ACCUMULATORS[key] = acc
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # The plain versions (the CPU path; the reference on the card)
 # ---------------------------------------------------------------------------
 
-def ray_bounds_plain(block_key, active_idx, active_mask, view_matrix,
-                     cam: CameraConfig, cfg: MapConfig, rc: RaycastConfig):
-    """Per-screen-tile [min,max] z-depth bounds of the active blocks
-    (``raycast.ray_interval_splat``'s plain version): each block's 8
-    corners projected, its screen box and depth range scatter-min/maxed
-    into a (tiles_y, tiles_x) grid over a span of at most 4x4 tiles;
-    blocks that span more (or cross the near plane) widen every tile.
-    Tiles no block touches get t_min=+inf > t_max=-inf."""
-    if block_key.device.type == "cuda":
-        ray_bounds_plain.cuda_calls += 1
+class RowBounds(NamedTuple):
+    """Each active row's part in the tile bounds ([M] each)."""
+
+    z_min: torch.Tensor      # f32, the block's corners' z range
+    z_max: torch.Tensor
+    t0x: torch.Tensor        # int32, its tile box (clamped to the grid)
+    t1x: torch.Tensor
+    t0y: torch.Tensor
+    t1y: torch.Tensor
+    scatter: torch.Tensor    # bool, scattered into its box
+    overflow: torch.Tensor   # bool, widens every tile instead
+
+
+def row_bounds(block_key, active_idx, active_mask, view_matrix,
+               cam: CameraConfig, cfg: MapConfig, rc: RaycastConfig):
+    """The per-row half of :func:`ray_bounds_plain`: each active block's 8
+    corners projected, its z range and screen box, the tiles it spans and
+    whether it scatters into them or overflows."""
     tile = rc.splat_tile
     ty, tx = tiles(cam, rc)
     dev = active_idx.device
@@ -133,24 +167,41 @@ def ray_bounds_plain(block_key, active_idx, active_mask, view_matrix,
                  & (v_max >= 0) & (v_min < cam.height))
 
     fits = (t1x - t0x < SPAN) & (t1y - t0y < SPAN)
-    scatter_ok = active_mask & near_ok & on_screen & fits
-    overflow = active_mask & on_screen & ~(near_ok & fits)
-    any_overflow = torch.any(overflow)
+    return RowBounds(z_min, z_max, t0x, t1x, t0y, t1y,
+                     active_mask & near_ok & on_screen & fits,
+                     active_mask & on_screen & ~(near_ok & fits))
+
+
+def ray_bounds_plain(block_key, active_idx, active_mask, view_matrix,
+                     cam: CameraConfig, cfg: MapConfig, rc: RaycastConfig):
+    """Per-screen-tile [min,max] z-depth bounds of the active blocks
+    (``raycast.ray_interval_splat``'s plain version): each block's 8
+    corners projected, its screen box and depth range scatter-min/maxed
+    into a (tiles_y, tiles_x) grid over a span of at most 4x4 tiles;
+    blocks that span more (or cross the near plane) widen every tile.
+    Tiles no block touches get t_min=+inf > t_max=-inf."""
+    if block_key.device.type == "cuda":
+        ray_bounds_plain.cuda_calls += 1
+    ty, tx = tiles(cam, rc)
+    dev = active_idx.device
+    r = row_bounds(block_key, active_idx, active_mask, view_matrix, cam,
+                   cfg, rc)
+    any_overflow = torch.any(r.overflow)
     g_min = torch.amin(torch.where(
-        overflow, torch.clamp(z_min, min=cam.depth_min), torch.inf))
-    g_max = torch.amax(torch.where(overflow, z_max, -torch.inf))
+        r.overflow, torch.clamp(r.z_min, min=cam.depth_min), torch.inf))
+    g_max = torch.amax(torch.where(r.overflow, r.z_max, -torch.inf))
 
     n = ty * tx
     t_min = torch.full((n + 1,), torch.inf, dtype=torch.float32, device=dev)
     t_max = torch.full((n + 1,), -torch.inf, dtype=torch.float32, device=dev)
     for dy in range(SPAN):
         for dx in range(SPAN):
-            iy = t0y + dy
-            ix = t0x + dx
-            ok = scatter_ok & (iy <= t1y) & (ix <= t1x)
+            iy = r.t0y + dy
+            ix = r.t0x + dx
+            ok = r.scatter & (iy <= r.t1y) & (ix <= r.t1x)
             lin = torch.where(ok, iy * tx + ix, n).long()   # n = dropped
-            t_min.scatter_reduce_(0, lin, z_min, "amin", include_self=True)
-            t_max.scatter_reduce_(0, lin, z_max, "amax", include_self=True)
+            t_min.scatter_reduce_(0, lin, r.z_min, "amin", include_self=True)
+            t_max.scatter_reduce_(0, lin, r.z_max, "amax", include_self=True)
     t_min = t_min[:n].reshape(ty, tx)
     t_max = t_max[:n].reshape(ty, tx)
     t_min = torch.where(any_overflow, torch.minimum(t_min, g_min), t_min)
@@ -233,8 +284,9 @@ def _check(t, dtype, shape, what, dev):
 
 def prepare_bounds(block_key, active_idx, active_mask, view_matrix,
                    cam: CameraConfig, cfg: MapConfig, rc: RaycastConfig):
-    """Check the inputs and make the outputs (t_min, t_max f32 [ty, tx])
-    and the accumulators; returns (launch arguments, (t_min, t_max))."""
+    """Check the inputs and make the outputs (t_min, t_max f32 [ty, tx]);
+    returns (launch arguments, (t_min, t_max)). The accumulators are the
+    persistent ones of :func:`reserve`."""
     dev = block_key.device
     _check(block_key, torch.int32, (block_key.shape[0],), "block_key", dev)
     m = active_idx.shape[0]
@@ -245,18 +297,18 @@ def prepare_bounds(block_key, active_idx, active_mask, view_matrix,
         raise ValueError("raymarch: splat_tile must be >= 1")
     ty, tx = tiles(cam, rc)
     n = ty * tx
-    acc = torch.empty((2 * n + 4,), dtype=torch.int32, device=dev)
+    acc = reserve(dev, n)
     t_min = torch.empty((ty, tx), dtype=torch.float32, device=dev)
     t_max = torch.empty((ty, tx), dtype=torch.float32, device=dev)
     p = _build.ptr
-    args = ("ray_bounds", acc,
+    args = ("ray_bounds",
             (p(block_key), p(active_idx), p(active_mask), m, p(view_matrix),
              cam.width, cam.height, rc.splat_tile, ty, tx,
              int(cfg.world_blocks), float(cam.fx), float(cam.fy),
              float(cam.cx), float(cam.cy), float(cam.depth_min),
              float(cfg.voxel_size), float(cfg.block_size_world),
              float(NEAR_Z), p(acc), p(t_min), p(t_max)),
-            (block_key, active_idx, active_mask, view_matrix), dev)
+            (block_key, active_idx, active_mask, view_matrix, acc), dev)
     return args, (t_min, t_max)
 
 
@@ -293,7 +345,7 @@ def prepare_march(state, pose, cam: CameraConfig, cfg: MapConfig,
                  if rc.use_gradients else None))
     d = rc.derived(cfg)
     p, pn = _build.ptr, _build.ptr_or_null
-    args = ("march", None,
+    args = ("march",
             (p(state.table_key), p(state.table_val), p(state.sdf),
              p(state.weight), p(state.color), h_tab, int(cfg.max_probes),
              int(cfg.world_blocks), float(cfg.voxel_size), p(pose),
@@ -312,15 +364,13 @@ def prepare_march(state, pose, cam: CameraConfig, cfg: MapConfig,
 
 
 def launch(args) -> None:
-    """Launch a prepared kernel (:func:`prepare_bounds`: the accumulators'
-    fill, then ``ray_bounds_kernel``; :func:`prepare_march`:
-    ``raymarch_kernel``) on the current stream: the only place that does;
-    counts the launch."""
-    kind, acc, kernel_args, _keep, device = args
+    """Launch a prepared kernel (:func:`prepare_bounds`:
+    ``ray_bounds_kernel``; :func:`prepare_march`: ``raymarch_kernel``) on
+    the current stream: the only place that does; counts the launch."""
+    kind, kernel_args, _keep, device = args
     lib = _build.library("raymarch")
     stream = _build.stream_ptr(device)
     if kind == "ray_bounds":
-        acc.fill_(IDENTITY)
         _build.check(lib.vh_ray_bounds(*kernel_args, stream), "raymarch")
         ray_bounds.launches += 1
     else:
@@ -637,7 +687,7 @@ def work_counts(state, pose, cam: CameraConfig, cfg: MapConfig,
 
 EDGE_CASES = ("tilted_plane", "overflow_behind", "overflow_near",
               "crossing_pairs", "zero_plateau", "jump", "tiny_denom",
-              "world_edge", "no_active")
+              "world_edge", "no_active", "crowded_tile", "near_plane")
 TINY_SDF = 2.0 ** -44     # two of them differ by less than 1e-12
 
 
@@ -748,7 +798,12 @@ def edge_bank(seed: int = 17):
       the crossing's samples (every secant sample and the hit invalid);
     * "world_edge" (a 16-block world): rays that leave the world's range
       (INVALID_KEY corners) and never cross;
-    * "no_active": every active row masked: every tile untouched."""
+    * "no_active": every active row masked: every tile untouched;
+    * "crowded_tile": 128 blocks far off on one 16-pixel tile (every lane
+      of each warp of the bounds kernel on one tile, the other untouched);
+    * "near_plane" (4-pixel tiles): a plane of blocks and two blocks whose
+      z ranges cross the near plane (finite projections on both sides),
+      which widen every tile."""
     rng = np.random.default_rng(seed)
     out = []
 
@@ -840,6 +895,16 @@ def edge_bank(seed: int = 17):
             blocks = _box((-5, 5), (-4, 4), (0, 8))
             rc = RaycastConfig(mode="march", num_samples=8)
             active = None
+        elif case == "crowded_tile":
+            field = plane_z(2.4, 0.06, cfg.voxel_size)
+            blocks = _box((-2, 2), (-2, 2), (12, 20))
+            rc = RaycastConfig(mode="march", splat_tile=16)
+        elif case == "near_plane":
+            field = plane_z(1.0, 0.06, cfg.voxel_size)
+            blocks = _box((-3, 1), (-2, 2), (5, 8)) + [(0, 0, 0),
+                                                       (-1, -1, 0)]
+            pose[:3, 3] = (0.01, 0.02, 0.05)
+            rc = RaycastConfig(mode="march", splat_tile=4)
         else:                                           # world_edge
             cfg = _edge_cfg(world_blocks=16)
             field = halves(plane_z(1.0, 0.06, cfg.voxel_size),
