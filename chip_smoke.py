@@ -3357,21 +3357,20 @@ def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
     step = sharded.make_sharded_step(cfg)
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(n_frames)]
-    est, valid, reduces, reduce_s, snap = [], [], [], [], None
+    est, valid, reduces, snap = [], [], [], None
     torch.cuda.synchronize()
     _zero_counts()
     counted = collectives.all_reduce
-    counted.calls, counted.seconds = 0, 0.0
+    counted.calls = 0
     hash_calls = []
     for i in range(n_frames):
-        c0, s0 = counted.calls, counted.seconds
+        c0 = counted.calls
         ev[i][0].record()
         with (_recorded_hash_calls(hash_calls) if hold
               else contextlib.nullcontext()):
             state, pose = step(state, depth[i], color[i])
         ev[i][1].record()
         reduces.append(counted.calls - c0)
-        reduce_s.append(counted.seconds - s0)
         est.append(pose.clone())
         valid.append(state.valid_host)
         if hold and i == SHARD_SNAP:
@@ -3413,8 +3412,6 @@ def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
            "valid": valid, "counts": counts,
            "allocated": int(torch.sum(state.map.block_key != INVALID_KEY)),
            "reduces_per_frame": float(np.mean([reduces[i] for i in timed])),
-           "reduce_ms_per_frame": 1000 * float(np.mean(
-               [reduce_s[i] for i in timed])),
            "frame_ms": [ev[i][0].elapsed_time(ev[i][1])
                         for i in range(n_frames)]}
     if me == 0:
@@ -3422,8 +3419,7 @@ def _sharded_run(cfg, device, n_frames, label, gpu_line, hold=False):
               f"{sum(valid)}, ATE RMSE {out['ate_mm']:.3f} mm, rank 0 "
               f"fused frames/s (frames 2-{n_frames - 1}, CUDA events) "
               f"{out['fps']:.3f}, {out['reduces_per_frame']:.1f} "
-              f"all-reduces a frame taking {out['reduce_ms_per_frame']:.3f}"
-              f" ms of host time (staging included), rank 0 blocks "
+              f"all-reduces a frame, rank 0 blocks "
               f"{out['allocated']}, counts {counts}; on {gpu_line}",
               flush=True)
     if hold:
@@ -3760,9 +3756,8 @@ def phase_sharded(device, gpu_line, graph):
     a = ranks[0]["a"]
     print(f"phase 8: sharded (a) rank 0 {a['fps']:.3f} fused frames/s, "
           f"ATE {a['ate_mm']:.3f} mm, {a['reduces_per_frame']:.1f} "
-          f"all-reduces a frame ({a['reduce_ms_per_frame']:.3f} ms of host "
-          f"time inside the step; one ICP-sum all-reduce with the card "
-          f"idle {ranks[0]['reduce_ms'][REDUCE_SHAPES[0][0]]:.3f} ms), "
+          f"all-reduces a frame (one ICP-sum all-reduce with the card idle "
+          f"{ranks[0]['reduce_ms'][REDUCE_SHAPES[0][0]]:.3f} ms), "
           f"{a['syncs']} host syncs of one frame; splat + RGB-D "
           f"{ranks[0]['c_splat']['fps']:.3f} and march + RGB-D "
           f"{ranks[0]['c_march']['fps']:.3f} frames/s; D = 1 over NCCL "

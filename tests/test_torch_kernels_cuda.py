@@ -178,7 +178,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 10
+    assert len(called) == 11
 
 
 def _c_entry_points():
@@ -225,7 +225,8 @@ def test_missing_nvcc_raises(monkeypatch):
         "libvhtorch_splat_zbuf_")
     assert {s.stem for s in _build.sources()} == {
         "alloc_candidates", "fused_integrate", "hash_alloc", "hash_delete",
-        "icp_linearize", "preprocess", "raymarch", "solve6", "splat_zbuf"}
+        "icp_linearize", "preprocess", "raymarch", "solve6", "splat_zbuf",
+        "trace_stamp"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 

@@ -23,7 +23,11 @@ functions eagerly.
 
 ``step(..., mark=f)`` calls ``f(stage)`` each time a stage's work has been
 issued, in the order of :data:`STAGES`; ``chip_smoke.py`` records a CUDA
-event there to time the stages.
+event there to time the stages. ``step(..., tally=f)`` hands ``f(name,
+value)`` the frame's counters (``diagnostics.TRACE_COUNTERS``) as device
+scalars. :func:`make_step`'s step with a ``trace``
+(``diagnostics.StepTracer``) takes both into traced variants of its graphs
+and times its host work in spans.
 """
 
 from __future__ import annotations
@@ -132,10 +136,13 @@ def _is_starve(mp, frame_idx: int) -> bool:
 
 
 def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
-           hint=None, first: bool = False, mark=_no_mark) -> Front:
+           hint=None, first: bool = False, mark=_no_mark,
+           tally=None) -> Front:
     """preprocess -> compactify -> render -> track, with no host read and
     no write to the map. ``hint``: the pose hint (a device tensor) or None;
-    ``first``: frame 0 (no model yet: the pose is kept)."""
+    ``first``: frame 0 (no model yet: the pose is kept). ``tally``: given
+    the ICP iterations whose residual the tracker kept, of those launched
+    (one past its level's early-out, or skipped, leaves it NaN)."""
     cam = cfg.camera
     dev = state.pose.device
     frame = preprocess(depth_raw, color_raw, cam, cfg.filter)
@@ -190,6 +197,8 @@ def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
         tr = tracking.track(frame.points, frame.normals, model.points,
                             model.normals, last_pose, cam, cfg.tracker,
                             **rgbd)
+    if tally is not None:
+        tally("icp_live_iters", torch.sum(~torch.isnan(tr.iter_residuals)))
     reuse = None if cfg.offline else (active_idx, n_active, overflow0)
     return Front(frame=frame, tr=tr, model_depth=model.depth,
                  splat_overflow=model.splat_overflow, reuse=reuse)
@@ -197,7 +206,8 @@ def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
 
 def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
           phase, starve: bool, stream_bitmask=None, reuse_active=None,
-          model_depth=None, mark=_no_mark, key_filter=None) -> Back:
+          model_depth=None, mark=_no_mark, key_filter=None,
+          tally=None) -> Back:
     """alloc -> compactify (or reuse) -> fused integrate -> gc, then the
     maintain flags; no host read (the pool rows are updated in place).
 
@@ -217,6 +227,8 @@ def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
     stack's popped window) are appended instead of a second compactify.
     Offline replay runs the alloc fixpoint rounds and the exact compactify
     at the new pose.
+
+    ``tally``: given the blocks the alloc inserted and those GC freed.
     """
     cam = cfg.camera
     mp = cfg.map
@@ -234,6 +246,9 @@ def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
     rounds = mp.alloc_rounds_offline if cfg.offline else 1
     n_free_before = state.n_free
     state, _ = blockmap.allocate(state, keys, mp, rounds=rounds)
+    if tally is not None:
+        n_free_alloc = state.n_free
+        tally("blocks_inserted", n_free_before - n_free_alloc)
     if cfg.offline:
         _, found = blockmap.lookup(state, keys, mp)
         alloc_missed = blockmap._isum((keys != geom.INVALID_KEY) & ~found)
@@ -270,6 +285,8 @@ def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
         else:
             state = integ.garbage_collect(state, active_idx, active_mask, mp,
                                           cached_stats=gc_stats)
+    if tally is not None:
+        tally("blocks_freed", state.n_free - n_free_alloc)
     mark("gc")
     return Back(map=state, n_active=n_active, overflow=overflow,
                 alloc_missed=alloc_missed,
@@ -279,14 +296,15 @@ def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
 def _integrate_frame(state: MapState, frame: FrameInputs, pose,
                      cfg: EngineConfig, frame_idx: int, stream_bitmask=None,
                      reuse_active=None, model_depth=None, mark=_no_mark,
-                     key_filter=None):
+                     key_filter=None, tally=None):
     """:func:`_back` at host frame ``frame_idx``, then the maintain
     decision (one host read) and, when needed, ``compact_pool``. Returns
     (map, n_active, overflow, alloc_missed)."""
     back = _back(state, frame, pose, cfg, frame_idx,
                  _is_starve(cfg.map, frame_idx),
                  stream_bitmask=stream_bitmask, reuse_active=reuse_active,
-                 model_depth=model_depth, mark=mark, key_filter=key_filter)
+                 model_depth=model_depth, mark=mark, key_filter=key_filter,
+                 tally=tally)
     state = back.map
     if blockmap.need_maintain(back.flags, cfg.map, frame_idx):
         state = blockmap.compact_pool(state, cfg.map)
@@ -322,7 +340,7 @@ def _diagnostics(cfg: EngineConfig, front: Front, back: Optional[Back],
 
 
 def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
-         pose_hint=None, mark=_no_mark, stream_bitmask=None
+         pose_hint=None, mark=_no_mark, stream_bitmask=None, tally=None
          ) -> Tuple[EngineState, FrameDiagnostics]:
     """Process one RGB-D frame (tensors on the state's device), eagerly.
 
@@ -331,14 +349,15 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
     the model render. ``stream_bitmask``: the streaming manager's
     eviction bitmask (``streaming.StreamingManager.bitmask``), which keeps
     allocation out of evicted chunks. ``mark``: called with each stage's name when its
-    work has been issued (see :data:`STAGES`).
+    work has been issued (see :data:`STAGES`). ``tally``: called with each of
+    the frame's counters (see the module docstring).
     """
     dev = state.pose.device
     is_first = state.frame_host == 0
     hint = None if pose_hint is None else torch.as_tensor(
         pose_hint, dtype=torch.float32, device=dev)
     front = _front(state, depth_raw, color_raw, cfg, hint, first=is_first,
-                   mark=mark)
+                   mark=mark, tally=tally)
     tr = front.tr
     replay = cfg.use_trajectory and hint is not None
     integrate_now = is_first or replay or bool(tr.valid)
@@ -347,7 +366,7 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
         new_map, n_act, overflow, alloc_missed = _integrate_frame(
             state.map, front.frame, tr.pose, cfg, state.frame_host,
             stream_bitmask=stream_bitmask, reuse_active=front.reuse,
-            model_depth=front.model_depth, mark=mark)
+            model_depth=front.model_depth, mark=mark, tally=tally)
         back = Back(map=new_map, n_active=n_act, overflow=overflow,
                     alloc_missed=alloc_missed, flags=None)
     else:
@@ -516,6 +535,17 @@ class GraphStep:
     event recorded behind its copies has completed. Device inputs are
     copied into the step's input buffers.
 
+    ``trace``: None (off, as made), or a ``diagnostics.StepTracer`` that
+    records the frames of each call while it is set (set and cleared
+    between calls). A traced frame replays traced variants of the graphs, each
+    captured on the first traced frame that needs it, in the same pool and
+    kept in ``traced`` apart from ``graphs``: the untraced graphs with the
+    tracer's stamps at their start, at each mark and at their end, and its
+    counters. The traced graphs write to the tracer they were captured for:
+    another tracer set on the step has them captured anew. The same frame
+    makes the same two reads; the state and the diagnostics are those of
+    an untraced frame.
+
     ``close()`` frees the graphs and buffers.
     """
 
@@ -525,7 +555,10 @@ class GraphStep:
         self.with_hint = with_hint
         self.donate = donate
         self.with_stream_mask = with_stream_mask
+        self.trace = None                # a diagnostics.StepTracer
         self.graphs = {}                 # key -> CountedGraph (CUDA)
+        self.traced = {}                 # key -> traced CountedGraph
+        self._traced_for = None          # the tracer they write to
         self.bytes_adopted = 0
         self.pool_bytes_adopted = 0
         self._buf = None                 # the step's own EngineState
@@ -621,52 +654,80 @@ class GraphStep:
 
     # -- segments (the functions the graphs capture) ---------------------
 
-    def _front_fn(self) -> Front:
+    def _front_fn(self, mark=_no_mark, tracer=None) -> Front:
         """The front segment on the step's buffers, then the state's small
         fields: the alloc phase is the frame counter before it counts this
-        frame."""
+        frame. ``tracer``: takes the frame's counters."""
         b, inp = self._buf, self._inputs
         front = _front(b, inp["depth"], inp.get("color"), self.cfg,
-                       inp.get("hint"))
+                       inp.get("hint"), mark=mark,
+                       tally=None if tracer is None else tracer.tally)
         tr = front.tr
         self._phase.copy_(b.frame)
         b.frame.add_(1)
         b.pose.copy_(tr.pose)
         b.tracking_lost.copy_(~tr.valid)
         b.n_integrated.add_(tr.valid.to(torch.int32))
+        mark("track")
         return front
 
-    def _back_fn(self, starve: bool, front: Front) -> Back:
+    def _back_fn(self, starve: bool, front: Front, mark=_no_mark,
+                 tracer=None) -> Back:
         """The back segment on the step's buffers; the map fields it
-        replaced are copied into them."""
+        replaced are copied into them (with the maintain flags, the stage
+        ``maintain`` of a graphed frame)."""
         b = self._buf
         back = _back(b.map, front.frame, front.tr.pose, self.cfg,
                      self._phase, starve,
                      stream_bitmask=self._inputs.get("bitmask"),
                      reuse_active=front.reuse,
-                     model_depth=front.model_depth)
+                     model_depth=front.model_depth, mark=mark,
+                     tally=None if tracer is None else tracer.tally)
         for dst, src in zip(b.map, back.map):
             if src is not dst:
                 dst.copy_(src)
+        mark("maintain")
         return back._replace(map=b.map)
 
-    def _fused_fn(self, starve: bool):
+    def _fused_fn(self, starve: bool, mark=_no_mark, tracer=None):
         """Both segments in one graph (trajectory replay)."""
-        front = self._front_fn()
-        return front, self._back_fn(starve, front)
+        front = self._front_fn(mark, tracer)
+        return front, self._back_fn(starve, front, mark, tracer)
 
-    def _run(self, key: str, fn):
-        """``fn()`` eagerly (CPU), or the replay of its graph (CUDA),
-        captured at the first call with ``key``."""
-        if self._buf.pose.device.type != "cuda":
-            return fn()
-        g = self.graphs.get(key)
-        if g is None:
-            g = self._capture(key, fn)
-        g.replay()
-        return g.out
+    def _run(self, key: str, fn, tr=None):
+        """``fn(mark, tracer)`` eagerly (CPU), or the replay of its graph
+        (CUDA), captured at the first call with ``key``. With the tracer
+        ``tr``: in a ``replay`` span, with its stamps (on the card the
+        traced variant of the graph)."""
+        cuda = self._buf.pose.device.type == "cuda"
+        if tr is None:
+            if not cuda:
+                return fn(_no_mark, None)
+            g = self.graphs.get(key)
+            if g is None:
+                g = self._capture(key, lambda: fn(_no_mark, None),
+                                  self.graphs)
+            g.replay()
+            return g.out
+        tr.open("replay", key)
+        captured = False
+        if not cuda:
+            st = tr.stamps(key)
+            out = st.around(fn, tr)
+        else:
+            g = self.traced.get(key)
+            if g is None:
+                st = tr.stamps(key, self._buf.pose.device)
+                g = self._capture(key, lambda: st.around(fn, tr),
+                                  self.traced)
+                g.stamps, captured = st, True
+            g.replay()
+            out, st = g.out, g.stamps
+        tr.close()
+        tr.ran(key, st, captured)
+        return out
 
-    def _capture(self, key: str, fn) -> CountedGraph:
+    def _capture(self, key: str, fn, graphs: dict) -> CountedGraph:
         dev = self._buf.pose.device
         hash_table.reserve(dev, self.cfg.map)
         raymarch.reserve(dev, math.prod(raymarch.tiles(self.cfg.camera,
@@ -701,7 +762,7 @@ class GraphStep:
                                f"failed: {e}") from e
         g.capture_ms = (time.perf_counter() - t0) * 1000.0
         g.nodes = _graph_nodes(graph)
-        self.graphs[key] = g
+        graphs[key] = g
         return g
 
     # -- the step ----------------------------------------------------------
@@ -714,48 +775,90 @@ class GraphStep:
                             f"got {3 + len(extra)}")
         cfg = self.cfg
         dev = state.pose.device
+        fh = state.frame_host
+        tr = self.trace
+        if tr is not None:
+            if tr is not self._traced_for:
+                self._drop_traced()
+                self._traced_for = tr
+            tr.begin(fh, dev)
+            tr.open("inputs")
         self._stage({"depth": depth, "color": color,
                      "hint": extra[0] if self.with_hint else None,
                      "bitmask": extra[-1] if self.with_stream_mask
                      else None}, dev)
         inp = self._inputs
-        fh = state.frame_host
         if fh == 0:
+            hooks = {}
+            if tr is not None:
+                tr.close()
+                hooks = tr.eager()
             # a copy of the hint: under replay it becomes the state's pose,
             # and the next call overwrites the input buffer
             hint = inp.get("hint")
-            return step(state if self.donate else _clone_state(state),
-                        inp["depth"], inp.get("color"), cfg,
-                        pose_hint=None if hint is None else hint.clone(),
-                        stream_bitmask=inp.get("bitmask"))
+            out = step(state if self.donate else _clone_state(state),
+                       inp["depth"], inp.get("color"), cfg,
+                       pose_hint=None if hint is None else hint.clone(),
+                       stream_bitmask=inp.get("bitmask"), **hooks)
+            if tr is not None:
+                tr.end()
+            return out
 
         self._adopt(state)
+        if tr is not None:
+            tr.close()
         replay = cfg.use_trajectory and self.with_hint
         keys = graph_keys(cfg, fh, replay)
         starve = keys[-1].endswith("_starve")
         if replay:
-            front, back = self._run(keys[0],
-                                    lambda: self._fused_fn(starve))
+            front, back = self._run(
+                keys[0], lambda m, t: self._fused_fn(starve, m, t), tr)
         else:
-            front = self._run(keys[0], self._front_fn)
+            front = self._run(keys[0], self._front_fn, tr)
             back = None
-            if bool(front.tr.valid):
-                back = self._run(keys[1],
-                                 lambda: self._back_fn(starve, front))
-        if back is not None and blockmap.need_maintain(back.flags, cfg.map,
-                                                       fh):
-            self._adopt(self._buf._replace(
-                map=blockmap.compact_pool(self._buf.map, cfg.map)))
+            if tr is not None:
+                tr.open("read_valid")
+            tracked = bool(front.tr.valid)
+            if tr is not None:
+                tr.read_done(anchor=not tracked)
+            if tracked:
+                back = self._run(
+                    keys[1], lambda m, t: self._back_fn(starve, front, m, t),
+                    tr)
+        if back is not None:
+            if tr is not None:
+                tr.open("read_flags")
+            due = blockmap.need_maintain(back.flags, cfg.map, fh)
+            if tr is not None:
+                tr.read_done(anchor=True)
+            if due:
+                if tr is not None:
+                    tr.open("maintain")
+                self._adopt(self._buf._replace(
+                    map=blockmap.compact_pool(self._buf.map, cfg.map)))
+                if tr is not None:
+                    tr.close()
+        if tr is not None:
+            tr.open("diagnostics")
         diag = FrameDiagnostics(*(t.clone() for t in _diagnostics(
             cfg, front, back, self._buf.map)))
         new = self._buf._replace(frame_host=fh + 1)
+        if tr is not None:
+            tr.end()
         return (new if self.donate else _clone_state(new)), diag
+
+    def _drop_traced(self) -> None:
+        for g in self.traced.values():
+            g.graph.reset()
+        self.traced = {}
 
     def close(self) -> None:
         """Free the graphs, the step's buffers and its staging memory."""
         for g in self.graphs.values():
             g.graph.reset()
         self.graphs = {}
+        self._drop_traced()
+        self._traced_for = None
         self._buf = self._phase = self._inputs = None
         self._staging, self._staged = [{}, {}], [None, None]
         self._stream = self._pool = None
@@ -770,7 +873,9 @@ def make_step(cfg: EngineConfig, with_hint: bool = False,
 
     ``donate``: the given state is consumed and its pool updated in place
     (essential at a map of gigabytes). ``with_stream_mask``: the step takes
-    the streaming eviction bitmask as its last argument.
+    the streaming eviction bitmask as its last argument. The step's
+    ``trace`` (None: off) takes a ``diagnostics.StepTracer`` between calls
+    (:class:`GraphStep`).
 
     Not cached, unlike JAX's ``lru_cache``: a step owns a map-sized state
     and its graphs; call ``close()`` when done with it.

@@ -88,6 +88,10 @@ _SIGNATURES = {
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],
         "vh_empty": [_P],
     },
+    "trace_stamp": {
+        "vh_trace_stamp": [_P, _P] + [_I] * 5 + [_P] * 3 + [_I] * 4 + [_P],
+        "vh_trace_stamp_grid": [],
+    },
 }
 
 

@@ -12,14 +12,12 @@ These are the counterparts of the JAX package's mesh collectives
 (``lax.pmin``/``pmax``/``psum`` over the mesh axis). A failed collective
 raises; nothing here catches it.
 
-``all_reduce.calls`` and ``all_reduce.seconds`` count the all-reduces and
-the host time spent in them (staging included), for the per-frame
-numbers of ``chip_smoke.py``.
+``all_reduce.calls`` counts the all-reduces, for the per-frame numbers of
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -70,17 +68,14 @@ def _back(buf, like):
 def all_reduce(t, op: str = "sum", group=None):
     """``t`` reduced over the ranks with ``op`` ("sum", "min" or "max");
     ``t`` itself is left unchanged."""
-    t0 = time.perf_counter()
     buf = _to_comm(t, group)
     dist.all_reduce(buf, op=_OPS[op], group=group)
     out = _back(buf, t)
     all_reduce.calls += 1
-    all_reduce.seconds += time.perf_counter() - t0
     return out
 
 
 all_reduce.calls = 0
-all_reduce.seconds = 0.0
 
 
 def sum_tuple(sums: Sequence[torch.Tensor], group=None):
