@@ -70,7 +70,7 @@ and then:
    frames' unprofiled wall time); in that profile each stage runs in a
    ``record_function`` range closed after a synchronize, which splits the
    device time and the device ops by stage (the front stages' ops are the
-   front graph's nodes by stage), with the gc stage's device ms and ops
+   view and front graphs' nodes by stage), with the gc stage's device ms and ops
    on a line of their own; holds the hash kernels on every call of the
    second run (every GC among them) as phase 1's are held; phase 6 splits
    the march + RGB-D step's device time the same way;
@@ -191,7 +191,7 @@ and then:
    the pool's tensors kept from frame 1 on with no pool bytes copied in,
    and kernels A and B, 18 associations, 18 linearizations and 18 ICP
    updates (``icp_update``, no ``solve6``) on every tracked frame; reports frames/s of both, each graph's nodes (the
-   front graph's among them) and capture time, then 20 frames of
+   view and front graphs' among them) and capture time, then 20 frames of
    ``make_step`` alone: frames/s, the device's busy share (torch.profiler)
    and peak memory; (b) the ICP update kernel (``ops/icp_update``, one
    launch a solve) against its plain version on frame 11's 18 updates
@@ -1851,9 +1851,8 @@ def _device_stages(cfg, before, depth, color, frames, label, gpu_line):
     front_ops = sum(split[st][1] for st in front)
     print(f"  front stages ({', '.join(front)}): "
           f"{sum(split[st][0] for st in front):.3f} ms, {front_ops:.0f} "
-          f"device ops a frame, the front graph's nodes by stage "
-          f"({', '.join(f'{st} {split[st][1]:.0f}' for st in front)}; the "
-          f"front graph had 2,150 nodes before the preprocess kernel)")
+          f"device ops a frame, the view and front graphs' nodes by stage "
+          f"({', '.join(f'{st} {split[st][1]:.0f}' for st in front)})")
     return {"device_ms": dev_ms / n, "device_ops": len(ops) / n,
             "busy": dev_ms / wall_ms, "split": split}
 
@@ -4963,9 +4962,7 @@ def phase_graph(device, gpu_line, phase1_fps, rgbd_fps, scan_fps):
           f"capture) graphs {a['fps_graph_steady']:.3f}, eager "
           f"{a['fps_eager_steady']:.3f}; on {gpu_line}")
     for key, (nodes, ms) in sorted(a["graphs"].items()):
-        print(f"graph (a): graph {key!r}: {nodes} nodes"
-              f"{' (2,150 before the preprocess kernel)' if key == 'front' else ''}"
-              f", captured in "
+        print(f"graph (a): graph {key!r}: {nodes} nodes, captured in "
               f"{ms:.1f} ms (its front warm-up included)")
     alone = _graph_alone(device, gpu_line)
     print(f"graph (a), alone: {alone['fps']:.3f} fused frames/s (frames "
@@ -5580,6 +5577,7 @@ def main() -> int:
           f"graph_splat_rgbd_fps={graph['rgbd']['splat']['fps']:.3f} "
           f"graph_march_rgbd_fps={graph['rgbd']['march']['fps']:.3f} "
           f"graph_scan_fps={graph['scan']['fps']:.3f} "
+          f"view_nodes={graph['a']['graphs']['view'][0]} "
           f"front_nodes={graph['a']['graphs']['front'][0]} "
           f"icp_update_ms={graph['icp_update']['ms']:.4f} "
           f"icp_pass_ms={times['pass']['ms']:.4f} "

@@ -15,7 +15,7 @@ smallest step, the stamps against the spans that bound them, the host
 time of ``step`` outside its child spans); the host syncs of 16 traced
 frames, by frame; and the benchmark's eager stage split of the same cell
 for comparison, all in one JSON line (also appended to ``--out``). Then,
-the device's part of the tracer's cost: the front and back graphs
+the device's part of the tracer's cost: the view, front and back graphs
 replayed as a frame without its host reads, untraced and traced in
 turns, in a second line (the frame's inputs stay those of the last
 frame). On a tree whose program has no tracer it prints the node counts
@@ -56,15 +56,15 @@ def lap_frames(prog, k: int, n: int):
 
 
 def replay_ms(step, n: int = 20) -> dict:
-    """Median device ms of the front graph alone and of the front and back
-    graphs together, untraced and traced in turns (untraced, traced,
-    traced, untraced, ...), ``n`` of each, between CUDA events, and the
-    host ms of their launch calls."""
+    """Median device ms of the view and front graphs and of the view,
+    front and back graphs together, untraced and traced in turns
+    (untraced, traced, traced, untraced, ...), ``n`` of each, between CUDA
+    events, and the host ms of their launch calls."""
     import torch
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     ms = {}
-    for keys in (("front",), ("front", "back")):
+    for keys in (("view", "front"), ("view", "front", "back")):
         for r in range(2 * n):
             name = "untraced" if r % 4 in (0, 3) else "traced"
             graphs = step.graphs if name == "untraced" else step.traced

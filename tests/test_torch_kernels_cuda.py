@@ -673,10 +673,12 @@ def _step_config():
 
 @pytest.mark.cuda
 def test_make_step_graphs_are_the_eager_step(cuda):
-    """Eight frames through ``make_step`` on the card against eight eager
-    steps (starve frames 3 and 6 among them): the final state and the last
-    frame's diagnostics bit-equal, the same kernel launches, and two host
-    syncs in a tracked frame after the graphs are captured."""
+    """Eight frames through ``make_step`` on the card (host inputs, staged
+    behind the view graph on every graphed frame) against eight eager
+    steps (starve frames 3 and 6 among them): the final state and every
+    frame's diagnostics bit-equal (read after the last call: copies), the
+    same kernel launches, and two host syncs in a tracked frame after the
+    graphs are captured."""
     import warnings
     from voxelhashing_tpu_torch import engine
     from voxelhashing_tpu_torch.ops import icp_update as iu, solve6 as s6
@@ -693,12 +695,15 @@ def test_make_step_graphs_are_the_eager_step(cuda):
     a = engine.create(cfg, initial_pose=poses[0], device=cuda)
     b = engine.create(cfg, initial_pose=poses[0], device=cuda)
     step = engine.make_step(cfg)
+    host = [(d.cpu(), c.cpu()) for d, c in frames]
     c0 = counts()
+    eager_diags, graphed_diags = [], []
     for d, c in frames:
         a, da = engine.step(a, d, c, cfg)
+        eager_diags.append(da)
     eager = [n - m for n, m in zip(counts(), c0)]
     c0 = counts()
-    for i, (d, c) in enumerate(frames):
+    for i, (d, c) in enumerate(host):
         if i == 7:
             torch.cuda.synchronize()
             with warnings.catch_warnings(record=True) as caught:
@@ -713,15 +718,18 @@ def test_make_step_graphs_are_the_eager_step(cuda):
             assert len(syncs) == 2, [str(w.message) for w in syncs]
         else:
             b, db = step(b, d, c)
+        graphed_diags.append(db)
     graphed = [n - m for n, m in zip(counts(), c0)]
     assert graphed == eager and eager[0] == 8 and eager[2] > 0 \
         and eager[3] == 0
     for x, y in zip(list(a.map) + [a.pose, a.frame, a.n_integrated],
                     list(b.map) + [b.pose, b.frame, b.n_integrated]):
         assert torch.equal(_bits(x), _bits(y))
-    for x, y in zip(da, db):
-        assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
-    assert set(step.graphs) == {"front", "back", "back_starve"}
+    for i, (da, db) in enumerate(zip(eager_diags, graphed_diags)):
+        for x, y in zip(da, db):
+            assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)), i
+    assert set(step.graphs) == {"view", "front", "back", "back_starve"}
+    assert step.inputs_behind == 7
     assert step.pool_bytes_adopted == 0
     step.close()
 

@@ -363,7 +363,8 @@ def test_starve_without_a_host_read_is_the_boolean_index_form(kept):
 
 
 def test_graph_keys():
-    """Frame 0 is eager; a starve frame (the multiples of
+    """Frame 0 is eager; a tracked frame runs the view graph, the front
+    graph and a back graph; a starve frame (the multiples of
     ``gc_starve_interval``, 15 by default) has its own back graph; under
     replay one fused graph a frame."""
     cfg = convert.config_from(dataclasses.replace(
@@ -371,13 +372,14 @@ def test_graph_keys():
     for i in range(41):
         starve = i > 0 and i % 15 == 0
         tail = "_starve" if starve else ""
-        want = ("eager",) if i == 0 else ("front", "back" + tail)
+        want = ("eager",) if i == 0 else ("view", "front", "back" + tail)
         assert teng.graph_keys(cfg, i, replay=False) == want
         want = ("eager",) if i == 0 else ("fused" + tail,)
         assert teng.graph_keys(cfg, i, replay=True) == want
     off = dataclasses.replace(cfg, map=dataclasses.replace(
         cfg.map, gc_enabled=False))
-    assert teng.graph_keys(off, 15, replay=False) == ("front", "back")
+    assert teng.graph_keys(off, 15, replay=False) == ("view", "front",
+                                                      "back")
 
 
 _READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist",
@@ -400,8 +402,9 @@ def _no_host_reads(monkeypatch):
 @pytest.mark.parametrize("rgbd", [False, True])
 def test_segments_read_nothing_on_the_host(rgbd, frames, monkeypatch):
     """``_front`` and ``_back`` (a starve frame, the phase on the device)
-    and the make_step functions around them make no host read; the step
-    reads ``valid`` and the maintain flags between them."""
+    and the make_step functions around them (the view half, the staging,
+    the front after the view) make no host read; the step reads ``valid``
+    and the maintain flags between them."""
     cfg = convert.config_from(dataclasses.replace(
         CFG, tracker=dataclasses.replace(CFG.tracker, use_rgbd=rgbd)))
     step = teng.make_step(cfg)
@@ -414,9 +417,9 @@ def test_segments_read_nothing_on_the_host(rgbd, frames, monkeypatch):
         teng._back(state.map, front.frame, front.tr.pose, cfg,
                    torch.tensor(4, dtype=torch.int32), True,
                    reuse_active=front.reuse, model_depth=front.model_depth)
-        step._stage({"depth": d, "color": c, "hint": None,
-                     "bitmask": None}, d.device)
-        f2 = step._front_fn()
+        view = step._view_fn()
+        step._stage({"depth": d, "color": c}, ("depth", "color"))
+        f2 = step._front_fn(view)
         step._back_fn(True, f2)
     assert bool(front.tr.valid)
 

@@ -36,8 +36,10 @@ CFG = EngineConfig(
                           max_inner_iter=(1, 1)),
     filter=FilterConfig(depth_filter=False), offline=False)
 N_FRAMES = 7
-FRONT = ("start",) + engine.STAGES[:4] + ("counters", "end")
+VIEW = ("start", "compactify", "render", "end")
+FRONT = ("start", "preprocess", "track", "counters", "end")
 BACK = ("start",) + engine.STAGES[4:] + ("counters", "end")
+FUSED = ("start",) + engine.STAGES + ("counters", "end")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,10 +120,13 @@ def test_spans_nest_in_order_and_marks_follow_the_stages(lap):
                                + ("counters", "end"))]
             continue
         back = "back_starve" if f.host % 3 == 0 else "back"
-        assert names == [("inputs", None), ("replay", "front"),
-                         ("read_valid", None), ("replay", back),
-                         ("read_flags", None), ("diagnostics", None)]
-        assert labels == [("front", FRONT), (back, BACK)]
+        assert names == [("inputs", None), ("replay", "view"),
+                         ("inputs", None), ("replay", "front"),
+                         ("diagnostics", None), ("read_valid", None),
+                         ("replay", back), ("diagnostics", None),
+                         ("read_flags", None)]
+        assert labels == [("view", VIEW), ("front", FRONT), (back, BACK)]
+        assert not f.inputs_behind          # no graph queued on the CPU
         for _, st in f.segments:
             t = [ns for _, ns in st]
             assert t == sorted(t)
@@ -169,7 +174,7 @@ MS = 1_000_000      # ns
 
 
 def _frame(host, t0, extra=0.0, key="back", eager=False, captured=False,
-           counts=(3, 20, 2)):
+           counts=(3, 20, 2), behind=True):
     """A hand-made graphed frame from ``t0`` ms: spans and stamps (ms after
     ``t0``) as the comments below, the back segment and the spans after it
     ``extra`` ms longer; the next frame starts 2.5 + ``extra`` ms on."""
@@ -178,56 +183,69 @@ def _frame(host, t0, extra=0.0, key="back", eager=False, captured=False,
                        round((t0 + b) * MS), -1 if name == "step" else 0,
                        host)
     x = extra
-    spans = [S("step", None, 0.0, 2.0 + x), S("inputs", None, 0.0, 0.3),
-             S("replay", "front", 0.3, 0.4), S("read_valid", None, 0.4, 1.0),
-             S("replay", key, 1.0, 1.1), S("read_flags", None, 1.1, 1.7 + x),
-             S("diagnostics", None, 1.7 + x, 1.9 + x)]
+    # adopt; the view's launch; the inputs staged behind it; the front's
+    # launch and its copies; the read; the back's launch and its copies
+    spans = [S("step", None, 0.0, 1.75 + x), S("inputs", None, 0.0, 0.05),
+             S("replay", "view", 0.05, 0.1), S("inputs", None, 0.1, 0.4),
+             S("replay", "front", 0.4, 0.45),
+             S("diagnostics", None, 0.45, 0.55),
+             S("read_valid", None, 0.55, 1.0), S("replay", key, 1.0, 1.1),
+             S("diagnostics", None, 1.1, 1.2),
+             S("read_flags", None, 1.2, 1.7 + x)]
 
     def st(pairs):
         return tuple((lab, round((t0 + t) * MS)) for lab, t in pairs)
-    front = st(zip(FRONT, (0.35, 0.45, 0.65, 0.75, 0.95, 0.955, 0.96)))
-    back = st(zip(BACK, (1.05, 1.25, 1.45, 1.55 + x, 1.62 + x, 1.64 + x,
+    view = st(zip(VIEW, (0.08, 0.38, 0.58, 0.585)))
+    front = st(zip(FRONT, (0.59, 0.61, 0.95, 0.955, 0.96)))
+    back = st(zip(BACK, (1.15, 1.25, 1.45, 1.55 + x, 1.62 + x, 1.64 + x,
                          1.65 + x)))
-    return dg.FrameTrace(host, host, spans, [("front", front), (key, back)],
+    return dg.FrameTrace(host, host, spans,
+                         [("view", view), ("front", front), (key, back)],
                          dict(zip(dg.TRACE_COUNTERS, counts)), eager=eager,
-                         captured=captured)
+                         captured=captured, inputs_behind=behind)
 
 
 def test_trace_summary_on_a_hand_made_trace():
-    # frame 0 eager and frame 1 captured: left out, whatever they read
+    # frame 0 eager and frame 1 captured: left out, whatever they read;
+    # frame 5's inputs staged with no graph queued
     frames = [_frame(0, 0.0, 9.0, eager=True, counts=(0, 999, 0)),
               _frame(1, 20.0, 5.0, "back_starve", captured=True,
                      counts=(18, 999, 99)),
               _frame(2, 30.0),
               _frame(3, 32.5, 0.4, "back_starve", counts=(5, 0, 10)),
               _frame(4, 35.4),
-              _frame(5, 37.9)]
+              _frame(5, 37.9, behind=False)]
     s = dg.trace_summary(frames)
     assert s["frames"] == 4 and s["starve_frames"] == 1
     assert s["windows"] == 3          # frame 5 has no next frame
+    assert s["inputs_behind_share"] == pytest.approx(4 / 5)
     ap = pytest.approx
-    assert s["preprocess_graph_ms"] == ap(0.1)
-    assert s["compactify_graph_ms"] == ap(0.2)
-    assert s["render_graph_ms"] == ap(0.1)
-    assert s["track_graph_ms"] == ap(0.2)
-    assert s["map_update_graph_ms"] == ap((0.5 * 3 + 0.9) / 4)
+    # compactify and render from the view segment, preprocess and track
+    # from the front segment
+    assert s["preprocess_graph_ms"] == ap(0.02)
+    assert s["compactify_graph_ms"] == ap(0.3)
+    assert s["render_graph_ms"] == ap(0.2)
+    assert s["track_graph_ms"] == ap(0.34)
+    assert s["map_update_graph_ms"] == ap((0.4 * 3 + 0.8) / 4)
     # the counters' work (0.005 ms in front, 0.01 in back) is the tracer's
-    assert s["front_cover"] == ap(0.60 / 0.605)
-    assert s["back_cover"] == ap((0.5 * 3 + 0.9) / (0.59 * 3 + 0.99))
+    assert s["front_cover"] == ap((0.5 + 0.36) / (0.505 + 0.365))
+    assert s["back_cover"] == ap((0.4 * 3 + 0.8) / (0.49 * 3 + 0.89))
     assert s["maintain_graph_ms"] == ap(0.07)
     assert s["tracer_graph_ms"] == ap(0.015)
     assert s["starve_extra_ms"] == ap(0.4)
-    # each window: idle [0, 0.35] (inputs to 0.3, then replay),
-    # [0.96, 1.05] (read_valid to 1.0, then replay), [1.65, 2.5]
-    # (read_flags to 1.7, diagnostics to 1.9, step to 2.0, then caller)
-    assert s["idle_inputs_ms"] == ap(0.3)
-    assert s["idle_launch_ms"] == ap(0.1)
-    assert s["idle_reads_ms"] == ap(0.09)
-    assert s["idle_diag_ms"] == ap(0.2)
-    assert s["idle_caller_ms"] == ap(0.5)
-    assert s["idle_by_span"]["step"] == ap(0.1)
+    # each window: idle [0, 0.08] (inputs to 0.05, then the view's
+    # replay), [0.585, 0.59] (read_valid), [0.96, 1.15] (read_valid to
+    # 1.0, replay to 1.1, diagnostics), [1.65, 2.5] (read_flags to 1.7,
+    # step to 1.75, then caller); the staging and the front's copies lie
+    # under the view and front segments
+    assert s["idle_inputs_ms"] == ap(0.05)
+    assert s["idle_launch_ms"] == ap(0.13)
+    assert s["idle_reads_ms"] == ap(0.095)
+    assert s["idle_diag_ms"] == ap(0.05)
+    assert s["idle_caller_ms"] == ap(0.75)
+    assert s["idle_by_span"]["step"] == ap(0.05)
     assert s["wall_ms"] == ap(2.5 + 0.4 / 3)
-    assert s["busy_ms"] == ap(1.21 + 0.4 / 3)
+    assert s["busy_ms"] == ap(1.375 + 0.4 / 3)
     assert s["idle_ms"] == ap(sum(s["idle_by_span"].values()))
     assert s["icp_live_iters_per_frame"] == ap(3.5)
     assert s["blocks_inserted_per_frame"] == ap(15.0)
@@ -237,17 +255,33 @@ def test_trace_summary_on_a_hand_made_trace():
 def test_trace_summary_leaves_out_unanchored_frames_and_reads_fused():
     f = _frame(2, 30.0)
     f.anchored = False
-    fused = _frame(3, 32.5)
-    (_, front), (_, back) = fused.segments
-    d = dict(front, **{k: v for k, v in back if k != "start"})
-    fused.segments = [("fused", tuple(d.items()))]
+    # a trajectory-replay frame: its inputs staged, one fused segment
+    # (0.35 to 1.65), the flags read, its diagnostics copied
+    t0 = 32.5
+    fused = _frame(3, t0, behind=False)
+    fused.spans = [dg.Span(name, key, round((t0 + a) * MS),
+                           round((t0 + b) * MS), -1 if name == "step" else 0,
+                           3)
+                   for name, key, a, b in (
+                       ("step", None, 0.0, 2.0), ("inputs", None, 0.0, 0.3),
+                       ("replay", "fused", 0.3, 0.4),
+                       ("read_flags", None, 0.4, 1.7),
+                       ("diagnostics", None, 1.7, 1.9))]
+    fused.segments = [("fused", tuple(
+        (lab, round((t0 + t) * MS)) for lab, t in zip(
+            FUSED, (0.35, 0.45, 0.65, 0.75, 0.95, 1.25, 1.45, 1.55, 1.62,
+                    1.64, 1.65))))]
     s = dg.trace_summary([f, fused, _frame(4, 35.0)])
     assert s["frames"] == 2 and s["windows"] == 1
+    assert s["inputs_behind_share"] == pytest.approx(2 / 3)
     # the fused segment's track to gc, and frame 4's back segment
-    assert s["map_update_graph_ms"] == pytest.approx((0.6 + 0.5) / 2)
+    assert s["map_update_graph_ms"] == pytest.approx((0.6 + 0.4) / 2)
+    assert s["compactify_graph_ms"] == pytest.approx((0.2 + 0.3) / 2)
     # one segment from 0.35 to 1.65: no idle between front and back
+    assert s["idle_inputs_ms"] == pytest.approx(0.3)
     assert s["idle_launch_ms"] == pytest.approx(0.05)
     assert s["idle_reads_ms"] == pytest.approx(0.05)
+    assert s["idle_diag_ms"] == pytest.approx(0.2)
 
 
 @pytest.fixture
@@ -304,9 +338,9 @@ def _hold_traced_graphs(cfg, poses, frames, sa, sb):
     assert syncs[0] == 2, syncs
     for x, y in zip(engine._state_tensors(a), engine._state_tensors(b)):
         assert torch.equal(_bits(x[1]), _bits(y[1])), x[0]
-    keys = {"front", "back", "back_starve"}
+    keys = {"view", "front", "back", "back_starve"}
     assert set(sa.graphs) == set(sb.graphs) == keys
-    assert set(sb.traced) == {"front", "back"}      # tr2's
+    assert set(sb.traced) == {"view", "front", "back"}      # tr2's
     for k in keys:
         assert sb.graphs[k].nodes == sa.graphs[k].nodes
     for k in sb.traced:
@@ -332,6 +366,9 @@ def _hold_traced_graphs(cfg, poses, frames, sa, sb):
                     assert ns == sorted(ns) and t0 <= ns[0] < ns[-1] <= hi, \
                         (i, key, [v - lo for v in ns], hi - lo)
                     t0 = ns[-1]
-        assert dg.trace_summary(recs)["frames"] == len(got)
+        summary = dg.trace_summary(recs)
+        assert summary["frames"] == len(got)
+        assert summary["inputs_behind_share"] == 1.0
+        assert all(f.inputs_behind for f in recs)
     assert sum(f.counts["icp_live_iters"] for f in tr.records()) > 0
     assert tr.frames[-1].anchored, "frame 8 from frame 7's anchor"

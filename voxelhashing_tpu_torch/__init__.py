@@ -7,8 +7,10 @@ package, which stays the reference (module and function names mirror it):
   compactify -> render -> ICP track -> DDA alloc -> fused integrate -> GC
   -> maintain), with the splat renderer and depth-only ICP by default,
   and ``engine.make_step``, the same step on a CUDA state as replays of
-  captured CUDA graphs (a front graph to tracking, a back graph from
-  allocation, one host read between them and one after);
+  captured CUDA graphs (a view graph for compactify and render, a front
+  graph for preprocess and tracking, the frame's inputs staged while the
+  view graph runs, a back graph from allocation, one host read between
+  them and one after);
 * the march renderer (``RaycastConfig(mode="march")``) and RGB-D tracking
   (``TrackerConfig(use_rgbd=True)``), with ``render`` for shaded images
   and point clouds;

@@ -4,11 +4,11 @@
 // every frame's stamps with no host read until the ring is copied out.
 //
 // The ring is int64 [rows, width]; `slot` holds the row of the current
-// frame. A stamp that opens a frame (a front segment's first) moves the
-// slot to the next row and zeroes it first; before the first such stamp
-// nothing is written. A stamp may carry up to three counters: device
-// scalars (int32, or int64 where bit k of `wide` is set) copied into their
-// columns of the same row.
+// frame. A stamp that opens a frame (a view or fused segment's first)
+// moves the slot to the next row and zeroes it first; before the first
+// such stamp nothing is written. A stamp may carry up to three counters:
+// device scalars (int32, or int64 where bit k of `wide` is set) copied into
+// their columns of the same row.
 #include "common.cuh"
 
 namespace {

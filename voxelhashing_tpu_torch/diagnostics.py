@@ -126,10 +126,11 @@ IDLE_METRICS = {"inputs": "idle_inputs_ms", "replay": "idle_launch_ms",
                 "read_valid": "idle_reads_ms", "read_flags": "idle_reads_ms",
                 "diagnostics": "idle_diag_ms", None: "idle_caller_ms"}
 _STAMPS = 16             # stamps a segment may take
-# the ring's row a frame: a front (or fused) segment's stamps, a back
-# segment's, the counters, the anchor
-_BACK_COL = _STAMPS
-_COUNT_COL = 2 * _STAMPS
+# the ring's row a frame: a view (or fused) segment's stamps, a front
+# segment's, a back segment's, the counters, the anchor
+_FRONT_COL = _STAMPS
+_BACK_COL = 2 * _STAMPS
+_COUNT_COL = 3 * _STAMPS
 _ANCHOR_COL = _COUNT_COL + len(TRACE_COUNTERS)
 _WIDTH = _ANCHOR_COL + 1
 _RING = 1 << 12          # frames the device holds between copies
@@ -165,13 +166,14 @@ class FrameTrace:
     eager: bool = False               # frame 0's eager step
     captured: bool = False            # it captured a traced graph
     anchored: bool = True             # every stamp was placed on the host
+    inputs_behind: bool = False       # staged with the view graph queued
 
 
 class _Stamps:
     """A segment's stamps, in order: on the card, launches of the stamp
     kernel into the segment's columns of the frame's ring row (graph nodes
-    inside a capture; a front segment's first stamp opens the row);
-    elsewhere the host clock."""
+    inside a capture; a view or fused segment's first stamp opens the
+    row); elsewhere the host clock."""
 
     def __init__(self, tracer=None, base: int = 0, opens: bool = False):
         self.labels = []
@@ -205,9 +207,11 @@ class StepTracer:
     ``engine.make_step``'s step while it is the step's ``trace``.
 
     - Host spans (``time.perf_counter_ns``), one tree a frame under
-      ``step``: ``inputs`` (staging and adopting the state), ``replay``
-      (one a segment run, with its graph key), ``read_valid``,
-      ``read_flags``, ``maintain`` and ``diagnostics``. Under a recording
+      ``step``, in the step's order: ``inputs`` (adopting the state and
+      staging a hint; then staging the frame's inputs behind the view
+      graph), ``replay`` (one a segment run, with its graph key),
+      ``diagnostics`` (the copies of a segment's fields), ``read_valid``,
+      ``read_flags`` and ``maintain``. Under a recording
       torch profiler each is also a ``record_function`` range
       ``vh:<name>``.
     - Device stamps: each traced segment stamps its start, each stage's
@@ -316,8 +320,9 @@ class StepTracer:
         else the host clock."""
         if device is None:
             return _Stamps()
-        front = key.startswith(("front", "fused"))
-        return _Stamps(self, 0 if front else _BACK_COL, front)
+        if key.startswith(("view", "fused")):
+            return _Stamps(self, 0, True)
+        return _Stamps(self, _FRONT_COL if key == "front" else _BACK_COL)
 
     def eager(self) -> dict:
         """The hooks of frame 0's eager step (host-clock stamps)."""
@@ -448,6 +453,12 @@ class StepTracer:
         return self.frames
 
 
+# the front stages' marks in each kind of segment, in order
+_FRONT_MARKS = {"view": ("compactify", "render"),
+                "front": ("preprocess", "track"),
+                "fused": ("preprocess", "compactify", "render", "track")}
+
+
 def _merged(intervals):
     out = []
     for a, b in sorted(intervals):
@@ -463,8 +474,10 @@ def trace_summary(frames: List[FrameTrace]) -> dict:
     frames that captured a graph, frame 0's eager step and frames with a
     stamp not placed on the host clock left out; ms are means a frame.
 
-    - ``<stage>_graph_ms``: the front segment's stamps, start to the mark
-      ``preprocess``, to ``compactify``, to ``render``, to ``track``;
+    - ``<stage>_graph_ms``: the view segment's stamps, start to the mark
+      ``compactify``, to ``render``, the front segment's, start to
+      ``preprocess``, to ``track`` (a fused segment's, start to
+      ``preprocess``, to ``compactify``, to ``render``, to ``track``);
       ``map_update_graph_ms``: the back segment's start (a fused segment's
       ``track``) to ``gc``; ``maintain_graph_ms``: ``gc`` to the mark
       ``maintain`` (the maintain flags and the map fields copied back into
@@ -483,6 +496,8 @@ def trace_summary(frames: List[FrameTrace]) -> dict:
       ``idle_by_span``, summed into :data:`IDLE_METRICS`; ``wall_ms``,
       ``busy_ms``, ``idle_ms``: the windows, the segments in them, the
       difference.
+    - ``inputs_behind_share``: the share of the graphed frames (captures
+      included) whose inputs were staged with the view graph queued.
     - ``<counter>``: :data:`TRACE_COUNTERS` a frame, named
       ``icp_live_iters_per_frame``, ``blocks_inserted_per_frame``,
       ``blocks_freed_per_frame``.
@@ -504,14 +519,12 @@ def trace_summary(frames: List[FrameTrace]) -> dict:
             d = dict(stamps)
             own = d.get("counters", d["end"])   # the tracer's work follows
             tracer_ns += d["end"] - own
-            if key.startswith(("front", "fused")):
-                for a, b, name in (("start", "preprocess", "preprocess"),
-                                   ("preprocess", "compactify", "compactify"),
-                                   ("compactify", "render", "render"),
-                                   ("render", "track", "track")):
-                    stage[f"{name}_graph_ms"].append((d[b] - d[a]) / 1e6)
-                cover[0] += (d["track"] - d["start"]) / 1e6
-                cover[1] += ((own if key.startswith("front") else d["track"])
+            marks = _FRONT_MARKS.get(key.split("_")[0])
+            if marks:
+                for a, b in zip(("start",) + marks, marks):
+                    stage[f"{b}_graph_ms"].append((d[b] - d[a]) / 1e6)
+                cover[0] += (d[marks[-1]] - d["start"]) / 1e6
+                cover[1] += ((d["track"] if key.startswith("fused") else own)
                              - d["start"]) / 1e6
             if key.startswith(("back", "fused")):
                 t0 = d["start" if key.startswith("back") else "track"]
@@ -526,6 +539,10 @@ def trace_summary(frames: List[FrameTrace]) -> dict:
         out[name] = float(np.mean(v))
     out["front_cover"] = cover[0] / cover[1] if cover[1] else None
     out["back_cover"] = cover[2] / cover[3] if cover[3] else None
+    graphed = [f for f in frames if not f.eager]
+    out["inputs_behind_share"] = (
+        sum(f.inputs_behind for f in graphed) / len(graphed)
+        if graphed else None)
     s = [ms for ms, st in dev_ms if st]
     o = [ms for ms, st in dev_ms if not st]
     out["starve_frames"] = len(s)

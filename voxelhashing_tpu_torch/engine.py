@@ -6,7 +6,8 @@
     -> garbage collect -> maintain
 
 The frame is two segments: :func:`_front` (preprocess to track; reads
-the map, writes nothing) and :func:`_back` (alloc to GC, and the maintain
+the map, writes nothing; its compactify and render, :func:`_view`, read
+no input of the frame) and :func:`_back` (alloc to GC, and the maintain
 flags; updates the map). Branches that JAX takes with ``lax.cond`` on
 device values are decided from the host frame counter (first frame,
 starvation cadence) or run masked (the GC free pass, the tracker's
@@ -18,7 +19,8 @@ constant True) and the two maintain flags (``blockmap.need_maintain``).
 counterpart of JAX's jit-compiled, donating step: on a CUDA state each
 frame after the first is a replay of CUDA graphs captured from the same
 segment functions (the counterpart of "one device program per frame"),
-with those two reads between them; on a CPU state it runs the same
+with those two reads between them, the view half first so that the host
+stages the frame's inputs while it runs; on a CPU state it runs the same
 functions eagerly.
 
 ``step(..., mark=f)`` calls ``f(stage)`` each time a stage's work has been
@@ -135,19 +137,23 @@ def _is_starve(mp, frame_idx: int) -> bool:
             and frame_idx % mp.gc_starve_interval == 0)
 
 
-def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
-           hint=None, first: bool = False, mark=_no_mark,
-           tally=None) -> Front:
-    """preprocess -> compactify -> render -> track, with no host read and
-    no write to the map. ``hint``: the pose hint (a device tensor) or None;
-    ``first``: frame 0 (no model yet: the pose is kept). ``tally``: given
-    the ICP iterations whose residual the tracker kept, of those launched
-    (one past its level's early-out, or skipped, leaves it NaN)."""
+class View(NamedTuple):
+    """The front's view half (:func:`_view`): what the map shows from the
+    raycast pose."""
+
+    active_idx: torch.Tensor        # int32[cap] the active rows
+    n_active: torch.Tensor          # int32[]
+    overflow: torch.Tensor          # int32[] rows in view past the cap
+    model: RaycastResult            # the model render
+
+
+def _view(state: EngineState, cfg: EngineConfig, hint=None,
+          mark=_no_mark) -> View:
+    """compactify -> render at the raycast pose (the last pose, or the
+    hint under ``use_trajectory_only_init``): reads the map and the pose,
+    no input of the frame."""
     cam = cfg.camera
     dev = state.pose.device
-    frame = preprocess(depth_raw, color_raw, cam, cfg.filter)
-    mark("preprocess")
-
     raycast_pose = state.pose
     if cfg.use_trajectory_only_init and hint is not None:
         raycast_pose = hint
@@ -162,6 +168,27 @@ def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
                            cfg.raycast, active_idx=active_idx,
                            active_mask=active_mask, with_color=use_rgbd)
     mark("render")
+    return View(active_idx, n_active, overflow0, model)
+
+
+def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
+           hint=None, first: bool = False, mark=_no_mark,
+           tally=None, view: Optional[View] = None) -> Front:
+    """preprocess -> compactify -> render -> track, with no host read and
+    no write to the map. ``hint``: the pose hint (a device tensor) or None;
+    ``first``: frame 0 (no model yet: the pose is kept). ``tally``: given
+    the ICP iterations whose residual the tracker kept, of those launched
+    (one past its level's early-out, or skipped, leaves it NaN). ``view``:
+    the view half when it already ran (:func:`_view`, which reads no
+    input), else it runs after the preprocess."""
+    cam = cfg.camera
+    dev = state.pose.device
+    frame = preprocess(depth_raw, color_raw, cam, cfg.filter)
+    mark("preprocess")
+    if view is None:
+        view = _view(state, cfg, hint, mark)
+    model = view.model
+    use_rgbd = cfg.tracker.use_rgbd and not cfg.use_trajectory
     rgbd_now = use_rgbd and frame.intensity is not None
 
     replay = cfg.use_trajectory and hint is not None
@@ -199,7 +226,8 @@ def _front(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
                             **rgbd)
     if tally is not None:
         tally("icp_live_iters", torch.sum(~torch.isnan(tr.iter_residuals)))
-    reuse = None if cfg.offline else (active_idx, n_active, overflow0)
+    reuse = None if cfg.offline else (view.active_idx, view.n_active,
+                                      view.overflow)
     return Front(frame=frame, tr=tr, model_depth=model.depth,
                  splat_overflow=model.splat_overflow, reuse=reuse)
 
@@ -312,31 +340,55 @@ def _integrate_frame(state: MapState, frame: FrameInputs, pose,
     return state, back.n_active, back.overflow, back.alloc_missed
 
 
+def _front_diagnostics(front: Front) -> dict:
+    """The diagnostics' fields the front segment gives."""
+    tr = front.tr
+    return dict(splat_overflow=front.splat_overflow,
+                icp_residual=tr.residual,
+                icp_corr_count=tr.corr_count,
+                icp_condition=tr.condition,
+                icp_level_stats=tr.level_stats,
+                icp_iter_residuals=tr.iter_residuals,
+                tracking_valid=tr.valid,
+                icp_planarity=tr.planarity)
+
+
+def _back_diagnostics(cfg: EngineConfig, back: Optional[Back],
+                      map_state: MapState) -> dict:
+    """The diagnostics' fields of the back segment and the map;
+    ``back`` None: the frame was not integrated."""
+    if back is None:
+        n_act = overflow = alloc_missed = torch.zeros(
+            (), dtype=torch.int32, device=map_state.n_free.device)
+    else:
+        n_act, overflow, alloc_missed = (back.n_active, back.overflow,
+                                         back.alloc_missed)
+    return dict(n_allocated_blocks=cfg.map.num_blocks - map_state.n_free,
+                n_active_blocks=n_act, active_overflow=overflow,
+                alloc_missed=alloc_missed)
+
+
 def _diagnostics(cfg: EngineConfig, front: Front, back: Optional[Back],
                  map_state: MapState) -> FrameDiagnostics:
     """The frame's diagnostics; ``back`` None: the frame was not
     integrated."""
-    tr = front.tr
-    if back is None:
-        n_act = overflow = alloc_missed = torch.zeros(
-            (), dtype=torch.int32, device=tr.pose.device)
-    else:
-        n_act, overflow, alloc_missed = (back.n_active, back.overflow,
-                                         back.alloc_missed)
-    return FrameDiagnostics(
-        n_allocated_blocks=cfg.map.num_blocks - map_state.n_free,
-        n_active_blocks=n_act,
-        active_overflow=overflow,
-        splat_overflow=front.splat_overflow,
-        alloc_missed=alloc_missed,
-        icp_residual=tr.residual,
-        icp_corr_count=tr.corr_count,
-        icp_condition=tr.condition,
-        icp_level_stats=tr.level_stats,
-        icp_iter_residuals=tr.iter_residuals,
-        tracking_valid=tr.valid,
-        icp_planarity=tr.planarity,
-    )
+    return FrameDiagnostics(**_front_diagnostics(front),
+                            **_back_diagnostics(cfg, back, map_state))
+
+
+def _copied(fields: dict) -> dict:
+    """Copies of the tensors ``fields`` in one launch: their bytes
+    concatenated (the widest elements first, so that each field's offset
+    is a multiple of its element size), each viewed back as its field."""
+    order = sorted(fields, key=lambda k: -fields[k].element_size())
+    flat = [fields[k].reshape(-1).view(torch.uint8) for k in order]
+    packed = torch.cat(flat)
+    out, at = {}, 0
+    for k, f in zip(order, flat):
+        t = fields[k]
+        out[k] = packed[at:at + f.numel()].view(t.dtype).reshape(t.shape)
+        at += f.numel()
+    return out
 
 
 def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
@@ -395,13 +447,14 @@ def graph_keys(cfg: EngineConfig, frame_idx: int, replay: bool):
     """The segments :func:`make_step` runs at host frame ``frame_idx``, in
     order: ``("eager",)`` for frame 0 (the one frame with no model, and
     the back segment's warm-up); under trajectory replay (``valid`` is
-    then the constant True) one graph, ``"fused"``; else ``"front"`` and,
-    when the frame tracked, ``"back"``. A starve frame's back half is a
-    graph of its own (``"_starve"``)."""
+    then the constant True) one graph, ``"fused"``; else ``"view"`` (the
+    front's compactify and render, :func:`_view`), ``"front"`` (its
+    preprocess and track) and, when the frame tracked, ``"back"``. A
+    starve frame's back half is a graph of its own (``"_starve"``)."""
     if frame_idx == 0:
         return ("eager",)
     tail = "_starve" if _is_starve(cfg.map, frame_idx) else ""
-    return ("fused" + tail,) if replay else ("front", "back" + tail)
+    return ("fused" + tail,) if replay else ("view", "front", "back" + tail)
 
 
 def _launch_counters():
@@ -503,37 +556,63 @@ def _clone_state(es: EngineState) -> EngineState:
                        n_integrated=es.n_integrated.clone())
 
 
+class _NoSpans:
+    """The tracer's span calls on an untraced frame: nothing."""
+
+    def open(self, name: str, key: Optional[str] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def read_done(self, anchor: bool) -> None:
+        pass
+
+
+_NO_SPANS = _NoSpans()
+
+
 class GraphStep:
     """The step of :func:`make_step`: ``step_fn(state, depth, color[,
     hint][, bitmask]) -> (state, diagnostics)``.
 
     Frame 0 is an eager :func:`step`. On a CUDA state every later frame is
-    a replay of CUDA graphs captured from :func:`_front` and :func:`_back`
-    (:func:`graph_keys`), each captured on the first frame that needs it,
-    all in one memory pool: a tracked frame replays the front graph,
-    reads ``valid`` and, when it tracked, replays a back graph and reads
-    the two maintain flags; a trajectory-replay frame replays one graph
-    and reads the flags. When maintenance is due, ``compact_pool`` runs
-    eagerly between frames and the step takes its result into its own
-    buffers. A capture that fails raises; no frame after frame 0 runs the
-    eager step. On a CPU state the same functions run eagerly.
+    a replay of CUDA graphs captured from :func:`_view`, :func:`_front`
+    and :func:`_back` (:func:`graph_keys`), each captured on the first
+    frame that needs it, all in one memory pool. A tracked frame's host
+    work is issued while a graph is queued on the device: the view graph
+    (compactify and render, which read no input) is replayed, the frame's
+    inputs are staged behind it (``inputs_behind`` counts those frames),
+    the front graph (preprocess and track) is replayed, the copies of its
+    diagnostics are issued, ``valid`` is read and, when the frame tracked,
+    a back graph is replayed, the copies of its diagnostics are issued and
+    the two maintain flags are read. A pose hint is staged before the view
+    graph, which renders at it under ``use_trajectory_only_init``. A
+    trajectory-replay frame stages its inputs, replays one graph, reads
+    the flags and copies the diagnostics. When maintenance is due,
+    ``compact_pool`` runs eagerly between frames, the step takes its
+    result into its own buffers, and the map's diagnostics are copied
+    after it. A capture that fails raises; no frame after frame 0 runs the
+    eager step. On a CPU state the same functions run eagerly, in the same
+    order.
 
     The step owns the state's tensors (the graphs read and write them at
-    fixed addresses). A call adopts the given state: each tensor that is
-    not already the step's own is copied in (the first call after frame 0,
-    and after anything that replaced a field: ``compact_pool``, a
-    streaming manager's deletes and inserts). ``bytes_adopted`` and
-    ``pool_bytes_adopted`` count those bytes (the pool rows ``sdf``,
-    ``weight``, ``color`` apart). With ``donate=True`` the returned state's
-    tensors are the step's own and the given state is consumed (as under
-    JAX donation: the pool is updated in place); ``donate=False`` leaves
-    the given state unchanged and returns copies. Diagnostics are always
-    copies.
+    fixed addresses). A call adopts the given state: the state the step
+    returned, handed back as it was (``donate``), is its own; otherwise
+    each tensor that is not already the step's own is copied in (the first
+    call after frame 0, and after anything that replaced a field:
+    ``compact_pool``, a streaming manager's deletes and inserts).
+    ``bytes_adopted`` and ``pool_bytes_adopted`` count those bytes (the
+    pool rows ``sdf``, ``weight``, ``color`` apart). With ``donate=True``
+    the returned state's tensors are the step's own and the given state is
+    consumed (as under JAX donation: the pool is updated in place);
+    ``donate=False`` leaves the given state unchanged and returns copies.
+    Diagnostics are always copies.
 
     Inputs on the host (numpy arrays, CPU tensors) reach the card through
-    two pinned staging sets used in turn; a set is reused only after the
-    event recorded behind its copies has completed. Device inputs are
-    copied into the step's input buffers.
+    two pinned staging sets used in turn, a set a frame; a set is reused
+    only after the event recorded behind its copies has completed. Device
+    inputs are copied into the step's input buffers.
 
     ``trace``: None (off, as made), or a ``diagnostics.StepTracer`` that
     records the frames of each call while it is set (set and cleared
@@ -561,12 +640,15 @@ class GraphStep:
         self._traced_for = None          # the tracer they write to
         self.bytes_adopted = 0
         self.pool_bytes_adopted = 0
+        self.inputs_behind = 0           # frames staged behind the view
         self._buf = None                 # the step's own EngineState
+        self._returned = None            # the state the last call returned
         self._phase = None               # int32[] the frame's alloc phase
         self._inputs = None              # name -> static input tensor
         self._staging = [{}, {}]         # pinned host copies, two sets
         self._staged = [None, None]      # event behind each set's copies
         self._turn = 0
+        self._filling = False            # the frame's pinned set is in use
         self._stream = None
         self._pool = None
 
@@ -574,6 +656,8 @@ class GraphStep:
 
     def _adopt(self, state: EngineState) -> None:
         """Make the step's buffers hold ``state`` (see the class)."""
+        if state is self._returned:
+            return
         if self._buf is None:
             share = _POOL_FIELDS if self.donate else ()
             own = {}
@@ -607,38 +691,44 @@ class GraphStep:
         else:
             self.bytes_adopted += n
 
-    def _stage(self, given: dict, device) -> None:
-        """Copy the call's inputs into the static input buffers."""
+    def _check(self, given: dict, device) -> tuple:
+        """The names of the call's inputs, held with their shapes to the
+        first call's, which makes the static input buffers."""
         names = tuple(k for k, v in given.items() if v is not None)
+        shapes = {k: tuple(given[k].shape if hasattr(given[k], "shape")
+                           else np.shape(given[k])) for k in names}
         if self._inputs is None:
-            self._inputs = {}
-            for k in names:
-                src = given[k]
-                shape = tuple(src.shape if hasattr(src, "shape")
-                              else np.shape(src))
-                dtype = torch.int32 if k == "bitmask" else torch.float32
-                self._inputs[k] = torch.empty(shape, dtype=dtype,
-                                              device=device)
+            self._inputs = {
+                k: torch.empty(shapes[k], device=device,
+                               dtype=torch.int32 if k == "bitmask"
+                               else torch.float32) for k in names}
         if names != tuple(self._inputs):
             raise ValueError(f"make_step: inputs {names} after "
                              f"{tuple(self._inputs)}: give color on every "
                              "call or on none")
+        for k in names:
+            want = tuple(self._inputs[k].shape)
+            if shapes[k] != want:
+                raise ValueError(f"make_step: {k} is {shapes[k]}, expected "
+                                 f"{want}")
+        return names
+
+    def _stage(self, given: dict, names, last: bool = True) -> None:
+        """Copy the inputs ``names`` into the static input buffers; host
+        inputs through the frame's pinned set. ``last``: the frame's last
+        inputs (the event behind the set's copies is recorded)."""
         turn = self._turn
         pinned = self._staging[turn]
-        host_copies = False
         for k in names:
             dst, src = self._inputs[k], given[k]
             if not isinstance(src, torch.Tensor):
                 src = torch.as_tensor(np.asarray(src))
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"make_step: {k} is {tuple(src.shape)}, "
-                                 f"expected {tuple(dst.shape)}")
             if src.device.type == "cpu" and dst.device.type == "cuda":
-                if not host_copies:
+                if not self._filling:
                     ev = self._staged[turn]
                     if ev is not None and not ev.query():
                         ev.synchronize()
-                    host_copies = True
+                    self._filling = True
                 if k not in pinned:
                     pinned[k] = torch.empty(dst.shape, dtype=dst.dtype,
                                             pin_memory=True)
@@ -646,22 +736,30 @@ class GraphStep:
                 dst.copy_(pinned[k], non_blocking=True)
             else:
                 dst.copy_(src)
-        if host_copies:
+        if last and self._filling:
             ev = torch.cuda.Event()
             ev.record()
             self._staged[turn] = ev
-            self._turn = 1 - turn
+            self._turn, self._filling = 1 - turn, False
 
     # -- segments (the functions the graphs capture) ---------------------
 
-    def _front_fn(self, mark=_no_mark, tracer=None) -> Front:
-        """The front segment on the step's buffers, then the state's small
-        fields: the alloc phase is the frame counter before it counts this
-        frame. ``tracer``: takes the frame's counters."""
+    def _view_fn(self, mark=_no_mark, tracer=None) -> View:
+        """The front's view half on the step's buffers (no input but the
+        hint)."""
+        return _view(self._buf, self.cfg, self._inputs.get("hint"), mark)
+
+    def _front_fn(self, view: Optional[View] = None, mark=_no_mark,
+                  tracer=None) -> Front:
+        """The front segment on the step's buffers (after ``view``, or
+        with its own), then the state's small fields: the alloc phase is
+        the frame counter before it counts this frame. ``tracer``: takes
+        the frame's counters."""
         b, inp = self._buf, self._inputs
         front = _front(b, inp["depth"], inp.get("color"), self.cfg,
                        inp.get("hint"), mark=mark,
-                       tally=None if tracer is None else tracer.tally)
+                       tally=None if tracer is None else tracer.tally,
+                       view=view)
         tr = front.tr
         self._phase.copy_(b.frame)
         b.frame.add_(1)
@@ -690,8 +788,9 @@ class GraphStep:
         return back._replace(map=b.map)
 
     def _fused_fn(self, starve: bool, mark=_no_mark, tracer=None):
-        """Both segments in one graph (trajectory replay)."""
-        front = self._front_fn(mark, tracer)
+        """Both segments in one graph (trajectory replay), the front in
+        the eager step's order."""
+        front = self._front_fn(None, mark, tracer)
         return front, self._back_fn(starve, front, mark, tracer)
 
     def _run(self, key: str, fn, tr=None):
@@ -776,25 +875,27 @@ class GraphStep:
         cfg = self.cfg
         dev = state.pose.device
         fh = state.frame_host
+        given = {"depth": depth, "color": color,
+                 "hint": extra[0] if self.with_hint else None,
+                 "bitmask": extra[-1] if self.with_stream_mask else None}
+        names = self._check(given, dev)
         tr = self.trace
+        sp = _NO_SPANS if tr is None else tr
         if tr is not None:
             if tr is not self._traced_for:
                 self._drop_traced()
                 self._traced_for = tr
             tr.begin(fh, dev)
             tr.open("inputs")
-        self._stage({"depth": depth, "color": color,
-                     "hint": extra[0] if self.with_hint else None,
-                     "bitmask": extra[-1] if self.with_stream_mask
-                     else None}, dev)
-        inp = self._inputs
         if fh == 0:
+            self._stage(given, names)
             hooks = {}
             if tr is not None:
                 tr.close()
                 hooks = tr.eager()
             # a copy of the hint: under replay it becomes the state's pose,
             # and the next call overwrites the input buffer
+            inp = self._inputs
             hint = inp.get("hint")
             out = step(state if self.donate else _clone_state(state),
                        inp["depth"], inp.get("color"), cfg,
@@ -805,47 +906,69 @@ class GraphStep:
             return out
 
         self._adopt(state)
-        if tr is not None:
-            tr.close()
         replay = cfg.use_trajectory and self.with_hint
         keys = graph_keys(cfg, fh, replay)
         starve = keys[-1].endswith("_starve")
+        fd = bd = None       # the copies of the front's and back's fields
         if replay:
+            self._stage(given, names)
+            sp.close()
             front, back = self._run(
                 keys[0], lambda m, t: self._fused_fn(starve, m, t), tr)
         else:
-            front = self._run(keys[0], self._front_fn, tr)
+            # the view graph reads no input but the hint: the frame's
+            # inputs are staged while it runs
+            if "hint" in names:
+                self._stage(given, ("hint",), last=False)
+            sp.close()
+            view = self._run(keys[0], self._view_fn, tr)
+            sp.open("inputs")
+            self._stage(given, tuple(k for k in names if k != "hint"))
+            if dev.type == "cuda":
+                self.inputs_behind += 1
+                if tr is not None:
+                    tr.frames[-1].inputs_behind = True
+            sp.close()
+            front = self._run(
+                keys[1], lambda m, t: self._front_fn(view, m, t), tr)
+            sp.open("diagnostics")
+            fd = _copied(_front_diagnostics(front))
+            sp.close()
             back = None
-            if tr is not None:
-                tr.open("read_valid")
+            sp.open("read_valid")
             tracked = bool(front.tr.valid)
-            if tr is not None:
-                tr.read_done(anchor=not tracked)
+            sp.read_done(anchor=not tracked)
             if tracked:
                 back = self._run(
-                    keys[1], lambda m, t: self._back_fn(starve, front, m, t),
+                    keys[2], lambda m, t: self._back_fn(starve, front, m, t),
                     tr)
+                sp.open("diagnostics")
+                bd = _copied(_back_diagnostics(cfg, back, self._buf.map))
+                sp.close()
         if back is not None:
-            if tr is not None:
-                tr.open("read_flags")
+            sp.open("read_flags")
             due = blockmap.need_maintain(back.flags, cfg.map, fh)
-            if tr is not None:
-                tr.read_done(anchor=True)
+            sp.read_done(anchor=True)
             if due:
-                if tr is not None:
-                    tr.open("maintain")
+                sp.open("maintain")
                 self._adopt(self._buf._replace(
                     map=blockmap.compact_pool(self._buf.map, cfg.map)))
-                if tr is not None:
-                    tr.close()
-        if tr is not None:
-            tr.open("diagnostics")
-        diag = FrameDiagnostics(*(t.clone() for t in _diagnostics(
-            cfg, front, back, self._buf.map)))
+                sp.close()
+                bd = None        # n_allocated_blocks reads the new map
+        if fd is None or bd is None:
+            sp.open("diagnostics")
+            if fd is None:
+                fd = _copied(_front_diagnostics(front))
+            bd = _copied(_back_diagnostics(cfg, back, self._buf.map))
+            sp.close()
+        diag = FrameDiagnostics(**fd, **bd)
         new = self._buf._replace(frame_host=fh + 1)
         if tr is not None:
             tr.end()
-        return (new if self.donate else _clone_state(new)), diag
+        if not self.donate:
+            return _clone_state(new), diag
+        self._returned = new
+        return new, diag
 
     def _drop_traced(self) -> None:
         for g in self.traced.values():
@@ -859,8 +982,9 @@ class GraphStep:
         self.graphs = {}
         self._drop_traced()
         self._traced_for = None
-        self._buf = self._phase = self._inputs = None
+        self._buf = self._returned = self._phase = self._inputs = None
         self._staging, self._staged = [{}, {}], [None, None]
+        self._filling = False
         self._stream = self._pool = None
 
 
