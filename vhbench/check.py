@@ -38,7 +38,31 @@ configuration's file):
 - ``dropped_blocks``: the blocks in view that the program left out of a
   frame's active list and the surface blocks past its splat cap
   (``FrameDiagnostics.active_overflow`` and ``splat_overflow``), summed
-  over every frame of the run; the reference drops none.
+  over every frame of the run; the reference drops none;
+- ``stream_mismatch`` (configurations that stream only): the rows of the
+  host chunk store that differ between the program and the reference (a
+  key or a voxel's bits at a chunk's position, or a row one side lacks),
+  plus the bitmask words that differ, plus the blocks in chunks the
+  reference's bitmask marks (space whose blocks are on the host) that one
+  map holds and the other does not, the largest over the compared frames;
+  infinite where the compared frames hold no frame whose streaming half
+  files blocks out or none whose streaming half brings blocks in.
+
+Under streaming (``reference/streaming.py``) every compared frame runs
+the streaming half after the map's update, the program's (the manager's
+step) and the reference's, each from the same copies of the program's
+state before the frame (the map, the bitmask, the store's rows read
+through its own interface, the next part as the harness counts the
+manager's steps), the camera at the program's tracked position; the
+reference's allocation honours the bitmask. The compared maps are those
+after the streaming half. The program's half runs as in the window, its
+worker filing the stream-out before or after the pop as it happens; the
+one thing that can change is which chunks inside the sphere the store
+gives first, a choice the semantics leave open, so the reference takes
+the chunks the program took where they lie inside the sphere and takes
+the others itself. What differs from the window is only that the host
+work of the half before a compared frame is waited for first, so that
+the copies hold it; that moves no row and no bit.
 
 The control (:data:`CONTROLS`) puts the reference in the program's place,
 computed with every float32 value it hands between stages, and the
@@ -56,7 +80,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from .reference import engine as reng
+from .reference import engine as reng, streaming as rstream
 from .reference.blockmap import MapState
 
 START_FRAMES = 3
@@ -64,6 +88,7 @@ CHECK_FRAMES = 4
 CHECK_SPAN = 45          # the check frames lie within this many frames
 NUMBERS = ("pose_gap_um", "rot_gap_urad", "map_mismatch_ppm",
            "dropped_blocks")
+STREAM_NUMBER = "stream_mismatch"
 
 
 def f32_ulp(x):
@@ -89,6 +114,8 @@ class Snapshot(NamedTuple):
     valid: List[bool]             # its tracker's verdict each frame
     map: MapState                 # its map after the last frame, the pool
                                   # rows cut at ``dense_upto``
+    stream: object = None         # under streaming, its streaming state
+                                  # then (``rstream.Stream``)
 
 
 def snapshot_map(m) -> MapState:
@@ -162,10 +189,12 @@ def map_mismatch_ppm(prog: MapState, ref: MapState) -> float:
 
 
 class Readings:
-    """The largest reading of each number over the compared frames."""
+    """The largest reading of each number over the compared frames
+    (``streamed``: with :data:`STREAM_NUMBER`)."""
 
-    def __init__(self):
-        self.values = {k: 0.0 for k in NUMBERS}
+    def __init__(self, streamed: bool = False):
+        self.values = {k: 0.0 for k in NUMBERS
+                       + ((STREAM_NUMBER,) if streamed else ())}
 
     def pose(self, prog, prog_valid, ref, ref_valid):
         t, r = pose_gaps(prog, prog_valid, ref, ref_valid)
@@ -179,35 +208,69 @@ class Readings:
     def dropped(self, n: int):
         self.values["dropped_blocks"] = float(n)
 
+    def stream(self, prog: "rstream.Stream", ref: "rstream.Stream",
+               prog_map: MapState, ref_map: MapState, rcfg):
+        self.values[STREAM_NUMBER] = max(
+            self.values[STREAM_NUMBER], float(rstream.mismatch(
+                prog, ref, prog_map, ref_map, rcfg.map, rcfg.streaming)))
+
+    def stream_kinds_missing(self):
+        """No compared frame filed blocks out, or none brought any in."""
+        self.values[STREAM_NUMBER] = math.inf
+
 
 def start(readings: Readings, rcfg, lap, snap: Snapshot, device, ctl):
     """The start: the reference from an empty map over the lap's first
     frames, at the program's poses (or, with the control's roundings
-    ``ctl``, the rounded reference against the reference)."""
+    ``ctl``, the rounded reference against the reference); under
+    streaming each frame runs the streaming half, from an empty store."""
     control = ctl is not None
+    streamed = snap.stream is not None
     ref_map = reng.create(rcfg, device)
     ctl_map = reng.create(rcfg, device) if control else None
+    ref_st = ctl_st = None
+    if streamed:
+        ref_st = rstream.Stream.empty(rcfg.streaming, snap.stream.cap, device)
+        ctl_st = ref_st.copy() if control else None
     last = torch.eye(4, dtype=torch.float32, device=device)
     for f, (pose, valid) in enumerate(zip(snap.poses, snap.valid)):
         d = torch.from_numpy(lap.depth[f]).to(device)
         c = torch.from_numpy(lap.color[f]).to(device)
         p = torch.from_numpy(pose).to(device)
         out = reng.step(ref_map, last, d, c, rcfg, f, pose=p,
-                        integrate=valid)
-        ref_map = out.map
+                        integrate=valid, stream_bitmask=_bits(ref_st))
+        ref_map = _half(out.map, ref_st, pose, rcfg)
         if control:
             c_out = reng.step(ctl_map, last, d, c, rcfg, f, pose=p,
-                              integrate=valid, **ctl)
-            ctl_map = c_out.map
+                              integrate=valid, stream_bitmask=_bits(ctl_st),
+                              **ctl)
+            ctl_map = _half(c_out.map, ctl_st, pose, rcfg)
             if f > 0:
                 readings.pose(c_out.pose.cpu().numpy(), c_out.valid,
                               out.pose.cpu().numpy(), out.valid)
         elif f > 0:
             readings.pose(pose, valid, out.pose.cpu().numpy(), out.valid)
         last = p
-    readings.map(ctl_map if control else unsnapshot_map(
-        snap.map, ref_map.sdf.shape[0], device), ref_map)
-    del ref_map, ctl_map
+    prog_map = ctl_map if control else unsnapshot_map(
+        snap.map, ref_map.sdf.shape[0], device)
+    readings.map(prog_map, ref_map)
+    if streamed:
+        readings.stream(ctl_st if control else snap.stream, ref_st,
+                        prog_map, ref_map, rcfg)
+    del ref_map, ctl_map, prog_map
+
+
+def _bits(st):
+    return None if st is None else st.bitmask
+
+
+def _half(m: MapState, st, pose: np.ndarray, rcfg, prefer=()) -> MapState:
+    """The reference's streaming half on ``m`` and ``st`` with the camera
+    at ``pose``'s position (``m`` as it is without streaming)."""
+    if st is None:
+        return m
+    return rstream.half(m, st, pose[:3, 3], rcfg.map, rcfg.streaming,
+                        prefer)[0]
 
 
 def check_frames(seed: int, first: int, starve: int, maintain: int,
@@ -232,22 +295,43 @@ def check_frames(seed: int, first: int, starve: int, maintain: int,
 
 def frame(readings: Readings, rcfg, before: MapState, last, depth, color,
           frame_idx: int, pose: np.ndarray, valid: bool, prog_map,
-          ctl) -> None:
+          ctl, stream=None, prog_stream=None):
     """One check frame: the reference from ``before`` (a copy of the
     program's map before the frame; consumed) and the program's previous
     pose ``last``, fused at the program's ``pose``, against the program's
     pose and map after the frame (with the control's roundings ``ctl``:
-    the rounded reference against the reference)."""
+    the rounded reference against the reference). Under streaming,
+    ``stream`` is a copy of the program's streaming state before the frame
+    (consumed) and ``prog_stream`` the program's after it: the reference
+    runs the streaming half too, the chunks the program took in first
+    (``rstream.taken``), and the stores are compared. Returns the
+    blocks the reference's streaming half filed out and brought in (0, 0
+    without streaming)."""
     p = torch.from_numpy(pose).to(last.device)
     ctl_map = map_copy(before) if ctl is not None else None
+    ctl_st = stream.copy() if (ctl is not None and stream is not None) \
+        else None
     ref = reng.step(before, last, depth, color, rcfg, frame_idx, pose=p,
-                    integrate=valid)
+                    integrate=valid, stream_bitmask=_bits(stream))
+    ref_map, moved = ref.map, (0, 0)
+    prefer = rstream.taken(stream, prog_stream) if stream is not None else ()
+    if stream is not None:
+        ref_map, n_out, n_in = rstream.half(ref_map, stream, pose[:3, 3],
+                                            rcfg.map, rcfg.streaming, prefer)
+        moved = (n_out, n_in)
     if ctl is not None:
         c_out = reng.step(ctl_map, last, depth, color, rcfg, frame_idx,
-                          pose=p, integrate=valid, **ctl)
+                          pose=p, integrate=valid,
+                          stream_bitmask=_bits(ctl_st), **ctl)
         readings.pose(c_out.pose.cpu().numpy(), c_out.valid,
                       ref.pose.cpu().numpy(), ref.valid)
-        readings.map(c_out.map, ref.map)
+        c_map = _half(c_out.map, ctl_st, pose, rcfg, prefer)
+        readings.map(c_map, ref_map)
+        if stream is not None:
+            readings.stream(ctl_st, stream, c_map, ref_map, rcfg)
     else:
         readings.pose(pose, valid, ref.pose.cpu().numpy(), ref.valid)
-        readings.map(prog_map, ref.map)
+        readings.map(prog_map, ref_map)
+        if stream is not None:
+            readings.stream(prog_stream, stream, prog_map, ref_map, rcfg)
+    return moved

@@ -20,6 +20,13 @@ runs for ``--seconds``. ``--trace 1`` profiles a sub-window of one whole
 lap inside the window and, once it has closed, splits a few eager frames
 by stage. Every run then holds the program to the reference
 (``check.py``) and prints one JSON line last.
+
+A configuration that streams runs its map out of core as ``run_slam``'s
+live loop does: the step takes the streaming manager's bitmask, and each
+frame's streaming half (the manager's step at the frame's tracked
+position) runs at the start of the next frame's call, once the window
+has read that position back (:class:`Program`); the check then holds the
+streamed frames, the host store and the bitmask to the reference's.
 """
 
 from __future__ import annotations
@@ -258,16 +265,41 @@ def forbidden_modules():
 class Program:
     """The system under test as the window drives it: the graphed step of
     ``engine.make_step(cfg, donate=True)`` on a fresh map, fed the lap's
-    host frames, with each frame's pose and lost flag read back."""
+    host frames, with each frame's pose and lost flag read back.
+
+    A configuration that streams (``cfg.streaming.enabled``) runs as
+    ``run_slam``'s live loop runs it: the step made with
+    ``with_stream_mask=True`` takes the manager's bitmask
+    (``streaming.AsyncStreamingManager``), and after each frame the
+    manager's step moves blocks between the map and the host store with
+    the camera at the frame's tracked position. That position is the pose
+    the frame already copies to the host, complete once the caller has
+    waited for the frame; so the streaming half of a frame runs at the
+    start of the next call (:meth:`stream_half`), before that frame's
+    step, in the same order as ``run_slam``'s loop and with no host sync
+    of its own. Until then it is due."""
 
     def __init__(self, cfg, lap, dev, sessions=False, faults=None):
         import torch
         from voxelhashing_tpu_torch import engine
         self.cfg, self.dev, self.sessions = cfg, dev, sessions
         self.lap, self.on_card = lap, dev.type == "cuda"
-        self.step = engine.make_step(cfg, donate=True)
+        streamed = cfg.streaming.enabled
+        self.step = engine.make_step(cfg, donate=True,
+                                     with_stream_mask=streamed)
         if faults is not None:
             self.step = faults(self.step)
+        self.mgr = None
+        self.due = False         # the last frame's streaming half
+        self.halves = 0          # streaming halves run
+        self.stream_s = 0.0      # host seconds inside the manager's step
+        if streamed:
+            if sessions:
+                raise ValueError("a mix with sessions cannot stream")
+            from voxelhashing_tpu_torch import streaming
+            self.mgr = streaming.AsyncStreamingManager(
+                cfg.map, cfg.streaming, device=dev)
+            self.ready = torch.cuda.Event() if self.on_card else None
         self.state = engine.create(cfg, device=dev)
         self.pose = torch.empty((4, 4), dtype=torch.float32,
                                 pin_memory=self.on_card)
@@ -293,12 +325,60 @@ class Program:
         i = k % len(lap.poses)
         if self.sessions and i == 0 and k > 0:
             self.state = engine.create(self.cfg, device=self.dev)
+        extra = ()
+        if self.mgr is not None:
+            self.stream_half()
+            extra = (self.mgr.bitmask,)
         self.state, self.diag = self.step(self.state, lap.depth[i],
-                                          lap.color[i])
+                                          lap.color[i], *extra)
         self.dropped.add_(self.diag.active_overflow).add_(
             self.diag.splat_overflow)
         self.pose.copy_(self.state.pose, non_blocking=self.on_card)
         self.lost.copy_(self.state.tracking_lost, non_blocking=self.on_card)
+        if self.mgr is not None:
+            self._due()
+
+    def _due(self) -> None:
+        """The frame's streaming half is due, at the pose copied to the
+        host (complete when the event recorded now has passed)."""
+        if self.ready is not None:
+            self.ready.record()
+        self.due = True
+
+    def stream_half(self) -> None:
+        """The last frame's streaming half, if it is due: the manager's
+        step with the camera at that frame's tracked position."""
+        if not self.due:
+            return
+        if self.ready is not None:
+            self.ready.synchronize()
+        cam = self.pose.numpy()[:3, 3].copy()
+        t = time.perf_counter()
+        m = self.mgr.step(self.state.map, cam)
+        self.stream_s += time.perf_counter() - t
+        self.state = self.state._replace(map=m)
+        self.halves += 1
+        self.due = False
+
+    def next_part(self) -> int:
+        """The pool part the manager's next step sweeps: it sweeps part 0
+        first and the next part each step after (``streaming``'s
+        stream-out), so the harness counts its steps rather than read the
+        manager's own state."""
+        return self.halves % self.cfg.streaming.out_parts
+
+    def settle(self) -> None:
+        """Run the due streaming half, then wait for the manager's host
+        work (``flush``)."""
+        if self.mgr is None:
+            return
+        self.stream_half()
+        self.mgr.flush()
+
+    def close(self) -> None:
+        if self.mgr is not None:
+            self.mgr.close()
+        self.step.close()
 
     def sync(self) -> None:
         if self.on_card:
@@ -318,6 +398,8 @@ class Window(NamedTuple):
     prof_s: float        # wall seconds of the profiled frames
     other_ms: float      # wall ms a frame of the frames not profiled
     ends: list           # host seconds at each frame's end, from the start
+    marks: list          # (streaming halves, seconds in them) at its start,
+                         # the profile's start and end, and its end
 
 
 def warm_profiler(device) -> None:
@@ -339,6 +421,7 @@ def window(prog: Program, k: int, seconds: float, trace: bool) -> Window:
     n_prof = len(prog.lap.poses)
     times, ends, lost = [], [], 0
     prof, first, prof_s, prof_cost = None, None, 0.0, 0.0
+    marks = [(prog.halves, prog.stream_s)]
     a = b = None
     if prog.on_card:
         a = torch.cuda.Event(enable_timing=True)
@@ -354,6 +437,7 @@ def window(prog: Program, k: int, seconds: float, trace: bool) -> Window:
                                        ProfilerActivity.CUDA])
             prof.__enter__()
             warm_profiler(prog.state.pose.device)
+            marks.append((prog.halves, prog.stream_s))
             first, tp1 = len(times), time.perf_counter()
         if prog.on_card:
             a.record()
@@ -373,14 +457,17 @@ def window(prog: Program, k: int, seconds: float, trace: bool) -> Window:
                 and len(times) - first == n_prof:
             prog.sync()
             prof_s = time.perf_counter() - tp1
+            marks.append((prog.halves, prog.stream_s))
             prof.__exit__(None, None, None)
             now = time.perf_counter()
             prof_cost = now - tp0
     prog.sync()
     window_s = time.perf_counter() - t0
+    marks.append((prog.halves, prog.stream_s))
     n_other = len(times) - (n_prof if prof is not None else 0)
     return Window(times, lost, window_s, k, prof, n_prof, prof_s,
-                  1000 * (window_s - prof_cost) / max(n_other, 1), ends)
+                  1000 * (window_s - prof_cost) / max(n_other, 1), ends,
+                  marks)
 
 
 def fifth_rates(ends: list, seconds: float) -> list:
@@ -400,11 +487,15 @@ def compare(prog: Program, cfg, rcfg, k: int, seed: int, snap, ctl):
     from . import check
     from .reference import engine as reng
     lap, dev = prog.lap, prog.state.pose.device
-    readings = check.Readings()
+    readings = check.Readings(prog.mgr is not None)
     check.start(readings, rcfg, lap, snap, dev, ctl)
     picks = check.check_frames(seed, k, cfg.map.gc_starve_interval,
                                cfg.map.maintain_interval, prog.host_index,
                                len(lap.poses))
+    if prog.mgr is not None:
+        compare_streamed(prog, rcfg, k, picks, readings, ctl)
+        readings.dropped(int(prog.dropped))
+        return readings
     for f in range(k, picks[-1] + 1):
         if f not in picks:
             prog.frame(f)
@@ -429,6 +520,79 @@ def compare(prog: Program, cfg, rcfg, k: int, seed: int, snap, ctl):
         prog.sync()
     readings.dropped(int(prog.dropped))
     return readings
+
+
+def stream_state(mgr, part: int):
+    """The program's streaming state as the reference holds one
+    (``reference.streaming.Stream``), its host work waited for
+    (``flush``): the store's chunks in the store's order, each one's rows
+    in filing order, read through the store's own interface; a copy of
+    the bitmask; ``part``, the next pool part to sweep
+    (:meth:`Program.next_part`), and the transfer cap."""
+    from .reference import streaming as rstream
+    if hasattr(mgr, "flush"):
+        mgr.flush()
+    store = {}
+    for c in mgr.store.chunk_coords():
+        store[tuple(int(v) for v in c)] = rstream.Rows(
+            *mgr.store.peek_chunks(c.reshape(1, 3)))
+    return rstream.Stream(store, mgr.bitmask.clone(), part, mgr.out_cap)
+
+
+def compare_streamed(prog: Program, rcfg, k: int, picks, readings, ctl):
+    """The check frames of a configuration that streams: ``picks`` and,
+    where they hold no frame whose streaming half files blocks out or none
+    whose half brings blocks in, the first such frame past them within a
+    lap of frames from ``k`` (the frames between run uncompared; none
+    found reads infinite). Before each frame the manager's host work is
+    waited for and the map copied; after the frame's step, whether its
+    streaming half will move blocks is read from the program's map, store
+    and camera; a compared frame then copies the streaming state, runs
+    the half as the window runs it (its worker may file the half's
+    stream-out before or after the pop), waits for its host work, and
+    hands the states before and after the half to ``check.frame``."""
+    import torch
+    from . import check
+    from .reference import streaming as rstream
+    lap, dev, mgr = prog.lap, prog.state.pose.device, prog.mgr
+    mp, scfg = rcfg.map, rcfg.streaming
+    seen = [False, False]                  # filed out, brought in
+    f, end = k, k + len(lap.poses)
+    while f <= picks[-1] or (not all(seen) and f < end):
+        prog.settle()
+        before = check.map_copy(prog.state.map)
+        last = prog.state.pose.clone()
+        h = prog.state.frame_host
+        prog.frame(f)
+        prog.sync()
+        cam = prog.pose.numpy()[:3, 3].copy()
+        out = rstream.select_out(prog.state.map, torch.from_numpy(cam).to(
+            dev), prog.next_part(), mp, scfg, mgr.out_cap)[2] > 0
+        inn = any(rstream.inside(c, cam, scfg)
+                  for c in mgr.store.chunk_coords())
+        if f not in picks and not (out and not seen[0]) \
+                and not (inn and not seen[1]):
+            del before
+            f += 1
+            continue
+        st = stream_state(mgr, prog.next_part())
+        prog.settle()
+        prog.sync()
+        i = f % len(lap.poses)
+        d = torch.from_numpy(lap.depth[i]).to(dev)
+        c = torch.from_numpy(lap.color[i]).to(dev)
+        pose, valid = prog.pose.numpy().copy(), not bool(prog.lost)
+        moved = check.frame(readings, rcfg, before, last, d, c, h, pose,
+                            valid, prog.state.map, ctl, stream=st,
+                            prog_stream=stream_state(mgr, prog.next_part()))
+        seen = [seen[0] or moved[0] > 0, seen[1] or moved[1] > 0]
+        print(f"check frame {f} (lap frame {i}): reference's streaming "
+              f"half filed {moved[0]} blocks out, brought {moved[1]} in",
+              file=sys.stderr)
+        prog.sync()
+        f += 1
+    if not all(seen):
+        readings.stream_kinds_missing()
 
 
 def run(args, t_start: float, root: Path, device: str = "cuda",
@@ -456,6 +620,7 @@ def run(args, t_start: float, root: Path, device: str = "cuda",
     prog = Program(cfg, lap, dev, bool(mix.get("sessions")), faults)
     # set-up: one whole lap, the start of which the comparison keeps
     poses, valid, snap_map, in_view = [], [], None, []
+    snap_stream = None
     for i in range(len(lap.poses)):
         prog.frame(i)
         prog.sync()
@@ -465,7 +630,13 @@ def run(args, t_start: float, root: Path, device: str = "cuda",
             poses.append(prog.pose.numpy().copy())
             valid.append(not bool(prog.lost))
             if i == check.START_FRAMES - 1:
+                if prog.mgr is not None:
+                    prog.settle()
+                    snap_stream = stream_state(prog.mgr, prog.next_part())
                 snap_map = check.snapshot_map(prog.state.map)
+    if prog.mgr is not None:
+        prog.settle()
+        moved0 = prog.mgr.blocks_out + prog.mgr.blocks_in
     # objects made so far are left out of the collector's passes, which
     # would otherwise pause the window for milliseconds now and then
     gc.collect()
@@ -487,9 +658,13 @@ def run(args, t_start: float, root: Path, device: str = "cuda",
           f"{setup_s:.2f} s; pool bytes adopted {adopted}; unprofiled "
           f"frames {w.other_ms:.4f} ms a frame", file=sys.stderr)
     result = {"correct": False, "attempted": len(w.times), "failed": w.lost}
+    stream = None
+    if prog.mgr is not None:
+        stream = stream_window(prog, w, moved0)
     extra = {}
     if args.trace:
-        metrics, extra, k = layer_metrics(prog, cfg, layer, k, w, root)
+        metrics, extra, k = layer_metrics(prog, cfg, layer, k, w, root,
+                                          stream)
     else:
         values = {"fps": len(w.times) / w.seconds,
                   "frame_ms_p95": float(np.percentile(w.times, 95)),
@@ -497,7 +672,7 @@ def run(args, t_start: float, root: Path, device: str = "cuda",
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                    for m in e2e}
     readings = compare(prog, cfg, rcfg, k, args.seed,
-                       check.Snapshot(poses, valid, snap_map),
+                       check.Snapshot(poses, valid, snap_map, snap_stream),
                        check.CONTROLS[args.control])
     limits = conf.get("check", {})
     checks = {name: {"value": v, "limit": limits.get(name)}
@@ -514,8 +689,33 @@ def run(args, t_start: float, root: Path, device: str = "cuda",
     if "breakdown" in extra:
         result["breakdown"] = extra["breakdown"]
     result["checks"] = checks
-    prog.step.close()
+    prog.close()
     return result
+
+
+def stream_window(prog: Program, w: Window, moved0: int):
+    """What the window's streaming halves did, once the manager's host
+    work has ended (``moved0``: blocks moved before the window): host ms a
+    half inside the manager's step over the frames not profiled; on
+    standard error with the blocks filed out and brought in a half and
+    the host store's blocks by chunk row (z) after the window."""
+    mgr = prog.mgr
+    mgr.flush()
+    (h0, s0), *mid, (h1, s1) = w.marks
+    if mid:
+        (p0, q0), (p1, q1) = mid
+        h1, s1 = h1 - (p1 - p0), s1 - (q1 - q0)
+    halves = w.marks[-1][0] - w.marks[0][0]
+    out = SimpleNamespace(ms=1000.0 * (s1 - s0) / max(h1 - h0, 1))
+    by_z = collections.Counter()
+    for c in mgr.store.chunk_coords():
+        by_z[int(c[2])] += mgr.store.peek_count(c.reshape(1, 3))
+    print(f"stream: {halves} halves in the window, {out.ms:.4f} host ms a "
+          f"half (unprofiled), "
+          f"{(mgr.blocks_out + mgr.blocks_in - moved0) / max(halves, 1):.3f}"
+          f" blocks moved a half; host store blocks by chunk row z "
+          f"{dict(sorted(by_z.items()))}", file=sys.stderr)
+    return out
 
 
 def stage_split(prog: Program, cfg, k: int):
@@ -532,7 +732,8 @@ def stage_split(prog: Program, cfg, k: int):
     from . import check, work
 
     lap, dev = prog.lap, prog.state.pose.device
-    befores, lasts, diags = [], [], []
+    befores, lasts, diags, afters = [], [], [], []
+    streamed = prog.mgr is not None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         warm_profiler(dev)
@@ -543,6 +744,11 @@ def stage_split(prog: Program, cfg, k: int):
             i = k % len(lap.poses)
             d = torch.from_numpy(lap.depth[i]).to(dev)
             c = torch.from_numpy(lap.color[i]).to(dev)
+            mask = {}
+            if streamed:
+                # the last frame's streaming half, outside any frame
+                prog.stream_half()
+                mask = {"stream_bitmask": prog.mgr.bitmask}
             if j >= 0:
                 befores.append(check.map_copy(prog.state.map))
                 lasts.append(prog.state.pose.clone())
@@ -551,9 +757,15 @@ def stage_split(prog: Program, cfg, k: int):
             with record_function(f"frame:{j}"):
                 ranges.start()
                 prog.state, diag = engine.step(prog.state, d, c, cfg,
-                                               mark=ranges.mark)
+                                               mark=ranges.mark, **mask)
                 ranges.end()
             diags.append(diag)
+            if streamed:
+                # the map as the frame left it, before its streaming half
+                if j >= 0:
+                    afters.append(check.map_copy(prog.state.map))
+                prog.pose.copy_(prog.state.pose)
+                prog._due()
             k += 1
     ev, host = device_events(p)
     spans = sorted((a, b, nm) for nm, a, b in host
@@ -570,7 +782,8 @@ def stage_split(prog: Program, cfg, k: int):
             if nm.startswith("stage:"):
                 stage_ms[nm[6:]] += (b - a) / 1000 / STAGE_FRAMES
     frames = []
-    afters = befores[1:] + [prog.state.map]
+    if not streamed:
+        afters = befores[1:] + [prog.state.map]
     for j in range(STAGE_FRAMES):
         fr = {"kernels": dict(kernels[j]),
               "n_active": int(diags[j + 1].n_active_blocks),
@@ -584,14 +797,15 @@ def stage_split(prog: Program, cfg, k: int):
 
 
 def layer_metrics(prog: Program, cfg, layer, k: int, w: Window,
-                  root: Path):
+                  root: Path, stream=None):
     """The per-layer metrics of a traced run from the window's profiled
     sub-window (one whole lap: its device-busy and wall time), the host
     syncs of :data:`SYNC_FRAMES` graphed frames, and :data:`STAGE_FRAMES`
-    eager frames split by stage, each with the work its kernels had; each
-    metric's reader picks its number from these. Returns (metrics, the
-    device's busy and window seconds and the breakdown, the next
-    frame)."""
+    eager frames split by stage, each with the work its kernels had, and
+    under streaming the window's streaming halves (``stream``, from
+    :func:`stream_window`); each metric's reader picks its number from
+    these. Returns (metrics, the device's busy and window seconds and the
+    breakdown, the next frame)."""
     from . import work
 
     dev_ops, host = device_events(w.prof)
@@ -616,7 +830,7 @@ def layer_metrics(prog: Program, cfg, layer, k: int, w: Window,
         busy_ms=1000 * busy_s / w.prof_frames,
         syncs_per_frame=syncs[0] / SYNC_FRAMES,
         stage_ms=stage_ms, frames=frames, work=work,
-        device_ops=dev_ops)
+        device_ops=dev_ops, stream=stream)
     metrics = {}
     for m in layer:
         v = find_reader(root, m["name"])(ctx)

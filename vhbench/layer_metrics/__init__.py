@@ -14,5 +14,8 @@ has nothing to read for it (the harness then leaves it out).
   ``kernels`` ({name: ms}), ``n_active`` rows, ``n_updated`` voxels whose
   bits the fusion changed, and with the depth-only splat ``splat``
   (surface rows, band voxels) or with the march ``march``
-  (``work.MarchWork``).
+  (``work.MarchWork``);
+- ``stream``: None, or under streaming the window's streaming halves:
+  ``ms``, host ms a half inside the manager's step over the frames not
+  profiled.
 """

@@ -20,6 +20,7 @@ import torch
 
 from .config import EngineConfig
 from . import blockmap, geometry as geom, integrate as integ, raycast, tracking
+from . import streaming
 from .blockmap import MapState
 from .ops.image import FrameInputs, color_to_intensity, preprocess
 
@@ -84,14 +85,18 @@ def _front(state: MapState, last_pose, frame: FrameInputs,
 
 
 def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
-          frame_idx: int, reuse, model_depth, rnd, fuse_rnd) -> tuple:
-    """alloc -> the active list with this frame's new rows -> fusion -> GC
+          frame_idx: int, reuse, model_depth, rnd, fuse_rnd,
+          stream_bitmask=None) -> tuple:
+    """alloc (candidates in chunks marked in ``stream_bitmask`` dropped)
+    -> the active list with this frame's new rows -> fusion -> GC
     (starving every ``gc_starve_interval`` frames) -> maintain."""
     cam, mp = cfg.camera, cfg.map
     dev = frame.depth.device
     keys = integ.alloc_candidates(
         frame.depth, pose, cam, mp, tile=mp.alloc_tile, phase=frame_idx,
         model_depth=model_depth if mp.alloc_novelty else None)
+    if stream_bitmask is not None:
+        keys = streaming.mask_keys(keys, stream_bitmask, mp, cfg.streaming)
     n_free_before = state.n_free
     state, _ = blockmap.allocate(state, keys, mp, rounds=1)
     active_idx, n_active, _ = reuse
@@ -126,12 +131,13 @@ def _back(state: MapState, frame: FrameInputs, pose, cfg: EngineConfig,
 def step(state: MapState, last_pose, depth_raw, color_raw,
          cfg: EngineConfig, frame_idx: int, pose=None,
          integrate: Optional[bool] = None, rnd=same,
-         fuse_rnd=None) -> Frame:
+         fuse_rnd=None, stream_bitmask=None) -> Frame:
     """Frame ``frame_idx`` (the host frame counter) on ``state`` (updated
     in place) from the previous pose ``last_pose``. ``pose``: fuse at this
     pose (the program's), else at the reference's own; ``integrate``:
     whether the frame is fused (the program's verdict), else the
-    reference's own tracker decides."""
+    reference's own tracker decides; ``stream_bitmask``: the streaming
+    bitmask the allocation honours (``streaming.mask_keys``), or None."""
     if cfg.offline or cfg.use_trajectory or cfg.map.bilinear_color:
         raise NotImplementedError("the reference runs the online, tracked, "
                                   "nearest-color step only")
@@ -146,5 +152,6 @@ def step(state: MapState, last_pose, depth_raw, color_raw,
         state, n_active = _back(state, frame, own_pose if pose is None
                                 else pose, cfg, frame_idx, reuse,
                                 rnd(model_depth), rnd,
-                                rnd if fuse_rnd is None else fuse_rnd)
+                                rnd if fuse_rnd is None else fuse_rnd,
+                                stream_bitmask)
     return Frame(state, own_pose, valid, n_active)

@@ -1,6 +1,6 @@
 """Shared fixtures of the benchmark's own tests: a tiny copy of the
 benchmark (a 160x120 camera, an 8,192-block map, a 20-frame lap) that
-runs on the CPU."""
+runs on the CPU, and a tiny streamed copy on the hallway mix."""
 
 import json
 import shutil
@@ -59,3 +59,29 @@ def make_tiny_root(dest: Path, config="vh_4mm_icp_splat",
 @pytest.fixture(scope="module")
 def tiny_root(tmp_path_factory):
     return make_tiny_root(tmp_path_factory.mktemp("tiny"))
+
+
+def make_stream_root(dest: Path, frames: int = 120) -> Path:
+    """A tiny streamed cell: ``vh_10mm_scan`` cut to tiny sizes with a
+    3.0 m sphere, 1.2 m chunks and 8 stream-out parts, on the hallway
+    walked out and back at 5 cm a frame (to 3 m and back in 120 frames):
+    the lap files the blocks left behind out and brings the spheres'
+    chunks back, and the wall's chunks come back into view marked before
+    they come back."""
+    root = make_tiny_root(dest, config="vh_10mm_scan",
+                          mix="hallway_stream", frames=frames)
+    path = root / "vhbench/configs/tiny.json"
+    conf = json.loads(path.read_text())
+    conf["engine"]["streaming"].update(chunk_size=1.2, radius=3.0,
+                                       out_parts=8)
+    path.write_text(json.dumps(conf))
+    path = root / "vhbench/traffic/tiny_mix.json"
+    mix = json.loads(path.read_text())
+    mix["path"]["step"] = [0.05, 0.0, 0.0]
+    path.write_text(json.dumps(mix))
+    return root
+
+
+@pytest.fixture(scope="module")
+def stream_root(tmp_path_factory):
+    return make_stream_root(tmp_path_factory.mktemp("stream"))

@@ -8,9 +8,11 @@ import sys
 from conftest import REPO
 
 HARNESS = ["vhbench.harness", "vhbench.check", "vhbench.work",
-           "vhbench.traffic.generator", "voxelhashing_tpu_torch.engine"]
-REFERENCE = ["vhbench.reference.engine", "vhbench.check", "vhbench.work",
-             "vhbench.traffic.generator"]
+           "vhbench.traffic.generator", "voxelhashing_tpu_torch.engine",
+           "voxelhashing_tpu_torch.streaming",
+           "voxelhashing_tpu_torch.native"]
+REFERENCE = ["vhbench.reference.engine", "vhbench.reference.streaming",
+             "vhbench.check", "vhbench.work", "vhbench.traffic.generator"]
 
 
 def _loaded(modules):

@@ -11,7 +11,8 @@ from vhbench.traffic import generator
 
 CAM = CameraConfig(width=64, height=48, fx=52.53, fy=52.53, cx=31.75,
                    cy=23.75)
-MIXES = ("room_orbit", "tabletop_orbit", "corridor_sessions")
+MIXES = ("room_orbit", "tabletop_orbit", "corridor_sessions",
+         "hallway_stream")
 LAPS = tuple(m for m in MIXES
              if not generator.load_mix(m).get("sessions", False))
 
@@ -102,3 +103,19 @@ def test_check_frames_hold_a_starve_a_maintain_and_a_session_start(
         assert starts == [5280] and 5281 in picks
     else:
         assert starts == [] and len(picks) == check.CHECK_FRAMES
+
+
+def test_out_back_walks_out_and_retraces_its_way():
+    """``out_back`` walks half the lap out and retraces it: the farthest
+    pose at the middle frame, each pose of the way back on the way out,
+    every step the same length."""
+    mix = generator.load_mix("hallway_stream")
+    poses, _ = generator.lap_poses(mix)
+    n = len(poses)
+    step = np.asarray(mix["path"]["step"])
+    assert np.allclose(poses[n // 2][:3, 3], (n // 2) * step, atol=1e-5)
+    for i in range(1, n // 2):
+        assert np.allclose(poses[n - i], poses[i], atol=1e-6)
+    steps = np.linalg.norm(np.diff(np.concatenate(
+        [poses[:, :3, 3], poses[:1, :3, 3]]), axis=0), axis=1)
+    assert np.allclose(steps, np.linalg.norm(step), atol=1e-5)

@@ -122,7 +122,21 @@ def walk(frames: int, start, step, **_) -> np.ndarray:
     return np.stack(out)
 
 
-PATHS = {"sway": sway, "arc": arc, "walk": walk}
+def out_back(frames: int, start, step, **_) -> np.ndarray:
+    """A walk out and back along one line: the camera facing +z, at
+    ``start`` plus ``step`` (metres, a 3-vector) times min(i, frames - i)
+    at frame i, so half a lap out and half back, and a closed lap: the
+    step from the last frame to the first is a step like any other."""
+    out = []
+    for i in range(frames):
+        m = np.eye(4)
+        m[:3, 3] = np.asarray(start, np.float64) \
+            + min(i, frames - i) * np.asarray(step, np.float64)
+        out.append(m)
+    return np.stack(out)
+
+
+PATHS = {"sway": sway, "arc": arc, "walk": walk, "out_back": out_back}
 
 
 def lap_poses(mix: dict) -> np.ndarray:
