@@ -92,7 +92,10 @@ and then:
    stream-out deletes and the stream-in inserts) and times them at frame
    48 and at the first stream-in and stream-out;
    reports each run's frames/s on the outward leg (eviction) and on the
-   return leg (stream-in), and the host syncs of one frame;
+   return leg (stream-in), and the host syncs of one frame; and holds the
+   async manager's streaming half (its captured graphs) against the
+   in-line manager's at the 10 mm scan point, step after step, bit for
+   bit, reporting its host ms a half (``_hold_stream_half``);
 6. runs 20 frames of phase 1's scene and configuration with RGB-D
    tracking (weights 1.0 / 0.1, sigma 0.1, free tracking) twice
    (``phase_rgbd``): with the march renderer (the JAX defaults: 48 samples
@@ -520,8 +523,7 @@ def _sync_sites():
 
     def record(message, category, filename, lineno, file=None, line=None):
         # one warning per synchronizing call; the mode's own notice that it
-        # is a prototype is not a sync, nor is a wait of the streaming
-        # worker thread
+        # is a prototype is not a sync, nor is a call on another thread
         if ("called a synchronizing CUDA operation" not in str(message)
                 or threading.current_thread() is not threading.main_thread()):
             return
@@ -2261,6 +2263,7 @@ def phase_large_scan(device, gpu_line):
                            "active set")
     res_b = check_kernel_b(cfg, snap_map, pose, "kernel B (large scan)",
                            gpu_line)
+    half = _hold_stream_half(device, gpu_line)
     for leg in ("out", "back"):
         f = [r["fps"][leg] for r in runs]
         print(f"large scan summary, {leg}: frames/s S {f[0]:.3f} U "
@@ -2274,7 +2277,48 @@ def phase_large_scan(device, gpu_line):
                                         **runs[1]["hash"]}},
             "fps": (runs[0]["fps"]["out"], runs[1]["fps"]["out"]),
             "a": res_a, "b": res_b, "front": front,
-            "hash": {"held": hash_held, **hash_times}}
+            "hash": {"held": hash_held, **hash_times}, "stream_half": half}
+
+
+def _hold_stream_half(device, gpu_line):
+    """The async manager's streaming half on the card (the sweep, extract
+    and bits kernels, the delete and the insert, replayed from its captured
+    graphs) against the in-line manager's eager half, at the benchmark's
+    10 mm scan point (800,000 blocks, 2 m chunks on a 513^3 grid, a 4.0 m
+    sphere, 80 parts): a seeded map of 20,000 blocks over x -2..12 m, a
+    walk out to 10 m and back in 1 m steps, 80 halves at each position,
+    the two compared bit for bit (map, store, bitmask) after each
+    position; and the async half's host ms (``diagnostics.StreamTracer``),
+    the halves that brought blocks in apart."""
+    from voxelhashing_tpu_torch import diagnostics, streaming
+    from voxelhashing_tpu_torch.config import MapConfig, StreamingConfig
+    mp = MapConfig(voxel_size=0.01, truncation=0.06, num_blocks=800_000,
+                   table_size=1 << 21, max_active_blocks=1 << 16)
+    scfg = StreamingConfig(enabled=True, chunk_size=2.0, grid_dim=513,
+                           radius=4.0, out_parts=80, in_chunks_per_frame=1)
+    tr = diagnostics.StreamTracer()
+    t0 = time.perf_counter()
+    r = streaming.held_to_inline(mp, scfg, device, n=20_000, seed=5,
+                                 step_m=1.0, far=10.0,
+                                 every=scfg.out_parts, trace=tr)
+    s = tr.summary()
+    print(f"stream half (phase 5, 10 mm scan point): {r['steps']} halves, "
+          f"blocks out {r['out']}, in {r['in']}, re-filed {r['refiled']}; "
+          f"graph replays {r['managers'][0].replays}; steps that differ "
+          f"from the in-line manager {r['differ'][:4]}; host ms a half "
+          f"{s['host_ms']:.4f} (out only {s['host_ms_out_only']:.4f}, "
+          f"{s['halves_in']} bringing blocks in "
+          f"{s['host_ms_in'] or 0.0:.4f}); spans {{"
+          + ", ".join(f"{k}: {s[k + '_ms']:.4f}"
+                      for k in diagnostics.STREAM_SPANS)
+          + f"}}; wall {time.perf_counter() - t0:.1f} s; on {gpu_line}")
+    if r["differ"] or not (r["out"] and r["in"]):
+        raise RuntimeError(f"stream half: differs from the in-line manager "
+                           f"at {r['differ'][:4]} (out {r['out']}, in "
+                           f"{r['in']})")
+    return {"steps": r["steps"], "host_ms": s["host_ms"],
+            "host_ms_out_only": s["host_ms_out_only"],
+            "host_ms_in": s["host_ms_in"]}
 
 
 def _stream_in_inputs(cfg, scene, snap, device):

@@ -18,8 +18,11 @@ for comparison, all in one JSON line (also appended to ``--out``). Then,
 the device's part of the tracer's cost: the view, front and back graphs
 replayed as a frame without its host reads, untraced and traced in
 turns, in a second line (the frame's inputs stay those of the last
-frame). On a tree whose program has no tracer it prints the node counts
-alone.
+frame). A cell that streams adds a lap with the streaming manager's
+tracer (``diagnostics.StreamTracer``): its spans and counters, the bytes
+the step adopted a frame and the manager's graph replays a half
+(``stream``). On a tree whose program has no tracer it prints the node
+counts alone.
 """
 
 import argparse
@@ -196,6 +199,9 @@ def main() -> int:
                                              default=None),
                              "gcd": math.gcd(*diffs) if diffs else None}
 
+    if prog.mgr is not None and hasattr(dg, "StreamTracer"):
+        out["stream"], k = stream_lap(prog, k, n, dg.StreamTracer())
+
     prog.step.trace = tr
     syncs = {}
     for _ in range(H.SYNC_FRAMES):
@@ -217,6 +223,31 @@ def main() -> int:
               "graph_replay_ms": replay_ms(prog.step)}, args.out)
     prog.step.close()
     return 0
+
+
+def stream_lap(prog, k: int, n: int, st):
+    """A lap with the streaming manager's tracer set (the step's off):
+    its spans and counters (``diagnostics.StreamTracer.summary``), the
+    bytes the step adopted a frame (table fields and pool rows apart),
+    the manager's graph replays a half, and frames/s beside an untraced
+    lap's."""
+    mgr, step = prog.mgr, prog.step
+    fps_off, _, k = lap_frames(prog, k, n)
+    adopted = (step.bytes_adopted, step.pool_bytes_adopted)
+    replays, halves = mgr.replays, prog.halves
+    mgr.trace = st
+    fps_on, _, k = lap_frames(prog, k, n)
+    prog.settle()
+    mgr.trace = None
+    out = st.summary()
+    out.update(
+        bytes_adopted_per_frame=(step.bytes_adopted - adopted[0]) / n,
+        pool_bytes_adopted_per_frame=(step.pool_bytes_adopted
+                                      - adopted[1]) / n,
+        replays_per_half=(mgr.replays - replays) / max(
+            prog.halves - halves, 1),
+        fps_untraced=fps_off, fps_traced=fps_on)
+    return out, k
 
 
 def emit(out: dict, path) -> None:

@@ -178,7 +178,7 @@ def test_prime_runs_every_occupancy_query(monkeypatch):
     assert sorted(called) == sorted(
         fn for fns in _build._SIGNATURES.values() for fn in fns
         if fn.endswith("_grid"))
-    assert len(called) == 11
+    assert len(called) == 12
 
 
 def _c_entry_points():
@@ -226,7 +226,7 @@ def test_missing_nvcc_raises(monkeypatch):
     assert {s.stem for s in _build.sources()} == {
         "alloc_candidates", "fused_integrate", "hash_alloc", "hash_delete",
         "icp_linearize", "preprocess", "raymarch", "solve6", "splat_zbuf",
-        "trace_stamp"}
+        "stream", "trace_stamp"}
     assert "-fmad=false" in _build.NVCC_FLAGS
 
 
@@ -1375,3 +1375,33 @@ def test_preprocess_reciprocal_division_on_every_float(cuda):
             float(c), float(np.float32(1.0) / c), *pp.division_clamp(flt),
             _build.ptr(out), _build.stream_ptr(cuda)), "preprocess")
         assert out.cpu().tolist() == [0, 0, 0, 0], sigma_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4096, 32])
+def test_stream_half_graphed_equals_the_inline_half(cuda, cap):
+    """The async streaming manager's half on the card (the sweep, extract
+    and bits kernels and the delete and insert, replayed from its captured
+    graphs once the map's tensors hold still) leaves the map, the store
+    and the bitmask of the in-line manager's eager half, step after step,
+    bit for bit, over a walk that files out, brings in and re-files (at a
+    cap of 32, stream-outs cut and popped chunks split); the part counter
+    on the card agrees with the host's count."""
+    from voxelhashing_tpu_torch import streaming
+    from voxelhashing_tpu_torch.config import StreamingConfig
+    from voxelhashing_tpu_torch.ops import stream as st
+    cfg = MapConfig(voxel_size=0.01, truncation=0.06, num_blocks=1300,
+                    table_size=1 << 13, max_active_blocks=1 << 10,
+                    alloc_insert_cap=1 << 11, alloc_stage_cap=1 << 12,
+                    gc_delete_cap=256)
+    scfg = StreamingConfig(enabled=True, chunk_size=1.2, grid_dim=65,
+                           radius=3.0, out_parts=4, in_chunks_per_frame=1)
+    sweeps = st.sweep.launches
+    r = streaming.held_to_inline(cfg, scfg, cuda, out_cap=cap, n=1200,
+                                 filler=700)
+    mgr = r["managers"][0]
+    assert r["differ"] == []
+    assert r["out"] > 1000 and r["in"] > 500 and r["refiled"] > 0, r
+    assert st.sweep.launches - sweeps == r["steps"]
+    assert mgr.replays > r["steps"]        # stream-outs and inserts
+    assert int(mgr._part_dev) == mgr.next_part == r["steps"] % 4

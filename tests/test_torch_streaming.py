@@ -5,7 +5,10 @@ and ``native``) with ``voxelhashing_tpu.streaming``, on the JAX tests'
 Tolerances: everything here is exact. Chunk ids, bitmask words (as uint32),
 stream-out picks, the map after an insert or a stream-in (every field, bit
 for bit through ``convert.map_state_to_numpy``), the host store's sorted
-rows and checkpoints loaded across the packages.
+rows and checkpoints loaded across the packages. The port's async manager
+(its device half captured on the card, eager here) is also held to the
+in-line manager and to the benchmark's plain streaming half, step after
+step, bit for bit.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from voxelhashing_tpu.geometry import INVALID_KEY
 from voxelhashing_tpu.io.synthetic import Scene, Sphere, render_depth
 from voxelhashing_tpu_torch import (blockmap as tbm, convert, engine as teng,
                                     native, streaming as tstr)
+from voxelhashing_tpu_torch import config as tconf
 
 CAM = CameraConfig(width=80, height=60, fx=65.0, fy=65.0, cx=39.5, cy=29.5)
 CFG = MapConfig(voxel_size=0.02, truncation=0.06, truncation_scale=0.01,
@@ -515,3 +519,267 @@ def test_native_store_raises_when_unbuildable(monkeypatch, tmp_path):
             tstr.StreamingManager(TCFG, TSCFG, device="cpu")
     finally:
         native.library.cache_clear()
+
+
+# -- the async manager's device half held to the in-line manager ----------
+#
+# A 10 mm map of 1,200 seeded blocks over x -2..6 m in a 1,300-block pool,
+# 1.2 m chunks, a 3 m sphere and 4 parts; a walk out to 6 m and back, with
+# 700 blocks added at the far end so that the way back's stream-ins cannot
+# place everything and re-file the rest.
+
+HCFG = tconf.MapConfig(voxel_size=0.01, truncation=0.06, num_blocks=1300,
+                      table_size=1 << 13, max_active_blocks=1 << 10,
+                      alloc_insert_cap=1 << 11, alloc_stage_cap=1 << 12,
+                      gc_delete_cap=256)
+HSCFG = tconf.StreamingConfig(enabled=True, chunk_size=1.2, grid_dim=65,
+                             radius=3.0, out_parts=4, in_chunks_per_frame=1)
+
+
+@pytest.mark.parametrize("cap", [4096, 32])
+def test_async_manager_equals_inline_step_after_step(cap):
+    """The async manager's map, store (each chunk's rows in filing order)
+    and bitmask equal the in-line manager's after every step of the walk,
+    which files blocks out, brings them in and re-files some; at a cap of
+    32 the stream-outs are cut and the popped chunks split at the cap."""
+    r = tstr.held_to_inline(HCFG, HSCFG, "cpu", out_cap=cap, n=1200,
+                            filler=700)
+    assert r["differ"] == []
+    assert r["out"] > 1000 and r["in"] > 500 and r["refiled"] > 0, r
+    mgr_a, mgr_b = r["managers"]
+    assert mgr_a.next_part == mgr_b.next_part == r["steps"] % 4
+
+
+def test_async_manager_sweeps_the_parts_in_order():
+    """Step k sweeps part k mod out_parts: the rows its ring slot lists
+    are that part's, in row order, and ``next_part`` (a host count of the
+    steps) names the part after."""
+    mgr = tstr.AsyncStreamingManager(HCFG, HSCFG, device="cpu")
+    state = tstr.seeded_map(HCFG, 1200, 3, "cpu")
+    n0 = int(torch.sum(state.block_key != INVALID_KEY))
+    far = np.array([100.0, 0.0, 0.0], np.float32)   # every block qualifies
+    try:
+        for k in range(HSCFG.out_parts):
+            assert mgr.next_part == k
+            slot = mgr._out[k % mgr.RING]
+            state = mgr.step(state, far)
+            rows = slot.idx[:int(slot.count)]
+            assert len(rows) > 0
+            assert torch.all(rows % HSCFG.out_parts == k)
+            assert torch.all(rows[1:] > rows[:-1])
+        for k in range(HSCFG.out_parts, 3 * HSCFG.out_parts + 1):
+            assert mgr.next_part == k % HSCFG.out_parts
+            state = mgr.step(state, far)
+        assert mgr.next_part == 1
+        mgr.flush()
+        assert mgr.host_block_count() == n0 > 1000
+    finally:
+        mgr.close()
+
+
+def test_a_ring_slot_is_written_only_after_its_copy():
+    """With its host jobs held (``defer_host``), the manager takes its
+    RING slots, then runs the first slot's job (the copy out of it) before
+    writing that slot again, and no later job; afterwards its state
+    equals the in-line manager's."""
+    mgr = tstr.AsyncStreamingManager(HCFG, HSCFG, device="cpu",
+                                     defer_host=True)
+    inline = tstr.StreamingManager(HCFG, HSCFG, device="cpu")
+    state = tstr.seeded_map(HCFG, 1200, 3, "cpu")
+    ref = tbm.MapState(*(t.clone() for t in state))
+    cam = np.array([3.5, 0.0, 0.0], np.float32)
+    slots = {id(slot.count): i for i, slot in enumerate(mgr._out)}
+    order = []
+    write, file = mgr._stream_out, mgr._worker_file
+
+    def writes(m, slot, part):
+        order.append(("write", slots[id(slot.count)]))
+        return write(m, slot, part)
+
+    def files(ev, count, *rows):
+        order.append(("copy", slots[id(count)]))
+        file(ev, count, *rows)
+
+    mgr._stream_out, mgr._worker_file = writes, files
+    try:
+        for _ in range(mgr.RING + 1):
+            state = tstr.step_owned(mgr, state, cam)
+            ref = inline.step(ref, cam)
+        assert order == [("write", 0), ("write", 1), ("write", 2),
+                         ("copy", 0), ("write", 0)]
+        mgr.flush()
+        assert order[5:] == [("copy", 1), ("copy", 2), ("copy", 0)]
+        assert mgr.blocks_out > 0
+        assert tstr.differences(state, ref, mgr, inline) == []
+    finally:
+        mgr.close()
+
+
+def test_the_store_pops_only_when_a_chunk_may_lie_inside():
+    """The async manager asks its store to pop only when a chunk the store
+    holds may lie wholly inside the sphere (its centre within the radius
+    less the half diagonal, a millimetre to spare, the store deciding
+    those): chunks filed by another path (the store's own call) and by the
+    manager count, and a chunk it pops whole stops counting."""
+    from voxelhashing_tpu_torch import geometry as tgeom
+    mgr = tstr.AsyncStreamingManager(HCFG, HSCFG, device="cpu")
+    calls = []
+    pop = mgr.store.pop_in_sphere_tracked
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pop(*a, **k)
+
+    mgr.store.pop_in_sphere_tracked = counted
+    ins = mgr._in[0]
+    rows = np.zeros((4, 512), np.float32)
+    keys = tgeom.pack_block_key(torch.tensor([[i, 0, 0] for i in range(4)]),
+                                HCFG.world_blocks).numpy()
+    centre = np.full((3,), 0.5 * HSCFG.chunk_size, np.float32)
+    inside = HSCFG.radius - 0.5 * np.sqrt(3.0) * HSCFG.chunk_size
+    edge = centre + np.float32([inside + 5e-4, 0, 0])
+    far = centre + np.float32([5.0, 0, 0])
+    try:
+        mgr.store.file_blocks(keys, rows, rows, rows.view(np.uint32))
+        assert len(mgr._pop(far, ins)[0]) == 0 and calls == []
+        assert len(mgr._pop(edge, ins)[0]) == 0 and len(calls) == 1
+        got = mgr._pop(centre, ins)
+        assert sorted(got[0]) == sorted(keys) and len(calls) == 2
+        assert got[4].tolist() == [[0, 0, 0]]
+        assert len(mgr._pop(centre, ins)[0]) == 0 and len(calls) == 2
+        mgr._file(keys, rows, rows, rows.view(np.uint32))
+        assert mgr._held == {(0, 0, 0)}
+        assert len(mgr._pop(far, ins)[0]) == 0 and len(calls) == 2
+        assert len(mgr._pop(centre, ins)[0]) == 4 and len(calls) == 3
+    finally:
+        mgr.close()
+
+
+@pytest.mark.parametrize("hint", [True, False])
+def test_a_graphed_step_runs_the_managers_host_jobs(hint):
+    """``engine.make_step`` given the async manager's bitmask runs the host
+    jobs the manager queued (the filing of its stream-outs) inside its next
+    call, once its graphs are queued: from the step's second call on (the
+    first is the eager frame 0) the manager finds none left at its next
+    half. Under trajectory replay (``hint``) the frame's one graph, else
+    the front graph, of a frame that loses track too. A step given another
+    bitmask runs none."""
+    tcfg = convert.config_from(ECFG_T)
+    step = teng.make_step(tcfg, with_hint=hint, with_stream_mask=True)
+    mgr = tstr.AsyncStreamingManager(tcfg.map, tcfg.streaming, out_cap=8192,
+                                     device="cpu")
+    state = teng.create(tcfg, initial_pose=np.eye(4), device="cpu")
+    queued, left = [], []
+    try:
+        for d, c, pose in trajectory_frames():
+            state, _ = step(state, torch.from_numpy(d), torch.from_numpy(c),
+                            *((pose,) if hint else ()), mgr.bitmask)
+            left.append(len(mgr._jobs))
+            state = state._replace(map=mgr.step(state.map, pose[:3, 3]))
+            queued.append(len(mgr._jobs))
+        assert left == [0] * len(left)
+        assert min(queued) >= 1 and mgr.blocks_out > 0
+        out = mgr.blocks_out
+        state, _ = step(state, torch.from_numpy(d), torch.from_numpy(c),
+                        *((pose,) if hint else ()), mgr.bitmask.clone())
+        assert len(mgr._jobs) == queued[-1]
+        mgr.flush()
+        assert not mgr._jobs and mgr.blocks_out >= out
+    finally:
+        mgr.close()
+        step.close()
+
+
+def test_reference_half_follows_the_async_manager_out_and_back():
+    """The benchmark's plain streaming half (``vhbench/reference/
+    streaming.py``), run from copies of the async manager's state before
+    each step of the walk (the filler and its re-files included), leaves
+    the same map, store and bitmask as the manager's step."""
+    import json
+    from vhbench import check, harness
+    from vhbench.reference import config as rconfig, streaming as rstream
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "vhbench/configs/vh_10mm_scan.json")) as f:
+        groups = json.load(f)["engine"]
+    groups["map"].update({k: getattr(HCFG, k) for k in (
+        "num_blocks", "table_size", "max_active_blocks", "alloc_insert_cap",
+        "alloc_stage_cap", "gc_delete_cap")})
+    groups["streaming"].update(dataclasses.asdict(HSCFG))
+    cfg, rcfg = harness.program_config(groups), rconfig.from_dict(groups)
+    mgr = tstr.AsyncStreamingManager(cfg.map, cfg.streaming, device="cpu")
+    state = tstr.seeded_map(cfg.map, 1200, 3, "cpu")
+    path = list(np.arange(0.0, 6.01, 0.5)) + list(np.arange(5.5, -0.01,
+                                                           -0.5))
+    moved = [0, 0]
+    try:
+        for i, x in enumerate(path):
+            cam = np.array([x, 0.0, 0.0], np.float32)
+            if i == len(path) // 2:
+                c = np.floor(cam / cfg.map.block_size_world).astype(int)
+                blocks = np.unique(np.random.default_rng(4).integers(
+                    c - 8, c + 8, size=(2100, 3)), axis=0)[:700]
+                mgr.flush()
+                state = tstr._fill(state, blocks, np.random.default_rng(i),
+                                   cfg.map, "cpu")
+            for _ in range(cfg.streaming.out_parts):
+                st = harness.stream_state(mgr, mgr.next_part)
+                ref_map = check.map_copy(state)
+                state = mgr.step(state, cam)
+                after = harness.stream_state(mgr, mgr.next_part)
+                ref_map, n_out, n_in = rstream.half(
+                    ref_map, st, cam, rcfg.map, rcfg.streaming,
+                    rstream.taken(st, after))
+                assert st.part == after.part
+                for name, a, b in zip(state._fields, state, ref_map):
+                    assert torch.equal(a, b), (x, name)
+                assert rstream.mismatch(after, st, state, ref_map, rcfg.map,
+                                        rcfg.streaming) == 0, x
+                moved[0] += n_out
+                moved[1] += n_in
+    finally:
+        mgr.close()
+    assert moved[0] > 1000 and moved[1] > 500 and mgr.blocks_refiled > 0
+
+
+def test_the_step_reads_the_managers_bitmask_and_adopts_nothing():
+    """``engine.make_step`` fed the async manager's bitmask and its map
+    (``run_slam``'s loop): the step's bitmask input is the manager's tensor
+    (no copy a frame); from the manager's third half on (its first two see
+    the eager frame's map and then the step's own, which it has not seen
+    before, and return new table fields) the manager writes the step's
+    map in place and the step adopts no byte. Another bitmask tensor is
+    read in its place, and a bitmask on the host is copied into a buffer
+    of the step's own, leaving the tensor it read before as it was."""
+    tcfg = convert.config_from(ECFG_T)
+    step = teng.make_step(tcfg, with_hint=True, with_stream_mask=True)
+    mgr = tstr.AsyncStreamingManager(tcfg.map, tcfg.streaming, out_cap=8192,
+                                     device="cpu")
+    state = teng.create(tcfg, initial_pose=np.eye(4), device="cpu")
+    adopted = []
+    try:
+        for i, (d, c, hint) in enumerate(trajectory_frames()):
+            state, _ = step(state, torch.from_numpy(d), torch.from_numpy(c),
+                            hint, mgr.bitmask)
+            assert step._inputs["bitmask"] is mgr.bitmask
+            adopted.append((step.bytes_adopted, step.pool_bytes_adopted))
+            m = mgr.step(state.map, state.pose.numpy()[:3, 3])
+            assert (m is state.map) == (i >= 2)
+            state = state._replace(map=m)
+        assert mgr.blocks_out > 0 and mgr.replays == 0
+        assert adopted[2][0] > adopted[1][0] > 0
+        assert adopted[3:] == [adopted[2]] * (len(adopted) - 3)
+        assert all(p == 0 for _, p in adopted)
+        d, c, hint = trajectory_frames()[-1]
+        other = mgr.bitmask.clone()
+        state, _ = step(state, torch.from_numpy(d), torch.from_numpy(c),
+                        hint, other)
+        assert step._inputs["bitmask"] is other
+        before = other.clone()
+        state, _ = step(state, torch.from_numpy(d), torch.from_numpy(c),
+                        hint, np.zeros(other.shape, np.int32))
+        assert step._inputs["bitmask"] is not other
+        assert torch.equal(other, before)
+        assert not bool(step._inputs["bitmask"].any())
+    finally:
+        mgr.close()
+        step.close()

@@ -372,3 +372,39 @@ def _hold_traced_graphs(cfg, poses, frames, sa, sb):
         assert all(f.inputs_behind for f in recs)
     assert sum(f.counts["icp_live_iters"] for f in tr.records()) > 0
     assert tr.frames[-1].anchored, "frame 8 from frame 7's anchor"
+
+
+def test_stream_tracer_spans_and_counters():
+    """A streaming manager's tracer (``diagnostics.StreamTracer`` as the
+    async manager's ``trace``): a record a half with each span, the
+    worker's jobs, and counters that add up to the manager's own: blocks
+    filed out, brought in (placed and re-filed) and re-filed, the store's
+    blocks after the last half; the traced manager's map, store and
+    bitmask are the in-line manager's."""
+    from voxelhashing_tpu_torch import streaming
+    from voxelhashing_tpu_torch.config import StreamingConfig
+    mp = MapConfig(voxel_size=0.01, truncation=0.06, num_blocks=1300,
+                   table_size=1 << 13, max_active_blocks=1 << 10,
+                   alloc_insert_cap=1 << 11, alloc_stage_cap=1 << 12,
+                   gc_delete_cap=256)
+    scfg = StreamingConfig(enabled=True, chunk_size=1.2, grid_dim=65,
+                           radius=3.0, out_parts=4, in_chunks_per_frame=1)
+    tr = dg.StreamTracer()
+    r = streaming.held_to_inline(mp, scfg, "cpu", n=1200, filler=700,
+                                 every=8, trace=tr)
+    assert r["differ"] == []
+    s = tr.summary()
+    n = r["steps"]
+    assert s["halves"] == n == len(tr.halves)
+    assert all(set(h) >= set(dg.STREAM_SPANS) | {"host"}
+               for h in tr.halves)
+    assert all(s[f"{k}_ms"] > 0 for k in dg.STREAM_SPANS + ("host",))
+    assert s["stream_file_jobs"] == n and s["stream_refile_jobs"] > 0
+    assert round(s["filed_out_per_half"] * n) == r["out"]
+    assert round(s["refiled_per_half"] * n) == r["refiled"] > 0
+    assert round(s["brought_in_per_half"] * n) == r["in"] + r["refiled"]
+    mgr = r["managers"][0]
+    assert s["store_blocks"] is not None and s["halves_in"] > 0
+    assert s["host_ms_in"] is not None and s["host_ms_out_only"] is not None
+    assert mgr.trace is tr
+

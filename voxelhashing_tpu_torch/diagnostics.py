@@ -10,7 +10,9 @@ engine's ``FrameDiagnostics.icp_level_stats`` and ``icp_iter_residuals``
 
 ``StepTracer`` (no JAX counterpart) traces ``engine.make_step``'s frames
 from inside its CUDA graphs: host spans, device stamps at each stage's
-end, counters; ``trace_summary`` reads them.
+end, counters; ``trace_summary`` reads them. ``StreamTracer`` times the
+host spans of ``streaming.AsyncStreamingManager``'s halves and counts
+their blocks.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import statistics
 import time
 from collections import defaultdict
 from typing import Dict, List, NamedTuple, Optional
@@ -591,6 +594,80 @@ def trace_summary(frames: List[FrameTrace]) -> dict:
         out[f"{c}_per_frame"] = (float(np.mean([k[c] for k in counted]))
                                  if counted else None)
     return out
+
+
+STREAM_SPANS = ("stream_cam", "stream_out", "stream_submit", "stream_pop",
+                "stream_in")
+STREAM_JOBS = ("stream_file", "stream_refile")
+
+
+class StreamTracer:
+    """Host spans and counters of a streaming manager's halves, set as
+    ``streaming.AsyncStreamingManager``'s ``trace`` (None, the default, is
+    off: one ``is None`` test a half).
+
+    Each half (a manager ``step``) records the host seconds of its spans
+    (:data:`STREAM_SPANS`: the camera's write, the stream-out's replay, the
+    host job's queueing, the pop, and the bits, staging and insert's
+    replay), its whole call, the blocks it brought in and the store's
+    blocks after it. The host jobs, which run behind a graphed step's
+    graphs or at the next half, record their own seconds and blocks
+    (:data:`STREAM_JOBS`: blocks filed out, blocks re-filed).
+    :meth:`summary` reads them."""
+
+    def __init__(self):
+        self.halves: List[dict] = []
+        self.jobs: List[tuple] = []      # (name, seconds, blocks)
+        self._cur = None
+        self._span = None
+
+    def begin(self) -> None:
+        self._cur = {"t0": time.perf_counter()}
+
+    def open(self, name: str) -> None:
+        self._span = (name, time.perf_counter())
+
+    def close(self) -> None:
+        name, t = self._span
+        self._cur[name] = self._cur.get(name, 0.0) + time.perf_counter() - t
+
+    def end(self, brought_in: int, stored: int) -> None:
+        cur = self._cur
+        cur["host"] = time.perf_counter() - cur.pop("t0")
+        cur["brought_in"], cur["stored"] = brought_in, stored
+        self.halves.append(cur)
+
+    def job(self, name: str, seconds: float, blocks: int) -> None:
+        self.jobs.append((name, seconds, blocks))
+
+    def summary(self) -> dict:
+        """Median host ms a half by span and of the whole call (the halves
+        that brought blocks in apart), the host jobs' median ms a job, and
+        blocks a half: filed out, brought in, re-filed; the store's blocks
+        after the last half."""
+        h = self.halves
+        n = max(len(h), 1)
+        med = lambda v: statistics.median(v) if v else None   # noqa: E731
+        out = {"halves": len(h),
+               "halves_in": sum(1 for x in h if x["brought_in"])}
+        for name in STREAM_SPANS + ("host",):
+            out[f"{name}_ms"] = med([1000 * x.get(name, 0.0) for x in h])
+        out["host_ms_in"] = med([1000 * x["host"] for x in h
+                                 if x["brought_in"]])
+        out["host_ms_out_only"] = med([1000 * x["host"] for x in h
+                                       if not x["brought_in"]])
+        jobs = self.jobs
+        for name in STREAM_JOBS:
+            mine = [j for j in jobs if j[0] == name]
+            out[f"{name}_ms"] = med([1000 * j[1] for j in mine])
+            out[f"{name}_jobs"] = len(mine)
+        out["filed_out_per_half"] = sum(
+            j[2] for j in jobs if j[0] == "stream_file") / n
+        out["refiled_per_half"] = sum(
+            j[2] for j in jobs if j[0] == "stream_refile") / n
+        out["brought_in_per_half"] = sum(x["brought_in"] for x in h) / n
+        out["store_blocks"] = h[-1]["stored"] if h else None
+        return out
 
 
 def hash_histogram(state: MapState, cfg: MapConfig) -> Dict[str, object]:

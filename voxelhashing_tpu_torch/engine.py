@@ -462,7 +462,7 @@ def _launch_counters():
     from .ops import fused_integrate as fa, icp_update as iu, solve6 as s6
     from .ops import icp_linearize as il, splat_zbuf as sb
     from .ops import alloc_candidates as ac, preprocess as pp
-    from .ops import hash_table as ht, raymarch as rm
+    from .ops import hash_table as ht, raymarch as rm, stream as st
     return ((pp.preprocess_depth, "launches"),
             (ac.alloc_candidates, "launches"),
             (ht.allocate, "launches"),
@@ -481,7 +481,10 @@ def _launch_counters():
             (il.linearize, "color_launches"),
             (il.associate_linearize, "launches"),
             (il.associate_linearize, "color_launches"),
-            (s6.solve6, "launches"))
+            (s6.solve6, "launches"),
+            (st.sweep, "launches"),
+            (st.extract, "launches"),
+            (st.bits, "launches"))
 
 
 class CountedGraph:
@@ -612,7 +615,17 @@ class GraphStep:
     Inputs on the host (numpy arrays, CPU tensors) reach the card through
     two pinned staging sets used in turn, a set a frame; a set is reused
     only after the event recorded behind its copies has completed. Device
-    inputs are copied into the step's input buffers.
+    inputs are copied into the step's input buffers, but for a bitmask
+    that is a contiguous int32 tensor on the step's device: the graphs
+    read it where it lies, so the same tensor given again (a streaming
+    manager's, updated in place) costs no copy (``_bitmask_input``). A
+    state that is the returned one's tensors rewrapped (a manager that
+    wrote the map in place) is adopted with no copy. Given a
+    ``streaming.AsyncStreamingManager``'s bitmask, a tracked frame runs
+    the manager's queued host jobs whose device work has completed after
+    its front graph (under trajectory replay, its one graph) is queued and
+    before its first read, while the card is busy
+    (``streaming.host_work``).
 
     ``trace``: None (off, as made), or a ``diagnostics.StepTracer`` that
     records the frames of each call while it is set (set and cleared
@@ -645,6 +658,8 @@ class GraphStep:
         self._returned = None            # the state the last call returned
         self._phase = None               # int32[] the frame's alloc phase
         self._inputs = None              # name -> static input tensor
+        self._bitmask_shared = False     # the bitmask input is the caller's
+        self._host_work = None           # its streaming manager's host jobs
         self._staging = [{}, {}]         # pinned host copies, two sets
         self._staged = [None, None]      # event behind each set's copies
         self._turn = 0
@@ -658,6 +673,12 @@ class GraphStep:
         """Make the step's buffers hold ``state`` (see the class)."""
         if state is self._returned:
             return
+        r = self._returned
+        if r is not None and state.map is r.map and state.pose is r.pose \
+                and state.frame is r.frame \
+                and state.tracking_lost is r.tracking_lost \
+                and state.n_integrated is r.n_integrated:
+            return       # the returned state's own tensors, rewrapped
         if self._buf is None:
             share = _POOL_FIELDS if self.donate else ()
             own = {}
@@ -711,7 +732,36 @@ class GraphStep:
             if shapes[k] != want:
                 raise ValueError(f"make_step: {k} is {shapes[k]}, expected "
                                  f"{want}")
+        if self.with_stream_mask and self._bitmask_input(given["bitmask"],
+                                                         device):
+            names = tuple(k for k in names if k != "bitmask")
         return names
+
+    def _bitmask_input(self, b, device) -> bool:
+        """Make the bitmask the graphs read ``b``: True when that is ``b``
+        itself, so that nothing is staged. A contiguous int32 tensor on
+        the step's device is read where it lies (a streaming manager's
+        bitmask, updated in place between calls, costs no copy a frame);
+        given another tensor, the step reads that one instead, and given
+        anything else, copies it into a buffer of its own. Either change
+        drops the graphs that read the bitmask (captured again at their
+        next frame)."""
+        cur = self._inputs["bitmask"]
+        if b is cur:
+            return True
+        here = isinstance(b, torch.Tensor) and b.device == device \
+            and b.dtype == torch.int32 and b.is_contiguous()
+        if not (here or self._bitmask_shared):
+            return False
+        self._inputs["bitmask"] = b if here else torch.empty_like(cur)
+        self._bitmask_shared = here
+        from . import streaming
+        self._host_work = streaming.host_work(b) if here else None
+        for graphs in (self.graphs, self.traced):
+            for key in [k for k in graphs if k.startswith(("back",
+                                                           "fused"))]:
+                graphs.pop(key).graph.reset()
+        return here
 
     def _stage(self, given: dict, names, last: bool = True) -> None:
         """Copy the inputs ``names`` into the static input buffers; host
@@ -915,6 +965,8 @@ class GraphStep:
             sp.close()
             front, back = self._run(
                 keys[0], lambda m, t: self._fused_fn(starve, m, t), tr)
+            if self._host_work is not None:
+                self._host_work()
         else:
             # the view graph reads no input but the hint: the frame's
             # inputs are staged while it runs
@@ -934,6 +986,8 @@ class GraphStep:
             sp.open("diagnostics")
             fd = _copied(_front_diagnostics(front))
             sp.close()
+            if self._host_work is not None:
+                self._host_work()
             back = None
             sp.open("read_valid")
             tracked = bool(front.tr.valid)
@@ -983,6 +1037,8 @@ class GraphStep:
         self._drop_traced()
         self._traced_for = None
         self._buf = self._returned = self._phase = self._inputs = None
+        self._host_work = None
+        self._bitmask_shared = False
         self._staging, self._staged = [{}, {}], [None, None]
         self._filling = False
         self._stream = self._pool = None

@@ -97,13 +97,28 @@ def _rows(n: int):
             np.zeros((n, VOXELS_PER_BLOCK), np.uint32))
 
 
+def _out_rows(out, cap: int):
+    """The caller's row arrays, checked: the store writes into them."""
+    keys, sdf, weight, color = out
+    for a, dt, shape in ((keys, np.int32, (cap,)),
+                         (sdf, np.float32, (cap, VOXELS_PER_BLOCK)),
+                         (weight, np.float32, (cap, VOXELS_PER_BLOCK)),
+                         (color, np.uint32, (cap, VOXELS_PER_BLOCK))):
+        if a.dtype != dt or a.shape != shape or not a.flags.c_contiguous:
+            raise ValueError(f"pop_in_sphere: out rows must be contiguous "
+                             f"{np.dtype(dt).name} {shape}")
+    return keys, sdf, weight, color
+
+
 class NativeChunkStore:
     """The C++ chunk store; the same interface as ``streaming.PyChunkStore``
-    (keys int32, sdf and weight f32, color uint32, 512 voxels a row)."""
+    (keys int32, sdf and weight f32, color uint32, 512 voxels a row).
+    ``version`` counts the calls that changed what it holds."""
 
     def __init__(self, blocks_per_chunk: int, world_blocks: int):
         self._lib = library()
         self._h = self._lib.chunkstore_create(blocks_per_chunk, world_blocks)
+        self.version = 0
 
     def __del__(self):
         if getattr(self, "_h", None):
@@ -124,6 +139,7 @@ class NativeChunkStore:
             raise ValueError(f"file_blocks: rows must be [{n}, 512]")
         self._lib.chunkstore_file_blocks(self._h, _ptr(keys), _ptr(sdf),
                                          _ptr(weight), _ptr(color), n)
+        self.version += 1
 
     def block_count(self) -> int:
         return int(self._lib.chunkstore_block_count(self._h))
@@ -139,11 +155,15 @@ class NativeChunkStore:
 
     def pop_in_sphere_tracked(self, cam_pos, radius: float,
                               chunk_size_world: float, max_chunks: int,
-                              cap: int):
+                              cap: int, out=None):
         """Pop up to ``max_chunks`` chunks wholly inside the sphere (at most
         ``cap`` blocks; a chunk that does not fit is split). Returns the
-        rows and the coords [m,3] of the chunks removed entirely."""
-        keys, sdf, weight, color = _rows(cap)
+        rows and the coords [m,3] of the chunks removed entirely. ``out``:
+        (keys int32 [cap], sdf and weight f32 [cap, 512], color uint32
+        [cap, 512]) to write the rows into (the returned rows are views of
+        them), else new arrays."""
+        keys, sdf, weight, color = _rows(cap) if out is None \
+            else _out_rows(out, cap)
         cleared = np.zeros((max(max_chunks, 1) * 3,), np.int32)
         n_cleared = np.zeros((1,), np.int32)
         n = self._lib.chunkstore_pop_in_sphere(
@@ -152,6 +172,7 @@ class NativeChunkStore:
             max_chunks, cap, _ptr(keys), _ptr(sdf), _ptr(weight),
             _ptr(color), _ptr(cleared), _ptr(n_cleared))
         m = int(n_cleared[0])
+        self.version += bool(n or m)
         return (keys[:n], sdf[:n], weight[:n], color[:n],
                 cleared[:3 * m].reshape(m, 3))
 

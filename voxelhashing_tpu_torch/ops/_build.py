@@ -88,6 +88,15 @@ _SIGNATURES = {
         "vh_icp_update": [_P] * 21 + [_I] * 4 + [_F] * 6 + [_P],
         "vh_empty": [_P],
     },
+    "stream": {
+        "vh_stream_sweep": [_P, _I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I]
+        + [_P] * 6 + [_I, _P],
+        "vh_stream_extract": [_P, _P, _I] + [_P] * 7,
+        "vh_stream_bits": [_P, _P, _I, _I, _P],
+        "vh_stream_host_alloc": [_LL, _P],
+        "vh_stream_host_free": [_P],
+        "vh_stream_sweep_grid": [],
+    },
     "trace_stamp": {
         "vh_trace_stamp": [_P, _P] + [_I] * 5 + [_P] * 3 + [_I] * 4 + [_P],
         "vh_trace_stamp_grid": [],

@@ -88,8 +88,8 @@ def parse_args(argv=None):
                     help="seed ICP from the ground-truth pose each frame")
     ap.add_argument("--streaming", action="store_true")
     ap.add_argument("--sync-streaming", action="store_true",
-                    help="in-line streaming manager instead of the worker "
-                         "thread")
+                    help="in-line streaming manager instead of the async "
+                         "one")
     ap.add_argument("--mesh", default=None, help="write a PLY mesh at end")
     ap.add_argument("--cloud", default=None,
                     help="write the final render as a PLY point cloud")
